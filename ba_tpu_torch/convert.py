@@ -43,6 +43,15 @@ def state_from_numpy(src, device=None) -> SimState:
     )
 
 
+def tables_from_numpy(pks, msgs, sigs, ok, device=None):
+    """Signature tables of the JAX package (any array-likes) as the port
+    holds them: ``(pks, msgs, sigs)`` as owned uint8 numpy arrays (they
+    stay on the host, where the signer and the table verify run) and the
+    verdicts ``ok`` as a bool tensor on ``device``."""
+    host = tuple(np.array(np.asarray(a), dtype=np.uint8) for a in (pks, msgs, sigs))
+    return (*host, _tensor(np.asarray(ok).astype(np.bool_), torch.bool, device))
+
+
 def state_to_numpy(state: SimState) -> dict:
     return {
         name: getattr(state, name).cpu().numpy().astype(np_t)

@@ -43,6 +43,13 @@ def round1_apply(state: SimState, coins: torch.Tensor, strategies=None) -> torch
     return torch.where(_leader_mask(state), order, received)
 
 
+def round1_broadcast(key: torch.Tensor, state: SimState, strategies=None) -> torch.Tensor:
+    """Round 1 under one key: a fair coin per recipient (``coin_bits`` of
+    ``[B, n]``) for a faulty leader's lies -> ``[B, n]`` int8."""
+    B, n = state.faulty.shape
+    return round1_apply(state, rng.coin_bits(key, (B, n)), strategies)
+
+
 def round2_apply(
     state: SimState, received: torch.Tensor, coins: torch.Tensor, strategies=None
 ) -> torch.Tensor:

@@ -164,3 +164,56 @@ def coin_bits(k: torch.Tensor, shape, dtype=COMMAND_DTYPE) -> torch.Tensor:
     unpacked = (words[..., None, :] >> shifts[:, None]) & 1
     flat = unpacked.reshape(*words.shape[:-1], -1)[..., :size]
     return flat.to(dtype).reshape(*words.shape[:-1], *shape)
+
+
+def uniform_u8(k: torch.Tensor, shape) -> torch.Tensor:
+    """iid uniform draws on [0, 256) as int32, 4 a word: draw ``e`` is
+    byte ``e // nwords`` of word ``e % nwords`` (``coin_bits``'s
+    orientation).  Keys ``[..., 2]`` give ``[..., *shape]``."""
+    shape = tuple(shape)
+    size = math.prod(shape)
+    words = bits(k, (-(-size // 4),))
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=k.device)
+    vals = (words[..., None, :] >> shifts[:, None]) & 0xFF
+    flat = vals.reshape(*words.shape[:-1], -1)[..., :size]
+    return flat.to(torch.int32).reshape(*words.shape[:-1], *shape)
+
+
+def or_coin_threshold8(k_cnt: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """8-bit threshold T with P(uniform_u8 < T) = 1 - 2^-k: exact for
+    k <= 8, saturating at 256 beyond; ``gate`` False forces 0."""
+    t = torch.where(k_cnt > 8, 256, 256 - (256 >> k_cnt.clamp(max=8)))
+    return torch.where(gate, t, torch.zeros_like(t))
+
+
+def randint(k: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), bit-exact.
+
+    jax's two-word form, not rejection sampling: split the key, draw a
+    higher and a lower word per value, and fold them modulo the span
+    with jax's multiplier ``(2**16 % span)**2 % span``, every product and
+    sum wrapping in uint32 as jax's do (so a span above 2**16 can wrap
+    the multiplier itself).  A span of
+    ``maxval <= minval`` is 1, so ``minval`` comes back.  ``minval`` and
+    ``maxval`` broadcast against ``shape``.
+    """
+    shape = tuple(shape)
+    dev = k.device
+    lo = torch.as_tensor(minval, device=dev).to(torch.int64).clamp(-2**31, 2**31 - 1)
+    hi = torch.as_tensor(maxval, device=dev).to(torch.int64).clamp(-2**31, 2**31 - 1)
+    k1, k2 = split(k).unbind(-2)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & M32)
+    mult = ((2**16 % span) ** 2 & M32) % span
+    offset = ((higher % span) * mult & M32) + lower % span
+    offset = (offset & M32) % span
+    out = (lo + offset) & M32
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def uniform(k: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32 on [0, 1)), bit-exact:
+    ``bits >> 9 | 0x3f800000`` reinterpreted as float32, minus 1."""
+    words = (bits(k, tuple(shape)) >> 9) | 0x3F800000
+    floats = words.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(floats, min=0.0)

@@ -1,5 +1,6 @@
 """Build and load the CUDA kernels: ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``.
+plain C interface, loaded with ``ctypes``; and check the tensors a
+wrapper hands a kernel (``check_tensor``).
 
 The library is keyed by a hash of its source and flags, built at first
 use into ``ba_tpu_torch/ops/_build/`` (listed in ``.gitignore``) and
@@ -57,6 +58,18 @@ def build(source: str) -> Path:
         raise RuntimeError(f"nvcc failed on {source}:\n{build_log[source]}")
     os.replace(tmp, out)
     return out
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel reads through a raw pointer."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -41,16 +41,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -67,23 +57,23 @@ def _launch(state, sched, strategy, counters, events, *, rounds, collect_decisio
     if rounds < 1 or B < 1 or not 1 <= n <= MAX_N:
         raise ValueError(f"rounds={rounds}, B={B}, n={n} outside the kernel's range "
                          f"(rounds, B >= 1, 1 <= n <= {MAX_N})")
-    _check(sched.key_data, "key_data", torch.int64, (2,), dev)
-    _check(sched.counter, "counter", torch.int32, (), dev)
-    _check(state.order, "order", torch.int8, (B,), dev)
-    _check(state.leader, "leader", torch.int32, (B,), dev)
+    _build.check_tensor(sched.key_data, "key_data", torch.int64, (2,), dev)
+    _build.check_tensor(sched.counter, "counter", torch.int32, (), dev)
+    _build.check_tensor(state.order, "order", torch.int8, (B,), dev)
+    _build.check_tensor(state.leader, "leader", torch.int32, (B,), dev)
     for name, dtype in (("faulty", torch.bool), ("alive", torch.bool), ("ids", torch.int32)):
-        _check(getattr(state, name), name, dtype, (B, n), dev)
+        _build.check_tensor(getattr(state, name), name, dtype, (B, n), dev)
     scenario = events is not None
     if scenario:
-        _check(strategy, "strategy", torch.int8, (B, n), dev)
+        _build.check_tensor(strategy, "strategy", torch.int8, (B, n), dev)
         for name, dtype in (("kill", torch.bool), ("revive", torch.bool),
                             ("set_faulty", torch.int8), ("set_strategy", torch.int8)):
-            _check(events[name], name, dtype, (rounds, B, n), dev)
+            _build.check_tensor(events[name], name, dtype, (rounds, B, n), dev)
     n_counters = 0
     if counters is not None:
         counters = counters.contiguous()
         n_counters = counters.numel()
-        _check(counters, "counters", torch.int32, (5 if scenario else 3,), dev)
+        _build.check_tensor(counters, "counters", torch.int32, (5 if scenario else 3,), dev)
 
     hist = torch.empty((rounds, 3), dtype=torch.int32, device=dev)
     verdicts = torch.empty((rounds, 3), dtype=torch.int32, device=dev)

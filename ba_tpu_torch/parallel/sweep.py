@@ -1,5 +1,6 @@
-"""One agreement round per instance with per-instance keys
-(``ba_tpu/parallel/sweep.py``: ``decision_histogram``, ``agreement_step``
+"""Sweep states and one agreement round per instance with per-instance
+keys (``ba_tpu/parallel/sweep.py``: ``make_sweep_state``,
+``bucketed_sweep_states``, ``decision_histogram``, and ``agreement_step``
 on its m = 1 coin-injected path)."""
 
 from __future__ import annotations
@@ -10,7 +11,91 @@ from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.om import om1_round_from_coins
 from ba_tpu_torch.core.quorum import majority_counts, quorum_decision
 from ba_tpu_torch.core.state import SimState
-from ba_tpu_torch.core.types import ATTACK, RETREAT, UNDEFINED
+from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
+
+
+def make_sweep_state(
+    key: torch.Tensor,
+    batch: int,
+    capacity: int,
+    *,
+    min_n: int | None = None,
+    max_n: int | None = None,
+    max_traitor_frac: float = 1 / 3,
+    order=ATTACK,
+) -> SimState:
+    """A batch of random cluster configurations, bit-exact with jax's draws.
+
+    Per instance: n uniform in [min_n, max_n] (alive = the first n
+    slots), a traitor count uniform in [0, floor(n * max_traitor_frac)]
+    (the product taken in float32, as jax takes an int32 array times a
+    Python float), given to the lieutenants of lowest rank under random
+    scores; the leader (slot 0) stays honest.  The state lies on the
+    key's device.
+    """
+    if min_n is None:
+        min_n = min(4, capacity)
+    if max_n is None:
+        max_n = capacity
+    if not min_n <= max_n <= capacity:
+        raise ValueError(f"need min_n <= max_n <= capacity, got "
+                         f"{min_n}/{max_n}/{capacity}")
+    dev = key.device
+    k_n, k_m, k_perm = rng.split(key, 3).unbind(-2)
+    idx = torch.arange(capacity, device=dev)[None, :]
+    n = rng.randint(k_n, (batch,), min_n, max_n + 1)
+    alive = idx < n[:, None]
+    frac = torch.tensor(max_traitor_frac, dtype=torch.float32, device=dev)
+    max_traitors = (n.to(torch.float32) * frac).to(torch.int32)
+    n_traitors = rng.randint(k_m, (batch,), 0, max_traitors + 1)
+    scores = rng.uniform(k_perm, (batch, capacity))
+    scores = torch.where(alive & (idx > 0), scores, torch.inf)
+    order_ids = torch.sort(scores, dim=-1, stable=True).indices
+    ranks = torch.sort(order_ids, dim=-1, stable=True).indices
+    return SimState(
+        order=torch.full((batch,), order, dtype=COMMAND_DTYPE, device=dev),
+        leader=torch.zeros((batch,), dtype=torch.int32, device=dev),
+        faulty=ranks < n_traitors[:, None],
+        alive=alive,
+        ids=torch.arange(1, capacity + 1, dtype=torch.int32, device=dev)
+        .expand(batch, capacity).clone(),
+    )
+
+
+def bucketed_sweep_states(
+    key: torch.Tensor,
+    batch: int,
+    capacity: int,
+    n_buckets: int = 2,
+    *,
+    min_n: int = 4,
+    max_traitor_frac: float = 1 / 3,
+    order=ATTACK,
+) -> list[SimState]:
+    """Equal-count, equal-width cluster-size buckets, each padded only to
+    its own upper edge rounded up to 128 (capped at ``capacity``).
+    Bucket k draws from ``fold_in(key, k)``; the remainder instances go
+    to the last bucket."""
+    if n_buckets < 1 or n_buckets > capacity:
+        raise ValueError(f"n_buckets={n_buckets} out of range")
+    if capacity // n_buckets < min_n:
+        raise ValueError(
+            f"capacity/n_buckets = {capacity}/{n_buckets} puts the first "
+            f"bucket's upper edge below min_n={min_n}; use fewer buckets"
+        )
+    per = batch // n_buckets
+    states = []
+    lo = min_n
+    for k in range(n_buckets):
+        hi = capacity * (k + 1) // n_buckets
+        cap_k = -(-hi // 128) * 128
+        bk = per if k < n_buckets - 1 else batch - per * (n_buckets - 1)
+        states.append(make_sweep_state(
+            rng.fold_in(key, k), bk, min(cap_k, capacity), min_n=lo, max_n=hi,
+            max_traitor_frac=max_traitor_frac, order=order,
+        ))
+        lo = hi + 1
+    return states
 
 
 def decision_histogram(decision: torch.Tensor) -> torch.Tensor:

@@ -1,39 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path on one NVIDIA card and hold
-its kernel against the plain PyTorch engine.
+"""Drive the PyTorch / CUDA port's main paths on one NVIDIA card and hold
+its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
-The main path is the oral OM(1) pipelined engine: ``pipeline_sweep``
-(plain sweeps) and ``scenario_sweep`` (mutating campaigns), both through
-K1, the megastep kernel (``ba_tpu_torch/ops/csrc/megastep.cu``).
+Two paths, each through its hand-written kernel:
+- the oral OM(1) pipelined engine: ``pipeline_sweep`` (plain sweeps) and
+  ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
+  kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
+- the fused signed SM(3) sweep of BASELINE config #5 (``bench.py``'s
+  ``bench_sweep10k_signed``) through K2, the sweep-step kernel
+  (``ba_tpu_torch/ops/csrc/sweep_step.cu``).
 
 Phases, one JSON line each:
-1. environment and the kernel's build from the checkout's sources;
-2. threefry known answers on the card;
-3. kernel against plain engine at B = 256, n in {1, 37, 128}, R = 8,
+1. environment and the builds from the checkout's sources, started
+   together: both kernels (nvcc) and the native Ed25519 signer (g++);
+2. threefry and Philox4x32-10 known answers on the card;
+3. K1 against its plain engine at B = 256, n in {1, 37, 128}, R = 8,
    plain and scenario modes, random strategies / events / faulty
    leaders — every output bit-equal;
-4. full width (B = 10 000, capacity 1024, n uniform in [16, 1024],
-   traitors uniform in [0, n // 3] among lieutenants, leader 0 honest):
-   ``pipeline_sweep`` 64 rounds, 16 a dispatch, depth 2 — the OM(1)
-   validity invariant; then faulty leaders in every fourth instance,
-   instances 0-63 against the plain engine run on them alone;
+4. K1 at full width (B = 10 000, capacity 1024, n uniform in [16, 1024],
+   traitors uniform in [0, n // 3] among lieutenants, leader 0 honest,
+   drawn by the port's ``make_sweep_state``): ``pipeline_sweep`` 64
+   rounds, 16 a dispatch, depth 2 — the OM(1) validity invariant; then
+   faulty leaders in every fourth instance, instances 0-63 against the
+   plain engine run on them alone;
 5. ``scenario_sweep`` of examples/scenarios/colluding_coalition.json at
    the same width, instances 0-63 against the plain engine;
-then the kernels line, built by replaying the main path's own dispatches
-with the same keys, inputs and shapes: every replayed scenario dispatch
-(and the first plain one) held in full against the plain engine, the
-main path's outputs held against the replay, and the launches on the
-main path, the time, bound and plain time of one dispatch, and the
-largest difference from the plain engine; then the card's name and
-power limit, and ``{"ok": true, ...}`` last.  Any failure exits non-zero
-before that.
+6. K2 against its plain version at B = 256, n in {1, 37, 128, 1024},
+   m in {1, 3}, rounds in {1, 35}, with faulty leaders, dead generals
+   and random table verdicts — every decision bit-equal;
+7. the signed setup at full width: keys, 2 signatures and the table
+   verify for 10 240 commanders; every verdict True; 8 corrupted
+   signatures False, held against the pure-Python oracle;
+8. the signed sweep at full width: ``bucketed_sweep_states(key(5), 10240,
+   1024, 2)``, m = 3, 5 steps of one 480-round K2 dispatch per bucket,
+   seeds from ``fold_in(fold_in(key(6), step), bucket)`` — every one of
+   the 10 240 x 480 x 5 decisions ATTACK (SM validity); rates by host
+   wall clock, and with setup charged at 50 and 500 steps;
+9. faulty leaders in every fourth instance of the same buckets: one
+   480-round dispatch per bucket against the plain version in full (and
+   its CUDA-event time), and the round-0 histogram against the port's ``core/sm.py`` composition
+   (threefry draws) within 6 sqrt(B);
+then the kernels line, built by replaying the main paths' own dispatches
+with the same keys, inputs and shapes: each replay held against the plain
+version and against the main path's outputs, with the launches on the
+main path, the time, bound and plain time of a dispatch, and the largest
+difference from the plain version; then the card's name and power limit,
+and ``{"ok": true, ...}`` last.  Any failure exits non-zero before that.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -43,12 +63,15 @@ import time
 import numpy as np
 import torch
 
-from ba_tpu_torch import convert
-from ba_tpu_torch.core import rng
+from ba_tpu_torch import convert, native
+from ba_tpu_torch.core import rng, sm
 from ba_tpu_torch.core.election import elect_lowest_id
+from ba_tpu_torch.core.om import round1_broadcast
 from ba_tpu_torch.core.state import SimState
-from ba_tpu_torch.ops import _build, scenario_step
-from ba_tpu_torch.parallel import pipeline
+from ba_tpu_torch.core.types import ATTACK
+from ba_tpu_torch.crypto import oracle, signed
+from ba_tpu_torch.ops import _build, scenario_step, sweep_step
+from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
 
@@ -56,10 +79,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 COALITION = os.path.join(ROOT, "examples", "scenarios", "colluding_coalition.json")
 KERNEL_SOURCE = "ba_tpu_torch/ops/csrc/megastep.cu"
 REPLACES = "ba_tpu/ops/scenario_step.py:182"
+K2_SOURCE = "ba_tpu_torch/ops/csrc/sweep_step.cu"
+K2_REPLACES = "ba_tpu/ops/sweep_step.py:73"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
-INT32_LANES_PER_SM = 64    # int32 add / logic / shift results per clock per SM (sm_90)
+INT32_LANES_PER_SM = 64    # int32 add / logic / shift / IMAD results per clock per SM (sm_90)
 THREEFRY_OPS = 80          # 60 mix ops, 15 key-injection ops, 4 setup, 1 output xor
+PHILOX_OPS = 80            # 10 rounds x (2 IMAD.HI + 2 IMAD.LO + 2 three-way xors + 2 key adds)
+RELAY_WORD_OPS = 10        # per relay round and 32-general mask word: 4 and/popc for the
+                           # traitor counts, 2 and/vote for the honest flags, 4 or/and updates
+CHOICE_WORD_OPS = 8        # per round and mask word: choice masks and the two popcounts
 B_FULL, CAP_FULL, R_FULL, RPD_FULL = 10_000, 1024, 64, 16
+B_SIGNED, M_SIGNED, ROUNDS_SIGNED, STEPS_SIGNED = 10_240, 3, 480, 5
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 
@@ -112,23 +142,12 @@ def random_arrays(rs, B, n, R):
     return state, events, rs.integers(0, 6, (B, n)).astype(np.int8)
 
 
-def sweep_arrays(rs, B, cap, order):
-    """make_sweep_state's rules: n uniform in [16, cap] (alive = the first
-    n slots), traitors uniform in [0, n // 3] among lieutenants, leader 0
-    honest."""
-    idx = np.arange(cap)[None, :]
-    n = rs.integers(16, cap + 1, B)
-    alive = idx < n[:, None]
-    traitors = rs.integers(0, n // 3 + 1)
-    scores = np.where(alive & (idx > 0), rs.random((B, cap)), np.inf)
-    ranks = np.argsort(np.argsort(scores, axis=1), axis=1)
-    return dict(
-        order=np.full(B, order, np.int8),
-        leader=np.zeros(B, np.int32),
-        faulty=ranks < traitors[:, None],
-        alive=alive,
-        ids=np.tile(np.arange(1, cap + 1, dtype=np.int32), (B, 1)),
-    )
+def sweep_arrays(key, B, cap, order):
+    """``make_sweep_state``'s draws (the port's, bit-exact with jax's): n
+    uniform in [16, cap] (alive = the first n slots), traitors uniform
+    in [0, n // 3] among lieutenants, leader 0 honest; as numpy arrays."""
+    state = sweep.make_sweep_state(key, B, cap, min_n=16, order=order)
+    return convert.state_to_numpy(state)
 
 
 def to_state(arrays, dev):
@@ -258,14 +277,30 @@ def timed_plain(fn):
 
 
 def phase_env(dev):
+    """Build both kernels and the native signer from the checkout's
+    sources, all started together, then load them."""
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.build(os.path.basename(KERNEL_SOURCE))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(timed, _build.build, name)
+                for name in ("megastep.cu", "sweep_step.cu")}
+        jobs["native"] = pool.submit(timed, native.build)
+        build_s = {name: job.result() for name, job in jobs.items()}
     scenario_step._lib()
+    sweep_step._lib()
+    native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
+    ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in ("megastep.cu", "sweep_step.cu")}
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(dev), "gpu": smi("name,power.limit"),
-          "build_s": round(time.perf_counter() - t0, 3),
-          "ptxas": [ln for ln in _build.build_log.get("megastep.cu", "").splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "build_wall_s": time.perf_counter() - t0, "build_s": build_s,
+          "ptxas": ptxas, "native_build": {k: native.build_log.get(k)
+                                           for k in ("cmd", "seconds", "output")}})
 
 
 def phase_known_answers(dev):
@@ -277,7 +312,12 @@ def phase_known_answers(dev):
     check(rng.bits(k, (3,)).tolist() == [3715183467, 3461522409, 1578076316], "bits")
     check(rng.coin_bits(k, (2, 5)).tolist() == [[1, 1, 0, 1, 0], [1, 1, 0, 1, 1]], "coin_bits")
     check(rng.key(2**32 + 5, device=dev).tolist() == [0, 5], "seed cut to 32 bits")
-    emit({"phase": "threefry_known_answers", "ok": True})
+    # Random123's known answers for Philox4x32-10, the draws of K2
+    for words, want in (((0,) * 6, [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]),
+                        ((0xFFFFFFFF,) * 6, [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD])):
+        got = sweep_step.philox4x32_10(*(torch.tensor(w, device=dev) for w in words))
+        check([int(x) for x in got] == want, f"philox4x32_10{words}")
+    emit({"phase": "threefry_known_answers", "philox": True, "ok": True})
 
 
 def phase_middle(dev, rs):
@@ -310,9 +350,9 @@ def phase_middle(dev, rs):
               "scenario_max_abs_err": err_s, "plain_max_abs_err": err_p})
 
 
-def phase_full_width(dev, seed, rs, card):
-    arrays = sweep_arrays(rs, B_FULL, CAP_FULL, order=1)
+def phase_full_width(dev, seed, card):
     key = rng.key(seed, device=dev)
+    arrays = sweep_arrays(rng.fold_in(key, 1000), B_FULL, CAP_FULL, order=1)
     kw = dict(depth=2, rounds_per_dispatch=RPD_FULL, collect_decisions=True,
               with_counters=True, device=dev)
 
@@ -385,11 +425,12 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s):
             "threefry_words_needed": words, "tally_steps": steps}
 
 
-def phase_scenario(dev, seed, rs, card):
+def phase_scenario(dev, seed, card):
     spec = scenario_spec.load(COALITION)
-    arrays = sweep_arrays(rs, B_FULL, CAP_FULL, order=0 if spec.order == "retreat" else 1)
-    block = scenario_compile.compile_scenario(spec, B_FULL, CAP_FULL, sparse=True)
     key = rng.key(seed + 1, device=dev)
+    arrays = sweep_arrays(rng.fold_in(key, 1000), B_FULL, CAP_FULL,
+                          order=0 if spec.order == "retreat" else 1)
+    block = scenario_compile.compile_scenario(spec, B_FULL, CAP_FULL, sparse=True)
     kw = dict(depth=2, rounds_per_dispatch=RPD_SCEN, collect_decisions=True, device=dev)
 
     scenario_step.reset_launches()
@@ -495,6 +536,203 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
             "threefry_words_needed": words, "tally_steps": steps}
 
 
+# -- K2: the fused signed sweep ---------------------------------------------
+
+
+def k2_inputs(rs, B, n, dev):
+    """Random K2 inputs: faulty leaders in every third instance, random
+    leaders, dead generals (an all-dead row), random table verdicts."""
+    faulty = rs.random((B, n)) < 0.3
+    faulty[::3, 0] = True
+    arrays = dict(
+        order=rs.integers(0, 2, B).astype(np.int8),
+        leader=np.where(rs.random(B) < 0.5, 0, rs.integers(0, n, B)).astype(np.int32),
+        faulty=faulty,
+        alive=rs.random((B, n)) < 0.8,
+        ids=np.tile(np.arange(1, n + 1, dtype=np.int32), (B, 1)),
+    )
+    arrays["alive"][1] = False
+    ok = torch.tensor(rs.random((B, 2)) < 0.85, device=dev)
+    seed = torch.tensor([int(rs.integers(-2**31, 2**31))], dtype=torch.int32, device=dev)
+    return seed, to_state(arrays, dev), ok
+
+
+def k2_args(seed, state, ok, rounds, m=M_SIGNED):
+    return (seed, state.order, state.leader, state.faulty, state.alive, ok, m, rounds)
+
+
+def phase_k2_middle(dev, rs):
+    B = 256
+    for n in (1, 37, 128, 1024):
+        errs = {}
+        for m in (1, 3):
+            for rounds in (1, 35):
+                seed, st, ok = k2_inputs(rs, B, n, dev)
+                args = k2_args(seed, st, ok, rounds, m)
+                got = sweep_step.fused_signed_sweep_step(*args)
+                want = sweep_step.plain_fused_signed_sweep_step(*args)
+                sync()
+                errs[f"m{m}_rounds{rounds}"] = max_abs_err([(got, want)])
+        check(all(e == 0 for e in errs.values()), f"K2 differs from plain at n={n}: {errs}")
+        emit({"phase": "k2_vs_plain_middle", "B": B, "n": n, "max_abs_err": errs})
+
+
+def phase_signed_setup(dev, rs):
+    """Keys, two signatures and the table verify for every commander;
+    then 8 signatures corrupted (R in four, S in four) verify False on
+    the native verifier and on the pure-Python oracle."""
+    sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(B_SIGNED, device=dev)
+    check(tuple(ok.shape) == (B_SIGNED, 2) and bool(ok.all()),
+          "a table signature failed to verify")
+    rows = np.sort(rs.choice(B_SIGNED, 8, replace=False))
+    idx = np.arange(8)
+    cols = idx % 2
+    bad = sigs[rows].copy()
+    bad[idx, cols, np.where(idx < 4, 5, 40)] ^= 0x10
+    verdicts = signed.verify_host_exact(pks[rows], msgs[rows], bad)
+    oracle_says = [oracle.verify(pks[r].tobytes(), msgs[r, c].tobytes(), bad[i, c].tobytes())
+                   for i, (r, c) in enumerate(zip(rows, cols))]
+    check(not verdicts[idx, cols].any(), "a corrupted signature verified")
+    check(not any(oracle_says), "the oracle accepted a corrupted signature")
+    check(verdicts[idx, 1 - cols].all(), "an untouched signature failed beside a corrupted one")
+    emit({"phase": "signed_setup", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
+          **timings, "verifies_per_s_incl_sign": 2 * B_SIGNED / timings["total_s"],
+          "all_valid": True, "corrupted_rows": rows.tolist(), "corrupted_rejected": True,
+          "oracle_agrees": True})
+    return ok, timings
+
+
+def signed_seeds(dev, steps, buckets):
+    """[steps, buckets] int32 seeds: the last word of
+    ``fold_in(fold_in(key(6), step), bucket)``, as ``bench.py`` seeds
+    its fused step, reinterpreted as int32."""
+    k = rng.fold_in(rng.key(6, device=dev)[None, :], torch.arange(steps, device=dev))
+    k = rng.fold_in(k[:, None, :], torch.arange(buckets, device=dev)[None, :])
+    last = k[..., 1]
+    return torch.where(last >= 2**31, last - 2**32, last).to(torch.int32)
+
+
+def phase_signed_sweep(dev, ok, setup_t, card):
+    """The signed sweep's main path: per step one K2 dispatch of 480
+    rounds per bucket; every decision must be ATTACK."""
+    states = sweep.bucketed_sweep_states(rng.key(5, device=dev), B_SIGNED, CAP_FULL, 2)
+    oks = list(torch.split(ok, [st.batch for st in states]))
+    sweep_step.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    seeds = signed_seeds(dev, STEPS_SIGNED, len(states))
+    decisions = []
+    for it in range(STEPS_SIGNED):
+        for i, (st, ok_b) in enumerate(zip(states, oks)):
+            decisions.append(sweep_step.fused_signed_sweep_step(
+                *k2_args(seeds[it, i:i + 1], st, ok_b, ROUNDS_SIGNED)))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = sweep_step.fused_signed_sweep_step.launches
+    check(launches == STEPS_SIGNED * len(states), f"K2 launches {launches}")
+    for dec, st in zip(decisions, states * STEPS_SIGNED):
+        check(tuple(dec.shape) == (st.batch, ROUNDS_SIGNED), "decision shape")
+    not_attack = sum(int((dec != ATTACK).sum()) for dec in decisions)
+    check(not_attack == 0, f"SM validity: {not_attack} decisions were not ATTACK")
+    per_step = B_SIGNED * ROUNDS_SIGNED
+    t_step = wall / STEPS_SIGNED
+    emit({"phase": "signed_sweep_full_width", "batch": B_SIGNED, "capacity": CAP_FULL,
+          "buckets": [{"B": st.batch, "n_pad": st.n,
+                       "n_mean": float(st.alive.sum(1).float().mean())} for st in states],
+          "m": M_SIGNED, "rounds_per_dispatch": ROUNDS_SIGNED, "steps": STEPS_SIGNED,
+          "decisions_checked": per_step * STEPS_SIGNED, "all_attack": True,
+          "wall_s": wall, "agreement_rounds_per_s": per_step * STEPS_SIGNED / wall,
+          "incl_setup_agreement_rounds_per_s": {
+              f"h{h}": per_step * h / (setup_t["total_s"] + h * t_step) for h in (50, 500)},
+          "setup_total_s": setup_t["total_s"], "kernel_launches": launches, "card": card})
+    return states, oks, seeds, decisions[:len(states)], launches
+
+
+def phase_faulty_leaders(dev, states, oks):
+    """Leaders faulty in every fourth instance of each bucket: one
+    480-round dispatch per bucket against the plain version in full; the
+    round-0 histogram against the port's sm.py composition (threefry)."""
+    for i, (st, ok_b) in enumerate(zip(states, oks)):
+        faulty = st.faulty.clone()
+        faulty[::4, 0] = True
+        fst = SimState(st.order, st.leader, faulty, st.alive, st.ids)
+        args = k2_args(torch.tensor([17 + i], dtype=torch.int32, device=dev), fst, ok_b,
+                       ROUNDS_SIGNED)
+        got = sweep_step.fused_signed_sweep_step(*args)
+        want = sweep_step.plain_fused_signed_sweep_step(*args)
+        err = max_abs_err([(got, want)])
+        check(err == 0, f"faulty-leader dispatch of bucket {i} differs from plain: {err}")
+        ms = time_cuda(lambda: sweep_step.fused_signed_sweep_step(*args), reps=3)
+        k1, k2 = rng.split(rng.key(23 + i, device=dev)).unbind(-2)
+        received = round1_broadcast(k1, fst)
+        ref = sm.sm_agreement(k2, fst, M_SIGNED, None,
+                              signed.sig_valid_from_tables(ok_b, received), received, True)
+        h_kernel = torch.bincount(got[:, 0].long(), minlength=3)
+        h_ref = torch.bincount(ref["decision"].long(), minlength=3)
+        band = 6 * fst.batch ** 0.5
+        check(int((h_kernel - h_ref).abs().max()) < band,
+              f"bucket {i} round-0 histogram {h_kernel.tolist()} vs sm.py {h_ref.tolist()}")
+        emit({"phase": "signed_faulty_leaders", "bucket": i, "B": fst.batch, "n_pad": fst.n,
+              "rounds": ROUNDS_SIGNED, "max_abs_err": err, "kernel_ms": ms,
+              "histogram_round0": h_kernel.tolist(), "histogram_sm_py": h_ref.tolist(),
+              "band": band})
+
+
+def k2_bound(state, ok, philox_calls, rounds, m, int_ops_per_s):
+    """(bound ms, bound_by, counts) of one K2 dispatch on these inputs.
+
+    Operations: per round, m relay rounds and the choice over each live
+    32-general mask word (ceil(alive / 32) words an instance), and one
+    Philox call for each (instance, round, general, block) whose words
+    matter, as the plain version counted them.  Bytes: each input read
+    once (seed, order, leader, faulty, alive, ok), each decision written
+    once.
+    """
+    B, n = state.faulty.shape
+    words = int(((state.alive.sum(1) + 31) // 32).sum())
+    ops = words * rounds * (RELAY_WORD_OPS * m + CHOICE_WORD_OPS) + philox_calls * PHILOX_OPS
+    nbytes = 4 + B * (1 + 4 + 2) + 2 * B * n + B * rounds
+    ops_s, bytes_s = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
+            {"mask_words": words, "philox_calls": philox_calls, "int_ops": ops, "bytes": nbytes})
+
+
+def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
+    """The signed sweep's first step again, per bucket with the main
+    path's seed, state, verdicts and shape: the kernel against the plain
+    version and against the main path's decisions; its CUDA-event time,
+    the plain time and the bound.  The line's numbers are per step (one
+    dispatch per bucket), with each bucket's beside them."""
+    buckets, err = [], 0
+    for i, (st, ok_b) in enumerate(zip(states, oks)):
+        args = k2_args(seeds[0, i:i + 1], st, ok_b, ROUNDS_SIGNED)
+        got = sweep_step.fused_signed_sweep_step(*args)
+        want, plain_ms = timed_plain(lambda: sweep_step.plain_fused_signed_sweep_step(*args))
+        err = max(err, max_abs_err([(got, want)]))
+        check(torch.equal(got, main_decisions[i]),
+              f"main path's first dispatch of bucket {i} differs from the replay")
+        work = {}
+        sweep_step.plain_fused_signed_sweep_step(*args, work=work)
+        ms = time_cuda(lambda: sweep_step.fused_signed_sweep_step(*args), reps=10)
+        bound_ms, bound_by, counts = k2_bound(st, ok_b, work["philox_calls"], ROUNDS_SIGNED,
+                                              M_SIGNED, int_ops_per_s)
+        buckets.append({"B": st.batch, "n": st.n, "rounds": ROUNDS_SIGNED, "m": M_SIGNED,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, **counts})
+    check(err == 0, f"full-width K2 dispatch differs from plain: {err}")
+    ops_bound = sum(b["bound_by"] == "operations" for b in buckets) == len(buckets)
+    return {"name": "sweep_step", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES,
+            "wrapper": "ba_tpu_torch/ops/sweep_step.py:fused_signed_sweep_step",
+            "launches": launches, "max_abs_err": err,
+            "ms": sum(b["ms"] for b in buckets),
+            "plain_ms": sum(b["plain_ms"] for b in buckets),
+            "bound_ms": sum(b["bound_ms"] for b in buckets),
+            "bound_by": "operations" if ops_bound else "bytes", "library_ms": None,
+            "checked_against_plain": True, "per": "step (one dispatch per bucket)",
+            "buckets": buckets}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -512,12 +750,17 @@ def main(argv=None) -> int:
     phase_env(dev)
     phase_known_answers(dev)
     phase_middle(dev, rs)
-    arrays, main_out, plain_launches = phase_full_width(dev, args.seed, rs, card)
-    s_arrays, planes, s_main_out, scen_launches = phase_scenario(dev, args.seed, rs, card)
+    arrays, main_out, plain_launches = phase_full_width(dev, args.seed, card)
+    s_arrays, planes, s_main_out, scen_launches = phase_scenario(dev, args.seed, card)
+    phase_k2_middle(dev, rs)
+    ok, setup_t = phase_signed_setup(dev, rs)
+    states, oks, seeds, k2_main, k2_launches = phase_signed_sweep(dev, ok, setup_t, card)
+    phase_faulty_leaders(dev, states, oks)
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s),
+        kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

@@ -15,7 +15,7 @@ import torch
 
 from ba_tpu_torch import convert
 from ba_tpu_torch.core import rng
-from ba_tpu_torch.ops import scenario_step
+from ba_tpu_torch.ops import scenario_step, sweep_step
 from ba_tpu_torch.parallel import pipeline
 from ba_tpu_torch.scenario.compile import ScenarioBlock
 
@@ -138,3 +138,50 @@ def test_kernel_rejects_a_bad_carry(cuda_device):
     bad = type(bad)(bad.order, bad.leader.long(), bad.faulty, bad.alive, bad.ids)
     with pytest.raises(ValueError):
         scenario_step.cuda_pipeline_megastep(bad, sched, rounds=1)
+
+
+# -- K2, the fused signed-sweep step (csrc/sweep_step.cu) ----------------------
+
+
+def _sweep_inputs(seed, B, n, device):
+    rs = np.random.default_rng(seed)
+    faulty = rs.random((B, n)) < 0.3
+    faulty[::3, 0] = True  # faulty leaders in every third instance
+    alive = rs.random((B, n)) < 0.8
+    alive[1] = False  # an all-dead row decides UNDEFINED
+    arrays = dict(
+        order=rs.integers(0, 2, B).astype(np.int8),
+        leader=np.where(rs.random(B) < 0.5, 0, rs.integers(0, n, B)).astype(np.int32),
+        faulty=faulty, alive=alive,
+        ids=np.tile(np.arange(1, n + 1, dtype=np.int32), (B, 1)),
+    )
+    st = convert.state_from_numpy(type("S", (), arrays), device)
+    ok = torch.tensor(rs.random((B, 2)) < 0.85, device=device)
+    seed_t = torch.tensor([int(rs.integers(-2**31, 2**31))], dtype=torch.int32, device=device)
+    return seed_t, st, ok
+
+
+@pytest.mark.parametrize("rounds", [1, 15, 16, 35])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 37, 128, 1024])
+def test_sweep_step_kernel_bit_equal(cuda_device, n, m, rounds):
+    B = 37  # not a multiple of the four instances a block
+    seed, st, ok = _sweep_inputs(n * 100 + m * 10 + rounds, B, n, cuda_device)
+    args = (seed, st.order, st.leader, st.faulty, st.alive, ok, m, rounds)
+    before = sweep_step.fused_signed_sweep_step.launches
+    got = sweep_step.fused_signed_sweep_step(*args)
+    assert sweep_step.fused_signed_sweep_step.launches == before + 1
+    want = sweep_step.plain_fused_signed_sweep_step(*args)
+    torch.cuda.synchronize()
+    assert got.shape == ((B,) if rounds == 1 else (B, rounds))
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_sweep_step_kernel_rejects_bad_inputs(cuda_device):
+    seed, st, ok = _sweep_inputs(0, 8, 16, cuda_device)
+    with pytest.raises(ValueError):
+        sweep_step.fused_signed_sweep_step(seed, st.order.int(), st.leader, st.faulty,
+                                           st.alive, ok, 3, 4)
+    with pytest.raises(ValueError):
+        sweep_step.fused_signed_sweep_step(seed, st.order, st.leader, st.faulty, st.alive,
+                                           ok, 3, 1921)
