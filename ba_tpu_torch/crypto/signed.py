@@ -11,8 +11,11 @@ u8 || zero pad``; binding the instance id stops cross-instance replay.
 
 Keys, signatures and verdicts are byte-identical with the reference's.
 Signing and the table verify run on the host through the port's native
-signer (``ba_tpu_torch.native``): the port has no device verifier yet
-(``timings["verify_route"]`` says "host").
+signer (``ba_tpu_torch.native``): on a TPU the reference signs and
+verifies these tables on the device through its Ed25519 kernels, which
+the port has no counterpart for yet (``timings["verify_route"]`` says
+"host").  So the tables are the signed sweep's input here, and their
+setup time is the host's, not comparable with the reference's.
 """
 
 from __future__ import annotations

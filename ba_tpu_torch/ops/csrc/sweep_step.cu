@@ -53,29 +53,47 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
 constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
 
-// Word d % 4 of Philox4x32-10 at counter (c0, c1, d / 4, 0), key (k0, k1).
-__device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1, int d,
-                                                uint32_t k0, uint32_t k1) {
-    uint32_t c2 = (uint32_t)(d >> 2), c3 = 0u;
+// Philox4x32-10: the counter c[0..3] becomes the four output words, key
+// (k0, k1).
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
 #pragma unroll
     for (int i = 0; i < 10; ++i) {
         if (i) {
             k0 += PHILOX_W0;
             k1 += PHILOX_W1;
         }
-        const uint32_t lo0 = PHILOX_M0 * c0, hi0 = __umulhi(PHILOX_M0, c0);
-        const uint32_t lo1 = PHILOX_M1 * c2, hi1 = __umulhi(PHILOX_M1, c2);
-        c0 = hi1 ^ c1 ^ k0;
-        c1 = lo1;
-        c2 = hi0 ^ c3 ^ k1;
-        c3 = lo0;
+        const uint32_t lo0 = PHILOX_M0 * c[0], hi0 = __umulhi(PHILOX_M0, c[0]);
+        const uint32_t lo1 = PHILOX_M1 * c[2], hi1 = __umulhi(PHILOX_M1, c[2]);
+        c[0] = hi1 ^ c[1] ^ k0;
+        c[1] = lo1;
+        c[2] = hi0 ^ c[3] ^ k1;
+        c[3] = lo0;
     }
+}
+
+// Word d % 4 of Philox4x32-10 at counter (c0, c1, d / 4, 0), key (k0, k1).
+__device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1, int d,
+                                                uint32_t k0, uint32_t k1) {
+    uint32_t c[4] = {c0, c1, (uint32_t)(d >> 2), 0u};
+    philox4x32_10(c, k0, k1);
     switch (d & 3) {
-        case 0: return c0;
-        case 1: return c1;
-        case 2: return c2;
-        default: return c3;
+        case 0: return c[0];
+        case 1: return c[1];
+        case 2: return c[2];
+        default: return c[3];
     }
+}
+
+// One Philox block a thread, for the known-answer check of the generator
+// the sweep kernel draws from: in[i] = (c0, c1, c2, c3, k0, k1), out[i] =
+// the four words.
+__global__ void philox_kernel(int count, const uint32_t* __restrict__ in,
+                              uint32_t* __restrict__ out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= count) return;
+    uint32_t c[4] = {in[6 * i], in[6 * i + 1], in[6 * i + 2], in[6 * i + 3]};
+    philox4x32_10(c, in[6 * i + 4], in[6 * i + 5]);
+    for (int w = 0; w < 4; ++w) out[4 * i + w] = c[w];
 }
 
 // The relay threshold of one value: 256 when an honest general holds it,
@@ -190,5 +208,12 @@ extern "C" int ba_sweep_step(int B, int n, int m, int rounds, const void* seed,
     sweep_step_kernel<<<grid, WARPS_PER_BLOCK * 32, 0, (cudaStream_t)stream>>>(
         B, n, m, rounds, (const int32_t*)seed, (const int8_t*)order, (const int32_t*)leader,
         (const uint8_t*)faulty, (const uint8_t*)alive, (const uint8_t*)ok, (int8_t*)dec);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ba_philox4x32_10(int count, const void* in, void* out, void* stream) {
+    if (count < 1) return (int)cudaErrorInvalidValue;
+    philox_kernel<<<(count + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        count, (const uint32_t*)in, (uint32_t*)out);
     return (int)cudaGetLastError();
 }

@@ -76,13 +76,11 @@ def _check_rounds(rounds: int) -> None:
 
 
 def plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int = 3,
-                                  rounds: int = 1, *, work: dict | None = None) -> torch.Tensor:
+                                  rounds: int = 1) -> torch.Tensor:
     """The plain version of K2: a loop over rounds, each vectorised over
     ``[B, n]``.  Like the kernel it computes a Philox block only where a
     draw can matter (a faulty leader's coins, a relay threshold inside
-    (0, 256)); each such check syncs with the host.  Given a ``work``
-    dict, it adds to ``work["philox_calls"]`` the (instance, round,
-    general, block) Philox calls whose words matter.  Returns ``[B]``
+    (0, 256)); each such check syncs with the host.  Returns ``[B]``
     int8 for ``rounds == 1``, else ``[B, rounds]``."""
     _check_rounds(rounds)
     B, n = faulty.shape
@@ -97,24 +95,20 @@ def plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int
     t = traitor.sum(1, keepdim=True)
     order_c = order.to(COMMAND_DTYPE)[:, None]
     ok_r, ok_a = ok[:, 0:1], ok[:, 1:2]
-    coin_lanes = leader_faulty & alive & ~is_leader
-    any_coin = bool(coin_lanes.any())
-    calls = torch.zeros((), dtype=torch.int64, device=dev)
+    any_coin = bool((leader_faulty & alive & ~is_leader).any())
     out = torch.empty((B, rounds), dtype=COMMAND_DTYPE, device=dev)
     for rr in range(rounds):
-        blocks, lanes_of = {}, {}
+        blocks = {}
 
-        def word(d: int, lanes: torch.Tensor) -> torch.Tensor:
+        def word(d: int) -> torch.Tensor:
             c = d // 4
             if c not in blocks:
                 blocks[c] = philox4x32_10(rr, j, c, 0, seed_u32, b)
-                lanes_of[c] = lanes
-            lanes_of[c] = lanes_of[c] | lanes
             return blocks[c][d % 4]
 
         received = order_c.expand(B, n)
         if any_coin:
-            coin = (word(0, coin_lanes) & 1).to(COMMAND_DTYPE)
+            coin = (word(0) & 1).to(COMMAND_DTYPE)
             received = torch.where(leader_faulty, coin, order_c)
         received = torch.where(is_leader, order_c, received)
         gate = alive & torch.where(received == ATTACK, ok_a, ok_r)
@@ -127,7 +121,7 @@ def plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int
                 t8 = torch.where(k > 8, 256, 256 - (256 >> k.clamp(max=8)))
                 thresh.append(torch.where(held, 256, torch.where(r < t, t8, 0)))
             draws = ((thresh[0] > 0) & (thresh[0] < 256)) | ((thresh[1] > 0) & (thresh[1] < 256))
-            w = word(r, alive & draws) if bool(draws.any()) else torch.zeros_like(j)
+            w = word(r) if bool(draws.any()) else torch.zeros_like(j)
             for v in (0, 1):
                 u = (w >> (8 * v)) & 0xFF
                 seen[v] = torch.where(u < thresh[v], alive, seen[v] & alive)
@@ -136,11 +130,6 @@ def plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int
         maj = torch.where(seen[1] & ~seen[0], ATTACK, maj)
         maj = torch.where(is_leader, order_c, maj).to(COMMAND_DTYPE)
         out[:, rr] = quorum_decision(*majority_counts(maj, alive))[0]
-        if work is not None:
-            for lanes in lanes_of.values():
-                calls += lanes.sum()
-    if work is not None:
-        work["philox_calls"] = work.get("philox_calls", 0) + int(calls)
     return out[:, 0] if rounds == 1 else out
 
 
@@ -150,7 +139,28 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # pointers as c_void_p, or ctypes cuts them to 32 bits
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
         fn.restype = ctypes.c_int
+        lib.ba_philox4x32_10.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+        lib.ba_philox4x32_10.restype = ctypes.c_int
     return lib
+
+
+def kernel_philox4x32_10(words: torch.Tensor) -> torch.Tensor:
+    """The generator K2 draws from, run on the card: ``words`` [N, 6]
+    integer (counter c0..c3, key k0, k1; uint32 values) on a CUDA device
+    -> [N, 4] int64 output words.  For the known-answer check of the
+    kernel's own Philox; it is not a launch of K2."""
+    if words.device.type != "cuda":
+        raise ValueError(f"the Philox kernel runs on a CUDA device, not {words.device}")
+    if words.dim() != 2 or words.shape[1] != 6 or words.shape[0] < 1:
+        raise ValueError(f"words must be [N >= 1, 6], got {tuple(words.shape)}")
+    w = words.to(torch.int64) & M32
+    w = torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
+    out = torch.empty((w.shape[0], 4), dtype=torch.int32, device=w.device)
+    err = _lib().ba_philox4x32_10(w.shape[0], w.data_ptr(), out.data_ptr(),
+                                  torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"Philox launch failed: CUDA error {err}")
+    return out.to(torch.int64) & M32
 
 
 def fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int = 3,

@@ -8,14 +8,20 @@ Two paths, each through its hand-written kernel:
 - the oral OM(1) pipelined engine: ``pipeline_sweep`` (plain sweeps) and
   ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
   kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
-- the fused signed SM(3) sweep of BASELINE config #5 (``bench.py``'s
-  ``bench_sweep10k_signed``) through K2, the sweep-step kernel
-  (``ba_tpu_torch/ops/csrc/sweep_step.cu``).
+- the timed step of BASELINE config #5's signed sweep (``bench.py``'s
+  ``bench_sweep10k_signed``, its dispatch loop) through K2, the
+  sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``).  Its
+  signature tables are inputs here, made on the host by the port's
+  native signer; the reference's own setup signs and verifies them on
+  the TPU through kernels the port has not ported yet (K3-K8), so no
+  rate here charges that setup.
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
    together: both kernels (nvcc) and the native Ed25519 signer (g++);
-2. threefry and Philox4x32-10 known answers on the card;
+2. threefry and Philox4x32-10 known answers on the card, the latter
+   through the very Philox rounds K2 draws from (its source's
+   ``philox4x32_10``) as well as through the plain version;
 3. K1 against its plain engine at B = 256, n in {1, 37, 128}, R = 8,
    plain and scenario modes, random strategies / events / faulty
    leaders — every output bit-equal;
@@ -27,21 +33,29 @@ Phases, one JSON line each:
    plain engine run on them alone;
 5. ``scenario_sweep`` of examples/scenarios/colluding_coalition.json at
    the same width, instances 0-63 against the plain engine;
-6. K2 against its plain version at B = 256, n in {1, 37, 128, 1024},
-   m in {1, 3}, rounds in {1, 35}, with faulty leaders, dead generals
-   and random table verdicts — every decision bit-equal;
-7. the signed setup at full width: keys, 2 signatures and the table
-   verify for 10 240 commanders; every verdict True; 8 corrupted
-   signatures False, held against the pure-Python oracle;
+6. K2 against its plain version at B = 256, n in {1, 5, 8, 37, 128,
+   1024}, m in {1, 3}, rounds in {1, 35}, with faulty leaders, dead
+   generals, random table verdicts, and instances of 4 to 8 alive
+   generals with a faulty leader and a traitor lieutenant — every
+   decision bit-equal, and at n >= 4 the plain version's decisions move
+   when only the seed does (the draws decided what was compared);
+7. the signed tables at full width, on the host: keys, 2 signatures and
+   the table verify for 10 240 commanders; every verdict True; 8
+   corrupted signatures False, held against the pure-Python oracle;
 8. the signed sweep at full width: ``bucketed_sweep_states(key(5), 10240,
-   1024, 2)``, m = 3, 5 steps of one 480-round K2 dispatch per bucket,
-   seeds from ``fold_in(fold_in(key(6), step), bucket)`` — every one of
-   the 10 240 x 480 x 5 decisions ATTACK (SM validity); rates by host
-   wall clock, and with setup charged at 50 and 500 steps;
-9. faulty leaders in every fourth instance of the same buckets: one
-   480-round dispatch per bucket against the plain version in full (and
-   its CUDA-event time), and the round-0 histogram against the port's ``core/sm.py`` composition
-   (threefry draws) within 6 sqrt(B);
+   1024, 2)``, m = 3, one 480-round K2 dispatch per bucket a step, seeds
+   from ``fold_in(fold_in(key(6), step), bucket)``; as ``bench.py`` times
+   it, one warm-up step, then 3 windows of 50 steps (steps r * 50 + 1
+   .. r * 50 + 50) — every one of the 10 240 x 480 x 151 decisions
+   ATTACK (SM validity); agreement-rounds/s of each window by host wall
+   clock, the best (``bench.py``'s reading) and the spread;
+9. faulty leaders in every fourth instance of the same buckets, and in
+   every eighth only 4 to 8 generals alive with a traitor lieutenant:
+   one 480-round dispatch per bucket against the plain version in full
+   (and its CUDA-event time), the plain version's decisions moving with
+   the seed, and the round-0 histogram of the few-alive instances
+   against the port's ``core/sm.py`` composition (threefry draws) within
+   6 sqrt(count);
 then the kernels line, built by replaying the main paths' own dispatches
 with the same keys, inputs and shapes: each replay held against the plain
 version and against the main path's outputs, with the launches on the
@@ -89,7 +103,8 @@ RELAY_WORD_OPS = 10        # per relay round and 32-general mask word: 4 and/pop
                            # traitor counts, 2 and/vote for the honest flags, 4 or/and updates
 CHOICE_WORD_OPS = 8        # per round and mask word: choice masks and the two popcounts
 B_FULL, CAP_FULL, R_FULL, RPD_FULL = 10_000, 1024, 64, 16
-B_SIGNED, M_SIGNED, ROUNDS_SIGNED, STEPS_SIGNED = 10_240, 3, 480, 5
+B_SIGNED, M_SIGNED, ROUNDS_SIGNED = 10_240, 3, 480
+STEPS_SIGNED, WINDOWS_SIGNED = 50, 3  # bench.py's iters and reps
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 
@@ -312,12 +327,20 @@ def phase_known_answers(dev):
     check(rng.bits(k, (3,)).tolist() == [3715183467, 3461522409, 1578076316], "bits")
     check(rng.coin_bits(k, (2, 5)).tolist() == [[1, 1, 0, 1, 0], [1, 1, 0, 1, 1]], "coin_bits")
     check(rng.key(2**32 + 5, device=dev).tolist() == [0, 5], "seed cut to 32 bits")
-    # Random123's known answers for Philox4x32-10, the draws of K2
-    for words, want in (((0,) * 6, [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]),
-                        ((0xFFFFFFFF,) * 6, [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD])):
+    # Random123's known answers for Philox4x32-10, the draws of K2: the
+    # plain version's, and the kernel source's own rounds on the card
+    answers = (((0,) * 6, [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]),
+               ((0xFFFFFFFF,) * 6, [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]),
+               ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344, 0xA4093822, 0x299F31D0),
+                [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]))
+    on_card = sweep_step.kernel_philox4x32_10(
+        torch.tensor([w for w, _ in answers], dtype=torch.int64, device=dev))
+    for (words, want), got_card in zip(answers, on_card.tolist()):
         got = sweep_step.philox4x32_10(*(torch.tensor(w, device=dev) for w in words))
-        check([int(x) for x in got] == want, f"philox4x32_10{words}")
-    emit({"phase": "threefry_known_answers", "philox": True, "ok": True})
+        check([int(x) for x in got] == want, f"plain philox4x32_10{words}")
+        check(got_card == want, f"the kernel's philox4x32_10{words}: {got_card}")
+    emit({"phase": "threefry_known_answers", "philox_plain": True, "philox_kernel": True,
+          "ok": True})
 
 
 def phase_middle(dev, rs):
@@ -541,7 +564,12 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
 
 def k2_inputs(rs, B, n, dev):
     """Random K2 inputs: faulty leaders in every third instance, random
-    leaders, dead generals (an all-dead row), random table verdicts."""
+    leaders, dead generals (an all-dead row), random table verdicts.  At
+    n >= 4, every other instance from the fourth on keeps only 4 to 8
+    generals alive: a faulty leader, a traitor lieutenant and the rest
+    random, with valid tables, so round-1 coins and relay draws decide
+    its rounds (with many honest generals both values reach everyone
+    and no draw matters)."""
     faulty = rs.random((B, n)) < 0.3
     faulty[::3, 0] = True
     arrays = dict(
@@ -552,19 +580,34 @@ def k2_inputs(rs, B, n, dev):
         ids=np.tile(np.arange(1, n + 1, dtype=np.int32), (B, 1)),
     )
     arrays["alive"][1] = False
-    ok = torch.tensor(rs.random((B, 2)) < 0.85, device=dev)
+    ok = rs.random((B, 2)) < 0.85
+    if n >= 4:
+        for b in range(3, B, 2):
+            slots = rs.choice(n, int(rs.integers(4, min(n, 8) + 1)), replace=False)
+            arrays["alive"][b] = False
+            arrays["alive"][b, slots] = True
+            arrays["leader"][b] = slots[0]
+            arrays["faulty"][b, slots[:2]] = True
+            ok[b] = True
     seed = torch.tensor([int(rs.integers(-2**31, 2**31))], dtype=torch.int32, device=dev)
-    return seed, to_state(arrays, dev), ok
+    return seed, to_state(arrays, dev), torch.tensor(ok, device=dev)
 
 
 def k2_args(seed, state, ok, rounds, m=M_SIGNED):
     return (seed, state.order, state.leader, state.faulty, state.alive, ok, m, rounds)
 
 
+def seed_moved(args, want):
+    """Decisions of the plain version that change when only the seed
+    does: above 0, draws decided the outputs compared at this seed."""
+    other = torch.bitwise_xor(args[0], 1)
+    return int((sweep_step.plain_fused_signed_sweep_step(other, *args[1:]) != want).sum())
+
+
 def phase_k2_middle(dev, rs):
     B = 256
-    for n in (1, 37, 128, 1024):
-        errs = {}
+    for n in (1, 5, 8, 37, 128, 1024):
+        errs, moved = {}, {}
         for m in (1, 3):
             for rounds in (1, 35):
                 seed, st, ok = k2_inputs(rs, B, n, dev)
@@ -572,15 +615,25 @@ def phase_k2_middle(dev, rs):
                 got = sweep_step.fused_signed_sweep_step(*args)
                 want = sweep_step.plain_fused_signed_sweep_step(*args)
                 sync()
-                errs[f"m{m}_rounds{rounds}"] = max_abs_err([(got, want)])
+                name = f"m{m}_rounds{rounds}"
+                errs[name] = max_abs_err([(got, want)])
+                moved[name] = seed_moved(args, want)
         check(all(e == 0 for e in errs.values()), f"K2 differs from plain at n={n}: {errs}")
-        emit({"phase": "k2_vs_plain_middle", "B": B, "n": n, "max_abs_err": errs})
+        # with one general no draw can matter; elsewhere the few-alive
+        # instances must make some decision depend on the draws
+        check(n < 4 or all(v > 0 for v in moved.values()),
+              f"no decision at n={n} depended on a draw: {moved}")
+        emit({"phase": "k2_vs_plain_middle", "B": B, "n": n, "max_abs_err": errs,
+              "decisions_moved_by_seed": moved})
 
 
 def phase_signed_setup(dev, rs):
-    """Keys, two signatures and the table verify for every commander;
-    then 8 signatures corrupted (R in four, S in four) verify False on
-    the native verifier and on the pure-Python oracle."""
+    """The sweep's signature tables, made on the host by the native
+    signer: keys, two signatures and the table verify for every
+    commander; then 8 signatures corrupted (R in four, S in four) verify
+    False on the native verifier and on the pure-Python oracle.  Its
+    times are the host's; the reference runs this setup on the TPU
+    through K3-K8, which the port has not ported yet."""
     sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(B_SIGNED, device=dev)
     check(tuple(ok.shape) == (B_SIGNED, 2) and bool(ok.all()),
           "a table signature failed to verify")
@@ -595,11 +648,10 @@ def phase_signed_setup(dev, rs):
     check(not verdicts[idx, cols].any(), "a corrupted signature verified")
     check(not any(oracle_says), "the oracle accepted a corrupted signature")
     check(verdicts[idx, 1 - cols].all(), "an untouched signature failed beside a corrupted one")
-    emit({"phase": "signed_setup", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
-          **timings, "verifies_per_s_incl_sign": 2 * B_SIGNED / timings["total_s"],
-          "all_valid": True, "corrupted_rows": rows.tolist(), "corrupted_rejected": True,
-          "oracle_agrees": True})
-    return ok, timings
+    emit({"phase": "signed_tables_host", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
+          **timings, "all_valid": True, "corrupted_rows": rows.tolist(),
+          "corrupted_rejected": True, "oracle_agrees": True})
+    return ok
 
 
 def signed_seeds(dev, steps, buckets):
@@ -612,81 +664,122 @@ def signed_seeds(dev, steps, buckets):
     return torch.where(last >= 2**31, last - 2**32, last).to(torch.int32)
 
 
-def phase_signed_sweep(dev, ok, setup_t, card):
-    """The signed sweep's main path: per step one K2 dispatch of 480
-    rounds per bucket; every decision must be ATTACK."""
+def phase_signed_sweep(dev, ok, card):
+    """The signed sweep's timed step, as ``bench.py`` drives and times it:
+    per step one 480-round K2 dispatch per bucket and an on-device count
+    of its decisions that are not ATTACK (the reference sums each
+    dispatch's decisions on the device); one warm-up step, then
+    WINDOWS_SIGNED windows of STEPS_SIGNED steps, each timed by host wall
+    clock from its first dispatch to the synchronised end.  The seeds
+    are derived for every step, in one call, before the first window."""
     states = sweep.bucketed_sweep_states(rng.key(5, device=dev), B_SIGNED, CAP_FULL, 2)
     oks = list(torch.split(ok, [st.batch for st in states]))
-    sweep_step.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    seeds = signed_seeds(dev, STEPS_SIGNED, len(states))
-    decisions = []
-    for it in range(STEPS_SIGNED):
+    n_steps = 1 + WINDOWS_SIGNED * STEPS_SIGNED
+    seeds = signed_seeds(dev, n_steps, len(states))
+    not_attack = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(it):
+        outs = []
         for i, (st, ok_b) in enumerate(zip(states, oks)):
-            decisions.append(sweep_step.fused_signed_sweep_step(
-                *k2_args(seeds[it, i:i + 1], st, ok_b, ROUNDS_SIGNED)))
-    sync()
-    wall = time.perf_counter() - t0
+            dec = sweep_step.fused_signed_sweep_step(
+                *k2_args(seeds[it, i:i + 1], st, ok_b, ROUNDS_SIGNED))
+            not_attack.add_((dec != ATTACK).sum())
+            outs.append(dec)
+        return outs
+
+    sweep_step.reset_launches()
+    first = step(0)
+    walls = []
+    for w in range(WINDOWS_SIGNED):
+        sync()
+        t0 = time.perf_counter()
+        for it in range(w * STEPS_SIGNED + 1, (w + 1) * STEPS_SIGNED + 1):
+            step(it)
+        sync()
+        walls.append(time.perf_counter() - t0)
     launches = sweep_step.fused_signed_sweep_step.launches
-    check(launches == STEPS_SIGNED * len(states), f"K2 launches {launches}")
-    for dec, st in zip(decisions, states * STEPS_SIGNED):
+    check(launches == n_steps * len(states), f"K2 launches {launches}")
+    for dec, st in zip(first, states):
         check(tuple(dec.shape) == (st.batch, ROUNDS_SIGNED), "decision shape")
-    not_attack = sum(int((dec != ATTACK).sum()) for dec in decisions)
-    check(not_attack == 0, f"SM validity: {not_attack} decisions were not ATTACK")
-    per_step = B_SIGNED * ROUNDS_SIGNED
-    t_step = wall / STEPS_SIGNED
+    bad = int(not_attack)
+    check(bad == 0, f"SM validity: {bad} decisions were not ATTACK")
+    per_window = B_SIGNED * ROUNDS_SIGNED * STEPS_SIGNED
+    rates = sorted(per_window / w for w in walls)
+    median = rates[len(rates) // 2]
     emit({"phase": "signed_sweep_full_width", "batch": B_SIGNED, "capacity": CAP_FULL,
           "buckets": [{"B": st.batch, "n_pad": st.n,
                        "n_mean": float(st.alive.sum(1).float().mean())} for st in states],
-          "m": M_SIGNED, "rounds_per_dispatch": ROUNDS_SIGNED, "steps": STEPS_SIGNED,
-          "decisions_checked": per_step * STEPS_SIGNED, "all_attack": True,
-          "wall_s": wall, "agreement_rounds_per_s": per_step * STEPS_SIGNED / wall,
-          "incl_setup_agreement_rounds_per_s": {
-              f"h{h}": per_step * h / (setup_t["total_s"] + h * t_step) for h in (50, 500)},
-          "setup_total_s": setup_t["total_s"], "kernel_launches": launches, "card": card})
-    return states, oks, seeds, decisions[:len(states)], launches
+          "m": M_SIGNED, "rounds_per_dispatch": ROUNDS_SIGNED, "steps_per_window": STEPS_SIGNED,
+          "windows": WINDOWS_SIGNED, "decisions_checked": B_SIGNED * ROUNDS_SIGNED * n_steps,
+          "all_attack": True, "window_wall_s": walls,
+          "agreement_rounds_per_s": {"best": rates[-1], "median": median, "worst": rates[0],
+                                     "spread": (rates[-1] - rates[0]) / median},
+          "kernel_launches": launches, "card": card})
+    return states, oks, seeds, first, launches
 
 
-def phase_faulty_leaders(dev, states, oks):
-    """Leaders faulty in every fourth instance of each bucket: one
-    480-round dispatch per bucket against the plain version in full; the
-    round-0 histogram against the port's sm.py composition (threefry)."""
+def phase_faulty_leaders(dev, rs, states, oks):
+    """Leaders faulty in every fourth instance of each bucket, and in
+    every eighth only the first 4 to 8 generals alive, slot 1 a traitor
+    (so draws decide those instances): one 480-round dispatch per bucket
+    against the plain version in full, the plain version's decisions
+    moving with the seed, and the round-0 histogram of the few-alive
+    instances against the port's sm.py composition (threefry)."""
     for i, (st, ok_b) in enumerate(zip(states, oks)):
-        faulty = st.faulty.clone()
+        faulty, alive = st.faulty.clone(), st.alive.clone()
         faulty[::4, 0] = True
-        fst = SimState(st.order, st.leader, faulty, st.alive, st.ids)
+        few = torch.arange(4, st.batch, 8, device=dev)
+        n_alive = torch.tensor(rs.integers(4, 9, len(few)), device=dev)
+        alive[few] = torch.arange(st.n, device=dev)[None, :] < n_alive[:, None]
+        faulty[few, 1] = True
+        fst = SimState(st.order, st.leader, faulty, alive, st.ids)
         args = k2_args(torch.tensor([17 + i], dtype=torch.int32, device=dev), fst, ok_b,
                        ROUNDS_SIGNED)
         got = sweep_step.fused_signed_sweep_step(*args)
         want = sweep_step.plain_fused_signed_sweep_step(*args)
         err = max_abs_err([(got, want)])
         check(err == 0, f"faulty-leader dispatch of bucket {i} differs from plain: {err}")
+        moved = seed_moved(args, want)
+        check(moved > 0, f"bucket {i}: no faulty-leader decision depended on a draw")
         ms = time_cuda(lambda: sweep_step.fused_signed_sweep_step(*args), reps=3)
         k1, k2 = rng.split(rng.key(23 + i, device=dev)).unbind(-2)
         received = round1_broadcast(k1, fst)
         ref = sm.sm_agreement(k2, fst, M_SIGNED, None,
                               signed.sig_valid_from_tables(ok_b, received), received, True)
-        h_kernel = torch.bincount(got[:, 0].long(), minlength=3)
-        h_ref = torch.bincount(ref["decision"].long(), minlength=3)
-        band = 6 * fst.batch ** 0.5
+        h_kernel = torch.bincount(got[few, 0].long(), minlength=3)
+        h_ref = torch.bincount(ref["decision"][few].long(), minlength=3)
+        band = 6 * len(few) ** 0.5
         check(int((h_kernel - h_ref).abs().max()) < band,
-              f"bucket {i} round-0 histogram {h_kernel.tolist()} vs sm.py {h_ref.tolist()}")
+              f"bucket {i} few-alive round-0 histogram {h_kernel.tolist()} "
+              f"vs sm.py {h_ref.tolist()}")
         emit({"phase": "signed_faulty_leaders", "bucket": i, "B": fst.batch, "n_pad": fst.n,
               "rounds": ROUNDS_SIGNED, "max_abs_err": err, "kernel_ms": ms,
-              "histogram_round0": h_kernel.tolist(), "histogram_sm_py": h_ref.tolist(),
-              "band": band})
+              "decisions_moved_by_seed": moved, "few_alive_instances": len(few),
+              "histogram_round0_few_alive": h_kernel.tolist(),
+              "histogram_sm_py_few_alive": h_ref.tolist(), "band": band,
+              "histogram_round0_all": torch.bincount(got[:, 0].long(), minlength=3).tolist()})
 
 
-def k2_bound(state, ok, philox_calls, rounds, m, int_ops_per_s):
+def k2_philox_calls(state, rounds):
+    """Philox calls K2 needs at the least on these inputs.  With an
+    honest leader every relay threshold is 0 or 256 (every alive
+    recipient gets the order, so an honest general holds it and no one
+    holds the other value) and no draw matters; with a faulty one each
+    alive recipient needs its round-1 coin, one call per round, which
+    for m <= 3 also serves its relay draws (draws 0-3 share a block)."""
+    lead = state.leader.long()[:, None]
+    faulty_leader = state.faulty.gather(1, lead)[:, 0]
+    recipients = state.alive.sum(1) - state.alive.gather(1, lead)[:, 0].long()
+    return int((recipients * faulty_leader).sum()) * rounds
+
+
+def k2_bound(state, philox_calls, rounds, m, int_ops_per_s):
     """(bound ms, bound_by, counts) of one K2 dispatch on these inputs.
 
     Operations: per round, m relay rounds and the choice over each live
-    32-general mask word (ceil(alive / 32) words an instance), and one
-    Philox call for each (instance, round, general, block) whose words
-    matter, as the plain version counted them.  Bytes: each input read
-    once (seed, order, leader, faulty, alive, ok), each decision written
-    once.
+    32-general mask word (ceil(alive / 32) words an instance), and
+    ``philox_calls`` Philox calls.  Bytes: each input read once (seed,
+    order, leader, faulty, alive, ok), each decision written once.
     """
     B, n = state.faulty.shape
     words = int(((state.alive.sum(1) + 31) // 32).sum())
@@ -698,7 +791,7 @@ def k2_bound(state, ok, philox_calls, rounds, m, int_ops_per_s):
 
 
 def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
-    """The signed sweep's first step again, per bucket with the main
+    """The signed sweep's warm-up step again, per bucket with the main
     path's seed, state, verdicts and shape: the kernel against the plain
     version and against the main path's decisions; its CUDA-event time,
     the plain time and the bound.  The line's numbers are per step (one
@@ -710,12 +803,10 @@ def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
         want, plain_ms = timed_plain(lambda: sweep_step.plain_fused_signed_sweep_step(*args))
         err = max(err, max_abs_err([(got, want)]))
         check(torch.equal(got, main_decisions[i]),
-              f"main path's first dispatch of bucket {i} differs from the replay")
-        work = {}
-        sweep_step.plain_fused_signed_sweep_step(*args, work=work)
+              f"main path's warm-up dispatch of bucket {i} differs from the replay")
         ms = time_cuda(lambda: sweep_step.fused_signed_sweep_step(*args), reps=10)
-        bound_ms, bound_by, counts = k2_bound(st, ok_b, work["philox_calls"], ROUNDS_SIGNED,
-                                              M_SIGNED, int_ops_per_s)
+        bound_ms, bound_by, counts = k2_bound(st, k2_philox_calls(st, ROUNDS_SIGNED),
+                                              ROUNDS_SIGNED, M_SIGNED, int_ops_per_s)
         buckets.append({"B": st.batch, "n": st.n, "rounds": ROUNDS_SIGNED, "m": M_SIGNED,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, **counts})
@@ -753,9 +844,9 @@ def main(argv=None) -> int:
     arrays, main_out, plain_launches = phase_full_width(dev, args.seed, card)
     s_arrays, planes, s_main_out, scen_launches = phase_scenario(dev, args.seed, card)
     phase_k2_middle(dev, rs)
-    ok, setup_t = phase_signed_setup(dev, rs)
-    states, oks, seeds, k2_main, k2_launches = phase_signed_sweep(dev, ok, setup_t, card)
-    phase_faulty_leaders(dev, states, oks)
+    ok = phase_signed_setup(dev, rs)
+    states, oks, seeds, k2_main, k2_launches = phase_signed_sweep(dev, ok, card)
+    phase_faulty_leaders(dev, rs, states, oks)
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,

@@ -177,6 +177,49 @@ def test_sweep_step_kernel_bit_equal(cuda_device, n, m, rounds):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+def _draw_inputs(seed, B, n, device):
+    """Few generals, every leader faulty, one traitor lieutenant at least,
+    valid tables and a dead general in every third instance: round-1
+    coins and relay draws decide the rounds."""
+    rs = np.random.default_rng(seed)
+    leader = rs.integers(0, n, B).astype(np.int32)
+    faulty = rs.random((B, n)) < 0.3
+    faulty[np.arange(B), leader] = True
+    faulty[np.arange(B), (leader + 1 + rs.integers(0, n - 1, B)) % n] = True
+    alive = np.ones((B, n), bool)
+    alive[::3, (leader[::3] + 2) % n] = False
+    arrays = dict(order=rs.integers(0, 2, B).astype(np.int8), leader=leader, faulty=faulty,
+                  alive=alive, ids=np.tile(np.arange(1, n + 1, dtype=np.int32), (B, 1)))
+    st = convert.state_from_numpy(type("S", (), arrays), device)
+    ok = torch.ones((B, 2), dtype=torch.bool, device=device)
+    seed_t = torch.tensor([int(rs.integers(-2**31, 2**31))], dtype=torch.int32, device=device)
+    return seed_t, st, ok
+
+
+@pytest.mark.parametrize("rounds", [1, 35])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("n", [4, 5, 6, 7, 8])
+def test_sweep_step_kernel_bit_equal_where_draws_decide(cuda_device, n, m, rounds):
+    B = 37
+    seed, st, ok = _draw_inputs(n * 100 + m * 10 + rounds, B, n, cuda_device)
+    args = (seed, st.order, st.leader, st.faulty, st.alive, ok, m, rounds)
+    got = sweep_step.fused_signed_sweep_step(*args)
+    want = sweep_step.plain_fused_signed_sweep_step(*args)
+    other = sweep_step.plain_fused_signed_sweep_step(seed ^ 1, *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert (other != want).any()  # the draws decided what was compared
+
+
+def test_kernel_philox_known_answers(cuda_device):
+    """Random123's known answers through the Philox rounds of the kernel's
+    own source."""
+    words = torch.tensor([[0] * 6, [0xFFFFFFFF] * 6], dtype=torch.int64, device=cuda_device)
+    assert sweep_step.kernel_philox4x32_10(words).tolist() == [
+        [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+        [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]]
+
+
 def test_sweep_step_kernel_rejects_bad_inputs(cuda_device):
     seed, st, ok = _sweep_inputs(0, 8, 16, cuda_device)
     with pytest.raises(ValueError):

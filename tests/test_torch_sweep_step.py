@@ -148,22 +148,28 @@ def test_plain_draws_do_not_depend_on_batch_layout():
     np.testing.assert_array_equal(_plain(13, sub, np.asarray(ok)[:40], m, 5), whole[:40])
 
 
-def test_plain_counts_only_the_draws_that_matter():
-    """Honest leaders with valid tables need no draw; a faulty leader
-    needs at least one Philox block per alive recipient and round."""
+def test_plain_counts_only_the_draws_that_matter(monkeypatch):
+    """Honest leaders with valid tables need no draw, so the plain version
+    computes no Philox block; faulty leaders need one block a round (at
+    m = 3 draws 0-3 share block 0), at counter (round, general, 0, 0)."""
     B, cap, m, R = 32, 64, 3, 3
+    calls = []
+    real = sweep_step.philox4x32_10
+
+    def counting(*words):
+        calls.append(words)
+        return real(*words)
+
+    monkeypatch.setattr(sweep_step, "philox4x32_10", counting)
     state = make_sweep_state(jr.key(14), B, cap)
-    ok = jnp.ones((B, 2), bool)
     st = convert.state_from_numpy(state, "cpu")
     seed = torch.tensor([1], dtype=torch.int32)
-    work = {}
-    sweep_step.plain_fused_signed_sweep_step(seed, st.order, st.leader, st.faulty, st.alive,
-                                             torch.ones((B, 2), dtype=torch.bool), m, R,
-                                             work=work)
-    assert work["philox_calls"] == 0
+    ok = torch.ones((B, 2), dtype=torch.bool)
+    honest = sweep_step.plain_fused_signed_sweep_step(seed, st.order, st.leader, st.faulty,
+                                                      st.alive, ok, m, R)
+    assert calls == []
+    assert (honest == ATTACK).all()
     fst = convert.state_from_numpy(_faulty_leaders(state), "cpu")
     sweep_step.plain_fused_signed_sweep_step(seed, fst.order, fst.leader, fst.faulty,
-                                             fst.alive, torch.tensor(np.array(ok)), m, R,
-                                             work=work)
-    recipients = int(fst.alive[:, 1:].sum())
-    assert recipients * R <= work["philox_calls"] <= int(fst.alive.sum()) * R
+                                             fst.alive, ok, m, R)
+    assert [(c[0], c[2], c[3]) for c in calls] == [(rr, 0, 0) for rr in range(R)]
