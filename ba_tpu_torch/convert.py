@@ -3,10 +3,10 @@
 Arrays from the JAX package (``np.asarray`` of its jax arrays, or any
 object with the same field names) become the port's carry, and back:
 ``SimState``, ``KeySchedule`` (key data + counter), the strategy plane,
-counter blocks and ``ScenarioBlock`` planes.  The tests feed both
-packages the same carry through here.  Numpy dtypes follow the
-reference: order int8, leader int32, faulty / alive bool, ids int32,
-key data uint32, counter int32.
+counter blocks and ``ScenarioBlock`` planes, and Ed25519 field elements
+and points.  The tests feed both packages the same carry through here.
+Numpy dtypes follow the reference: order int8, leader int32, faulty /
+alive bool, ids int32, key data uint32, counter int32, field limbs int32.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ba_tpu_torch.core.state import SimState, resolve_device
+from ba_tpu_torch.crypto import ed25519
 from ba_tpu_torch.parallel.pipeline import KeySchedule
 from ba_tpu_torch.scenario.compile import ScenarioBlock, SparseScenarioBlock
 
@@ -105,3 +106,19 @@ def block_from_numpy(block):
         set_faulty=np.asarray(block.set_faulty, np.int8),
         set_strategy=np.asarray(block.set_strategy, np.int8),
     )
+
+
+def field_from_limbs22(limbs, device=None) -> torch.Tensor:
+    """Field elements of the JAX package ([..., 22] int32, 12-bit signed
+    limbs, any carried form) as the port's plain field holds them: the
+    same limbs, an int32 tensor on ``device``."""
+    a = np.asarray(limbs)
+    if a.shape[-1:] != (22,):
+        raise ValueError(f"expected [..., 22] limbs, got {a.shape}")
+    return _tensor(a.astype(np.int32), torch.int32, device)
+
+
+def point_from_limbs22(point, device=None) -> torch.Tensor:
+    """A point of the JAX package ((X, Y, Z, T), each [..., 22] limbs) as
+    the kernels take it: uint8 [..., 4, 32], the canonical encodings."""
+    return ed25519.encode_point(tuple(field_from_limbs22(c, device) for c in point))

@@ -1,0 +1,196 @@
+"""Batched Ed25519 verification over torch tensors, through four kernels.
+
+The port of ``ba_tpu/crypto/ed25519.py``'s verify path.  It checks the RFC
+8032 equation without cofactor multiplication,
+
+    [S]B == R + [h]A,   h = SHA-512(R || A || M) mod L,
+
+with the same semantics as the pure-Python oracle (``crypto/oracle.py``)
+lane for lane.  :func:`verify` composes four kernel wrappers, each of
+which runs its plain version on a CPU tensor and its hand-written CUDA
+kernel on a CUDA one:
+
+- K7 ``ops/decompress.decompress``: A and R in one 2B-lane call;
+- K4 ``ops/treeadd.fixed_base_fold``: [S]B from the window table of
+  [j * 16^w]B, 64 points folded by complete additions;
+- K5 ``ops/sha512_kernel.sha512_blocks_mod_l``: h;
+- K3 ``ops/ladder.window_verify``: [h]A by 4-bit windows, R + [h]A, and
+  the projective equality with [S]B, one verdict a lane.
+
+Between kernels a point is uint8 [N, 4, 32]: the canonical little-endian
+encodings of X, Y, Z and T (:func:`encode_point`).  The plain field
+arithmetic (``crypto/field.py``) works on (X, Y, Z, T) tuples of [..., 22]
+limb tensors; :func:`point_add`, :func:`point_dbl` and :func:`point_eq`
+are the formulas the kernels evaluate, term for term.
+
+``compress``, ``sign``, ``scalar_mult`` and ``verify_rlc`` are not ported
+yet (ROADMAP Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ba_tpu_torch.crypto import field as F
+from ba_tpu_torch.crypto.oracle import B_X, B_Y, D, L, P
+
+Point = tuple  # (X, Y, Z, T) limb tensors, shapes [..., 22]
+
+
+def identity(shape, device=None) -> Point:
+    z = F.zeros(shape, device)
+    one = F.constant(1, device).expand(*shape, F.LIMBS)
+    return (z, one, one, z)
+
+
+def base_point(shape, device=None) -> Point:
+    return tuple(F.constant(c, device).expand(*shape, F.LIMBS)
+                 for c in (B_X, B_Y, 1, B_X * B_Y % P))
+
+
+def point_add(p: Point, q: Point) -> Point:
+    """Complete unified addition (add-2008-hwcd-3, a = -1): 8 multiplies
+    and one small one.  Valid for doubling too; inputs carried (every mul
+    output is) or canonical."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    dev = x1.device
+    a = F.mul(F.sub(y1, x1), F.sub(y2, x2))
+    b = F.mul(F.add(y1, x1), F.add(y2, x2))
+    c = F.mul(F.mul(t1, t2), F.constant(2 * D % P, dev))
+    d = F.mul_small(F.mul(z1, z2), 2)
+    e = F.sub(b, a)
+    f = F.sub(d, c)
+    g = F.add(d, c)
+    h = F.add(b, a)
+    return (F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
+
+
+def point_dbl(p: Point, with_t: bool = True) -> Point:
+    """Dedicated doubling (dbl-2008-hwcd, a = -1; ``ba_tpu/ops/planes.py:
+    182``): A = X^2, B = Y^2, C = 2 Z^2, E = 2 X Y, G = B - A, F = G - C,
+    H = -(A + B); out (E F, G H, F G, E H).  The input T is never read;
+    with_t=False leaves T zero.  G is carried so that F stays
+    multiply-safe."""
+    x, y, z, _ = p
+    a = F.mul(x, x)
+    b = F.mul(y, y)
+    c = F.mul_small(F.mul(z, z), 2)
+    e = F.mul_small(F.mul(x, y), 2)
+    g = F.carry(F.sub(b, a))
+    f = F.sub(g, c)
+    h = F.sub(torch.zeros_like(a), F.add(a, b))
+    t = F.mul(e, h) if with_t else torch.zeros_like(a)
+    return (F.mul(e, f), F.mul(g, h), F.mul(f, g), t)
+
+
+def point_eq(p: Point, q: Point) -> torch.Tensor:
+    """Projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
+    x1, y1, z1, _ = p
+    x2, y2, z2, _ = q
+    return F.eq(F.mul(x1, z2), F.mul(x2, z1)) & F.eq(F.mul(y1, z2), F.mul(y2, z1))
+
+
+def encode_point(p: Point) -> torch.Tensor:
+    """(X, Y, Z, T) limbs [..., 22] -> uint8 [..., 4, 32], each coordinate
+    its canonical encoding: the kernels' point layout."""
+    return torch.stack([F.to_bytes(c) for c in p], dim=-2)
+
+
+def decode_point(enc: torch.Tensor) -> Point:
+    """uint8 [..., 4, 32] -> (X, Y, Z, T) limbs [..., 22]."""
+    return tuple(F.from_bytes(enc[..., c, :]) for c in range(4))
+
+
+def _lt_const(by: torch.Tensor, bound: int) -> torch.Tensor:
+    """Little-endian uint8 [..., 32] < bound, lexicographic from the top."""
+    bnd = bound.to_bytes(32, "little")
+    lt = torch.zeros(by.shape[:-1], dtype=torch.bool, device=by.device)
+    eq_so_far = torch.ones_like(lt)
+    for i in range(31, -1, -1):
+        bi = by[..., i]
+        lt = lt | (eq_so_far & (bi < bnd[i]))
+        eq_so_far = eq_so_far & (bi == bnd[i])
+    return lt
+
+
+@functools.lru_cache(maxsize=None)
+def _base_table() -> np.ndarray:
+    """Fixed-base window table: [64, 16, 4, 22] int32, T[w, j] = [j * 16^w]B
+    in affine-extended limbs (Z = 1, T = X Y), built with the oracle's
+    affine additions; row j = 0 is the identity."""
+    from ba_tpu_torch.crypto import oracle
+
+    table = np.zeros((64, 16, 4, F.LIMBS), np.int32)
+    step = oracle.BASE
+    for w in range(64):
+        pt = (0, 1)
+        for j in range(16):
+            x, y = pt
+            for c, v in enumerate((x, y, 1, x * y % P)):
+                table[w, j, c] = F._np_limbs(v)
+            if j < 15:
+                pt = oracle.edwards_add(pt, step)
+        step = oracle.edwards_add(pt, step)  # [16^(w+1)]B from [15 * 16^w]B
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _base_table_bytes() -> np.ndarray:
+    """The window table as the kernels read it: uint8 [64, 16, 4, 32],
+    the canonical encodings of the same coordinates."""
+    t = _base_table()
+    weights = 1 << (12 * np.arange(F.LIMBS, dtype=object))
+    out = np.zeros((64, 16, 4, 32), np.uint8)
+    for idx in np.ndindex(64, 16, 4):
+        v = int((t[idx].astype(object) * weights).sum())
+        out[idx] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    return out
+
+
+def base_table(device) -> torch.Tensor:
+    """The window table (uint8 [64, 16, 4, 32]) on ``device``, made once
+    per device."""
+    return _base_table_on(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _base_table_on(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_base_table_bytes(), device=device)
+
+
+def decompress(by: torch.Tensor):
+    """32-byte encodings [N, 32] -> (uint8 [N, 4, 32] points, bool [N]
+    validity), through K7.  RFC 8032 5.1.3: y < p, a square root of
+    (y^2 - 1)/(d y^2 + 1) exists, x = 0 with sign bit 1 is invalid."""
+    from ba_tpu_torch.ops.decompress import decompress as k7
+
+    return k7(by.contiguous())
+
+
+def fixed_base_mult(s_enc: torch.Tensor) -> torch.Tensor:
+    """[S]B from 32-byte little-endian scalars [N, 32] -> uint8 [N, 4, 32],
+    through K4: S = sum_w digit_w 16^w, so [S]B folds 64 table points."""
+    from ba_tpu_torch.ops.treeadd import fixed_base_fold
+
+    s_enc = s_enc.contiguous()
+    return fixed_base_fold(s_enc, base_table(s_enc.device))
+
+
+def verify(pk: torch.Tensor, msg: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    """Batched verify: pk [B, 32], msg [B, M], sig [B, 64] uint8 on one
+    device -> bool [B], the oracle's verdict lane for lane."""
+    from ba_tpu_torch.crypto.sha512 import sha512_mod_l
+    from ba_tpu_torch.ops.ladder import window_verify
+
+    B = pk.shape[0]
+    r_enc = sig[:, :32]
+    s_enc = sig[:, 32:].contiguous()
+    pts, oks = decompress(torch.cat([pk, r_enc]))
+    ok_s = _lt_const(s_enc, L)
+    left = fixed_base_mult(s_enc)
+    h = sha512_mod_l(torch.cat([r_enc, pk, msg], dim=-1))
+    return oks[:B] & oks[B:] & ok_s & window_verify(pts[:B], h, pts[B:], left)

@@ -2,9 +2,10 @@
 plain C interface, loaded with ``ctypes``; and check the tensors a
 wrapper hands a kernel (``check_tensor``).
 
-The library is keyed by a hash of its source and flags, built at first
-use into ``ba_tpu_torch/ops/_build/`` (listed in ``.gitignore``) and
-reused while the source is unchanged.  No PyTorch headers are compiled
+The library is keyed by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, built at first use into
+``ba_tpu_torch/ops/_build/`` (listed in ``.gitignore``) and reused while
+the source is unchanged.  No PyTorch headers are compiled
 in, which keeps a cold build to seconds.  A failed build raises; there
 is no fallback to the plain engine.
 """
@@ -40,10 +41,12 @@ def _nvcc() -> str:
 
 
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library for this exact source and
-    these flags exists; returns the library's path."""
+    """Compile ``csrc/<source>`` unless a library for this exact source,
+    headers and flags exists; returns the library's path."""
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     out = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out

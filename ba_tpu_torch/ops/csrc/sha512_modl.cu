@@ -1,0 +1,190 @@
+// K5: SHA-512 of padded blocks, then the digest mod L, one thread a lane.
+//
+// Replaces ba_tpu/ops/sha512_kernel.py::_sha_modl_kernel (the Pallas TPU
+// kernel), which chains the compression into ba_tpu/ops/modl.py::
+// modl_core without writing the digest out.  On the TPU a 64-bit word is
+// an (hi, lo) pair of uint32 planes; here it is a native uint64_t, and
+// the 80 rounds unroll with the message schedule in a 16-word ring of
+// registers.  The 64 digest bytes go straight into modl_core's fold plan
+// (three folds at 2^256 = -16 delta, an exact fold at 2^252, one
+// conditional subtract of L), in int64 limbs where the reference keeps
+// int32 (no value changes).
+//
+// Bound: operations.  A block is 80 rounds of ~30 64-bit operations
+// (~60 int32 ones) plus the schedule; the fold is ~1.5k small ops.  The
+// bytes (256 a block in, as (hi, lo) int64 halves, 32 out) are far
+// below.  The design keeps the block and the digest in registers.
+//
+// Interface: wh, wl int64 [n, n_blocks, 16] (big-endian 32-bit halves of
+// the padded message words, as ba_tpu/crypto/sha512.py::_message_words
+// lays them out) -> out uint8 [n, 32] = SHA-512(message) mod L, little
+// endian.
+
+#include "ed25519_field.cuh"
+
+// FIPS 180-4's round constants and initial state; held against the plain
+// module's computed values by tests/test_torch_sha512.py.
+ED_CONST uint64_t SHA512_K[80] = {
+    0x428a2f98d728ae22ULL, 0x7137449123ef65cdULL, 0xb5c0fbcfec4d3b2fULL, 0xe9b5dba58189dbbcULL,
+    0x3956c25bf348b538ULL, 0x59f111f1b605d019ULL, 0x923f82a4af194f9bULL, 0xab1c5ed5da6d8118ULL,
+    0xd807aa98a3030242ULL, 0x12835b0145706fbeULL, 0x243185be4ee4b28cULL, 0x550c7dc3d5ffb4e2ULL,
+    0x72be5d74f27b896fULL, 0x80deb1fe3b1696b1ULL, 0x9bdc06a725c71235ULL, 0xc19bf174cf692694ULL,
+    0xe49b69c19ef14ad2ULL, 0xefbe4786384f25e3ULL, 0x0fc19dc68b8cd5b5ULL, 0x240ca1cc77ac9c65ULL,
+    0x2de92c6f592b0275ULL, 0x4a7484aa6ea6e483ULL, 0x5cb0a9dcbd41fbd4ULL, 0x76f988da831153b5ULL,
+    0x983e5152ee66dfabULL, 0xa831c66d2db43210ULL, 0xb00327c898fb213fULL, 0xbf597fc7beef0ee4ULL,
+    0xc6e00bf33da88fc2ULL, 0xd5a79147930aa725ULL, 0x06ca6351e003826fULL, 0x142929670a0e6e70ULL,
+    0x27b70a8546d22ffcULL, 0x2e1b21385c26c926ULL, 0x4d2c6dfc5ac42aedULL, 0x53380d139d95b3dfULL,
+    0x650a73548baf63deULL, 0x766a0abb3c77b2a8ULL, 0x81c2c92e47edaee6ULL, 0x92722c851482353bULL,
+    0xa2bfe8a14cf10364ULL, 0xa81a664bbc423001ULL, 0xc24b8b70d0f89791ULL, 0xc76c51a30654be30ULL,
+    0xd192e819d6ef5218ULL, 0xd69906245565a910ULL, 0xf40e35855771202aULL, 0x106aa07032bbd1b8ULL,
+    0x19a4c116b8d2d0c8ULL, 0x1e376c085141ab53ULL, 0x2748774cdf8eeb99ULL, 0x34b0bcb5e19b48a8ULL,
+    0x391c0cb3c5c95a63ULL, 0x4ed8aa4ae3418acbULL, 0x5b9cca4f7763e373ULL, 0x682e6ff3d6b2b8a3ULL,
+    0x748f82ee5defb2fcULL, 0x78a5636f43172f60ULL, 0x84c87814a1f0ab72ULL, 0x8cc702081a6439ecULL,
+    0x90befffa23631e28ULL, 0xa4506cebde82bde9ULL, 0xbef9a3f7b2c67915ULL, 0xc67178f2e372532bULL,
+    0xca273eceea26619cULL, 0xd186b8c721c0c207ULL, 0xeada7dd6cde0eb1eULL, 0xf57d4f7fee6ed178ULL,
+    0x06f067aa72176fbaULL, 0x0a637dc5a2c898a6ULL, 0x113f9804bef90daeULL, 0x1b710b35131c471bULL,
+    0x28db77f523047d84ULL, 0x32caab7b40c72493ULL, 0x3c9ebe0a15c9bebcULL, 0x431d67c49c100d4cULL,
+    0x4cc5d4becb3e42b6ULL, 0x597f299cfc657e2aULL, 0x5fcb6fab3ad6faecULL, 0x6c44198c4a475817ULL,
+};
+ED_CONST uint64_t SHA512_H0[8] = {
+    0x6a09e667f3bcc908ULL, 0xbb67ae8584caa73bULL, 0x3c6ef372fe94f82bULL, 0xa54ff53a5f1d36f1ULL,
+    0x510e527fade682d1ULL, 0x9b05688c2b3e6c1fULL, 0x1f83d9abfb41bd6bULL, 0x5be0cd19137e2179ULL,
+};
+
+// L = 2^252 + delta in little-endian bytes, delta, and C16 = 16 delta
+// (2^256 = -C16 mod L); held against the oracle's L by the same test.
+ED_CONST int32_t MODL_L[32] = {
+    237, 211, 245, 92, 26, 99, 18, 88, 214, 156, 247, 162, 222, 249, 222, 20,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 16};
+ED_CONST int32_t MODL_C16[17] = {
+    208, 62, 93, 207, 165, 49, 38, 129, 101, 205, 121, 47, 234, 157, 239, 77, 1};
+
+ED_FN uint64_t rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
+
+ED_FN void sha512_block(uint64_t st[8], uint64_t w[16]) {
+    uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
+    uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+    for (int t = 0; t < 80; t++) {
+        if (t >= 16) {
+            const uint64_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+            const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
+            const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
+            w[t & 15] += s0 + w[(t - 7) & 15] + s1;
+        }
+        const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+        const uint64_t ch = (e & f) ^ (~e & g);
+        const uint64_t t1 = h + S1 + ch + SHA512_K[t] + w[t & 15];
+        const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+        const uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
+        h = g; g = f; f = e; e = d + t1;
+        d = c; c = b; b = a; a = t1 + S0 + mj;
+    }
+    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+// One exact sequential base-256 pass over v[0..n); the signed final
+// carry lands in v[n-1] (ba_tpu/ops/modl.py::_carry_seq).
+ED_FN void modl_carry_seq(int64_t* v, int n) {
+    int64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < n - 1; i++) {
+        const int64_t x = v[i] + c;
+        c = x >> 8;
+        v[i] = x - c * 256;
+    }
+    v[n - 1] += c;
+}
+
+// v[0..n_in) -> v[0..n_out): value = lo - hi * C16 (mod L), hi = v[32..),
+// n_out = max(32, 16 + n_in - 32); limbs 32.. of the input are consumed.
+ED_FN void modl_fold256(int64_t* v, int n_in) {
+    int64_t hi[32];
+    const int nh = n_in - 32;
+#pragma unroll
+    for (int i = 0; i < 32; i++) hi[i] = i < nh ? v[32 + i] : 0;
+#pragma unroll
+    for (int i = 32; i < 64; i++) v[i] = 0;
+#pragma unroll
+    for (int j = 0; j < 17; j++)
+#pragma unroll
+        for (int i = 0; i < 32; i++)
+            if (i < nh) v[j + i] -= MODL_C16[j] * hi[i];
+}
+
+// modl_core (ba_tpu/ops/modl.py:69): 64 digest bytes -> 32 bytes mod L.
+ED_FN void modl_core(int64_t v[64], uint8_t out[32]) {
+    modl_fold256(v, 64);   // 48 limbs
+    modl_carry_seq(v, 49); // |value| < 2^385
+    modl_fold256(v, 49);   // 33 limbs
+    modl_carry_seq(v, 34); // |value| < 2^260
+    modl_fold256(v, 34);   // 32 limbs; |value| < 2^258
+    v[32] = 0;
+    v[33] = 0;
+#pragma unroll
+    for (int i = 0; i < 32; i++) v[i] += 4 * MODL_L[i];
+    modl_carry_seq(v, 34); // value in (0, 2^259)
+    // Exact fold at 2^252: hi <= 143.
+    const int64_t hi = (v[31] >> 4) + v[32] * 16 + v[33] * 4096;
+    v[31] &= 0xF;
+    v[32] = 0;
+#pragma unroll
+    for (int j = 0; j < 16; j++) v[j] -= hi * MODL_L[j];  // L's low 16 bytes are delta
+#pragma unroll
+    for (int i = 0; i < 32; i++) v[i] += MODL_L[i];
+    modl_carry_seq(v, 33); // value in (0, 2L), v[32] == 0
+    int64_t diff[33];
+    int64_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < 33; i++) {
+        const int64_t x = v[i] - (i < 32 ? MODL_L[i] : 0) + borrow;
+        borrow = x >> 8;
+        diff[i] = x - borrow * 256;
+    }
+    const bool ge = borrow >= 0;  // no final borrow: value >= L
+#pragma unroll
+    for (int i = 0; i < 32; i++) out[i] = (uint8_t)(ge ? diff[i] : v[i]);
+}
+
+ED_FN void sha512_modl_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8_t* out) {
+    uint64_t st[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) st[i] = SHA512_H0[i];
+#pragma unroll 1
+    for (int blk = 0; blk < n_blocks; blk++) {
+        uint64_t w[16];
+#pragma unroll
+        for (int i = 0; i < 16; i++)
+            w[i] = ((uint64_t)wh[16 * blk + i] << 32) | ((uint64_t)wl[16 * blk + i] & 0xffffffffULL);
+        sha512_block(st, w);
+    }
+    int64_t v[64];
+#pragma unroll
+    for (int i = 0; i < 8; i++)
+#pragma unroll
+        for (int k = 0; k < 8; k++) v[8 * i + k] = (int64_t)((st[i] >> (56 - 8 * k)) & 0xff);
+    modl_core(v, out);
+}
+
+#if defined(__CUDACC__)
+
+__global__ void __launch_bounds__(128) sha512_modl_kernel(int n, int n_blocks,
+                                                          const int64_t* __restrict__ wh,
+                                                          const int64_t* __restrict__ wl,
+                                                          uint8_t* __restrict__ out) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= n) return;
+    const size_t off = (size_t)lane * n_blocks * 16;
+    sha512_modl_lane(wh + off, wl + off, n_blocks, out + 32 * (size_t)lane);
+}
+
+extern "C" int ba_sha512_modl(int n, int n_blocks, const void* wh, const void* wl, void* out,
+                              void* stream) {
+    if (n <= 0) return 0;
+    sha512_modl_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (uint8_t*)out);
+    return (int)cudaGetLastError();
+}
+
+#endif

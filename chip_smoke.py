@@ -4,21 +4,23 @@ its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
-Two paths, each through its hand-written kernel:
+Three paths, each through its hand-written kernels:
 - the oral OM(1) pipelined engine: ``pipeline_sweep`` (plain sweeps) and
   ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
   kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
-- the timed step of BASELINE config #5's signed sweep (``bench.py``'s
-  ``bench_sweep10k_signed``, its dispatch loop) through K2, the
-  sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``).  Its
-  signature tables are inputs here, made on the host by the port's
-  native signer; the reference's own setup signs and verifies them on
-  the TPU through kernels the port has not ported yet (K3-K8), so no
-  rate here charges that setup.
+- the setup of BASELINE config #5's signed sweep (``bench.py``'s
+  ``bench_sweep10k_signed``) as the reference's host-sign mode runs it:
+  ``setup_signed_tables`` signs on the host while the card verifies the
+  tables through ``crypto/ed25519.verify``, that is K7 (``decompress.cu``),
+  K5 (``sha512_modl.cu``), K4 (``treeadd.cu``) and K3
+  (``window_verify.cu``);
+- the signed sweep's timed step (its dispatch loop) through K2, the
+  sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``).
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
-   together: both kernels (nvcc) and the native Ed25519 signer (g++);
+   together: one nvcc a CUDA source (six) and the native Ed25519 signer
+   (g++);
 2. threefry and Philox4x32-10 known answers on the card, the latter
    through the very Philox rounds K2 draws from (its source's
    ``philox4x32_10``) as well as through the plain version;
@@ -39,17 +41,35 @@ Phases, one JSON line each:
    generals with a faulty leader and a traitor lieutenant — every
    decision bit-equal, and at n >= 4 the plain version's decisions move
    when only the seed does (the draws decided what was compared);
-7. the signed tables at full width, on the host: keys, 2 signatures and
-   the table verify for 10 240 commanders; every verdict True; 8
-   corrupted signatures False, held against the pure-Python oracle;
-8. the signed sweep at full width: ``bucketed_sweep_states(key(5), 10240,
-   1024, 2)``, m = 3, one 480-round K2 dispatch per bucket a step, seeds
-   from ``fold_in(fold_in(key(6), step), bucket)``; as ``bench.py`` times
-   it, one warm-up step, then 3 windows of 50 steps (steps r * 50 + 1
-   .. r * 50 + 50) — every one of the 10 240 x 480 x 151 decisions
-   ATTACK (SM validity); agreement-rounds/s of each window by host wall
-   clock, the best (``bench.py``'s reading) and the spread;
-9. faulty leaders in every fourth instance of the same buckets, and in
+7. Ed25519 known answers on the card: oracle-made signatures with every
+   rejection path (corrupted R, S, message or key; y >= p; a non-square
+   y; x = 0 with sign 1; S >= L) verify as the oracle says, the RFC 8032
+   vectors verify, and K5 equals hashlib's digest mod L on 256 random
+   80-byte messages;
+8. K7, K5, K4 and K3 against their plain versions at S in {1, 37, 1024,
+   4096}: half real signatures, half edge values (y at p - 1, p and
+   2p - 2, the identity, x = 0 with sign 1; scalars 0, 1, 15, 16, L - 1,
+   2^256 - 1) and random bytes — verdicts, scalars and canonical point
+   encodings bit-equal;
+9. the setup at full width: ``setup_signed_tables(10 240)``, 20 480
+   table signatures in 2 chunks, host signing overlapped with the card's
+   verify, every verdict True; then a copy with every 7th signature
+   corrupted (R, S or message in turn), its card verdicts equal to the
+   native host verifier's on all 20 480; keys, sign, drain and total
+   times, the warm device verify of one chunk (CUDA events) and the host
+   verify of the same tables;
+10. the signed sweep at full width: ``bucketed_sweep_states(key(5),
+   10240, 1024, 2)``, m = 3, one 480-round K2 dispatch per bucket a step,
+   seeds from ``fold_in(fold_in(key(6), step), bucket)``, on the verdicts
+   of phase 9; as ``bench.py`` times it, one warm-up step, then 3 windows
+   of 50 steps (steps r * 50 + 1 .. r * 50 + 50) — every one of the
+   10 240 x 480 x 151 decisions ATTACK (SM validity); agreement-rounds/s
+   of each window by host wall clock, the best (``bench.py``'s reading)
+   and the spread;
+11. the sweep's rate with phase 9's setup charged at ``bench.py``'s
+   horizons of 50, 100, 500 and 5000 steps (sign on the host, verify on
+   the card: the reference's BA_TPU_SIGN_DEVICE=0 path);
+12. faulty leaders in every fourth instance of the same buckets, and in
    every eighth only 4 to 8 generals alive with a traitor lieutenant:
    one 480-round dispatch per bucket against the plain version in full
    (and its CUDA-event time), the plain version's decisions moving with
@@ -68,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import hashlib
 import json
 import os
 import subprocess
@@ -83,8 +104,9 @@ from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.om import round1_broadcast
 from ba_tpu_torch.core.state import SimState
 from ba_tpu_torch.core.types import ATTACK
-from ba_tpu_torch.crypto import oracle, signed
-from ba_tpu_torch.ops import _build, scenario_step, sweep_step
+from ba_tpu_torch.crypto import ed25519, oracle, sha512, signed
+from ba_tpu_torch.ops import (_build, decompress, ladder, scenario_step, sha512_kernel,
+                              sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
@@ -107,6 +129,39 @@ B_SIGNED, M_SIGNED, ROUNDS_SIGNED = 10_240, 3, 480
 STEPS_SIGNED, WINDOWS_SIGNED = 50, 3  # bench.py's iters and reps
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
+CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
+                "treeadd.cu", "window_verify.cu")
+# The Ed25519 kernels: (name, wrapper, source, the TPU kernel it replaces).
+ED_KERNELS = {
+    "K7": ("decompress", decompress.decompress, "ba_tpu_torch/ops/csrc/decompress.cu",
+           "ba_tpu/ops/decompress.py:45"),
+    "K5": ("sha512_modl", sha512_kernel.sha512_blocks_mod_l,
+           "ba_tpu_torch/ops/csrc/sha512_modl.cu", "ba_tpu/ops/sha512_kernel.py:98"),
+    "K4": ("fixed_base_tree", treeadd.fixed_base_fold, "ba_tpu_torch/ops/csrc/treeadd.cu",
+           "ba_tpu/ops/treeadd.py:49"),
+    "K3": ("window_verify", ladder.window_verify, "ba_tpu_torch/ops/csrc/window_verify.cu",
+           "ba_tpu/ops/ladder.py:121"),
+}
+# int32 operations of one field multiply in the kernels' radix (ed25519_field.cuh
+# fe_mul): 100 32x32->64 multiply-adds (2 each), the 9 wrapped columns times 19
+# (4 each), the 11-step carry chain in int64 (10 each), 5 doublings; of one
+# squaring (fe_sq): 55 multiply-adds, the same columns and chain, 13 doublings.
+FE_MUL_OPS = 100 * 2 + 9 * 4 + 11 * 10 + 5
+FE_SQ_OPS = 55 * 2 + 9 * 4 + 11 * 10 + 13
+# (multiplies, squarings) a lane: K7 the (p-5)/8 chain (11, 251) and (9, 4)
+# around it; K4 63 additions, 31 of 9 and 32 of two affine table entries at 8;
+# K3 14 additions of 9 for the table, 64 windows of 4 doublings (4 multiplies and
+# 3 squarings each, one more multiply for T on the fourth) and an addition, then
+# 9 + 4.
+K7_WORK, K4_WORK, K3_WORK = (20, 255), (31 * 9 + 32 * 8, 0), (14 * 9 + 64 * 26 + 13, 64 * 12)
+
+
+def field_ops(work):
+    """int32 operations of (multiplies, squarings)."""
+    return work[0] * FE_MUL_OPS + work[1] * FE_SQ_OPS
+# int32 operations of one SHA-512 block (80 rounds of ~48, 64 schedule steps of
+# ~26, the final adds) and of modl_core's folds (~900 int64 multiply-adds).
+SHA_BLOCK_OPS, MODL_OPS = 80 * 48 + 64 * 26 + 16, 1800
 
 
 class SmokeFailure(RuntimeError):
@@ -292,25 +347,24 @@ def timed_plain(fn):
 
 
 def phase_env(dev):
-    """Build both kernels and the native signer from the checkout's
-    sources, all started together, then load them."""
+    """Build every kernel and the native signer from the checkout's
+    sources, all started together (one nvcc a source), then load them."""
     def timed(fn, *args):
         t0 = time.perf_counter()
         fn(*args)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        jobs = {name: pool.submit(timed, _build.build, name)
-                for name in ("megastep.cu", "sweep_step.cu")}
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES) + 1) as pool:
+        jobs = {name: pool.submit(timed, _build.build, name) for name in CUDA_SOURCES}
         jobs["native"] = pool.submit(timed, native.build)
         build_s = {name: job.result() for name, job in jobs.items()}
-    scenario_step._lib()
-    sweep_step._lib()
+    for module in (scenario_step, sweep_step, decompress, sha512_kernel, treeadd, ladder):
+        module._lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
     ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln]
-             for name in ("megastep.cu", "sweep_step.cu")}
+             for name in CUDA_SOURCES}
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(dev), "gpu": smi("name,power.limit"),
           "build_wall_s": time.perf_counter() - t0, "build_s": build_s,
@@ -627,31 +681,175 @@ def phase_k2_middle(dev, rs):
               "decisions_moved_by_seed": moved})
 
 
+# -- K7, K5, K4, K3: the Ed25519 table verify ---------------------------------
+
+RFC8032 = (  # RFC 8032 section 7.1, tests 1 and 2: (public key, message, signature)
+    ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
+     "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e06522490155"
+     "5fb8821590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b"),
+    ("3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c", "72",
+     "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da"
+     "085ac1e43e15996e458f3613d0f11d8c387b2eaeb4302aeeb00d291612bb0c00"),
+)
+
+
+def le32(v: int) -> bytes:
+    return v.to_bytes(32, "little")
+
+
+def u8(rows, dev) -> torch.Tensor:
+    arr = np.stack([np.frombuffer(bytes(r), np.uint8) for r in rows])
+    return torch.tensor(arr.reshape(len(rows), -1), device=dev)
+
+
+def verify_cases():
+    """16 lanes of oracle-made signatures: valid ones beside every
+    rejection path of tests/test_crypto.py: a corrupted R, S, message or
+    key; R's y = p; a key with y = 2 (no square root); the key x = 0 with
+    sign 1 (with the forgery it would admit); S + L in place of S; a key
+    with y >= p.  Returns byte rows and the oracle's verdicts."""
+    P, L = oracle.P, oracle.L
+    pks, msgs, sigs = [], [], []
+    for i in range(16):
+        sk, pk = oracle.keypair(bytes([70 + i]))
+        msg = bytes([i]) * 16
+        pks.append(pk), msgs.append(msg), sigs.append(bytearray(oracle.sign(sk, pk, msg)))
+    sigs[6][0] ^= 1
+    sigs[7][40] ^= 1
+    msgs[8] = bytes([0xFF]) + msgs[8][1:]
+    pks[9] = pks[10]
+    sigs[10][:32] = le32(P)
+    pks[11] = le32(2)
+    pks[12] = bytes([1] + [0] * 30 + [0x80])
+    sigs[12] = bytearray(oracle.encode_point(oracle.scalarmult(oracle.BASE, 5)) + le32(5))
+    sigs[13][32:] = le32(int.from_bytes(sigs[13][32:], "little") + L)
+    pks[14] = le32(P + 3)
+    want = [oracle.verify(pk, m, bytes(sg)) for pk, m, sg in zip(pks, msgs, sigs)]
+    return pks, msgs, sigs, want
+
+
+def phase_ed25519_known_answers(dev, rs):
+    """Known answers through the card's verify (K7, K5, K4, K3): the
+    oracle's verdicts on every rejection path, the RFC 8032 vectors, and
+    K5 against hashlib's digest mod L on random 80-byte messages."""
+    pks, msgs, sigs, want = verify_cases()
+    check(want == [True] * 6 + [False] * 9 + [True], f"the oracle's verdicts {want}")
+    got = ed25519.verify(u8(pks, dev), u8(msgs, dev), u8(sigs, dev)).tolist()
+    check(got == want, f"card verdicts {got} differ from the oracle's {want}")
+    for pk, msg, sig in RFC8032:
+        args = [u8([bytes.fromhex(x)], dev) for x in (pk, msg, sig)]
+        check(ed25519.verify(*args).tolist() == [True], f"RFC 8032 vector {pk[:8]}")
+        args[1] = u8([bytes.fromhex(msg) + b"x"], dev)
+        check(ed25519.verify(*args).tolist() == [False], f"RFC 8032 vector {pk[:8]}, bad msg")
+    msg80 = rs.integers(0, 256, (256, 80), dtype=np.uint8)
+    h = sha512.sha512_mod_l(torch.tensor(msg80, device=dev)).cpu().numpy()
+    for m, got_h in zip(msg80, h):
+        digest = int.from_bytes(hashlib.sha512(m.tobytes()).digest(), "little")
+        check(int.from_bytes(got_h.tobytes(), "little") == digest % oracle.L,
+              "K5 differs from hashlib's digest mod L")
+    emit({"phase": "ed25519_known_answers", "verdicts": got, "oracle_agrees": True,
+          "rfc8032_vectors": len(RFC8032), "k5_hashlib_messages": len(msg80), "ok": True})
+
+
+def ed_middle_inputs(rs, S, dev):
+    """Inputs for the four kernels at S lanes: the first half real
+    signatures of the native signer, then edge values (y at p - 1, p and
+    2p - 2, the identity's y = 1, x = 0 with sign 1; scalars 0, 1, 15,
+    16, L - 1 and 2^256 - 1) and random bytes."""
+    P, L = oracle.P, oracle.L
+    n_sig = max(S // 2, 1)
+    sks, pks = signed.commander_keys(n_sig, seed=S)
+    msgs, sigs = signed.sign_value_tables(sks, pks, n_values=1)
+    msg, sig = msgs[:, 0], sigs[:, 0]
+    rand = lambda k, w: rs.integers(0, 256, (k, w), dtype=np.uint8)  # noqa: E731
+    edge_y = np.stack([np.frombuffer(le32(v), np.uint8)
+                       for v in (P - 1, P, 2 * P - 2, 1, 1 | 1 << 255)])
+    edge_s = np.stack([np.frombuffer(le32(v), np.uint8)
+                       for v in (0, 1, 15, 16, L - 1, 2**256 - 1)])
+    a_enc = np.concatenate([pks, edge_y, rand(S, 32)])[:S]
+    r_enc = np.concatenate([sig[:, :32], edge_y[::-1], rand(S, 32)])[:S]
+    m = np.concatenate([msg, rand(S, msg.shape[1])])[:S]
+    s_enc = np.concatenate([sig[:, 32:], edge_s, rand(S, 32)])[:S]
+    h_tail = np.concatenate([edge_s, rand(S, 32)])[:S - n_sig]
+    t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    return n_sig, t(a_enc), t(r_enc), t(m), t(s_enc), t(h_tail)
+
+
+def phase_ed25519_middle(dev, rs):
+    """K7, K5, K4 and K3 against their plain versions at S lanes: every
+    output bit-equal (points as canonical encodings)."""
+    table = ed25519.base_table(dev)
+    for S in (1, 37, 1024, 4096):
+        n_sig, a_enc, r_enc, msg, s_enc, h_tail = ed_middle_inputs(rs, S, dev)
+        enc = torch.cat([a_enc, r_enc])
+        pts, ok = decompress.decompress(enc)
+        errs = {"K7": max_abs_err(zip((pts, ok), decompress.plain_decompress(enc)))}
+        wh, wl, nb = sha512._message_words(torch.cat([r_enc, a_enc, msg], dim=1))
+        h = sha512_kernel.sha512_blocks_mod_l(wh, wl, nb)
+        errs["K5"] = max_abs_err([(h, sha512_kernel.plain_sha512_blocks_mod_l(wh, wl, nb))])
+        left = treeadd.fixed_base_fold(s_enc, table)
+        errs["K4"] = max_abs_err([(left, treeadd.plain_fixed_base_fold(s_enc, table))])
+        h3 = torch.cat([h[:n_sig], h_tail])
+        got = ladder.window_verify(pts[:S], h3, pts[S:], left)
+        errs["K3"] = max_abs_err([(got, ladder.plain_window_verify(pts[:S], h3, pts[S:], left))])
+        sync()
+        check(all(e == 0 for e in errs.values()), f"a kernel differs from plain at S={S}: {errs}")
+        check(bool(got[:n_sig].all()), f"a real signature's verdict was False at S={S}")
+        emit({"phase": "ed25519_vs_plain_middle", "S": S, "max_abs_err": errs,
+              "valid_encodings": int(ok.sum()), "true_verdicts": int(got.sum()),
+              "signature_lanes": n_sig})
+
+
+def reset_ed_launches():
+    for module in (decompress, sha512_kernel, treeadd, ladder):
+        module.reset_launches()
+
+
 def phase_signed_setup(dev, rs):
-    """The sweep's signature tables, made on the host by the native
-    signer: keys, two signatures and the table verify for every
-    commander; then 8 signatures corrupted (R in four, S in four) verify
-    False on the native verifier and on the pure-Python oracle.  Its
-    times are the host's; the reference runs this setup on the TPU
-    through K3-K8, which the port has not ported yet."""
-    sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(B_SIGNED, device=dev)
+    """The sweep's setup at full width as the reference's
+    BA_TPU_SIGN_DEVICE=0 mode runs it: the host signs chunk c + 1 while
+    the card verifies chunk c (K7, K5, K4, K3), one fetch at the end.
+    A throwaway key-set warms the path first, as bench.py warms its
+    setup.  Then a copy with every 7th signature corrupted (R, S or the
+    message in turn) verifies on the card, held against the native host
+    verifier on all 20 480; and the warm device verify of one chunk
+    (CUDA events) beside the host verify of the same tables."""
+    signed.setup_signed_tables(B_SIGNED, seed=1, device=dev)
+    reset_ed_launches()
+    sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(
+        B_SIGNED, device=dev)
+    launches = {key: fn.launches for key, (_, fn, _, _) in ED_KERNELS.items()}
+    check(all(v == signed.SETUP_CHUNKS for v in launches.values()), f"verify launches {launches}")
+    check(timings["verify_route"] == "device", "the table verify did not run on the card")
     check(tuple(ok.shape) == (B_SIGNED, 2) and bool(ok.all()),
           "a table signature failed to verify")
-    rows = np.sort(rs.choice(B_SIGNED, 8, replace=False))
-    idx = np.arange(8)
-    cols = idx % 2
-    bad = sigs[rows].copy()
-    bad[idx, cols, np.where(idx < 4, 5, 40)] ^= 0x10
-    verdicts = signed.verify_host_exact(pks[rows], msgs[rows], bad)
-    oracle_says = [oracle.verify(pks[r].tobytes(), msgs[r, c].tobytes(), bad[i, c].tobytes())
-                   for i, (r, c) in enumerate(zip(rows, cols))]
-    check(not verdicts[idx, cols].any(), "a corrupted signature verified")
-    check(not any(oracle_says), "the oracle accepted a corrupted signature")
-    check(verdicts[idx, 1 - cols].all(), "an untouched signature failed beside a corrupted one")
-    emit({"phase": "signed_tables_host", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
-          **timings, "all_valid": True, "corrupted_rows": rows.tolist(),
-          "corrupted_rejected": True, "oracle_agrees": True})
-    return ok
+
+    flat_m, flat_s = msgs.reshape(-1, msgs.shape[-1]).copy(), sigs.reshape(-1, 64).copy()
+    idx = np.arange(0, len(flat_s), 7)
+    kind = np.arange(len(idx)) % 3
+    flip = rs.integers(1, 256, len(idx)).astype(np.uint8)
+    flat_s[idx[kind == 0], rs.integers(0, 32, (kind == 0).sum())] ^= flip[kind == 0]
+    flat_s[idx[kind == 1], rs.integers(32, 64, (kind == 1).sum())] ^= flip[kind == 1]
+    flat_m[idx[kind == 2], rs.integers(0, flat_m.shape[1], (kind == 2).sum())] ^= flip[kind == 2]
+    bad_m, bad_s = flat_m.reshape(msgs.shape), flat_s.reshape(sigs.shape)
+    got = signed.verify_received(pks, bad_m, bad_s, device=dev).cpu().numpy()
+    t0 = time.perf_counter()
+    want = signed.verify_host_exact(pks, bad_m, bad_s)
+    host_bad_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(got, want), f"{int((got != want).sum())} card verdicts differ from the host's")
+
+    per = B_SIGNED // signed.SETUP_CHUNKS
+    chunk = [torch.tensor(a[:per], device=dev) for a in (pks, msgs, sigs)]
+    chunk_ms = time_cuda(lambda: signed.verify_received(*chunk, device=dev), reps=5)
+    t0 = time.perf_counter()
+    signed.verify_host_exact(pks, msgs, sigs)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "signed_setup_device_verify", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
+          **timings, "all_valid": True, "kernel_launches": launches,
+          "corrupted": len(idx), "rejected": int((~want).sum()), "card_equals_host": True,
+          "device_verify_chunk_ms": chunk_ms, "chunk_signatures": per * 2,
+          "host_verify_ms": host_ms, "host_verify_corrupted_ms": host_bad_ms})
+    return ok, (pks, msgs, sigs), launches, timings
 
 
 def signed_seeds(dev, steps, buckets):
@@ -715,7 +913,23 @@ def phase_signed_sweep(dev, ok, card):
           "agreement_rounds_per_s": {"best": rates[-1], "median": median, "worst": rates[0],
                                      "spread": (rates[-1] - rates[0]) / median},
           "kernel_launches": launches, "card": card})
-    return states, oks, seeds, first, launches
+    return states, oks, seeds, first, launches, walls
+
+
+def phase_rate_with_setup(timings, walls, card):
+    """The signed sweep's rate with this run's setup charged, at
+    bench.py's horizons (bench.py:805-810): h steps of one 480-round
+    dispatch per bucket after one setup, the step at the best window's
+    pace.  Its setup signs on the host and verifies on the card: the
+    reference's BA_TPU_SIGN_DEVICE=0 path.  bench.py's TPU default signs
+    on the device (one chunk), which the port does not run yet."""
+    step_s = min(walls) / STEPS_SIGNED
+    rounds_per_step = B_SIGNED * ROUNDS_SIGNED
+    rates = {f"h{h}": rounds_per_step * h / (timings["total_s"] + h * step_s)
+             for h in (50, 100, 500, 5000)}
+    emit({"phase": "signed_sweep_rate_with_setup", "sign": "host", "verify": "device",
+          "setup_total_s": timings["total_s"], "step_s": step_s,
+          "agreement_rounds_per_s": rates, "card": card})
 
 
 def phase_faulty_leaders(dev, rs, states, oks):
@@ -824,6 +1038,68 @@ def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
             "buckets": buckets}
 
 
+def kernel_lines_ed25519(dev, tables, launches, int_ops_per_s):
+    """Chunk 0 of the full-width setup again: its K7, K5, K4 and K3
+    dispatches on the main path's own inputs (5120 commanders x 2 values,
+    flattened as verify_received flattens them), the replayed verdicts
+    against the main path's (all True), each kernel against its plain
+    version, its CUDA-event time a dispatch, the plain time and the bound.
+    The bound counts field multiplies and squarings (FE_MUL_OPS and
+    FE_SQ_OPS int32 operations each) and SHA-512 blocks, the least work
+    these inputs need, at the card's
+    int32 rate; bytes: each input read once, each output written once."""
+    pks, msgs, sigs = tables
+    per = B_SIGNED // signed.SETUP_CHUNKS
+    n = msgs.shape[1]
+    S = per * n
+    pk = torch.tensor(np.repeat(pks[:per], n, axis=0), device=dev)
+    msg = torch.tensor(msgs[:per].reshape(S, -1), device=dev)
+    sig = torch.tensor(sigs[:per].reshape(S, 64), device=dev)
+    r_enc, s_enc = sig[:, :32].contiguous(), sig[:, 32:].contiguous()
+    enc = torch.cat([pk, r_enc])
+    wh, wl, nb = sha512._message_words(torch.cat([r_enc, pk, msg], dim=1))
+    table = ed25519.base_table(dev)
+    pts, ok_enc = decompress.decompress(enc)
+    h = sha512_kernel.sha512_blocks_mod_l(wh, wl, nb)
+    left = treeadd.fixed_base_fold(s_enc, table)
+    a, r = pts[:S], pts[S:]
+    verdict = ladder.window_verify(a, h, r, left)
+    full = ok_enc[:S] & ok_enc[S:] & ed25519._lt_const(s_enc, oracle.L) & verdict
+    check(bool(full.all()), "the replayed chunk-0 verdicts differ from the main path's")
+    cases = {
+        "K7": (lambda: decompress.decompress(enc), lambda: decompress.plain_decompress(enc),
+               2 * S, field_ops(K7_WORK), 2 * S * (32 + 128 + 1)),
+        "K5": (lambda: sha512_kernel.sha512_blocks_mod_l(wh, wl, nb),
+               lambda: sha512_kernel.plain_sha512_blocks_mod_l(wh, wl, nb),
+               S, SHA_BLOCK_OPS * nb + MODL_OPS, S * (2 * 8 * 16 * nb + 32)),
+        "K4": (lambda: treeadd.fixed_base_fold(s_enc, table),
+               lambda: treeadd.plain_fixed_base_fold(s_enc, table),
+               S, field_ops(K4_WORK), S * (32 + 128) + table.numel()),
+        "K3": (lambda: ladder.window_verify(a, h, r, left),
+               lambda: ladder.plain_window_verify(a, h, r, left),
+               S, field_ops(K3_WORK), S * (3 * 128 + 32 + 1)),
+    }
+    lines = []
+    for key, (run, plain, lanes, ops_lane, nbytes) in cases.items():
+        got = run()
+        want, plain_ms = timed_plain(plain)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max_abs_err(pairs)
+        check(err == 0, f"{key} differs from its plain version on chunk 0: {err}")
+        ms = time_cuda(run, reps=10)
+        ops_s, bytes_s = lanes * ops_lane / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+        name, fn, source, replaces = ED_KERNELS[key]
+        lines.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "wrapper": f"ba_tpu_torch/ops/{fn.__module__.rsplit('.', 1)[1]}.py:{fn.__name__}",
+            "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes", "library_ms": None,
+            "checked_against_plain": True, "lanes": lanes, "int32_ops": lanes * ops_lane,
+            "bytes": nbytes, "per": "dispatch (one setup chunk)"})
+    return lines
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -844,14 +1120,18 @@ def main(argv=None) -> int:
     arrays, main_out, plain_launches = phase_full_width(dev, args.seed, card)
     s_arrays, planes, s_main_out, scen_launches = phase_scenario(dev, args.seed, card)
     phase_k2_middle(dev, rs)
-    ok = phase_signed_setup(dev, rs)
-    states, oks, seeds, k2_main, k2_launches = phase_signed_sweep(dev, ok, card)
+    phase_ed25519_known_answers(dev, rs)
+    phase_ed25519_middle(dev, rs)
+    ok, tables, ed_launches, setup_t = phase_signed_setup(dev, rs)
+    states, oks, seeds, k2_main, k2_launches, walls = phase_signed_sweep(dev, ok, card)
+    phase_rate_with_setup(setup_t, walls, card)
     phase_faulty_leaders(dev, rs, states, oks)
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
+        *kernel_lines_ed25519(dev, tables, ed_launches, int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

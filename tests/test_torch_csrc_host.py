@@ -1,0 +1,146 @@
+"""The Ed25519 kernels' per-lane arithmetic (``ba_tpu_torch/ops/csrc``),
+compiled for the host with g++ through ``tests/torch_csrc_host.cpp``,
+against their plain torch versions: K7, K5, K4 and K3, bit-equal.
+
+The card runs the same functions inside the kernels; this catches an
+arithmetic fault in a CUDA source on the CPU.  Launch code, warp shuffles
+and memory layout are the card's to test (``tests/test_torch_kernel.py``,
+``chip_smoke.py``).
+"""
+
+import ctypes
+import hashlib
+import pathlib
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from ba_tpu_torch.crypto import ed25519 as E
+from ba_tpu_torch.crypto import oracle, sha512
+from ba_tpu_torch.ops import decompress, ladder, sha512_kernel, treeadd
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "ba_tpu_torch" / "ops" / "csrc"
+P, L = oracle.P, oracle.L
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    out = tmp_path_factory.mktemp("csrc") / "host.so"
+    proc = subprocess.run(
+        ["g++", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas", "-I", str(CSRC), "-x", "c++",
+         str(ROOT / "tests" / "torch_csrc_host.cpp"), "-o", str(out)],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(out))
+    for name, n_ptr in (("host_decompress", 3), ("host_fixed_base", 3),
+                        ("host_window_verify", 5)):
+        getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
+    lib.host_sha512_modl.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    return lib
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def _le(v: int) -> np.ndarray:
+    return np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+
+
+def _encodings(rs, n_random: int) -> np.ndarray:
+    """Edge encodings, valid points and random bytes: uint8 [N, 32]."""
+    rows = [_le(v) for v in (0, 1, 2, P - 1, P, P + 1, 2 * P - 2, 2**255 - 1, 2**256 - 1)]
+    rows += [_le(v | (1 << 255)) for v in (0, 1, P - 1)]  # sign bit set, x = 0 at y = 1
+    for i in range(6):
+        rows.append(np.frombuffer(oracle.keypair(bytes([i]))[1], np.uint8))
+    rows += list(rs.integers(0, 256, (n_random, 32), dtype=np.uint8))
+    return np.ascontiguousarray(np.stack(rows))
+
+
+def test_decompress_lane_matches_plain(host):
+    enc = _encodings(np.random.default_rng(1), 10)
+    pts = np.zeros((len(enc), 4, 32), np.uint8)
+    ok = np.zeros(len(enc), np.uint8)
+    host.host_decompress(len(enc), _ptr(enc), _ptr(pts), _ptr(ok))
+    want_pts, want_ok = decompress.plain_decompress(torch.tensor(enc))
+    assert np.array_equal(ok.astype(bool), want_ok.numpy())
+    assert np.array_equal(pts, want_pts.numpy())
+    # the oracle's keys are valid; y = p - 1 is (0, -1), y = p is out of range
+    assert ok[-16:-10].all() and ok[3] and not ok[4]
+
+
+@pytest.mark.parametrize("nbytes", [0, 80, 111, 112, 200])
+def test_sha512_modl_lane_matches_plain_and_hashlib(host, nbytes):
+    rs = np.random.default_rng(nbytes)
+    msg = rs.integers(0, 256, (5, nbytes), dtype=np.uint8)
+    wh, wl, nb = sha512._message_words(torch.tensor(msg))
+    out = np.zeros((5, 32), np.uint8)
+    host.host_sha512_modl(5, nb, _ptr(wh.numpy()), _ptr(wl.numpy()), _ptr(out))
+    want = sha512_kernel.plain_sha512_blocks_mod_l(wh, wl, nb).numpy()
+    assert np.array_equal(out, want)
+    for i in range(5):
+        digest = int.from_bytes(hashlib.sha512(msg[i].tobytes()).digest(), "little")
+        assert int.from_bytes(out[i].tobytes(), "little") == digest % L
+
+
+@pytest.mark.parametrize("case", ["top", "bottom", "random"])
+def test_fe_sq_matches_python_at_lazy_bound(host, case):
+    """fe_sq at its input bound (every limb below 3 times its width) is
+    the square mod p, and equals fe_mul(f, f)."""
+    rs = np.random.default_rng(len(case))
+    width = np.array([1 << (26 if i % 2 == 0 else 25) for i in range(10)], np.int64)
+    if case == "random":
+        limbs = rs.integers(-3 * width, 3 * width, (16, 10))
+    else:
+        sign = 1 if case == "top" else -1
+        limbs = np.tile(sign * (3 * width - 1), (16, 1))
+        limbs[1:] -= sign * rs.integers(0, width // 4, (15, 10))
+    limbs = np.ascontiguousarray(limbs.astype(np.int32))
+    sq = np.zeros((len(limbs), 32), np.uint8)
+    mul = np.zeros_like(sq)
+    host.host_fe_sq(len(limbs), _ptr(limbs), _ptr(sq), _ptr(mul))
+    assert np.array_equal(sq, mul)
+    for row, got in zip(limbs, sq):
+        value = sum(int(v) << ((i * 51 + 1) // 2) for i, v in enumerate(row))
+        assert int.from_bytes(got.tobytes(), "little") == value * value % P
+
+
+def _scalars(rs, n_random: int) -> np.ndarray:
+    vals = [0, 1, 15, 16, L - 1, L, 2**256 - 1]
+    vals += [int.from_bytes(rs.bytes(32), "little") % L for _ in range(n_random)]
+    return np.ascontiguousarray(np.stack([_le(v) for v in vals]))
+
+
+def test_fixed_base_lane_matches_plain(host):
+    s = _scalars(np.random.default_rng(2), 5)
+    table = E._base_table_bytes()
+    out = np.zeros((len(s), 4, 32), np.uint8)
+    host.host_fixed_base(len(s), _ptr(s), _ptr(np.ascontiguousarray(table)), _ptr(out))
+    want = treeadd.plain_fixed_base_fold(torch.tensor(s), torch.tensor(table))
+    assert np.array_equal(out, want.numpy())
+
+
+def test_window_verify_lane_matches_plain(host):
+    rs = np.random.default_rng(3)
+    n = 8
+    keys = [oracle.keypair(bytes([40 + i])) for i in range(n)]
+    msgs = [bytes(rs.integers(0, 256, 16, dtype=np.uint8)) for _ in range(n)]
+    sigs = [bytearray(oracle.sign(sk, pk, m)) for (sk, pk), m in zip(keys, msgs)]
+    sigs[2][40] ^= 1  # S
+    sigs[5][33] ^= 4
+    pk = torch.tensor(np.stack([np.frombuffer(k[1], np.uint8) for k in keys]))
+    sig = torch.tensor(np.stack([np.frombuffer(bytes(s), np.uint8) for s in sigs]))
+    msg = torch.tensor(np.stack([np.frombuffer(m, np.uint8) for m in msgs]))
+    pts, _ = E.decompress(torch.cat([pk, sig[:, :32]]))
+    left = E.fixed_base_mult(sig[:, 32:])
+    h = sha512.sha512_mod_l(torch.cat([sig[:, :32], pk, msg], dim=1))
+    a, r = pts[:n].contiguous().numpy(), pts[n:].contiguous().numpy()
+    ok = np.zeros(n, np.uint8)
+    host.host_window_verify(n, _ptr(a), _ptr(h.numpy()), _ptr(r), _ptr(left.numpy()), _ptr(ok))
+    want = ladder.plain_window_verify(pts[:n], h, pts[n:], left)
+    assert np.array_equal(ok.astype(bool), want.numpy())
+    assert ok.tolist() == [1, 1, 0, 1, 1, 0, 1, 1]

@@ -1,12 +1,15 @@
-"""The megastep kernel (K1, ``ba_tpu_torch/ops/csrc/megastep.cu``) against
-the port's plain engine on the card.
+"""The port's CUDA kernels against their plain versions on the card: K1
+(``ba_tpu_torch/ops/csrc/megastep.cu``), K2 (``sweep_step.cu``) and the
+Ed25519 kernels K7, K5, K4 and K3 (``decompress.cu``, ``sha512_modl.cu``,
+``treeadd.cu``, ``window_verify.cu``).
 
 These tests need a CUDA device and skip elsewhere.  On the card they
 run without the repository's conftest (which configures jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel.py
 
-Tolerance is zero: every output is integer and must be bit-equal.
+Tolerance is zero: every output is integer and must be bit-equal (the
+Ed25519 kernels' points are canonical encodings, so they are too).
 """
 
 import numpy as np
@@ -15,7 +18,8 @@ import torch
 
 from ba_tpu_torch import convert
 from ba_tpu_torch.core import rng
-from ba_tpu_torch.ops import scenario_step, sweep_step
+from ba_tpu_torch.crypto import ed25519, oracle, sha512, signed
+from ba_tpu_torch.ops import decompress, ladder, scenario_step, sha512_kernel, sweep_step, treeadd
 from ba_tpu_torch.parallel import pipeline
 from ba_tpu_torch.scenario.compile import ScenarioBlock
 
@@ -228,3 +232,130 @@ def test_sweep_step_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         sweep_step.fused_signed_sweep_step(seed, st.order, st.leader, st.faulty, st.alive,
                                            ok, 3, 1921)
+
+
+# -- K7, K5, K4, K3: the Ed25519 table verify ----------------------------------
+
+
+def _le(v: int) -> np.ndarray:
+    return np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+
+
+def _encodings(seed: int, S: int) -> np.ndarray:
+    """Edge encodings (y at p - 1, p, 2p - 2, x = 0 with sign 1), keys of
+    the native signer and random bytes: uint8 [S, 32]."""
+    P = oracle.P
+    rows = [_le(v) for v in (0, 1, P - 1, P, 2 * P - 2, 1 | (1 << 255))]
+    _, pks = signed.commander_keys(max(S // 2, 1), seed)
+    rs = np.random.default_rng(seed)
+    rows = np.concatenate([np.stack(rows), pks, rs.integers(0, 256, (S, 32), dtype=np.uint8)])
+    return np.ascontiguousarray(rows[:S])
+
+
+def _scalar_bytes(seed: int, S: int) -> np.ndarray:
+    L = oracle.L
+    rs = np.random.default_rng(seed)
+    vals = [0, 1, 15, 16, L - 1] + [int.from_bytes(rs.bytes(32), "little") % L for _ in range(S)]
+    return np.ascontiguousarray(np.stack([_le(v) for v in vals[:S]]))
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_decompress_kernel_bit_equal(cuda_device, S):
+    enc = torch.tensor(_encodings(S, S), device=cuda_device)
+    before = decompress.decompress.launches
+    pts, ok = decompress.decompress(enc)
+    assert decompress.decompress.launches == before + 1
+    want_pts, want_ok = decompress.plain_decompress(enc)
+    torch.cuda.synchronize()
+    assert torch.equal(pts, want_pts) and torch.equal(ok, want_ok)
+
+
+@pytest.mark.parametrize("nbytes", [0, 80, 200])
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_sha512_modl_kernel_bit_equal(cuda_device, S, nbytes):
+    msg = np.random.default_rng(S + nbytes).integers(0, 256, (S, nbytes), dtype=np.uint8)
+    wh, wl, nb = sha512._message_words(torch.tensor(msg, device=cuda_device))
+    before = sha512_kernel.sha512_blocks_mod_l.launches
+    got = sha512_kernel.sha512_blocks_mod_l(wh, wl, nb)
+    assert sha512_kernel.sha512_blocks_mod_l.launches == before + 1
+    want = sha512_kernel.plain_sha512_blocks_mod_l(wh, wl, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_fixed_base_kernel_bit_equal(cuda_device, S):
+    s_enc = torch.tensor(_scalar_bytes(S, S), device=cuda_device)
+    table = ed25519.base_table(cuda_device)
+    before = treeadd.fixed_base_fold.launches
+    got = treeadd.fixed_base_fold(s_enc, table)
+    assert treeadd.fixed_base_fold.launches == before + 1
+    want = treeadd.plain_fixed_base_fold(s_enc, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_window_verify_kernel_bit_equal(cuda_device, S):
+    """Real signatures, half with a corrupted S (and so a wrong [S]B)."""
+    sks, pks = signed.commander_keys(S, S)
+    msgs, sigs = signed.sign_value_tables(sks, pks, n_values=1)
+    sigs = sigs[:, 0].copy()
+    sigs[1::2, 40] ^= 1
+    dev = cuda_device
+    pk, sig = torch.tensor(pks, device=dev), torch.tensor(sigs, device=dev)
+    msg = torch.tensor(msgs[:, 0], device=dev)
+    pts, _ = decompress.decompress(torch.cat([pk, sig[:, :32]]))
+    h = sha512.sha512_mod_l(torch.cat([sig[:, :32], pk, msg], dim=1))
+    left = ed25519.fixed_base_mult(sig[:, 32:])
+    before = ladder.window_verify.launches
+    got = ladder.window_verify(pts[:S], h, pts[S:], left)
+    assert ladder.window_verify.launches == before + 1
+    want = ladder.plain_window_verify(pts[:S], h, pts[S:], left)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[0::2].all() and not got[1::2].any()
+
+
+def test_table_verify_on_card_matches_host(cuda_device):
+    sks, pks = signed.commander_keys(64, 9)
+    msgs, sigs = signed.sign_value_tables(sks, pks)
+    sigs = sigs.copy()
+    sigs[::5, 0, 7] ^= 1
+    sigs[1::5, 1, 45] ^= 1
+    got = signed.verify_received(pks, msgs, sigs, device=cuda_device)
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), signed.verify_host_exact(pks, msgs, sigs))
+    on_card = [torch.tensor(a, device=cuda_device) for a in (pks, msgs, sigs)]
+    assert torch.equal(signed.verify_received(*on_card, device=cuda_device), got)
+
+
+def test_table_verify_queues_without_waiting(cuda_device):
+    """The setup overlaps host signing with the card's verify only if
+    queueing a verify never waits for the card: no stream sync and no
+    blocking copy, from host arrays (pinned uploads) or card tensors."""
+    sks, pks = signed.commander_keys(16, 3)
+    msgs, sigs = signed.sign_value_tables(sks, pks)
+    on_card = [torch.tensor(a, device=cuda_device) for a in (pks, msgs, sigs)]
+    signed.verify_received(pks, msgs, sigs, device=cuda_device)  # builds, caches the table
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        from_host = signed.verify_received(pks, msgs, sigs, device=cuda_device)
+        from_card = signed.verify_received(*on_card, device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert from_host.all() and from_card.all()
+
+
+def test_ed25519_kernels_reject_bad_inputs(cuda_device):
+    enc = torch.zeros((4, 32), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        decompress.decompress(enc.int())
+    with pytest.raises(ValueError):
+        treeadd.fixed_base_fold(enc, ed25519.base_table(cuda_device)[:32])
+    pts = torch.zeros((4, 4, 32), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        ladder.window_verify(pts, enc[:3], pts, pts)
+    with pytest.raises(ValueError):
+        ladder.window_verify(pts, enc.t().contiguous().t(), pts, pts)

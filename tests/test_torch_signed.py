@@ -85,16 +85,62 @@ def test_sig_valid_from_tables(V):
 
 
 def test_setup_signed_tables():
-    sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(10, seed=2, device="cpu")
-    want_sks, want_pks = jsigned.commander_keys(10, 2)
+    """Two chunks of 3 and 2 commanders: keys, messages and signatures
+    byte-identical with the reference's, verdicts equal to its host
+    verifier's."""
+    sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(5, seed=2, device="cpu")
+    want_sks, want_pks = jsigned.commander_keys(5, 2)
     want_m, want_s = jsigned.sign_value_tables(want_sks, want_pks)
     assert sks == want_sks and np.array_equal(pks, np.asarray(want_pks))
     assert np.array_equal(msgs, want_m) and np.array_equal(sigs, want_s)
-    assert ok.dtype == torch.bool and ok.shape == (10, 2) and bool(ok.all())
-    assert timings["verify_route"] == "host"
-    for name in ("keys_s", "sign_s", "verify_s", "total_s"):
+    assert ok.dtype == torch.bool and ok.shape == (5, 2) and bool(ok.all())
+    assert np.array_equal(ok.numpy(), jsigned.verify_host_exact(pks, msgs, sigs))
+    assert timings["chunks"] == signed.SETUP_CHUNKS == 2
+    assert timings["device_sign"] is False and timings["verify_route"] == "plain"
+    for name in ("keys_s", "sign_s", "drain_s", "total_s"):
         assert timings[name] >= 0
-    assert timings["total_s"] >= timings["sign_s"]
+    assert timings["total_s"] >= timings["sign_s"] + timings["keys_s"]
+
+
+@pytest.fixture(scope="module")
+def corrupted_tables():
+    """6 commanders' tables with a corrupted R, S, message or key."""
+    sks, pks = signed.commander_keys(6, 5)
+    msgs, sigs = signed.sign_value_tables(sks, pks)
+    msgs, sigs, pks = msgs.copy(), sigs.copy(), pks.copy()
+    sigs[0, 1, 2] ^= 0x40    # R
+    sigs[1, 0, 50] ^= 0x01   # S
+    msgs[2, 1, 9] ^= 0x01    # the pad of the message
+    pks[3] = pks[4]          # another commander's key
+    return pks, msgs, sigs
+
+
+def test_verify_received_matches_host_exact(corrupted_tables):
+    pks, msgs, sigs = corrupted_tables
+    got = signed.verify_received(pks, msgs, sigs, device="cpu")
+    want = jsigned.verify_host_exact(pks, msgs, sigs)
+    assert got.dtype == torch.bool and got.shape == (6, 2)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), signed.verify_host_exact(pks, msgs, sigs))
+    assert (~got).sum() == 5
+
+
+def test_verify_received_chunks_and_pads(monkeypatch, corrupted_tables):
+    """12 signatures in chunks of 5: three dispatches, the last of the 2
+    left (no padding); the verdicts are the unchunked ones."""
+    pks, msgs, sigs = corrupted_tables
+    calls = []
+    verify = signed.ed25519.verify
+
+    def counting(pk, msg, sig):
+        calls.append(pk.shape[0])
+        return verify(pk, msg, sig)
+
+    monkeypatch.setattr(signed, "VERIFY_CHUNK", 5)
+    monkeypatch.setattr(signed.ed25519, "verify", counting)
+    got = signed.verify_received(pks, msgs, sigs, device="cpu")
+    assert calls == [5, 5, 2]
+    assert np.array_equal(got.numpy(), signed.verify_host_exact(pks, msgs, sigs))
 
 
 def test_tables_from_numpy():

@@ -1,0 +1,63 @@
+// The per-lane bodies of the Ed25519 kernels (ba_tpu_torch/ops/csrc/*.cu),
+// compiled as host C++ and looped over lanes, so the CPU tests can hold
+// the kernels' arithmetic against the plain versions without a card.
+// The CUDA launch code in each source sits behind __CUDACC__ and is not
+// compiled here; K4's warp-shuffle levels are replayed in the same
+// pairing by fixed_base below.
+//
+//   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
+
+#include "decompress.cu"
+#include "sha512_modl.cu"
+#include "treeadd.cu"
+#include "window_verify.cu"
+
+extern "C" {
+
+void host_decompress(int n, const uint8_t* enc, uint8_t* pts, uint8_t* ok) {
+    for (int i = 0; i < n; i++) decompress_lane(enc + 32 * i, pts + 128 * i, ok + i);
+}
+
+void host_sha512_modl(int n, int n_blocks, const int64_t* wh, const int64_t* wl, uint8_t* out) {
+    for (int i = 0; i < n; i++)
+        sha512_modl_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks, out + 32 * i);
+}
+
+void host_fixed_base(int n, const uint8_t* s, const uint8_t* table, uint8_t* out) {
+    for (int i = 0; i < n; i++) {
+        ge part[8];
+        for (int p = 0; p < 8; p++) tree8_part(part[p], table, s + 32 * i, p);
+        for (int m = 1; m < 8; m <<= 1) {  // the kernel's shuffle levels
+            ge next[8];
+            for (int p = 0; p < 8; p++) {
+                const bool upper = (p & m) != 0;
+                ge lo, hi;
+                ge_select(lo, part[p ^ m], part[p], upper);
+                ge_select(hi, part[p], part[p ^ m], upper);
+                ge_add(next[p], lo, hi);
+            }
+            for (int p = 0; p < 8; p++) part[p] = next[p];
+        }
+        ge_tobytes4(out + 128 * i, part[0]);
+    }
+}
+
+// fe_sq and fe_mul(f, f) of the same limbs, as canonical encodings.
+void host_fe_sq(int n, const int32_t* f, uint8_t* sq, uint8_t* mul) {
+    for (int i = 0; i < n; i++) {
+        fe a, s, m;
+        fe_load(a, f + 10 * i);
+        fe_sq(s, a);
+        fe_mul(m, a, a);
+        fe_tobytes(sq + 32 * i, s);
+        fe_tobytes(mul + 32 * i, m);
+    }
+}
+
+void host_window_verify(int n, const uint8_t* a, const uint8_t* h, const uint8_t* r,
+                        const uint8_t* left, uint8_t* ok) {
+    for (int i = 0; i < n; i++)
+        ok[i] = window_verify_lane(a + 128 * i, h + 32 * i, r + 128 * i, left + 128 * i) ? 1 : 0;
+}
+
+}  // extern "C"
