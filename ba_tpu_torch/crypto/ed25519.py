@@ -1,7 +1,8 @@
-"""Batched Ed25519 verification over torch tensors, through four kernels.
+"""Batched Ed25519 signing and verification over torch tensors, through
+the Ed25519 kernels.
 
-The port of ``ba_tpu/crypto/ed25519.py``'s verify path.  It checks the RFC
-8032 equation without cofactor multiplication,
+The port of ``ba_tpu/crypto/ed25519.py``'s sign and verify paths.
+Verify checks the RFC 8032 equation without cofactor multiplication,
 
     [S]B == R + [h]A,   h = SHA-512(R || A || M) mod L,
 
@@ -23,8 +24,15 @@ arithmetic (``crypto/field.py``) works on (X, Y, Z, T) tuples of [..., 22]
 limb tensors; :func:`point_add`, :func:`point_dbl` and :func:`point_eq`
 are the formulas the kernels evaluate, term for term.
 
-``compress``, ``sign``, ``scalar_mult`` and ``verify_rlc`` are not ported
-yet (ROADMAP Queue 1 item 12).
+:func:`sign` (RFC 8032 5.1.6) composes five wrappers in six launches:
+K5' ``ops/sha512_kernel.sha512_blocks`` for the key expansion, K5 for
+the nonce r and the challenge k, K4 for R = [r]B, K8
+``ops/powchain.compress`` for R's encoding and K6
+``ops/modl.reduce_mod_l_planes`` for S = (r + k a) mod L, with
+``scalar.muladd_bytes`` (torch) before it.
+
+``scalar_mult`` and ``verify_rlc`` are not ported yet (ROADMAP Queue 1
+item 12).
 """
 
 from __future__ import annotations
@@ -178,6 +186,51 @@ def fixed_base_mult(s_enc: torch.Tensor) -> torch.Tensor:
 
     s_enc = s_enc.contiguous()
     return fixed_base_fold(s_enc, base_table(s_enc.device))
+
+
+def compress_point(p: Point) -> torch.Tensor:
+    """Point limbs -> 32-byte encodings [..., 32]: the canonical y with the
+    low bit of the canonical x in bit 255, 1/Z through ``field.inv``
+    (``ba_tpu/crypto/ed25519.py:213``, K8's plain version)."""
+    x, y, z, _ = p
+    zi = F.inv(z)
+    xa = F.canonical(F.mul(x, zi))
+    by = F.to_bytes(F.mul(y, zi))
+    sign = ((xa[..., 0] & 1) << 7).to(torch.uint8)
+    return torch.cat([by[..., :31], by[..., 31:] | sign[..., None]], dim=-1)
+
+
+def compress(pts: torch.Tensor) -> torch.Tensor:
+    """Points uint8 [N, 4, 32] -> 32-byte encodings [N, 32], through K8."""
+    from ba_tpu_torch.ops.powchain import compress as k8
+
+    return k8(pts.contiguous())
+
+
+def clamp_scalar(h32: torch.Tensor) -> torch.Tensor:
+    """RFC 8032 5.1.5 clamp of the low digest half -> the secret scalar a:
+    clear the 3 low bits, clear bit 255, set bit 254."""
+    return torch.cat([h32[..., :1] & 0xF8, h32[..., 1:31], (h32[..., 31:] & 0x3F) | 0x40],
+                     dim=-1)
+
+
+def sign(sk: torch.Tensor, pk: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
+    """Batched signing: sk [B, 32], pk [B, 32], msg [B, M] uint8 on one
+    device -> sig [B, 64], byte-identical to ``oracle.sign`` lane for lane
+    (``ba_tpu/crypto/ed25519.py:407``, term for term).  r is reduced mod L
+    before [r]B, which gives the oracle's point and bytes: B generates the
+    prime-order subgroup."""
+    from ba_tpu_torch.crypto.scalar import muladd_bytes
+    from ba_tpu_torch.crypto.sha512 import sha512, sha512_mod_l
+    from ba_tpu_torch.ops.modl import reduce_mod_l_planes
+
+    h1 = sha512(sk)
+    a = clamp_scalar(h1[:, :32])
+    r = sha512_mod_l(torch.cat([h1[:, 32:], msg], dim=-1))
+    r_enc = compress(fixed_base_mult(r))
+    k = sha512_mod_l(torch.cat([r_enc, pk, msg], dim=-1))
+    s = reduce_mod_l_planes(muladd_bytes(k, a, r))
+    return torch.cat([r_enc, s], dim=-1)
 
 
 def verify(pk: torch.Tensor, msg: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:

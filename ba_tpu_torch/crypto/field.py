@@ -171,6 +171,22 @@ def sqrt_chain(z, mul=mul, sq_n=sq_n):
     return mul(sq_n(_tower_250(z, mul, sq_n), 2), z)
 
 
+def inv_chain(z, mul=mul, sq_n=sq_n):
+    """z^(p - 2) = 1/z: p - 2 = (2^250 - 1) * 2^5 + 11, so t_250^32 * z^11,
+    257 squarings and 13 multiplies (``ba_tpu/ops/powchain.py:74``).
+    z = 0 gives 0."""
+    z2 = sq_n(z, 1)
+    z9 = mul(sq_n(z2, 2), z)
+    z11 = mul(z9, z2)
+    return mul(sq_n(_tower_250(z, mul, sq_n), 5), z11)
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """1/a through the addition chain.  The reference's ``field.inv`` is
+    ``pow_const(a, p - 2)``: the same canonical value, other limbs."""
+    return inv_chain(a)
+
+
 def canonical(a: torch.Tensor) -> torch.Tensor:
     """Fully reduce to the canonical representative in [0, p), every limb
     in [0, 4096).  Input: any multiply-safe lazy value, even negative."""

@@ -9,10 +9,14 @@ inside it; here they are int64, which changes no value.
 
 Three folds at the 2^256 limb boundary shrink 512 bits to ~258, then one
 exact fold at 2^252 and one conditional subtract land in [0, L).  It is
-K5's plain tail (``ba_tpu_torch/ops/sha512_kernel.py``).
+K5's plain tail (``ba_tpu_torch/ops/sha512_kernel.py``) and K6's plain
+version (``ops/modl.py``).  ``muladd_bytes`` is the signer's k * a + r,
+byte-identical with the reference's too.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -73,6 +77,40 @@ def _exact_chain(v: torch.Tensor) -> torch.Tensor:
         outs.append(x & 0xFF)
         c = x >> 8
     return torch.stack(outs, dim=-1)
+
+
+def _bytes_from_signed_limbs(v: torch.Tensor, total: int, extra: int = 2) -> torch.Tensor:
+    """Signed limbs of a non-negative value -> canonical uint8 [..., total]
+    (zero-padded): three parallel passes, then one exact chain.  The value
+    must fit ``8 * (v.shape[-1] + extra)`` bits, or the top carry is lost
+    (``ba_tpu/crypto/scalar.py:170``)."""
+    v = _exact_chain(_carry(v.to(torch.int64), passes=3, extra=extra))
+    return _pad(v, max(0, total - v.shape[-1]))[..., :total].to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _columns32(device: torch.device) -> torch.Tensor:
+    """Column i + j of the flat limb product k[i] * a[j] (index i*32 + j)."""
+    i = torch.arange(32, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+def muladd_bytes(k_bytes: torch.Tensor, a_bytes: torch.Tensor,
+                 r_bytes: torch.Tensor) -> torch.Tensor:
+    """Batched ``k * a + r`` settled to canonical bytes, unreduced: k, a, r
+    uint8 [..., 32] little-endian -> uint8 [..., 64] (the value is below
+    2^512; ``ba_tpu/crypto/scalar.py:208``).  The signer's S before its
+    reduction mod L.  The 63 columns of the 32 x 32 schoolbook product are
+    summed in int32 with ``index_add_`` (the reference multiplies by a 0/1
+    matrix, and a float product on the card may run in TF32); terms peak
+    at 32 * 255^2 + 255 ~ 2.08e6."""
+    k = k_bytes.to(torch.int32)
+    a = a_bytes.to(torch.int32)
+    flat = (k[..., :, None] * a[..., None, :]).reshape(*k.shape[:-1], 32 * 32)
+    conv = torch.zeros((*k.shape[:-1], 63), dtype=torch.int32, device=k.device)
+    conv.index_add_(-1, _columns32(k.device), flat)
+    conv = torch.cat([conv[..., :32] + r_bytes.to(torch.int32), conv[..., 32:]], dim=-1)
+    return _bytes_from_signed_limbs(conv, 64)
 
 
 def _fold_256(v: torch.Tensor, keep: int) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Batched SHA-512 over torch integer tensors: the plain version of K5.
+"""Batched SHA-512 over torch integer tensors: the plain versions of K5
+and K5'.
 
 The port's copy of ``ba_tpu/crypto/sha512.py``.  Every 64-bit word is an
 (hi, lo) pair of 32-bit halves held in int64 tensors, as the reference
@@ -6,7 +7,7 @@ holds uint32 pairs: torch's ``>>`` on int64 is an arithmetic shift and its
 uint64 support is partial, so the halves stay in [0, 2^32) and are masked
 after every left shift and add.  The 80 rounds unroll in Python with the
 message schedule as a list, as the reference's kernel body does.  The
-CUDA kernel (``ops/csrc/sha512_modl.cu``) uses native ``uint64_t``.
+CUDA kernels (``ops/csrc/sha512_modl.cu``) use native ``uint64_t``.
 
 The round constants and initial state are computed as the reference
 computes them (the first 64 fractional bits of the cube and square roots
@@ -177,9 +178,13 @@ def digest_bytes(state: list) -> torch.Tensor:
 
 
 def sha512(msg: torch.Tensor) -> torch.Tensor:
-    """Batched SHA-512: uint8 [B, L] -> uint8 [B, 64]."""
+    """Batched SHA-512: uint8 [B, L] -> uint8 [B, 64], through K5'
+    (``ops/sha512_kernel.sha512_blocks``): its kernel on a CUDA tensor,
+    its plain version on a CPU one."""
+    from ba_tpu_torch.ops.sha512_kernel import sha512_blocks
+
     wh, wl, n_blocks = _message_words(msg)
-    return digest_bytes(compress_blocks(wh, wl, n_blocks))
+    return sha512_blocks(wh, wl, n_blocks)
 
 
 def sha512_mod_l(msg: torch.Tensor) -> torch.Tensor:

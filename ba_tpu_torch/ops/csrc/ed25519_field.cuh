@@ -1,7 +1,8 @@
 // GF(2^255 - 19) and Edwards-curve arithmetic shared by the Ed25519
-// kernels K7 (decompress.cu), K5 (sha512_modl.cu, for the scalar
-// constants only), K4 (treeadd.cu) and K3 (window_verify.cu): the Hopper
-// counterpart of ba_tpu/ops/planes.py and ba_tpu/ops/powchain.py.
+// kernels K7 (decompress.cu), K4 (treeadd.cu), K3 (window_verify.cu) and
+// K8 (powchain.cu), and the ED_FN / ED_CONST macros of K5, K5' and K6
+// (sha512_modl.cu, modl.cu): the Hopper counterpart of
+// ba_tpu/ops/planes.py and ba_tpu/ops/powchain.py.
 //
 // Radix.  The TPU reference keeps 22 signed 12-bit limbs in int32 because
 // the TPU has no 64-bit integer unit.  Here a field element is ref10's
@@ -302,6 +303,19 @@ ED_FN void fe_sqrt_chain(fe& out, const fe& z) {
     fe_tower_250(t, z);
     fe_sq_n(t, t, 2);
     fe_mul(out, t, z);
+}
+
+// z^(p-2) = 1/z = t_250^32 * z^11 (ba_tpu/ops/powchain.py:74): 257
+// squarings and 13 multiplies; z = 0 gives 0.
+ED_FN void fe_inv_chain(fe& out, const fe& z) {
+    fe z2, z11, t;
+    fe_sq(z2, z);
+    fe_sq_n(t, z2, 2);
+    fe_mul(t, t, z);     // z^9
+    fe_mul(z11, t, z2);  // z^11
+    fe_tower_250(t, z);
+    fe_sq_n(t, t, 5);
+    fe_mul(out, t, z11);
 }
 
 // -- points ------------------------------------------------------------------

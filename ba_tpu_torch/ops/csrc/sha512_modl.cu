@@ -1,26 +1,28 @@
-// K5: SHA-512 of padded blocks, then the digest mod L, one thread a lane.
+// K5: SHA-512 of padded blocks, then the digest mod L; and K5': the same
+// compression with the 64-byte digest written out.  One thread a lane.
 //
-// Replaces ba_tpu/ops/sha512_kernel.py::_sha_modl_kernel (the Pallas TPU
-// kernel), which chains the compression into ba_tpu/ops/modl.py::
-// modl_core without writing the digest out.  On the TPU a 64-bit word is
-// an (hi, lo) pair of uint32 planes; here it is a native uint64_t, and
-// the 80 rounds unroll with the message schedule in a 16-word ring of
-// registers.  The 64 digest bytes go straight into modl_core's fold plan
-// (three folds at 2^256 = -16 delta, an exact fold at 2^252, one
-// conditional subtract of L), in int64 limbs where the reference keeps
-// int32 (no value changes).
+// K5 replaces ba_tpu/ops/sha512_kernel.py::_sha_modl_kernel (the Pallas
+// TPU kernel), which chains the compression into ba_tpu/ops/modl.py::
+// modl_core without writing the digest out; K5' replaces _sha_kernel in
+// the same file, the raw compression (the signer's key expansion
+// SHA-512(sk)).  On the TPU a 64-bit word is an (hi, lo) pair of uint32
+// planes; here it is a native uint64_t, and the 80 rounds unroll with the
+// message schedule in a 16-word ring of registers.  K5's 64 digest bytes
+// go straight into modl_core's fold plan (modl.cuh).  The reference's
+// _sha_kernel writes the 16 state halves; K5' writes them as the digest's
+// bytes (big-endian words), which is what its caller hashes them into.
 //
 // Bound: operations.  A block is 80 rounds of ~30 64-bit operations
 // (~60 int32 ones) plus the schedule; the fold is ~1.5k small ops.  The
-// bytes (256 a block in, as (hi, lo) int64 halves, 32 out) are far
+// bytes (256 a block in, as (hi, lo) int64 halves, 32 or 64 out) are far
 // below.  The design keeps the block and the digest in registers.
 //
 // Interface: wh, wl int64 [n, n_blocks, 16] (big-endian 32-bit halves of
 // the padded message words, as ba_tpu/crypto/sha512.py::_message_words
-// lays them out) -> out uint8 [n, 32] = SHA-512(message) mod L, little
-// endian.
+// lays them out) -> K5: out uint8 [n, 32] = SHA-512(message) mod L, little
+// endian; K5': out uint8 [n, 64] = SHA-512(message).
 
-#include "ed25519_field.cuh"
+#include "modl.cuh"
 
 // FIPS 180-4's round constants and initial state; held against the plain
 // module's computed values by tests/test_torch_sha512.py.
@@ -51,14 +53,6 @@ ED_CONST uint64_t SHA512_H0[8] = {
     0x510e527fade682d1ULL, 0x9b05688c2b3e6c1fULL, 0x1f83d9abfb41bd6bULL, 0x5be0cd19137e2179ULL,
 };
 
-// L = 2^252 + delta in little-endian bytes, delta, and C16 = 16 delta
-// (2^256 = -C16 mod L); held against the oracle's L by the same test.
-ED_CONST int32_t MODL_L[32] = {
-    237, 211, 245, 92, 26, 99, 18, 88, 214, 156, 247, 162, 222, 249, 222, 20,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 16};
-ED_CONST int32_t MODL_C16[17] = {
-    208, 62, 93, 207, 165, 49, 38, 129, 101, 205, 121, 47, 234, 157, 239, 77, 1};
-
 ED_FN uint64_t rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
 
 ED_FN void sha512_block(uint64_t st[8], uint64_t w[16]) {
@@ -84,71 +78,8 @@ ED_FN void sha512_block(uint64_t st[8], uint64_t w[16]) {
     st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
-// One exact sequential base-256 pass over v[0..n); the signed final
-// carry lands in v[n-1] (ba_tpu/ops/modl.py::_carry_seq).
-ED_FN void modl_carry_seq(int64_t* v, int n) {
-    int64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < n - 1; i++) {
-        const int64_t x = v[i] + c;
-        c = x >> 8;
-        v[i] = x - c * 256;
-    }
-    v[n - 1] += c;
-}
-
-// v[0..n_in) -> v[0..n_out): value = lo - hi * C16 (mod L), hi = v[32..),
-// n_out = max(32, 16 + n_in - 32); limbs 32.. of the input are consumed.
-ED_FN void modl_fold256(int64_t* v, int n_in) {
-    int64_t hi[32];
-    const int nh = n_in - 32;
-#pragma unroll
-    for (int i = 0; i < 32; i++) hi[i] = i < nh ? v[32 + i] : 0;
-#pragma unroll
-    for (int i = 32; i < 64; i++) v[i] = 0;
-#pragma unroll
-    for (int j = 0; j < 17; j++)
-#pragma unroll
-        for (int i = 0; i < 32; i++)
-            if (i < nh) v[j + i] -= MODL_C16[j] * hi[i];
-}
-
-// modl_core (ba_tpu/ops/modl.py:69): 64 digest bytes -> 32 bytes mod L.
-ED_FN void modl_core(int64_t v[64], uint8_t out[32]) {
-    modl_fold256(v, 64);   // 48 limbs
-    modl_carry_seq(v, 49); // |value| < 2^385
-    modl_fold256(v, 49);   // 33 limbs
-    modl_carry_seq(v, 34); // |value| < 2^260
-    modl_fold256(v, 34);   // 32 limbs; |value| < 2^258
-    v[32] = 0;
-    v[33] = 0;
-#pragma unroll
-    for (int i = 0; i < 32; i++) v[i] += 4 * MODL_L[i];
-    modl_carry_seq(v, 34); // value in (0, 2^259)
-    // Exact fold at 2^252: hi <= 143.
-    const int64_t hi = (v[31] >> 4) + v[32] * 16 + v[33] * 4096;
-    v[31] &= 0xF;
-    v[32] = 0;
-#pragma unroll
-    for (int j = 0; j < 16; j++) v[j] -= hi * MODL_L[j];  // L's low 16 bytes are delta
-#pragma unroll
-    for (int i = 0; i < 32; i++) v[i] += MODL_L[i];
-    modl_carry_seq(v, 33); // value in (0, 2L), v[32] == 0
-    int64_t diff[33];
-    int64_t borrow = 0;
-#pragma unroll
-    for (int i = 0; i < 33; i++) {
-        const int64_t x = v[i] - (i < 32 ? MODL_L[i] : 0) + borrow;
-        borrow = x >> 8;
-        diff[i] = x - borrow * 256;
-    }
-    const bool ge = borrow >= 0;  // no final borrow: value >= L
-#pragma unroll
-    for (int i = 0; i < 32; i++) out[i] = (uint8_t)(ge ? diff[i] : v[i]);
-}
-
-ED_FN void sha512_modl_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8_t* out) {
-    uint64_t st[8];
+// The state after n_blocks blocks from the initial state.
+ED_FN void sha512_state(uint64_t st[8], const int64_t* wh, const int64_t* wl, int n_blocks) {
 #pragma unroll
     for (int i = 0; i < 8; i++) st[i] = SHA512_H0[i];
 #pragma unroll 1
@@ -159,12 +90,25 @@ ED_FN void sha512_modl_lane(const int64_t* wh, const int64_t* wl, int n_blocks, 
             w[i] = ((uint64_t)wh[16 * blk + i] << 32) | ((uint64_t)wl[16 * blk + i] & 0xffffffffULL);
         sha512_block(st, w);
     }
+}
+
+// Byte k of the digest: big-endian state words.
+#define SHA512_DIGEST_BYTE(st, k) (((st)[(k) >> 3] >> (56 - 8 * ((k) & 7))) & 0xff)
+
+ED_FN void sha512_modl_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8_t* out) {
+    uint64_t st[8];
+    sha512_state(st, wh, wl, n_blocks);
     int64_t v[64];
 #pragma unroll
-    for (int i = 0; i < 8; i++)
-#pragma unroll
-        for (int k = 0; k < 8; k++) v[8 * i + k] = (int64_t)((st[i] >> (56 - 8 * k)) & 0xff);
+    for (int k = 0; k < 64; k++) v[k] = (int64_t)SHA512_DIGEST_BYTE(st, k);
     modl_core(v, out);
+}
+
+ED_FN void sha512_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8_t* out) {
+    uint64_t st[8];
+    sha512_state(st, wh, wl, n_blocks);
+#pragma unroll
+    for (int k = 0; k < 64; k++) out[k] = (uint8_t)SHA512_DIGEST_BYTE(st, k);
 }
 
 #if defined(__CUDACC__)
@@ -179,10 +123,28 @@ __global__ void __launch_bounds__(128) sha512_modl_kernel(int n, int n_blocks,
     sha512_modl_lane(wh + off, wl + off, n_blocks, out + 32 * (size_t)lane);
 }
 
+__global__ void __launch_bounds__(128) sha512_kernel(int n, int n_blocks,
+                                                     const int64_t* __restrict__ wh,
+                                                     const int64_t* __restrict__ wl,
+                                                     uint8_t* __restrict__ out) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= n) return;
+    const size_t off = (size_t)lane * n_blocks * 16;
+    sha512_lane(wh + off, wl + off, n_blocks, out + 64 * (size_t)lane);
+}
+
 extern "C" int ba_sha512_modl(int n, int n_blocks, const void* wh, const void* wl, void* out,
                               void* stream) {
     if (n <= 0) return 0;
     sha512_modl_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (uint8_t*)out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ba_sha512(int n, int n_blocks, const void* wh, const void* wl, void* out,
+                         void* stream) {
+    if (n <= 0) return 0;
+    sha512_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
         n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (uint8_t*)out);
     return (int)cudaGetLastError();
 }

@@ -9,18 +9,22 @@ Three paths, each through its hand-written kernels:
   ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
   kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
 - the setup of BASELINE config #5's signed sweep (``bench.py``'s
-  ``bench_sweep10k_signed``) as the reference's host-sign mode runs it:
-  ``setup_signed_tables`` signs on the host while the card verifies the
-  tables through ``crypto/ed25519.verify``, that is K7 (``decompress.cu``),
-  K5 (``sha512_modl.cu``), K4 (``treeadd.cu``) and K3
-  (``window_verify.cu``);
+  ``bench_sweep10k_signed``), ``setup_signed_tables``: by default it signs
+  on the card in one chunk, as the reference does on its accelerator,
+  through ``crypto/ed25519.sign``, that is K5' and K5
+  (``sha512_modl.cu``), K4 (``treeadd.cu``), K8 (``powchain.cu``) and K6
+  (``modl.cu``), then verifies the tables there through
+  ``crypto/ed25519.verify``, that is K7 (``decompress.cu``), K5, K4 and
+  K3 (``window_verify.cu``); its host-sign route (the reference's
+  BA_TPU_SIGN_DEVICE=0 mode, two chunks, the host signing while the card
+  verifies) runs beside it;
 - the signed sweep's timed step (its dispatch loop) through K2, the
   sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``).
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
-   together: one nvcc a CUDA source (six) and the native Ed25519 signer
-   (g++);
+   together: one nvcc a CUDA source (eight) and the native Ed25519
+   signer (g++);
 2. threefry and Philox4x32-10 known answers on the card, the latter
    through the very Philox rounds K2 draws from (its source's
    ``philox4x32_10``) as well as through the plain version;
@@ -44,31 +48,41 @@ Phases, one JSON line each:
 7. Ed25519 known answers on the card: oracle-made signatures with every
    rejection path (corrupted R, S, message or key; y >= p; a non-square
    y; x = 0 with sign 1; S >= L) verify as the oracle says, the RFC 8032
-   vectors verify, and K5 equals hashlib's digest mod L on 256 random
-   80-byte messages;
-8. K7, K5, K4 and K3 against their plain versions at S in {1, 37, 1024,
-   4096}: half real signatures, half edge values (y at p - 1, p and
-   2p - 2, the identity, x = 0 with sign 1; scalars 0, 1, 15, 16, L - 1,
-   2^256 - 1) and random bytes — verdicts, scalars and canonical point
-   encodings bit-equal;
-9. the setup at full width: ``setup_signed_tables(10 240)``, 20 480
-   table signatures in 2 chunks, host signing overlapped with the card's
-   verify, every verdict True; then a copy with every 7th signature
-   corrupted (R, S or message in turn), its card verdicts equal to the
-   native host verifier's on all 20 480; keys, sign, drain and total
-   times, the warm device verify of one chunk (CUDA events) and the host
+   vectors verify and the card's ``sign`` reproduces their signatures,
+   ``sign`` equals the oracle's on 32 keys (the all-zero secret key
+   among them), K5 equals hashlib's digest mod L on 256 random 80-byte
+   messages and K5' hashlib's digest on messages of 0 to 300 bytes;
+8. K7, K5, K5', K6, K4, K8 and K3 against their plain versions at S in
+   {1, 37, 1024, 4096}: half real signatures, half edge values (y at
+   p - 1, p and 2p - 2, the identity, x = 0 with sign 1; scalars 0, 1,
+   15, 16, L - 1, 2^256 - 1; 512-bit values 0, 2^512 - 1, L - 1, L, 2L
+   and muladd_bytes' largest; the identity, B and [s]B with Z != 1) and
+   random bytes — verdicts, scalars, digests, encodings and canonical
+   point encodings bit-equal;
+9. the setup at full width, ``setup_signed_tables(10 240)``, 20 480
+   table signatures: first the default device-sign route (one chunk,
+   warmed by a throwaway key-set; its queueing held under
+   ``torch.cuda.set_sync_debug_mode("error")`` up to its one fetch on a
+   second throwaway key-set) — every signature byte-equal to the native
+   host signer's, every verdict True, launches K5' 1, K5 3, K4 2, K8 1,
+   K6 1, K7 1, K3 1; then the host-sign route (two chunks, the host
+   signing chunk c + 1 while the card verifies chunk c, warmed alike);
+   then a copy with every 7th signature corrupted (R, S or message in
+   turn), its card verdicts equal to the native host verifier's on all
+   20 480; each route's keys, sign, drain and total times, the warm
+   device sign and verify of the whole batch (CUDA events) and the host
    verify of the same tables;
 10. the signed sweep at full width: ``bucketed_sweep_states(key(5),
    10240, 1024, 2)``, m = 3, one 480-round K2 dispatch per bucket a step,
    seeds from ``fold_in(fold_in(key(6), step), bucket)``, on the verdicts
-   of phase 9; as ``bench.py`` times it, one warm-up step, then 3 windows
-   of 50 steps (steps r * 50 + 1 .. r * 50 + 50) — every one of the
-   10 240 x 480 x 151 decisions ATTACK (SM validity); agreement-rounds/s
-   of each window by host wall clock, the best (``bench.py``'s reading)
-   and the spread;
-11. the sweep's rate with phase 9's setup charged at ``bench.py``'s
-   horizons of 50, 100, 500 and 5000 steps (sign on the host, verify on
-   the card: the reference's BA_TPU_SIGN_DEVICE=0 path);
+   of phase 9's device-sign setup; as ``bench.py`` times it, one warm-up
+   step, then 3 windows of 50 steps (steps r * 50 + 1 .. r * 50 + 50) —
+   every one of the 10 240 x 480 x 151 decisions ATTACK (SM validity);
+   agreement-rounds/s of each window by host wall clock, the best
+   (``bench.py``'s reading) and the spread;
+11. the sweep's rate with phase 9's setups charged at ``bench.py``'s
+   horizons of 50, 100, 500 and 5000 steps, for each route (sign and
+   verify on the card; sign on the host, verify on the card);
 12. faulty leaders in every fourth instance of the same buckets, and in
    every eighth only 4 to 8 generals alive with a traitor lieutenant:
    one 480-round dispatch per bucket against the plain version in full
@@ -77,11 +91,14 @@ Phases, one JSON line each:
    against the port's ``core/sm.py`` composition (threefry draws) within
    6 sqrt(count);
 then the kernels line, built by replaying the main paths' own dispatches
-with the same keys, inputs and shapes: each replay held against the plain
+with the same keys, inputs and shapes (for the Ed25519 kernels, every
+dispatch of the device-sign setup): each replay held against the plain
 version and against the main path's outputs, with the launches on the
-main path, the time, bound and plain time of a dispatch, and the largest
-difference from the plain version; then the card's name and power limit,
-and ``{"ok": true, ...}`` last.  Any failure exits non-zero before that.
+main path, the time, bound and plain time of a dispatch (of all a
+kernel's dispatches in the setup, for the Ed25519 kernels), and the
+largest difference from the plain version; then the card's name and
+power limit, and ``{"ok": true, ...}`` last.  Any failure exits non-zero
+before that.
 """
 
 from __future__ import annotations
@@ -104,9 +121,9 @@ from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.om import round1_broadcast
 from ba_tpu_torch.core.state import SimState
 from ba_tpu_torch.core.types import ATTACK
-from ba_tpu_torch.crypto import ed25519, oracle, sha512, signed
-from ba_tpu_torch.ops import (_build, decompress, ladder, scenario_step, sha512_kernel,
-                              sweep_step, treeadd)
+from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
+from ba_tpu_torch.ops import (_build, decompress, ladder, modl, powchain, scenario_step,
+                              sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
@@ -130,18 +147,28 @@ STEPS_SIGNED, WINDOWS_SIGNED = 50, 3  # bench.py's iters and reps
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
-                "treeadd.cu", "window_verify.cu")
+                "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu")
 # The Ed25519 kernels: (name, wrapper, source, the TPU kernel it replaces).
 ED_KERNELS = {
-    "K7": ("decompress", decompress.decompress, "ba_tpu_torch/ops/csrc/decompress.cu",
-           "ba_tpu/ops/decompress.py:45"),
+    "K5'": ("sha512", sha512_kernel.sha512_blocks, "ba_tpu_torch/ops/csrc/sha512_modl.cu",
+            "ba_tpu/ops/sha512_kernel.py:43"),
     "K5": ("sha512_modl", sha512_kernel.sha512_blocks_mod_l,
            "ba_tpu_torch/ops/csrc/sha512_modl.cu", "ba_tpu/ops/sha512_kernel.py:98"),
     "K4": ("fixed_base_tree", treeadd.fixed_base_fold, "ba_tpu_torch/ops/csrc/treeadd.cu",
            "ba_tpu/ops/treeadd.py:49"),
+    "K8": ("compress_inv_chain", powchain.compress, "ba_tpu_torch/ops/csrc/powchain.cu",
+           "ba_tpu/ops/powchain.py:101"),
+    "K6": ("modl", modl.reduce_mod_l_planes, "ba_tpu_torch/ops/csrc/modl.cu",
+           "ba_tpu/ops/modl.py:65"),
+    "K7": ("decompress", decompress.decompress, "ba_tpu_torch/ops/csrc/decompress.cu",
+           "ba_tpu/ops/decompress.py:45"),
     "K3": ("window_verify", ladder.window_verify, "ba_tpu_torch/ops/csrc/window_verify.cu",
            "ba_tpu/ops/ladder.py:121"),
 }
+# Launches of each on the device-sign setup: sign (K5', K5 twice, K4, K8, K6),
+# then verify (K7, K5, K4, K3).
+DEVICE_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 1, "K6": 1, "K7": 1, "K3": 1}
+HOST_SETUP_LAUNCHES = {"K5'": 0, "K5": 2, "K4": 2, "K8": 0, "K6": 0, "K7": 2, "K3": 2}
 # int32 operations of one field multiply in the kernels' radix (ed25519_field.cuh
 # fe_mul): 100 32x32->64 multiply-adds (2 each), the 9 wrapped columns times 19
 # (4 each), the 11-step carry chain in int64 (10 each), 5 doublings; of one
@@ -152,8 +179,9 @@ FE_SQ_OPS = 55 * 2 + 9 * 4 + 11 * 10 + 13
 # around it; K4 63 additions, 31 of 9 and 32 of two affine table entries at 8;
 # K3 14 additions of 9 for the table, 64 windows of 4 doublings (4 multiplies and
 # 3 squarings each, one more multiply for T on the fourth) and an addition, then
-# 9 + 4.
+# 9 + 4; K8 the p - 2 chain (13, 257) and x / Z, y / Z.
 K7_WORK, K4_WORK, K3_WORK = (20, 255), (31 * 9 + 32 * 8, 0), (14 * 9 + 64 * 26 + 13, 64 * 12)
+K8_WORK = (15, 257)
 
 
 def field_ops(work):
@@ -359,7 +387,8 @@ def phase_env(dev):
         jobs = {name: pool.submit(timed, _build.build, name) for name in CUDA_SOURCES}
         jobs["native"] = pool.submit(timed, native.build)
         build_s = {name: job.result() for name, job in jobs.items()}
-    for module in (scenario_step, sweep_step, decompress, sha512_kernel, treeadd, ladder):
+    for module in (scenario_step, sweep_step, decompress, sha512_kernel, treeadd, ladder, modl,
+                   powchain):
         module._lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
     ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
@@ -683,14 +712,17 @@ def phase_k2_middle(dev, rs):
 
 # -- K7, K5, K4, K3: the Ed25519 table verify ---------------------------------
 
-RFC8032 = (  # RFC 8032 section 7.1, tests 1 and 2: (public key, message, signature)
-    ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
+RFC8032 = (  # RFC 8032 section 7.1, tests 1 and 2: (secret key, public key, message, signature)
+    ("9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
+     "d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
      "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e06522490155"
      "5fb8821590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b"),
-    ("3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c", "72",
+    ("4ccd089b28ff96da9db6c346ec114e0f5b8a319f35aba624da8cf6ed4fb8a6fb",
+     "3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c", "72",
      "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da"
      "085ac1e43e15996e458f3613d0f11d8c387b2eaeb4302aeeb00d291612bb0c00"),
 )
+SHA_LENGTHS = (0, 1, 32, 111, 112, 127, 128, 300)  # one to three blocks
 
 
 def le32(v: int) -> bytes:
@@ -729,26 +761,48 @@ def verify_cases():
 
 
 def phase_ed25519_known_answers(dev, rs):
-    """Known answers through the card's verify (K7, K5, K4, K3): the
-    oracle's verdicts on every rejection path, the RFC 8032 vectors, and
-    K5 against hashlib's digest mod L on random 80-byte messages."""
+    """Known answers through the card's verify (K7, K5, K4, K3) and sign
+    (K5', K5, K4, K8, K6): the oracle's verdicts on every rejection path,
+    the RFC 8032 vectors verified and signed, ``sign`` against the
+    oracle's on 32 keys with the all-zero secret key, K5 against
+    hashlib's digest mod L on random 80-byte messages and K5' against
+    hashlib's digest at SHA_LENGTHS."""
     pks, msgs, sigs, want = verify_cases()
     check(want == [True] * 6 + [False] * 9 + [True], f"the oracle's verdicts {want}")
     got = ed25519.verify(u8(pks, dev), u8(msgs, dev), u8(sigs, dev)).tolist()
     check(got == want, f"card verdicts {got} differ from the oracle's {want}")
-    for pk, msg, sig in RFC8032:
+    for sk, pk, msg, sig in RFC8032:
         args = [u8([bytes.fromhex(x)], dev) for x in (pk, msg, sig)]
         check(ed25519.verify(*args).tolist() == [True], f"RFC 8032 vector {pk[:8]}")
+        signed_here = ed25519.sign(u8([bytes.fromhex(sk)], dev), args[0], args[1])
+        check(signed_here.cpu().numpy().tobytes().hex() == sig,
+              f"the card's sign differs from RFC 8032 vector {pk[:8]}")
         args[1] = u8([bytes.fromhex(msg) + b"x"], dev)
         check(ed25519.verify(*args).tolist() == [False], f"RFC 8032 vector {pk[:8]}, bad msg")
+    sks = [oracle.secret_from_seed(f"smoke:{i}".encode()) for i in range(32)]
+    sks[0] = bytes(32)
+    pks = [oracle.publickey(sk) for sk in sks]
+    msgs = [signed.order_message(i, i % 3) for i in range(32)]
+    got_sigs = ed25519.sign(u8(sks, dev), u8(pks, dev), u8(msgs, dev)).cpu().numpy()
+    check([s.tobytes() for s in got_sigs] == [oracle.sign(*t) for t in zip(sks, pks, msgs)],
+          "the card's sign differs from the oracle's")
     msg80 = rs.integers(0, 256, (256, 80), dtype=np.uint8)
     h = sha512.sha512_mod_l(torch.tensor(msg80, device=dev)).cpu().numpy()
     for m, got_h in zip(msg80, h):
         digest = int.from_bytes(hashlib.sha512(m.tobytes()).digest(), "little")
         check(int.from_bytes(got_h.tobytes(), "little") == digest % oracle.L,
               "K5 differs from hashlib's digest mod L")
+    for nbytes in SHA_LENGTHS:
+        msg = rs.integers(0, 256, (16, nbytes), dtype=np.uint8)
+        wh, wl, nb = sha512._message_words(torch.tensor(msg, device=dev))
+        digests = sha512_kernel.sha512_blocks(wh, wl, nb).cpu().numpy()
+        check([d.tobytes() for d in digests] == [hashlib.sha512(m.tobytes()).digest()
+                                                 for m in msg],
+              f"K5' differs from hashlib's digest at {nbytes} bytes")
     emit({"phase": "ed25519_known_answers", "verdicts": got, "oracle_agrees": True,
-          "rfc8032_vectors": len(RFC8032), "k5_hashlib_messages": len(msg80), "ok": True})
+          "rfc8032_vectors": len(RFC8032), "rfc8032_signed": True, "oracle_signs": len(sks),
+          "k5_hashlib_messages": len(msg80), "k5_prime_hashlib_lengths": list(SHA_LENGTHS),
+          "ok": True})
 
 
 def ed_middle_inputs(rs, S, dev):
@@ -775,11 +829,29 @@ def ed_middle_inputs(rs, S, dev):
     return n_sig, t(a_enc), t(r_enc), t(m), t(s_enc), t(h_tail)
 
 
+def modl_inputs(rs, S, dev):
+    """K6's inputs at S lanes: 0, 2^512 - 1, L - 1, L, 2L, the largest
+    value of ``muladd_bytes`` (k = a = r = 2^256 - 1), then muladd_bytes
+    of random scalars and random bytes."""
+    L = oracle.L
+    edges = np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8)
+                      for v in (0, 2**512 - 1, L - 1, L, 2 * L, (2**256 - 1) * 2**256)])
+    kar = [torch.tensor(rs.integers(0, 256, (S, 32), dtype=np.uint8), device=dev)
+           for _ in range(3)]
+    mixed = torch.cat([scalar.muladd_bytes(*kar)[:S // 2],
+                       torch.tensor(rs.integers(0, 256, (S, 64), dtype=np.uint8), device=dev)])
+    return torch.cat([torch.tensor(edges, device=dev), mixed])[:S].contiguous()
+
+
 def phase_ed25519_middle(dev, rs):
-    """K7, K5, K4 and K3 against their plain versions at S lanes: every
-    output bit-equal (points as canonical encodings)."""
+    """K7, K5, K5', K6, K4, K8 and K3 against their plain versions at S
+    lanes: every output bit-equal (points as canonical encodings).  K8
+    compresses the identity, B and K4's [s]B (Z != 1); K5' hashes
+    messages of one, two and three blocks in turn."""
     table = ed25519.base_table(dev)
-    for S in (1, 37, 1024, 4096):
+    ends = torch.cat([ed25519.encode_point(ed25519.identity((1,), dev)),
+                      ed25519.encode_point(ed25519.base_point((1,), dev))])
+    for i, S in enumerate((1, 37, 1024, 4096)):
         n_sig, a_enc, r_enc, msg, s_enc, h_tail = ed_middle_inputs(rs, S, dev)
         enc = torch.cat([a_enc, r_enc])
         pts, ok = decompress.decompress(enc)
@@ -792,37 +864,81 @@ def phase_ed25519_middle(dev, rs):
         h3 = torch.cat([h[:n_sig], h_tail])
         got = ladder.window_verify(pts[:S], h3, pts[S:], left)
         errs["K3"] = max_abs_err([(got, ladder.plain_window_verify(pts[:S], h3, pts[S:], left))])
+        pts8 = torch.cat([ends, left])[:S].contiguous()
+        errs["K8"] = max_abs_err([(powchain.compress(pts8), powchain.plain_compress(pts8))])
+        wide = modl_inputs(rs, S, dev)
+        errs["K6"] = max_abs_err([(modl.reduce_mod_l_planes(wide),
+                                   modl.plain_reduce_mod_l(wide))])
+        nbytes = (1, 200, 300, 111)[i]  # 1, 2, 3 and 1 blocks
+        wh, wl, nb = sha512._message_words(
+            torch.tensor(rs.integers(0, 256, (S, nbytes), dtype=np.uint8), device=dev))
+        errs["K5'"] = max_abs_err([(sha512_kernel.sha512_blocks(wh, wl, nb),
+                                    sha512_kernel.plain_sha512_blocks(wh, wl, nb))])
         sync()
         check(all(e == 0 for e in errs.values()), f"a kernel differs from plain at S={S}: {errs}")
         check(bool(got[:n_sig].all()), f"a real signature's verdict was False at S={S}")
         emit({"phase": "ed25519_vs_plain_middle", "S": S, "max_abs_err": errs,
               "valid_encodings": int(ok.sum()), "true_verdicts": int(got.sum()),
-              "signature_lanes": n_sig})
+              "signature_lanes": n_sig, "k5_prime_blocks": nb})
 
 
 def reset_ed_launches():
-    for module in (decompress, sha512_kernel, treeadd, ladder):
+    for module in (decompress, sha512_kernel, treeadd, ladder, modl, powchain):
         module.reset_launches()
 
 
-def phase_signed_setup(dev, rs):
-    """The sweep's setup at full width as the reference's
-    BA_TPU_SIGN_DEVICE=0 mode runs it: the host signs chunk c + 1 while
-    the card verifies chunk c (K7, K5, K4, K3), one fetch at the end.
-    A throwaway key-set warms the path first, as bench.py warms its
-    setup.  Then a copy with every 7th signature corrupted (R, S or the
-    message in turn) verifies on the card, held against the native host
-    verifier on all 20 480; and the warm device verify of one chunk
-    (CUDA events) beside the host verify of the same tables."""
-    signed.setup_signed_tables(B_SIGNED, seed=1, device=dev)
+def ed_launches():
+    return {key: fn.launches for key, (_, fn, _, _) in ED_KERNELS.items()}
+
+
+def timed_setup(dev, sign_device):
+    """One full-width setup of the route after a throwaway key-set has
+    warmed it, as bench.py warms its setup; the launches of its own run."""
+    signed.setup_signed_tables(B_SIGNED, seed=1, device=dev, sign_device=sign_device)
+    sync()
     reset_ed_launches()
-    sks, pks, msgs, sigs, ok, timings = signed.setup_signed_tables(
-        B_SIGNED, device=dev)
-    launches = {key: fn.launches for key, (_, fn, _, _) in ED_KERNELS.items()}
-    check(all(v == signed.SETUP_CHUNKS for v in launches.values()), f"verify launches {launches}")
-    check(timings["verify_route"] == "device", "the table verify did not run on the card")
+    out = signed.setup_signed_tables(B_SIGNED, device=dev, sign_device=sign_device)
+    return out, ed_launches()
+
+
+def phase_signed_setup(dev, rs):
+    """The sweep's setup at full width by both routes, one fetch at the
+    end of each.  The default on the card signs there (K5', K5, K4, K8,
+    K6) in one chunk and verifies (K7, K5, K4, K3); its queueing, up to
+    the fetch, runs once under torch.cuda.set_sync_debug_mode("error"),
+    on a throwaway key-set.  Its signatures are held byte for byte
+    against the native host signer's.  The host-sign route (the
+    reference's BA_TPU_SIGN_DEVICE=0 mode) signs chunk c + 1 on the host
+    while the card verifies chunk c.  Then a copy with every 7th
+    signature corrupted (R, S or the message in turn) verifies on the
+    card, held against the native host verifier on all 20 480; and the
+    warm device sign and verify of the whole batch (CUDA events) beside
+    the host verify of the same tables."""
+    (sks, pks, msgs, sigs, ok, timings), launches = timed_setup(dev, None)
+    check(launches == DEVICE_SETUP_LAUNCHES, f"device-sign setup launches {launches}")
+    check(timings["device_sign"] and timings["chunks"] == signed.DEVICE_SIGN_CHUNKS == 1
+          and timings["verify_route"] == "device", f"the default setup's route {timings}")
     check(tuple(ok.shape) == (B_SIGNED, 2) and bool(ok.all()),
-          "a table signature failed to verify")
+          "a device-signed table signature failed to verify")
+    t0 = time.perf_counter()
+    host_m, host_s = signed.sign_value_tables(sks, pks)
+    native_sign_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(msgs, host_m) and np.array_equal(sigs, host_s),
+          f"{int((sigs != host_s).any(-1).sum())} card signatures differ from the host signer's")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        queued = signed.queue_signed_tables(B_SIGNED, seed=2, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(signed.drain_signed_tables(queued)[4].all()), "the sync-checked setup failed")
+
+    (h_sks, h_pks, h_msgs, h_sigs, h_ok, h_timings), h_launches = timed_setup(dev, False)
+    check(h_launches == HOST_SETUP_LAUNCHES, f"host-sign setup launches {h_launches}")
+    check(not h_timings["device_sign"] and h_timings["chunks"] == signed.SETUP_CHUNKS,
+          f"the host-sign setup's route {h_timings}")
+    check(bool(h_ok.all()) and np.array_equal(h_sigs, sigs) and np.array_equal(h_pks, pks),
+          "the host-sign setup's tables differ from the device-sign setup's")
 
     flat_m, flat_s = msgs.reshape(-1, msgs.shape[-1]).copy(), sigs.reshape(-1, 64).copy()
     idx = np.arange(0, len(flat_s), 7)
@@ -838,18 +954,22 @@ def phase_signed_setup(dev, rs):
     host_bad_ms = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(got, want), f"{int((got != want).sum())} card verdicts differ from the host's")
 
-    per = B_SIGNED // signed.SETUP_CHUNKS
-    chunk = [torch.tensor(a[:per], device=dev) for a in (pks, msgs, sigs)]
-    chunk_ms = time_cuda(lambda: signed.verify_received(*chunk, device=dev), reps=5)
+    tables = [torch.tensor(a, device=dev) for a in (pks, msgs, sigs)]
+    verify_ms = time_cuda(lambda: signed.verify_received(*tables, device=dev), reps=5)
+    sign_ms = time_cuda(lambda: signed.sign_value_tables_device(sks, tables[0], device=dev),
+                        reps=5)
     t0 = time.perf_counter()
     signed.verify_host_exact(pks, msgs, sigs)
     host_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "signed_setup_device_verify", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
-          **timings, "all_valid": True, "kernel_launches": launches,
+    emit({"phase": "signed_setup", "batch": B_SIGNED, "signatures": 2 * B_SIGNED,
+          "device_sign": {**timings, "kernel_launches": launches, "all_valid": True,
+                          "signatures_equal_native": True, "sync_checked": True},
+          "host_sign": {**h_timings, "kernel_launches": h_launches, "all_valid": True},
           "corrupted": len(idx), "rejected": int((~want).sum()), "card_equals_host": True,
-          "device_verify_chunk_ms": chunk_ms, "chunk_signatures": per * 2,
-          "host_verify_ms": host_ms, "host_verify_corrupted_ms": host_bad_ms})
-    return ok, (pks, msgs, sigs), launches, timings
+          "device_sign_ms": sign_ms, "device_verify_ms": verify_ms,
+          "native_sign_ms": native_sign_ms, "host_verify_ms": host_ms,
+          "host_verify_corrupted_ms": host_bad_ms})
+    return ok, (sks, pks, msgs, sigs), launches, {"device": timings, "host": h_timings}
 
 
 def signed_seeds(dev, steps, buckets):
@@ -917,19 +1037,21 @@ def phase_signed_sweep(dev, ok, card):
 
 
 def phase_rate_with_setup(timings, walls, card):
-    """The signed sweep's rate with this run's setup charged, at
+    """The signed sweep's rate with this run's setups charged, at
     bench.py's horizons (bench.py:805-810): h steps of one 480-round
     dispatch per bucket after one setup, the step at the best window's
-    pace.  Its setup signs on the host and verifies on the card: the
-    reference's BA_TPU_SIGN_DEVICE=0 path.  bench.py's TPU default signs
-    on the device (one chunk), which the port does not run yet."""
+    pace; for each route: sign and verify on the card (the default, as
+    bench.py's accelerator default), and sign on the host, verify on the
+    card (the reference's BA_TPU_SIGN_DEVICE=0 path)."""
     step_s = min(walls) / STEPS_SIGNED
     rounds_per_step = B_SIGNED * ROUNDS_SIGNED
-    rates = {f"h{h}": rounds_per_step * h / (timings["total_s"] + h * step_s)
-             for h in (50, 100, 500, 5000)}
-    emit({"phase": "signed_sweep_rate_with_setup", "sign": "host", "verify": "device",
-          "setup_total_s": timings["total_s"], "step_s": step_s,
-          "agreement_rounds_per_s": rates, "card": card})
+    for route, sign in (("device", "device"), ("host", "host")):
+        total_s = timings[route]["total_s"]
+        rates = {f"h{h}": rounds_per_step * h / (total_s + h * step_s)
+                 for h in (50, 100, 500, 5000)}
+        emit({"phase": "signed_sweep_rate_with_setup", "sign": sign, "verify": "device",
+              "setup_total_s": total_s, "step_s": step_s, "agreement_rounds_per_s": rates,
+              "card": card})
 
 
 def phase_faulty_leaders(dev, rs, states, oks):
@@ -1038,65 +1160,110 @@ def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
             "buckets": buckets}
 
 
-def kernel_lines_ed25519(dev, tables, launches, int_ops_per_s):
-    """Chunk 0 of the full-width setup again: its K7, K5, K4 and K3
-    dispatches on the main path's own inputs (5120 commanders x 2 values,
-    flattened as verify_received flattens them), the replayed verdicts
-    against the main path's (all True), each kernel against its plain
-    version, its CUDA-event time a dispatch, the plain time and the bound.
-    The bound counts field multiplies and squarings (FE_MUL_OPS and
-    FE_SQ_OPS int32 operations each) and SHA-512 blocks, the least work
-    these inputs need, at the card's
-    int32 rate; bytes: each input read once, each output written once."""
-    pks, msgs, sigs = tables
-    per = B_SIGNED // signed.SETUP_CHUNKS
-    n = msgs.shape[1]
-    S = per * n
-    pk = torch.tensor(np.repeat(pks[:per], n, axis=0), device=dev)
-    msg = torch.tensor(msgs[:per].reshape(S, -1), device=dev)
-    sig = torch.tensor(sigs[:per].reshape(S, 64), device=dev)
-    r_enc, s_enc = sig[:, :32].contiguous(), sig[:, 32:].contiguous()
-    enc = torch.cat([pk, r_enc])
-    wh, wl, nb = sha512._message_words(torch.cat([r_enc, pk, msg], dim=1))
+def ed_dispatches(dev, tables):
+    """Every Ed25519 dispatch of the device-sign setup again, on its own
+    inputs: ``ed25519.sign`` stage by stage over the 10 240 x 2 table
+    rows (flattened as sign_value_tables_device flattens them), then
+    ``ed25519.verify`` on its signatures; the replayed signatures and
+    verdicts held against the main path's.  Returns, per kernel, its
+    dispatches in launch order as (what, run, plain, lanes, int32 ops a
+    lane, bytes)."""
+    sks, pks, msgs, sigs = tables
+    B, n = msgs.shape[:2]
+    S = B * n
+    sk = torch.tensor(np.repeat(signed.secret_rows(sks), n, 0), device=dev)
+    pk = torch.tensor(np.repeat(pks, n, axis=0), device=dev)
+    msg = torch.tensor(msgs.reshape(S, -1), device=dev)
     table = ed25519.base_table(dev)
+    words = {}
+    words["h1"] = sha512._message_words(sk)
+    h1 = sha512_kernel.sha512_blocks(*words["h1"])
+    a = ed25519.clamp_scalar(h1[:, :32])
+    words["r"] = sha512._message_words(torch.cat([h1[:, 32:], msg], dim=1))
+    r = sha512_kernel.sha512_blocks_mod_l(*words["r"])
+    big_r = treeadd.fixed_base_fold(r, table)
+    r_enc = powchain.compress(big_r)
+    words["k"] = sha512._message_words(torch.cat([r_enc, pk, msg], dim=1))
+    k = sha512_kernel.sha512_blocks_mod_l(*words["k"])
+    wide = scalar.muladd_bytes(k, a, r)
+    sig = torch.cat([r_enc, modl.reduce_mod_l_planes(wide)], dim=1)
+    check(np.array_equal(sig.cpu().numpy(), sigs.reshape(S, 64)),
+          "the replayed signatures differ from the device-sign setup's")
+    s_enc = sig[:, 32:].contiguous()
+    enc = torch.cat([pk, r_enc])
+    words["h"] = sha512._message_words(torch.cat([r_enc, pk, msg], dim=1))
     pts, ok_enc = decompress.decompress(enc)
-    h = sha512_kernel.sha512_blocks_mod_l(wh, wl, nb)
+    h = sha512_kernel.sha512_blocks_mod_l(*words["h"])
     left = treeadd.fixed_base_fold(s_enc, table)
-    a, r = pts[:S], pts[S:]
-    verdict = ladder.window_verify(a, h, r, left)
+    pa, pr = pts[:S], pts[S:]
+    verdict = ladder.window_verify(pa, h, pr, left)
     full = ok_enc[:S] & ok_enc[S:] & ed25519._lt_const(s_enc, oracle.L) & verdict
-    check(bool(full.all()), "the replayed chunk-0 verdicts differ from the main path's")
-    cases = {
-        "K7": (lambda: decompress.decompress(enc), lambda: decompress.plain_decompress(enc),
-               2 * S, field_ops(K7_WORK), 2 * S * (32 + 128 + 1)),
-        "K5": (lambda: sha512_kernel.sha512_blocks_mod_l(wh, wl, nb),
-               lambda: sha512_kernel.plain_sha512_blocks_mod_l(wh, wl, nb),
-               S, SHA_BLOCK_OPS * nb + MODL_OPS, S * (2 * 8 * 16 * nb + 32)),
-        "K4": (lambda: treeadd.fixed_base_fold(s_enc, table),
-               lambda: treeadd.plain_fixed_base_fold(s_enc, table),
-               S, field_ops(K4_WORK), S * (32 + 128) + table.numel()),
-        "K3": (lambda: ladder.window_verify(a, h, r, left),
-               lambda: ladder.plain_window_verify(a, h, r, left),
-               S, field_ops(K3_WORK), S * (3 * 128 + 32 + 1)),
+    check(bool(full.all()), "the replayed verdicts differ from the main path's")
+
+    def sha(key, fn, plain, width):
+        wh, wl, nb = words[key]
+        ops = SHA_BLOCK_OPS * nb + (MODL_OPS if width == 32 else 0)
+        return (key, lambda: fn(wh, wl, nb), lambda: plain(wh, wl, nb), S, ops,
+                S * (2 * 8 * 16 * nb + width))
+
+    def fold(what, s):
+        return (what, lambda: treeadd.fixed_base_fold(s, table),
+                lambda: treeadd.plain_fixed_base_fold(s, table), S, field_ops(K4_WORK),
+                S * (32 + 128) + table.numel())
+
+    return {
+        "K5'": [sha("h1", sha512_kernel.sha512_blocks, sha512_kernel.plain_sha512_blocks, 64)],
+        "K5": [sha(key, sha512_kernel.sha512_blocks_mod_l,
+                   sha512_kernel.plain_sha512_blocks_mod_l, 32) for key in ("r", "k", "h")],
+        "K4": [fold("R = [r]B", r), fold("[S]B", s_enc)],
+        "K8": [("R", lambda: powchain.compress(big_r), lambda: powchain.plain_compress(big_r),
+                S, field_ops(K8_WORK), S * (128 + 32))],
+        "K6": [("S", lambda: modl.reduce_mod_l_planes(wide),
+                lambda: modl.plain_reduce_mod_l(wide), S, MODL_OPS, S * (64 + 32))],
+        "K7": [("A and R", lambda: decompress.decompress(enc),
+                lambda: decompress.plain_decompress(enc), 2 * S, field_ops(K7_WORK),
+                2 * S * (32 + 128 + 1))],
+        "K3": [("verdicts", lambda: ladder.window_verify(pa, h, pr, left),
+                lambda: ladder.plain_window_verify(pa, h, pr, left), S, field_ops(K3_WORK),
+                S * (3 * 128 + 32 + 1))],
     }
+
+
+def kernel_lines_ed25519(dev, tables, launches, int_ops_per_s):
+    """The device-sign setup's Ed25519 dispatches again (``ed_dispatches``):
+    each against its plain version, its CUDA-event time (mean of 10 after
+    a warm-up), the plain time and the bound.  A kernel's line sums its
+    dispatches in the setup (K5 has three, K4 two), each listed beside
+    it.  The bound counts field multiplies and squarings (FE_MUL_OPS and
+    FE_SQ_OPS int32 operations each), SHA-512 blocks and mod-L folds,
+    the least work these inputs need, at the card's int32 rate; bytes:
+    each input read once, each output written once."""
     lines = []
-    for key, (run, plain, lanes, ops_lane, nbytes) in cases.items():
-        got = run()
-        want, plain_ms = timed_plain(plain)
-        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        err = max_abs_err(pairs)
-        check(err == 0, f"{key} differs from its plain version on chunk 0: {err}")
-        ms = time_cuda(run, reps=10)
-        ops_s, bytes_s = lanes * ops_lane / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+    for key, dispatches in ed_dispatches(dev, tables).items():
+        parts, err = [], 0
+        for what, run, plain, lanes, ops_lane, nbytes in dispatches:
+            got = run()
+            want, plain_ms = timed_plain(plain)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            err = max(err, max_abs_err(pairs))
+            ms = time_cuda(run, reps=10)
+            ops_s, bytes_s = lanes * ops_lane / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+            parts.append({"what": what, "lanes": lanes, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": max(ops_s, bytes_s) * 1e3,
+                          "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+                          "int32_ops": lanes * ops_lane, "bytes": nbytes})
+        check(err == 0, f"{key} differs from its plain version on the setup's inputs: {err}")
         name, fn, source, replaces = ED_KERNELS[key]
+        ops_bound = all(p["bound_by"] == "operations" for p in parts)
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "wrapper": f"ba_tpu_torch/ops/{fn.__module__.rsplit('.', 1)[1]}.py:{fn.__name__}",
-            "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_s, bytes_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes", "library_ms": None,
-            "checked_against_plain": True, "lanes": lanes, "int32_ops": lanes * ops_lane,
-            "bytes": nbytes, "per": "dispatch (one setup chunk)"})
+            "launches": launches[key], "max_abs_err": err,
+            "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
+            "bound_ms": sum(p["bound_ms"] for p in parts),
+            "bound_by": "operations" if ops_bound else "bytes", "library_ms": None,
+            "checked_against_plain": True, "per": "device-sign setup (its dispatches)",
+            "dispatches": parts})
     return lines
 
 

@@ -1,6 +1,7 @@
 """The Ed25519 kernels' per-lane arithmetic (``ba_tpu_torch/ops/csrc``),
 compiled for the host with g++ through ``tests/torch_csrc_host.cpp``,
-against their plain torch versions: K7, K5, K4 and K3, bit-equal.
+against their plain torch versions: K7, K5, K5', K6, K4, K8 and K3,
+bit-equal.
 
 The card runs the same functions inside the kernels; this catches an
 arithmetic fault in a CUDA source on the CPU.  Launch code, warp shuffles
@@ -18,8 +19,8 @@ import pytest
 import torch
 
 from ba_tpu_torch.crypto import ed25519 as E
-from ba_tpu_torch.crypto import oracle, sha512
-from ba_tpu_torch.ops import decompress, ladder, sha512_kernel, treeadd
+from ba_tpu_torch.crypto import oracle, scalar, sha512
+from ba_tpu_torch.ops import decompress, ladder, modl, powchain, sha512_kernel, treeadd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / "ba_tpu_torch" / "ops" / "csrc"
@@ -38,7 +39,10 @@ def host(tmp_path_factory):
     for name, n_ptr in (("host_decompress", 3), ("host_fixed_base", 3),
                         ("host_window_verify", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
-    lib.host_sha512_modl.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    for name in ("host_sha512_modl", "host_sha512"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    for name in ("host_modl", "host_compress"):
+        getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     return lib
 
@@ -85,6 +89,52 @@ def test_sha512_modl_lane_matches_plain_and_hashlib(host, nbytes):
     for i in range(5):
         digest = int.from_bytes(hashlib.sha512(msg[i].tobytes()).digest(), "little")
         assert int.from_bytes(out[i].tobytes(), "little") == digest % L
+
+
+@pytest.mark.parametrize("nbytes", [0, 1, 32, 112, 300])
+def test_sha512_lane_matches_plain_and_hashlib(host, nbytes):
+    msg = np.random.default_rng(nbytes + 7).integers(0, 256, (5, nbytes), dtype=np.uint8)
+    wh, wl, nb = sha512._message_words(torch.tensor(msg))
+    out = np.zeros((5, 64), np.uint8)
+    host.host_sha512(5, nb, _ptr(wh.numpy()), _ptr(wl.numpy()), _ptr(out))
+    assert np.array_equal(out, sha512_kernel.plain_sha512_blocks(wh, wl, nb).numpy())
+    assert [o.tobytes() for o in out] == [hashlib.sha512(m.tobytes()).digest() for m in msg]
+
+
+def modl_inputs(rs, n_random: int) -> np.ndarray:
+    """K6's edge inputs: 0, all-0xFF, L - 1, L, 2L, the largest value of
+    ``muladd_bytes`` (k = a = r = 2^256 - 1), and random bytes."""
+    rows = [np.frombuffer(v.to_bytes(64, "little"), np.uint8)
+            for v in (0, 2**512 - 1, L - 1, L, 2 * L)]
+    ff = torch.full((1, 32), 255, dtype=torch.uint8)
+    rows.append(scalar.muladd_bytes(ff, ff, ff)[0].numpy())
+    rows += list(rs.integers(0, 256, (n_random, 64), dtype=np.uint8))
+    return np.ascontiguousarray(np.stack(rows))
+
+
+def test_modl_lane_matches_plain_and_integers(host):
+    h = modl_inputs(np.random.default_rng(5), 10)
+    out = np.zeros((len(h), 32), np.uint8)
+    host.host_modl(len(h), _ptr(h), _ptr(out))
+    assert np.array_equal(out, modl.plain_reduce_mod_l(torch.tensor(h)).numpy())
+    for row, got in zip(h, out):
+        assert int.from_bytes(got.tobytes(), "little") == \
+            int.from_bytes(row.tobytes(), "little") % L
+
+
+def test_compress_lane_matches_plain_and_oracle(host):
+    """The identity, B, and [s]B from the plain K4 fold (Z != 1)."""
+    s = _scalars(np.random.default_rng(6), 6)
+    pts = treeadd.plain_fixed_base_fold(torch.tensor(s), E.base_table("cpu"))
+    pts = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,))), pts])
+    pts = np.ascontiguousarray(pts.numpy())
+    out = np.zeros((len(pts), 32), np.uint8)
+    host.host_compress(len(pts), _ptr(pts), _ptr(out))
+    assert np.array_equal(out, powchain.plain_compress(torch.tensor(pts)).numpy())
+    want = [oracle.encode_point((0, 1)), oracle.encode_point(oracle.BASE)]
+    want += [oracle.encode_point(oracle.scalarmult(oracle.BASE, int.from_bytes(v, "little")))
+             for v in (row.tobytes() for row in s)]
+    assert [o.tobytes() for o in out] == want
 
 
 @pytest.mark.parametrize("case", ["top", "bottom", "random"])

@@ -21,7 +21,7 @@ from ba_tpu_torch import convert
 from ba_tpu_torch.crypto import ed25519 as E
 from ba_tpu_torch.crypto import field as F
 from ba_tpu_torch.crypto import oracle
-from ba_tpu_torch.ops import decompress, ladder, treeadd
+from ba_tpu_torch.ops import decompress, ladder, modl, powchain, sha512_kernel, treeadd
 
 P, L = oracle.P, oracle.L
 CUH = pathlib.Path(__file__).resolve().parents[1] / "ba_tpu_torch/ops/csrc/ed25519_field.cuh"
@@ -241,3 +241,14 @@ def test_wrappers_refuse_devices_they_do_not_run_on():
         ladder.window_verify(pts, meta, pts, pts)
     with pytest.raises(ValueError):
         decompress.decompress(torch.zeros((2, 31), dtype=torch.uint8))
+    words = torch.zeros((2, 1, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        sha512_kernel.sha512_blocks(words, words, 1)
+    with pytest.raises(ValueError):
+        modl.reduce_mod_l_planes(torch.zeros((2, 64), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError):
+        powchain.compress(pts)
+    with pytest.raises(ValueError):
+        modl.reduce_mod_l_planes(torch.zeros((2, 32), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        powchain.compress(torch.zeros((2, 3, 32), dtype=torch.uint8))

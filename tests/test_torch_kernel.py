@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card: K1
 (``ba_tpu_torch/ops/csrc/megastep.cu``), K2 (``sweep_step.cu``) and the
-Ed25519 kernels K7, K5, K4 and K3 (``decompress.cu``, ``sha512_modl.cu``,
-``treeadd.cu``, ``window_verify.cu``).
+Ed25519 kernels K7, K5, K5', K6, K4, K8 and K3 (``decompress.cu``,
+``sha512_modl.cu``, ``modl.cu``, ``treeadd.cu``, ``powchain.cu``,
+``window_verify.cu``); and the signer and the setup on the card.
 
 These tests need a CUDA device and skip elsewhere.  On the card they
 run without the repository's conftest (which configures jax):
@@ -16,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from ba_tpu_torch import convert
+from ba_tpu_torch import convert, native
 from ba_tpu_torch.core import rng
-from ba_tpu_torch.crypto import ed25519, oracle, sha512, signed
-from ba_tpu_torch.ops import decompress, ladder, scenario_step, sha512_kernel, sweep_step, treeadd
+from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
+from ba_tpu_torch.ops import (decompress, ladder, modl, powchain, scenario_step, sha512_kernel,
+                              sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline
 from ba_tpu_torch.scenario.compile import ScenarioBlock
 
@@ -359,3 +361,104 @@ def test_ed25519_kernels_reject_bad_inputs(cuda_device):
         ladder.window_verify(pts, enc[:3], pts, pts)
     with pytest.raises(ValueError):
         ladder.window_verify(pts, enc.t().contiguous().t(), pts, pts)
+
+
+# -- K5', K6, K8: device signing ------------------------------------------------
+
+
+@pytest.mark.parametrize("nbytes", [0, 32, 112, 300])
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_sha512_kernel_bit_equal(cuda_device, S, nbytes):
+    msg = np.random.default_rng(S + nbytes).integers(0, 256, (S, nbytes), dtype=np.uint8)
+    wh, wl, nb = sha512._message_words(torch.tensor(msg, device=cuda_device))
+    before = sha512_kernel.sha512_blocks.launches
+    got = sha512_kernel.sha512_blocks(wh, wl, nb)
+    assert sha512_kernel.sha512_blocks.launches == before + 1
+    want = sha512_kernel.plain_sha512_blocks(wh, wl, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_modl_kernel_bit_equal(cuda_device, S):
+    """0, all-0xFF, L - 1, L, 2L, muladd_bytes' largest value, random."""
+    L = oracle.L
+    rows = [np.frombuffer(v.to_bytes(64, "little"), np.uint8)
+            for v in (0, 2**512 - 1, L - 1, L, 2 * L, (2**256 - 1) * 2**256)]
+    rs = np.random.default_rng(S)
+    h = np.concatenate([np.stack(rows), rs.integers(0, 256, (S, 64), dtype=np.uint8)])[:S]
+    h = torch.tensor(np.ascontiguousarray(h), device=cuda_device)
+    before = modl.reduce_mod_l_planes.launches
+    got = modl.reduce_mod_l_planes(h)
+    assert modl.reduce_mod_l_planes.launches == before + 1
+    want = modl.plain_reduce_mod_l(h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_compress_inv_chain_kernel_bit_equal(cuda_device, S):
+    """The identity, B, then [s]B from K4 (Z != 1)."""
+    dev = cuda_device
+    ends = torch.cat([ed25519.encode_point(ed25519.identity((1,), dev)),
+                      ed25519.encode_point(ed25519.base_point((1,), dev))])
+    s_enc = torch.tensor(_scalar_bytes(S + 1, S), device=dev)
+    pts = torch.cat([ends, ed25519.fixed_base_mult(s_enc)])[:S].contiguous()
+    before = powchain.compress.launches
+    got = powchain.compress(pts)
+    assert powchain.compress.launches == before + 1
+    want = powchain.plain_compress(pts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _sign_inputs(seed: int, S: int):
+    sks, pks = signed.commander_keys(S, seed)
+    sks[0] = bytes(32)
+    pks[0] = np.frombuffer(oracle.publickey(sks[0]), np.uint8)
+    msgs = signed._value_table_msgs(S, 1, seed)[:, 0]
+    return np.stack([np.frombuffer(s, np.uint8) for s in sks]), pks, msgs
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_sign_on_card_matches_native_signer(cuda_device, S):
+    """Six launches: K5' once, K5 twice, K4, K8 and K6 once each."""
+    sk, pk, msg = _sign_inputs(S, S)
+    counters = (sha512_kernel.sha512_blocks, sha512_kernel.sha512_blocks_mod_l,
+                treeadd.fixed_base_fold, powchain.compress, modl.reduce_mod_l_planes)
+    before = [fn.launches for fn in counters]
+    got = ed25519.sign(*(torch.tensor(a, device=cuda_device) for a in (sk, pk, msg)))
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 2, 1, 1, 1]
+    assert np.array_equal(got.cpu().numpy(), native.sign_batch(sk, pk, msg))
+
+
+def test_sign_muladd_bytes_on_card_matches_cpu(cuda_device):
+    rs = np.random.default_rng(8)
+    k, a, r = (rs.integers(0, 256, (64, 32), dtype=np.uint8) for _ in range(3))
+    k[0] = a[0] = r[0] = 255
+    want = scalar.muladd_bytes(*(torch.tensor(x) for x in (k, a, r)))
+    got = scalar.muladd_bytes(*(torch.tensor(x, device=cuda_device) for x in (k, a, r)))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_device_sign_setup_matches_host_signer(cuda_device):
+    sks, pks, msgs, sigs, ok, t = signed.setup_signed_tables(40, seed=6, device=cuda_device)
+    assert t["device_sign"] is True and t["chunks"] == 1 and t["verify_route"] == "device"
+    want_m, want_s = signed.sign_value_tables(sks, pks)
+    assert np.array_equal(msgs, want_m) and np.array_equal(sigs, want_s)
+    assert ok.device.type == "cuda" and bool(ok.all())
+
+
+def test_device_sign_setup_queues_without_waiting(cuda_device):
+    """Keys on the host, then signing and the table verify queued with no
+    stream sync and no blocking copy, up to the one fetch."""
+    signed.setup_signed_tables(16, seed=1, device=cuda_device)  # builds, caches the table
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        queued = signed.queue_signed_tables(16, seed=2, device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sks, pks, msgs, sigs, ok, t = signed.drain_signed_tables(queued)
+    assert t["device_sign"] is True and bool(ok.all())
+    assert np.array_equal(sigs, signed.sign_value_tables(sks, pks)[1])

@@ -1,7 +1,8 @@
 """The port's SHA-512 (``ba_tpu_torch/crypto/sha512.py``) and K5's plain
 version (``ops/sha512_kernel.py``) against hashlib, Python integers and
 ``ba_tpu.crypto.sha512``, tolerance zero; and the constants written into
-K5's CUDA source against the values the plain module computes."""
+the CUDA sources of K5 and K6 against the values the plain module
+computes."""
 
 import hashlib
 import pathlib
@@ -16,7 +17,7 @@ from ba_tpu.crypto import sha512 as jsha
 from ba_tpu_torch.crypto import oracle, scalar, sha512
 from ba_tpu_torch.ops import sha512_kernel
 
-CU = pathlib.Path(__file__).resolve().parents[1] / "ba_tpu_torch/ops/csrc/sha512_modl.cu"
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "ba_tpu_torch/ops/csrc"
 LENGTHS = [0, 1, 16, 80, 111, 112, 127, 128, 200]
 
 
@@ -69,14 +70,15 @@ def test_wrapper_rejects_bad_inputs():
         sha512_kernel.sha512_blocks_mod_l(wh.to("meta"), wl.to("meta"), nb)
 
 
-def _cu_array(name: str) -> list[int]:
-    body = re.search(name + r"\[\d+\] = \{(.*?)\};", CU.read_text(), re.S).group(1)
+def _cu_array(name: str, source: str) -> list[int]:
+    text = (CSRC / source).read_text()
+    body = re.search(name + r"\[\d+\] = \{(.*?)\};", text, re.S).group(1)
     return [int(x.strip().removesuffix("ULL"), 0) for x in body.split(",") if x.strip()]
 
 
 def test_kernel_source_constants():
-    assert _cu_array("SHA512_K") == sha512.K64
-    assert _cu_array("SHA512_H0") == sha512.H64
-    assert _cu_array("MODL_L") == list(scalar._L32)
-    assert _cu_array("MODL_C16") == list(scalar._C16)
+    assert _cu_array("SHA512_K", "sha512_modl.cu") == sha512.K64
+    assert _cu_array("SHA512_H0", "sha512_modl.cu") == sha512.H64
+    assert _cu_array("MODL_L", "modl.cuh") == list(scalar._L32)
+    assert _cu_array("MODL_C16", "modl.cuh") == list(scalar._C16)
     assert list(scalar._L32[:16]) == list(scalar._DELTA)  # the fold reads delta from L

@@ -8,6 +8,8 @@
 //   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
 
 #include "decompress.cu"
+#include "modl.cu"
+#include "powchain.cu"
 #include "sha512_modl.cu"
 #include "treeadd.cu"
 #include "window_verify.cu"
@@ -21,6 +23,19 @@ void host_decompress(int n, const uint8_t* enc, uint8_t* pts, uint8_t* ok) {
 void host_sha512_modl(int n, int n_blocks, const int64_t* wh, const int64_t* wl, uint8_t* out) {
     for (int i = 0; i < n; i++)
         sha512_modl_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks, out + 32 * i);
+}
+
+void host_sha512(int n, int n_blocks, const int64_t* wh, const int64_t* wl, uint8_t* out) {
+    for (int i = 0; i < n; i++)
+        sha512_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks, out + 64 * i);
+}
+
+void host_modl(int n, const uint8_t* in, uint8_t* out) {
+    for (int i = 0; i < n; i++) modl_lane(in + 64 * i, out + 32 * i);
+}
+
+void host_compress(int n, const uint8_t* pts, uint8_t* enc) {
+    for (int i = 0; i < n; i++) compress_lane(pts + 128 * i, enc + 32 * i);
 }
 
 void host_fixed_base(int n, const uint8_t* s, const uint8_t* table, uint8_t* out) {
