@@ -10,8 +10,12 @@ inside it; here they are int64, which changes no value.
 Three folds at the 2^256 limb boundary shrink 512 bits to ~258, then one
 exact fold at 2^252 and one conditional subtract land in [0, L).  It is
 K5's plain tail (``ba_tpu_torch/ops/sha512_kernel.py``) and K6's plain
-version (``ops/modl.py``).  ``muladd_bytes`` is the signer's k * a + r,
-byte-identical with the reference's too.
+version (``ops/modl.py``).  ``muladd_bytes`` is the signer's k * a + r;
+``mul_mod_l`` and ``sum_mod_l`` are the batch verifier's z * h and sums
+of them; each is byte-identical with the reference's.  The products and
+sums come unreduced as well (``muladd_bytes``, ``mul_bytes``,
+``sum_bytes``: 64 bytes, K6's input), so a caller on the card reduces
+them with K6.
 """
 
 from __future__ import annotations
@@ -79,20 +83,53 @@ def _exact_chain(v: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs, dim=-1)
 
 
+WORD_LIMBS = 6  # limbs packed into one int64 word by _bytes_from_signed_limbs
+
+
 def _bytes_from_signed_limbs(v: torch.Tensor, total: int, extra: int = 2) -> torch.Tensor:
     """Signed limbs of a non-negative value -> canonical uint8 [..., total]
-    (zero-padded): three parallel passes, then one exact chain.  The value
-    must fit ``8 * (v.shape[-1] + extra)`` bits, or the top carry is lost
-    (``ba_tpu/crypto/scalar.py:170``)."""
-    v = _exact_chain(_carry(v.to(torch.int64), passes=3, extra=extra))
+    (zero-padded).  The value must fit ``8 * (v.shape[-1] + extra)`` bits,
+    or the top carry is lost (``ba_tpu/crypto/scalar.py:170``).  Three
+    parallel passes leave small limbs; WORD_LIMBS of them are packed into
+    an int64 word (below 2^57 in size), the words carried in one exact
+    chain at 48 bits and unpacked: the reference's bytes, with a chain of
+    ~9 steps instead of ~50."""
+    v = _carry(v.to(torch.int64), passes=3, extra=extra)
+    words = -(-v.shape[-1] // WORD_LIMBS)
+    v = _pad(v, words * WORD_LIMBS - v.shape[-1])
+    shifts = torch.arange(0, 8 * WORD_LIMBS, 8, device=v.device)
+    w = (v.reshape(*v.shape[:-1], words, WORD_LIMBS) * (1 << shifts)).sum(dim=-1)
+    c = torch.zeros_like(w[..., 0])
+    out = []
+    for j in range(words):
+        x = w[..., j] + c
+        out.append(x & ((1 << 8 * WORD_LIMBS) - 1))
+        c = x >> 8 * WORD_LIMBS
+    v = ((torch.stack(out, dim=-1)[..., None] >> shifts) & 0xFF).reshape(*v.shape[:-1], -1)
     return _pad(v, max(0, total - v.shape[-1]))[..., :total].to(torch.uint8)
 
 
 @functools.lru_cache(maxsize=None)
-def _columns32(device: torch.device) -> torch.Tensor:
-    """Column i + j of the flat limb product k[i] * a[j] (index i*32 + j)."""
-    i = torch.arange(32, device=device)
-    return (i[:, None] + i[None, :]).reshape(-1)
+def _columns(n: int, m: int, device: torch.device) -> torch.Tensor:
+    """Column i + j of the flat limb product a[i] * b[j] (index i*m + j)."""
+    i = torch.arange(n, device=device)
+    j = torch.arange(m, device=device)
+    return (i[:, None] + j[None, :]).reshape(-1)
+
+
+def _convolve(a_bytes: torch.Tensor, b_bytes: torch.Tensor) -> torch.Tensor:
+    """The schoolbook product of two little-endian byte strings as int32
+    columns [..., n + m - 1].  The columns are summed with ``index_add_``
+    (the reference multiplies by a 0/1 matrix, and a float product on the
+    card may run in TF32, which cannot hold them); a column peaks at
+    min(n, m) * 255^2."""
+    a = a_bytes.to(torch.int32)
+    b = b_bytes.to(torch.int32)
+    n, m = a.shape[-1], b.shape[-1]
+    flat = (a[..., :, None] * b[..., None, :]).reshape(*a.shape[:-1], n * m)
+    conv = torch.zeros((*a.shape[:-1], n + m - 1), dtype=torch.int32, device=a.device)
+    conv.index_add_(-1, _columns(n, m, a.device), flat)
+    return conv
 
 
 def muladd_bytes(k_bytes: torch.Tensor, a_bytes: torch.Tensor,
@@ -100,17 +137,44 @@ def muladd_bytes(k_bytes: torch.Tensor, a_bytes: torch.Tensor,
     """Batched ``k * a + r`` settled to canonical bytes, unreduced: k, a, r
     uint8 [..., 32] little-endian -> uint8 [..., 64] (the value is below
     2^512; ``ba_tpu/crypto/scalar.py:208``).  The signer's S before its
-    reduction mod L.  The 63 columns of the 32 x 32 schoolbook product are
-    summed in int32 with ``index_add_`` (the reference multiplies by a 0/1
-    matrix, and a float product on the card may run in TF32); terms peak
-    at 32 * 255^2 + 255 ~ 2.08e6."""
-    k = k_bytes.to(torch.int32)
-    a = a_bytes.to(torch.int32)
-    flat = (k[..., :, None] * a[..., None, :]).reshape(*k.shape[:-1], 32 * 32)
-    conv = torch.zeros((*k.shape[:-1], 63), dtype=torch.int32, device=k.device)
-    conv.index_add_(-1, _columns32(k.device), flat)
+    reduction mod L: 63 int32 columns (``_convolve``), terms at most
+    32 * 255^2 + 255 ~ 2.08e6."""
+    conv = _convolve(k_bytes, a_bytes)
     conv = torch.cat([conv[..., :32] + r_bytes.to(torch.int32), conv[..., 32:]], dim=-1)
     return _bytes_from_signed_limbs(conv, 64)
+
+
+def mul_bytes(a_bytes: torch.Tensor, z_bytes: torch.Tensor) -> torch.Tensor:
+    """Batched ``a * z`` settled to canonical bytes, unreduced: a uint8
+    [..., 32], z uint8 [..., 16] -> uint8 [..., 64] (the value is below
+    2^384).  47 int32 columns, terms at most 16 * 255^2 ~ 1.04e6."""
+    return _bytes_from_signed_limbs(_convolve(a_bytes, z_bytes), 64)
+
+
+def mul_mod_l(a_bytes: torch.Tensor, z_bytes: torch.Tensor) -> torch.Tensor:
+    """Batched ``(a * z) mod L``: a uint8 [..., 32], z uint8 [..., 16] ->
+    uint8 [..., 32] (``ba_tpu/crypto/scalar.py:187``): a reduced hash or S
+    times a 128-bit batch-verify coefficient."""
+    return reduce_mod_l(mul_bytes(a_bytes, z_bytes))
+
+
+def sum_bytes(v_bytes: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Batched sum over ``axis`` settled to canonical bytes, unreduced:
+    uint8 [..., G, 32] -> uint8 [..., 64].  Exact while G * 255 < 2^31
+    (the reference's int32 limb sums); the carry headroom is sized from G
+    as the reference sizes it (``ba_tpu/crypto/scalar.py:233``): the sum
+    is below G * 2^256, and a fixed two spare limbs would drop its top
+    carry from G ~ 2^20 on."""
+    G = v_bytes.shape[axis]
+    if G * 255 >= 2**31:
+        raise ValueError(f"G={G} overflows int32 limb sums (G > ~8.4M)")
+    extra = max(2, (252 + G.bit_length() + 7) // 8 + 1 - 32)
+    return _bytes_from_signed_limbs(v_bytes.sum(dim=axis, dtype=torch.int64), 64, extra=extra)
+
+
+def sum_mod_l(v_bytes: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Batched ``sum mod L`` over ``axis``: uint8 [..., G, 32] -> [..., 32]."""
+    return reduce_mod_l(sum_bytes(v_bytes, axis))
 
 
 def _fold_256(v: torch.Tensor, keep: int) -> torch.Tensor:

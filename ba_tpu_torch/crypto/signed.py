@@ -14,15 +14,24 @@ The setup signs on the card by default (``sign_value_tables_device``:
 ``crypto/ed25519.sign``, through K5', K5, K4, K8 and K6), as the
 reference's TPU default does, or on the host through the port's native
 signer (``ba_tpu_torch.native``), the reference's ``BA_TPU_SIGN_DEVICE=0``
-mode; either way the table verify runs on the card through
-``crypto/ed25519.verify`` (K7, K5, K4, K3).  On a CPU device the same
-functions run the kernels' plain versions.  ``verify_host_exact`` is the
-native host verifier, the oracle the tests hold the device verdicts
-against.
+mode; either way the table verify runs on the card, by default through
+``crypto/ed25519.verify`` (K7, K5, K4, K3), the exact verdict of every
+signature.  ``verify="rlc"`` takes the reference's ``BA_TPU_VERIFY_RLC=1``
+route instead: ``crypto/ed25519.verify_rlc``, one batch equation a chunk
+(K7, K5, K6, K3', K4, K8), with the exact verify only for a chunk it
+rejects.  On an H100 that route is no faster: ``chip_smoke.py``'s
+config #3 phase measures the batch check at 0.66-0.73x the
+per-signature rate at 65 536 lanes, and its setup phase the "rlc"
+setup within a few milliseconds of the exact one; it is kept for parity
+with the reference, whose accelerator it did speed up.  On a CPU device
+the same functions run the kernels' plain versions.
+``verify_host_exact`` is the native host verifier, the oracle the tests
+hold the device verdicts against.
 """
 
 from __future__ import annotations
 
+import secrets
 import time
 
 import numpy as np
@@ -40,6 +49,7 @@ VERIFY_CHUNK = 65536  # signatures a verify dispatch (``ba_tpu/crypto/signed.py:
 # verifies chunk c; device signing has nothing to overlap, so one chunk.
 SETUP_CHUNKS = 2
 DEVICE_SIGN_CHUNKS = 1
+VERIFY_ROUTES = ("exact", "rlc")
 
 
 def secret_rows(sks: list[bytes]) -> np.ndarray:
@@ -86,6 +96,25 @@ def sign_value_tables(sks: list[bytes], pks: np.ndarray, n_values: int = 2,
         msgs.reshape(B * n_values, MSG_LEN),
     )
     return msgs, sigs.reshape(B, n_values, 64)
+
+
+def sign_received(sks: list[bytes], pks: np.ndarray, received: np.ndarray,
+                  corrupt: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """The signed round-1 values (``ba_tpu/crypto/signed.py:331``):
+    received [B, n] in {0, 1} -> msgs uint8 [B, n, MSG_LEN] and sigs uint8
+    [B, n, 64], entry (b, i) the commander of b's signed message for the
+    value general i received, gathered from ``sign_value_tables``.
+    ``corrupt`` ([B, n] bool) flips every bit of signature byte 0 where
+    set: faults the verifier must reject."""
+    received = np.asarray(received).astype(np.int64)
+    if received.size and (received.min() < 0 or received.max() > 1):
+        raise ValueError("round-1 values are 0 or 1")
+    msgs_t, sigs_t = sign_value_tables(sks, pks)
+    rows = np.arange(len(sks))[:, None]
+    msgs, sigs = msgs_t[rows, received], sigs_t[rows, received]
+    if corrupt is not None:
+        sigs[..., 0] ^= np.where(corrupt, np.uint8(0xFF), np.uint8(0))
+    return msgs, sigs
 
 
 def sign_value_tables_device(sks: list[bytes], pks, n_values: int = 2, base: int = 0,
@@ -138,15 +167,25 @@ def _to_device(a, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def verify_received(pks, msgs, sigs, device=None) -> torch.Tensor:
+def _check_route(verify: str) -> None:
+    if verify not in VERIFY_ROUTES:
+        raise ValueError(f"verify must be one of {VERIFY_ROUTES}, got {verify!r}")
+
+
+def verify_received(pks, msgs, sigs, device=None, verify: str = "exact") -> torch.Tensor:
     """Batched verification on ``device`` (the card unless given): pks
     [B, 32], msgs [B, n, MSG_LEN], sigs [B, n, 64] uint8 -> bool [B, n].
 
-    The exact cofactorless verdict of every signature, as the oracle
-    gives it (the reference's ``BA_TPU_VERIFY_RLC`` batch check is not
-    ported).  Flattens to B * n lanes, verifies in chunks of
-    ``VERIFY_CHUNK`` (the last at its own size: the kernels take any
-    lane count) and reshapes back.  Nothing here waits for the card."""
+    ``verify="exact"`` (the default, as the reference's default):  the
+    cofactorless verdict of every signature, as the oracle gives it.
+    Flattens to B * n lanes, verifies in chunks of ``VERIFY_CHUNK`` (the
+    last at its own size: the kernels take any lane count) and reshapes
+    back.  Nothing here waits for the card.  ``verify="rlc"``: the batch
+    check first, :func:`verify_received_rlc`, which fetches its verdict;
+    on an H100 it is slower than the exact route (module docstring)."""
+    _check_route(verify)
+    if verify == "rlc":
+        return verify_received_rlc(pks, msgs, sigs, device)
     dev = resolve_device(device)
     pks, msgs, sigs = (_to_device(a, dev) for a in (pks, msgs, sigs))
     B, n = msgs.shape[:2]
@@ -162,8 +201,61 @@ def verify_received(pks, msgs, sigs, device=None) -> torch.Tensor:
     return torch.cat(oks).reshape(B, n)
 
 
+def fresh_rlc_coeffs(total: int) -> np.ndarray:
+    """Unpredictable 128-bit batch-verify coefficients, one a lane: uint8
+    [total, 16] from OS entropy, never from a seed or the batch
+    (``ba_tpu/crypto/signed.py:535``): the check is sound only if z is
+    unknown to whoever chose the signatures."""
+    return np.frombuffer(bytearray(secrets.token_bytes(total * 16)), np.uint8).reshape(total, 16)
+
+
+def rlc_batch_ok(pks, msgs, sigs, device=None) -> torch.Tensor:
+    """The chunked batch check, ``ed25519.verify_rlc``, on ``device``
+    (the card unless given) -> a bool scalar on the device, "every
+    signature valid", not fetched (``ba_tpu/crypto/signed.py:549``).
+
+    pks [B, 32], msgs [B, n, MSG_LEN], sigs [B, n, 64]: instance b's n
+    lanes share its key, so ``pk_group`` is n.  Chunks hold whole groups,
+    up to ``VERIFY_CHUNK`` lanes; a call smaller than a chunk runs at its
+    own size, and a ragged tail is padded with copies of the first group,
+    which cannot turn a reject into an accept (a valid copy adds nothing,
+    an invalid one rejects).  Fresh coefficients for every call."""
+    dev = resolve_device(device)
+    pks, msgs, sigs = (_to_device(a, dev) for a in (pks, msgs, sigs))
+    B, n = msgs.shape[:2]
+    total = B * n
+    pk_bn = pks[:, None, :].expand(B, n, 32).reshape(total, 32)
+    msgs = msgs.reshape(total, -1)
+    sigs = sigs.reshape(total, 64)
+    chunk = min(max(n, VERIFY_CHUNK // n * n), total)
+    reps = (-total) % chunk // n
+    if reps:
+        pk_bn, msgs, sigs = (torch.cat([t, t[:n].repeat(reps, 1)]) for t in (pk_bn, msgs, sigs))
+    z = _to_device(fresh_rlc_coeffs(pk_bn.shape[0]), dev)
+    oks = [ed25519.verify_rlc(pk_bn[o:o + chunk], msgs[o:o + chunk], sigs[o:o + chunk],
+                              z[o:o + chunk], pk_group=n)[0]
+           for o in range(0, pk_bn.shape[0], chunk)]
+    return oks[0] if len(oks) == 1 else torch.stack(oks).all()
+
+
+def verify_received_rlc(pks, msgs, sigs, device=None) -> torch.Tensor:
+    """Batched verification through the batch check, with the exact
+    per-signature verify on a reject -> bool [B, n] on ``device``
+    (``ba_tpu/crypto/signed.py:610``).  Fetches the batch verdict.
+
+    Where it differs from the exact route, as in the reference: the batch
+    check is cofactored, so a signer's own torsion-malleated signature is
+    accepted here when every other lane is valid, and rejected by the
+    exact verify when any lane is not."""
+    dev = resolve_device(device)
+    B, n = np.shape(msgs)[:2]
+    if bool(rlc_batch_ok(pks, msgs, sigs, dev)):
+        return torch.ones((B, n), dtype=torch.bool, device=dev)
+    return verify_received(pks, msgs, sigs, dev)
+
+
 def queue_signed_tables(batch: int, seed: int = 0, device=None,
-                        sign_device: bool | None = None) -> dict:
+                        sign_device: bool | None = None, verify: str = "exact") -> dict:
     """One key-set's setup up to its one fetch: keys on the host, 2 signs
     per commander, and the table verify queued on ``device`` (the card
     unless given).  Nothing here waits for the card;
@@ -178,7 +270,15 @@ def queue_signed_tables(batch: int, seed: int = 0, device=None,
     public keys uploaded once for sign and verify; ``SETUP_CHUNKS`` (2)
     on the host, chunk c's tables going up and its verify queued while
     the host signs chunk c + 1.
+
+    ``verify`` picks the table verify: ``"exact"`` (the default) verifies
+    every signature; ``"rlc"`` queues one batch check a chunk
+    (:func:`rlc_batch_ok`), whose verdicts come back in the one fetch,
+    as the reference's ``BA_TPU_VERIFY_RLC=1`` setup does
+    (``ba_tpu/crypto/signed.py:727-775``); on an H100 it saves nothing
+    (module docstring).
     """
+    _check_route(verify)
     dev = resolve_device(device)
     if sign_device is None:
         sign_device = dev.type == "cuda"
@@ -200,10 +300,29 @@ def queue_signed_tables(batch: int, seed: int = 0, device=None,
         sign_s += time.perf_counter() - t0
         msgs_parts.append(m_c)
         sigs_parts.append(s_c)
-        oks.append(verify_received(pks_v[lo:hi], m_c, s_c, dev))
-    return {"sks": sks, "pks": pks, "msgs": np.concatenate(msgs_parts), "sigs": sigs_parts,
-            "oks": oks, "device": dev, "device_sign": sign_device, "sign_s": sign_s,
-            "t_start": t_start, "t_keys": t_keys, "t_queued": time.perf_counter()}
+        if verify == "rlc":
+            oks.append(rlc_batch_ok(pks_v[lo:hi], m_c, s_c, dev))
+        else:
+            oks.append(verify_received(pks_v[lo:hi], m_c, s_c, dev))
+    return {"sks": sks, "pks": pks, "pks_v": pks_v, "msgs": msgs_parts, "sigs": sigs_parts,
+            "oks": oks, "verify": verify, "device": dev, "device_sign": sign_device,
+            "sign_s": sign_s, "t_start": t_start, "t_keys": t_keys,
+            "t_queued": time.perf_counter()}
+
+
+def _rlc_verdicts(q: dict, flags: np.ndarray) -> torch.Tensor:
+    """The setup's [B, 2] verdicts from its chunks' batch verdicts: all
+    True for a chunk that passed, the exact verify for one that did not
+    (queued here, after the fetch)."""
+    oks, lo = [], 0
+    for flag, m_c, s_c in zip(flags, q["msgs"], q["sigs"]):
+        hi = lo + m_c.shape[0]
+        if flag:
+            oks.append(torch.ones(m_c.shape[:2], dtype=torch.bool, device=q["device"]))
+        else:
+            oks.append(verify_received(q["pks_v"][lo:hi], m_c, s_c, q["device"]))
+        lo = hi
+    return torch.cat(oks) if len(oks) > 1 else oks[0]
 
 
 def drain_signed_tables(queued: dict):
@@ -212,23 +331,31 @@ def drain_signed_tables(queued: dict):
     ``(sks, pks, msgs_t, sigs_t, ok, timings)``.
 
     ``ok`` is bool [B, 2] on the setup's device; ``sigs_t`` is on the
-    host.  ``timings``: ``keys_s``, ``sign_s`` (host signing, or the host
-    time to queue the device signing), ``drain_s`` (from the last queued
-    dispatch to the verdicts and signatures on the host: the card's work
-    not hidden behind the host's), ``total_s``, ``chunks``,
-    ``device_sign`` and ``verify_route`` ("device" on the card, "plain"
-    where the plain versions ran).
+    host.  On the ``"rlc"`` route the fetch brings the chunks' batch
+    verdicts; a chunk that failed is verified exactly after it, and its
+    verdicts fetched too.  ``timings``: ``keys_s``, ``sign_s`` (host
+    signing, or the host time to queue the device signing), ``drain_s``
+    (from the last queued dispatch to the verdicts and signatures on the
+    host: the card's work not hidden behind the host's), ``total_s``,
+    ``chunks``, ``device_sign``, ``verify`` (the route) and
+    ``verify_route`` ("device" on the card, "plain" where the plain
+    versions ran).
     """
     q = queued
-    ok = torch.cat(q["oks"]) if len(q["oks"]) > 1 else q["oks"][0]
+    rlc = q["verify"] == "rlc"
+    flat = [t.to(torch.uint8).reshape(-1) for t in q["oks"]]  # rlc: one flag a chunk
     if q["device_sign"]:
-        sigs_dev = torch.cat(q["sigs"]) if len(q["sigs"]) > 1 else q["sigs"][0]
-        batch, n = sigs_dev.shape[:2]
-        both = torch.cat([ok.to(torch.uint8), sigs_dev.reshape(batch, n * 64)], dim=1)
-        sigs = both.cpu().numpy()[:, n:].reshape(batch, n, 64)  # the one fetch
+        flat += [s.reshape(-1) for s in q["sigs"]]
+    fetched = torch.cat(flat).cpu().numpy()  # the one fetch
+    n_ok = sum(t.numel() for t in q["oks"])
+    sigs = (fetched[n_ok:].reshape(-1, q["msgs"][0].shape[1], 64) if q["device_sign"]
+            else np.concatenate(q["sigs"]))
+    if rlc:
+        ok = _rlc_verdicts(q, fetched[:n_ok].astype(bool))
+        if not fetched[:n_ok].all():
+            ok.cpu()  # the exact verify of a rejected chunk
     else:
-        ok.cpu()  # the one fetch: drains the verify queue
-        sigs = np.concatenate(q["sigs"])
+        ok = torch.cat(q["oks"]) if len(q["oks"]) > 1 else q["oks"][0]
     t_end = time.perf_counter()
     timings = {
         "keys_s": q["t_keys"] - q["t_start"],
@@ -237,18 +364,20 @@ def drain_signed_tables(queued: dict):
         "total_s": t_end - q["t_start"],
         "chunks": len(q["oks"]),
         "device_sign": q["device_sign"],
+        "verify": q["verify"],
         "verify_route": "device" if q["device"].type == "cuda" else "plain",
     }
-    return q["sks"], q["pks"], q["msgs"], sigs, ok, timings
+    return q["sks"], q["pks"], np.concatenate(q["msgs"]), sigs, ok, timings
 
 
 def setup_signed_tables(batch: int, seed: int = 0, device=None,
-                        sign_device: bool | None = None):
+                        sign_device: bool | None = None, verify: str = "exact"):
     """One key-set's setup: keys, 2 signs per commander and the table
     verify, with one fetch at the end -> ``(sks, pks, msgs_t, sigs_t, ok,
     timings)``: :func:`queue_signed_tables`, then
     :func:`drain_signed_tables`.  The form of ``ba_tpu/crypto/signed.py::
     setup_signed_tables_overlapped``; on the card it signs there by
     default, in one chunk, as the reference does on its accelerator.
+    ``verify`` is ``"exact"`` or ``"rlc"`` (:func:`queue_signed_tables`).
     """
-    return drain_signed_tables(queue_signed_tables(batch, seed, device, sign_device))
+    return drain_signed_tables(queue_signed_tables(batch, seed, device, sign_device, verify))

@@ -2,11 +2,9 @@
 // projective equality with [S]B; one thread a lane, one verdict a lane.
 //
 // Replaces ba_tpu/ops/ladder.py::_window_verify_kernel (the Pallas TPU
-// kernel, body _window_acc at :77).  Per lane: the 16 multiples
-// T[j] = [j]A (14 additions), then 64 windows, most significant first,
-// each 4 doublings (the dedicated formula, T only on the fourth) and one
-// addition of T[d_w], d_w the w-th 4-bit digit of the little-endian h;
-// then R + acc and X_l Z_r == X_r Z_l and Y_l Z_r == Y_r Z_l.  A lane
+// kernel, body _window_acc at :77).  Per lane: [h]A by window_acc
+// (window.cuh, shared with K3'), 64 windows of the little-endian h; then
+// R + acc and X_l Z_r == X_r Z_l and Y_l Z_r == Y_r Z_l.  A lane
 // whose encodings were invalid gets a verdict all the same; the caller
 // masks it (ed25519.verify does).
 //
@@ -21,26 +19,13 @@
 // Interface: a, r uint8 [n, 4, 32] (canonical X, Y, Z, T), h uint8
 // [n, 32], left uint8 [n, 4, 32] (T unread) -> ok uint8 [n].
 
-#include "ed25519_field.cuh"
+#include "window.cuh"
 
 ED_FN bool window_verify_lane(const uint8_t* a_pt, const uint8_t* h, const uint8_t* r_pt,
                               const uint8_t* left) {
-    ge tab[16];
-    ge_identity(tab[0]);
-    ge_frombytes4(tab[1], a_pt);
-#pragma unroll 1
-    for (int j = 2; j < 16; j++) ge_add(tab[j], tab[j - 1], tab[1]);
-    ge acc;
-    ge_identity(acc);
-#pragma unroll 1
-    for (int w = 63; w >= 0; w--) {
-        ge_dbl(acc, acc, false);
-        ge_dbl(acc, acc, false);
-        ge_dbl(acc, acc, false);
-        ge_dbl(acc, acc, true);
-        const int digit = (h[w >> 1] >> (4 * (w & 1))) & 15;
-        ge_add(acc, acc, tab[digit]);
-    }
+    ge a, acc;
+    ge_frombytes4(a, a_pt);
+    window_acc(acc, a, h, 32);
     ge r;
     ge_frombytes4(r, r_pt);
     ge_add(r, r, acc);

@@ -1,21 +1,39 @@
-"""K3, the verification tail (``csrc/window_verify.cu``), and its plain
-torch version.
+"""K3, the verification tail (``csrc/window_verify.cu``), and K3', the
+4-bit window multiply (``csrc/window_mult.cu``), with their plain torch
+versions.
 
-K3 replaces ``ba_tpu/ops/ladder.py::_window_verify_kernel`` (the Pallas
-TPU kernel, the verify-fused form of the 4-bit window multiply): per lane
-[h]A by 64 windows, most significant first, of four doublings and one
-addition from the 16-entry table of [j]A; then R + [h]A and the
-cross-multiplied equality with [S]B.  Its interface:
+Both run one accumulator, ``window_acc`` in ``csrc/window.cuh``, the
+body of ``ba_tpu/ops/ladder.py::_window_acc``: per lane the 16 multiples
+[j]P (14 additions), then one window a digit of k, most significant
+first, each four doublings (T only on the fourth) and one addition from
+the table.  The digit of window w is nibble w of the little-endian
+scalar, the reference's ``(word >> 4 * (w & 7)) & 15`` of its packed
+bits.  Points are canonical encodings (``crypto/ed25519.encode_point``).
+
+K3 replaces ``_window_verify_kernel`` (the Pallas TPU kernel): [h]A, then
+R + [h]A and the cross-multiplied equality with [S]B:
 
     a, r uint8 [S, 4, 32], h uint8 [S, 32], left uint8 [S, 4, 32]  ->  bool [S]
 
-Points are canonical encodings (``crypto/ed25519.encode_point``); ``h``
-is the little-endian scalar whose nibble w is the digit of window w, the
-reference's ``(word >> 4 * (w & 7)) & 15`` of the packed bits.  The
-siblings ``_window_kernel`` and ``_ladder_kernel`` are not ported yet.
+K3' replaces ``_window_kernel`` (through ``window_mult``): [k]P a lane,
+with k of any byte width (16 bytes for the batch verifier's [z]R, 32 for
+[W]A and the ladder leg):
 
-:func:`window_verify` runs the plain version on a CPU tensor and launches
-K3 on a CUDA one, or raises; it keeps a plain integer ``launches`` count.
+    point uint8 [S, 4, 32], k uint8 [S, nbytes]  ->  uint8 [S, 4, 32]
+
+With ``fold=True`` K3' also sums its products, which the reference does
+in XLA (``ed25519.batch_point_sum``), and returns one point, uint8
+[1, 4, 32]: each block of FOLD lanes (the last padded with the identity)
+is summed by a halving tree, lane i plus lane i + 16, then + 8, ..., as
+``batch_point_sum`` pairs 32 points; column t of the block sums (sums t,
+t + 32, t + 64, ... added in turn to the identity) and a last halving
+tree give the total.  :func:`fold_points` is that pairing in torch, so
+the plain version's encodings equal the kernel's.  The reference's
+double-and-add sibling ``_ladder_kernel`` (K3'') is not ported yet.
+
+:func:`window_verify` and :func:`window_mult` run the plain version on a
+CPU tensor and launch the kernel on a CUDA one, or raise; each keeps a
+plain integer ``launches`` count.
 """
 
 from __future__ import annotations
@@ -30,27 +48,64 @@ from ba_tpu_torch.ops import _build
 from ba_tpu_torch.ops.treeadd import digits
 
 SOURCE = "window_verify.cu"
-WINDOWS = 64
+MULT_SOURCE = "window_mult.cu"
+FOLD = 32  # lanes a block of K3' sums (one warp)
+GE_INT32 = 40  # a point in the kernels' radix: 4 x 10 int32 limbs
 
 
-def plain_window_verify(a: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
-                        left: torch.Tensor) -> torch.Tensor:
-    """The plain version of K3, the kernel's steps batched over lanes."""
-    S = a.shape[0]
-    dev = a.device
-    point = E.decode_point(a)
+def plain_window_acc(point: E.Point, k: torch.Tensor) -> E.Point:
+    """[k]P a lane by 4-bit windows, the accumulator K3 and K3' share:
+    point limbs (4 x [S, 22]), k uint8 [S, nbytes] -> point limbs."""
+    S = k.shape[0]
+    dev = k.device
     table = [E.identity((S,), dev), point]
     for _ in range(2, 16):
         table.append(E.point_add(table[-1], point))
     table = tuple(torch.stack([t[c].expand(S, F.LIMBS) for t in table], dim=1)
                   for c in range(4))  # 4 x [S, 16, 22]
     lanes = torch.arange(S, device=dev)
-    dig = digits(h)
+    dig = digits(k)
     acc = E.identity((S,), dev)
-    for w in range(WINDOWS - 1, -1, -1):
-        for k in range(4):
-            acc = E.point_dbl(acc, with_t=k == 3)
+    for w in range(dig.shape[1] - 1, -1, -1):
+        for i in range(4):
+            acc = E.point_dbl(acc, with_t=i == 3)
         acc = E.point_add(acc, tuple(c[lanes, dig[:, w]] for c in table))
+    return acc
+
+
+def _pad_identity(p: E.Point, size: int) -> E.Point:
+    extra = size - p[0].shape[0]
+    if not extra:
+        return p
+    ident = E.identity((extra,), p[0].device)
+    return tuple(torch.cat([c, i]) for c, i in zip(p, ident))
+
+
+def fold_points(p: E.Point) -> E.Point:
+    """K3''s sum of its S products, in the kernel's pairing: point limbs
+    (4 x [S, 22]) -> 4 x [1, 22]."""
+    G = -(-p[0].shape[0] // FOLD)
+    p = _pad_identity(p, G * FOLD)
+    parts = E.batch_point_sum(tuple(c.reshape(G, FOLD, F.LIMBS).transpose(0, 1) for c in p))
+    C = -(-G // FOLD)
+    parts = _pad_identity(tuple(c[0] for c in parts), C * FOLD)
+    cols = tuple(c.reshape(C, FOLD, F.LIMBS) for c in parts)
+    total = E.identity((FOLD,), p[0].device)
+    for row in range(C):
+        total = E.point_add(total, tuple(c[row] for c in cols))
+    return E.batch_point_sum(total)
+
+
+def plain_window_mult(point: torch.Tensor, k: torch.Tensor, fold: bool = False) -> torch.Tensor:
+    """The plain version of K3': the kernel's steps batched over lanes."""
+    acc = plain_window_acc(E.decode_point(point), k)
+    return E.encode_point(fold_points(acc) if fold else acc)
+
+
+def plain_window_verify(a: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
+                        left: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3, the kernel's steps batched over lanes."""
+    acc = plain_window_acc(E.decode_point(a), h)
     xr, yr, zr, _ = E.point_add(E.decode_point(r), acc)
     xl, yl, zl, _ = E.decode_point(left)
     return F.eq(F.mul(xl, zr), F.mul(xr, zl)) & F.eq(F.mul(yl, zr), F.mul(yr, zl))
@@ -62,6 +117,16 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # pointers as c_void_p, or ctypes cuts them to 32 bits
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _mult_lib() -> ctypes.CDLL:
+    lib = _build.load(MULT_SOURCE)
+    if lib.ba_window_mult.argtypes is None:
+        lib.ba_window_mult.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        lib.ba_window_mult.restype = ctypes.c_int
+        lib.ba_window_mult_fold.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        lib.ba_window_mult_fold.restype = ctypes.c_int
     return lib
 
 
@@ -89,8 +154,46 @@ def window_verify(a: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
     return ok
 
 
+def window_mult(point: torch.Tensor, k: torch.Tensor, fold: bool = False) -> torch.Tensor:
+    """[k]P per lane: point uint8 [S, 4, 32], k uint8 [S, nbytes] -> uint8
+    [S, 4, 32]; with ``fold`` their sum, uint8 [1, 4, 32] (S >= 1)."""
+    dev = point.device
+    if point.dim() != 3 or tuple(point.shape[1:]) != (4, 32):
+        raise ValueError(f"point must be [S, 4, 32], got {tuple(point.shape)}")
+    if k.dim() != 2 or k.shape[0] != point.shape[0] or k.shape[1] < 1:
+        raise ValueError(f"k must be [{point.shape[0]}, nbytes >= 1], got {tuple(k.shape)}")
+    n, nbytes = k.shape
+    if fold and n == 0:
+        raise ValueError("fold needs at least one lane")
+    if dev.type == "cpu":
+        return plain_window_mult(point, k, fold)
+    if dev.type != "cuda":
+        raise ValueError(f"the window-multiply kernel runs on a CUDA device, not {dev}")
+    _build.check_tensor(point, "point", torch.uint8, (n, 4, 32), dev)
+    _build.check_tensor(k, "k", torch.uint8, (n, nbytes), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if fold:
+        out = torch.empty((1, 4, 32), dtype=torch.uint8, device=dev)
+        partials = torch.empty((-(-n // FOLD), GE_INT32), dtype=torch.int32, device=dev)
+        done = torch.zeros((1,), dtype=torch.int32, device=dev)
+        err = _mult_lib().ba_window_mult_fold(n, nbytes, point.data_ptr(), k.data_ptr(),
+                                              partials.data_ptr(), done.data_ptr(),
+                                              out.data_ptr(), stream)
+    else:
+        out = torch.empty((n, 4, 32), dtype=torch.uint8, device=dev)
+        err = _mult_lib().ba_window_mult(n, nbytes, point.data_ptr(), k.data_ptr(),
+                                         out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"window-multiply launch failed: CUDA error {err}")
+    if n:
+        window_mult.launches += 1
+    return out
+
+
 window_verify.launches = 0
+window_mult.launches = 0
 
 
 def reset_launches() -> None:
     window_verify.launches = 0
+    window_mult.launches = 0

@@ -37,9 +37,10 @@ WINDOWS = 64
 
 
 def digits(s_enc: torch.Tensor) -> torch.Tensor:
-    """The 64 little-endian 4-bit digits of 32-byte scalars: int64 [S, 64]."""
+    """The little-endian 4-bit digits of scalars uint8 [S, nbytes]: int64
+    [S, 2 nbytes] (64 for the 32-byte scalars here)."""
     s = s_enc.to(torch.int64)
-    return torch.stack([s & 0xF, s >> 4], dim=-1).reshape(s.shape[0], WINDOWS)
+    return torch.stack([s & 0xF, s >> 4], dim=-1).reshape(s.shape[0], 2 * s.shape[1])
 
 
 def plain_fixed_base_fold(s_enc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

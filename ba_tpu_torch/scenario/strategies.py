@@ -1,5 +1,6 @@
-"""Vectorized adversary strategies for oral sends
-(``ba_tpu/scenario/strategies.py``: ``lie_table``, ``lie_values``).
+"""Vectorized adversary strategies (``ba_tpu/scenario/strategies.py``:
+``lie_table`` and ``lie_values`` for oral sends, ``send_gate`` for signed
+ones).
 
 Each general carries an int8 strategy id; a faulty sender's coin is
 replaced through a precomputed lie table:
@@ -16,6 +17,8 @@ ADAPTIVE_SPLIT            True    ATTACK   RETREAT
 
 Receiver parity (even/odd index) is ADAPTIVE_SPLIT's only receiver
 dependence.  The command codes are pinned locally, as in the reference.
+In a signed relay a traitor cannot forge, only withhold, so there each id
+becomes a forward gate instead (:func:`send_gate`).
 """
 
 from __future__ import annotations
@@ -53,3 +56,20 @@ def lie_values(strategy, coins: torch.Tensor, receiver_index) -> torch.Tensor:
     known, even_v, odd_v = lie_table(strategy, coins.dtype)
     table_v = torch.where((receiver_index & 1) == 0, even_v, odd_v)
     return torch.where(known, table_v, coins)
+
+
+def send_gate(strategy, coins: torch.Tensor, receiver_index, value_index) -> torch.Tensor:
+    """Per-message forward gates for signed sends, the branch-free form
+    (``ba_tpu/scenario/strategies.py:183``): ``coins`` is the RANDOM gate
+    (bool), ``value_index`` the V-set axis (0 RETREAT, 1 ATTACK).
+    COLLUDE_ATTACK forwards only ATTACK, COLLUDE_RETREAT only RETREAT,
+    SILENT nothing, ADAPTIVE_SPLIT ATTACK to even receivers and RETREAT to
+    odd ones; RANDOM and unknown ids keep the coin.  Whether the sender
+    holds the value, and the chain-length bound, stay with the caller."""
+    is_attack = value_index == 1
+    m1 = strategy == COLLUDE_ATTACK
+    m2 = strategy == COLLUDE_RETREAT
+    m4 = strategy == ADAPTIVE_SPLIT
+    known = m1 | m2 | (strategy == SILENT) | m4
+    split = (receiver_index % 2 == 0) == is_attack
+    return (coins & ~known) | (m1 & is_attack) | (m2 & ~is_attack) | (m4 & split)

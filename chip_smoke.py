@@ -19,11 +19,16 @@ Three paths, each through its hand-written kernels:
   BA_TPU_SIGN_DEVICE=0 mode, two chunks, the host signing while the card
   verifies) runs beside it;
 - the signed sweep's timed step (its dispatch loop) through K2, the
-  sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``).
+  sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``);
+- BASELINE config #3 (``bench.py``'s ``bench_sm1_n64_signed``): the
+  per-signature verify, the batch verify ``verify_rlc`` (K7, K5, K6,
+  K3' ``window_mult.cu``, K4, K8), K3' alone (the ladder leg) and the
+  field-multiply probe P (``fieldmul_probe.cu``), interleaved, then the
+  exact SM(1) round.
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
-   together: one nvcc a CUDA source (eight) and the native Ed25519
+   together: one nvcc a CUDA source (ten) and the native Ed25519
    signer (g++);
 2. threefry and Philox4x32-10 known answers on the card, the latter
    through the very Philox rounds K2 draws from (its source's
@@ -67,9 +72,13 @@ Phases, one JSON line each:
    host signer's, every verdict True, launches K5' 1, K5 3, K4 2, K8 1,
    K6 1, K7 1, K3 1; then the host-sign route (two chunks, the host
    signing chunk c + 1 while the card verifies chunk c, warmed alike);
-   then a copy with every 7th signature corrupted (R, S or message in
-   turn), its card verdicts equal to the native host verifier's on all
-   20 480; each route's keys, sign, drain and total times, the warm
+   then the "rlc" route (device signing, one batch check as the table
+   verify, its verdict in the one fetch; sync-checked alike; launches
+   K5' 1, K5 3, K4 2, K8 2, K6 5, K7 1, K3' 4); then a copy with every
+   7th signature corrupted (R, S or message in turn), its card verdicts,
+   by the exact route and by the "rlc" route's exact fallback, equal to
+   the native host verifier's on all 20 480; each route's keys, sign,
+   drain and total times, the warm
    device sign and verify of the whole batch (CUDA events) and the host
    verify of the same tables;
 10. the signed sweep at full width: ``bucketed_sweep_states(key(5),
@@ -82,7 +91,8 @@ Phases, one JSON line each:
    (``bench.py``'s reading) and the spread;
 11. the sweep's rate with phase 9's setups charged at ``bench.py``'s
    horizons of 50, 100, 500 and 5000 steps, for each route (sign and
-   verify on the card; sign on the host, verify on the card);
+   verify on the card; sign on the host, verify on the card; sign on the
+   card, batch-verify there);
 12. faulty leaders in every fourth instance of the same buckets, and in
    every eighth only 4 to 8 generals alive with a traitor lieutenant:
    one 480-round dispatch per bucket against the plain version in full
@@ -90,21 +100,48 @@ Phases, one JSON line each:
    the seed, and the round-0 histogram of the few-alive instances
    against the port's ``core/sm.py`` composition (threefry draws) within
    6 sqrt(count);
-then the kernels line, built by replaying the main paths' own dispatches
-with the same keys, inputs and shapes (for the Ed25519 kernels, every
-dispatch of the device-sign setup): each replay held against the plain
-version and against the main path's outputs, with the launches on the
-main path, the time, bound and plain time of a dispatch (of all a
-kernel's dispatches in the setup, for the Ed25519 kernels), and the
-largest difference from the plain version; then the card's name and
-power limit, and ``{"ok": true, ...}`` last.  Any failure exits non-zero
-before that.
+13. ``verify_rlc`` known answers on the card: a valid batch accepts with
+   pk_group n and 1, one flipped signature byte rejects, S >= L is
+   flagged and rejects, a torsion-malleated signature (tests/
+   test_crypto.py:489) is rejected by ``verify`` and accepted by the
+   cofactored batch check, and rejected with S + 1;
+14. K3' (per lane and summed) and P against their plain versions at S in
+   {1, 37, 1024, 4096}, k of 128 and 256 bits (0, 1, 15, 16, L - 1, all
+   ones, random; the identity, B, [s]B with Z != 1, keys) — encodings
+   bit-equal;
+15. config #3 at full width: ``commander_keys(64)``, n = 64, m = 1,
+   65 536 verify lanes (4096 signed broadcasts tiled 16 times), 10
+   variants from ``default_rng(2)``; 3 reps, each interleaving 3 timed
+   calls (after a warm one) of ``verify``, ``verify_rlc(pk_group=64)``,
+   K3' on the 256-bit h (the ladder leg) and P; the best rep counts,
+   with the spread; every verdict True, the per-signature mask equal to
+   the native verifier's on one variant; verifies/s both ways, the
+   speedup, the ladder's and the probe's field multiplies a second and
+   ``pct_of_ladder_rate`` as bench.py derives them, and beside it the
+   same share from the port's own operation counts; the host's queueing
+   and the card's time of one call of each verify; then the exact SM(1)
+   ``sm_agreement`` at B = 64, n = 64 (honest leader, lieutenant 1
+   faulty), 20 calls a rep, best of 3, every decision ATTACK;
+then the kernels line.  For K1 and K2 it replays the main paths' own
+dispatches with the same keys, inputs and rounds a dispatch.  For the
+Ed25519 kernels, K3' and P it replays what the main paths recorded: each
+setup route run once more with its dispatches recorded (the wrappers'
+arguments and outputs, taken at their modules), and one call of each of
+config #3's legs on its first inputs; every recorded dispatch is held
+against the recorded output and against its plain version, timed, and
+bounded, and the dispatches replayed, times the calls of the counted
+run, must equal the launches counted there.  Each line gives the
+launches on the main paths, the time, bound and plain time per path and
+per dispatch, and the largest difference from the plain version; then
+the card's name and power limit, and ``{"ok": true, ...}`` last.  Any
+failure exits non-zero before that.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import hashlib
 import json
 import os
@@ -119,11 +156,11 @@ from ba_tpu_torch import convert, native
 from ba_tpu_torch.core import rng, sm
 from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.om import round1_broadcast
-from ba_tpu_torch.core.state import SimState
+from ba_tpu_torch.core.state import SimState, make_state
 from ba_tpu_torch.core.types import ATTACK
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
-from ba_tpu_torch.ops import (_build, decompress, ladder, modl, powchain, scenario_step,
-                              sha512_kernel, sweep_step, treeadd)
+from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, modl, powchain,
+                              scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
@@ -147,28 +184,48 @@ STEPS_SIGNED, WINDOWS_SIGNED = 50, 3  # bench.py's iters and reps
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
-                "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu")
-# The Ed25519 kernels: (name, wrapper, source, the TPU kernel it replaces).
+                "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu", "window_mult.cu",
+                "fieldmul_probe.cu")
+# The Ed25519 kernels and the field-multiply probe: (name, wrapper, its plain
+# version, source, the TPU kernel it replaces).
 ED_KERNELS = {
-    "K5'": ("sha512", sha512_kernel.sha512_blocks, "ba_tpu_torch/ops/csrc/sha512_modl.cu",
-            "ba_tpu/ops/sha512_kernel.py:43"),
+    "K5'": ("sha512", sha512_kernel.sha512_blocks, sha512_kernel.plain_sha512_blocks,
+            "ba_tpu_torch/ops/csrc/sha512_modl.cu", "ba_tpu/ops/sha512_kernel.py:43"),
     "K5": ("sha512_modl", sha512_kernel.sha512_blocks_mod_l,
-           "ba_tpu_torch/ops/csrc/sha512_modl.cu", "ba_tpu/ops/sha512_kernel.py:98"),
-    "K4": ("fixed_base_tree", treeadd.fixed_base_fold, "ba_tpu_torch/ops/csrc/treeadd.cu",
-           "ba_tpu/ops/treeadd.py:49"),
-    "K8": ("compress_inv_chain", powchain.compress, "ba_tpu_torch/ops/csrc/powchain.cu",
-           "ba_tpu/ops/powchain.py:101"),
-    "K6": ("modl", modl.reduce_mod_l_planes, "ba_tpu_torch/ops/csrc/modl.cu",
-           "ba_tpu/ops/modl.py:65"),
-    "K7": ("decompress", decompress.decompress, "ba_tpu_torch/ops/csrc/decompress.cu",
-           "ba_tpu/ops/decompress.py:45"),
-    "K3": ("window_verify", ladder.window_verify, "ba_tpu_torch/ops/csrc/window_verify.cu",
-           "ba_tpu/ops/ladder.py:121"),
+           sha512_kernel.plain_sha512_blocks_mod_l, "ba_tpu_torch/ops/csrc/sha512_modl.cu",
+           "ba_tpu/ops/sha512_kernel.py:98"),
+    "K4": ("fixed_base_tree", treeadd.fixed_base_fold, treeadd.plain_fixed_base_fold,
+           "ba_tpu_torch/ops/csrc/treeadd.cu", "ba_tpu/ops/treeadd.py:49"),
+    "K8": ("compress_inv_chain", powchain.compress, powchain.plain_compress,
+           "ba_tpu_torch/ops/csrc/powchain.cu", "ba_tpu/ops/powchain.py:101"),
+    "K6": ("modl", modl.reduce_mod_l_planes, modl.plain_reduce_mod_l,
+           "ba_tpu_torch/ops/csrc/modl.cu", "ba_tpu/ops/modl.py:65"),
+    "K7": ("decompress", decompress.decompress, decompress.plain_decompress,
+           "ba_tpu_torch/ops/csrc/decompress.cu", "ba_tpu/ops/decompress.py:45"),
+    "K3": ("window_verify", ladder.window_verify, ladder.plain_window_verify,
+           "ba_tpu_torch/ops/csrc/window_verify.cu", "ba_tpu/ops/ladder.py:121"),
+    "K3'": ("window_mult", ladder.window_mult, ladder.plain_window_mult,
+            "ba_tpu_torch/ops/csrc/window_mult.cu", "ba_tpu/ops/ladder.py:113"),
+    "P": ("fieldmul_probe", fieldmul_probe.fieldmul_probe, fieldmul_probe.plain_fieldmul_probe,
+          "ba_tpu_torch/ops/csrc/fieldmul_probe.cu", "bench.py:3404"),
 }
 # Launches of each on the device-sign setup: sign (K5', K5 twice, K4, K8, K6),
-# then verify (K7, K5, K4, K3).
-DEVICE_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 1, "K6": 1, "K7": 1, "K3": 1}
-HOST_SETUP_LAUNCHES = {"K5'": 0, "K5": 2, "K4": 2, "K8": 0, "K6": 0, "K7": 2, "K3": 2}
+# then verify (K7, K5, K4, K3); on the "rlc" route the verify is one batch check
+# (K7, K5, K6 four times, K3' four times, K4, K8).
+DEVICE_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 1, "K6": 1, "K7": 1, "K3": 1,
+                         "K3'": 0, "P": 0}
+HOST_SETUP_LAUNCHES = {"K5'": 0, "K5": 2, "K4": 2, "K8": 0, "K6": 0, "K7": 2, "K3": 2,
+                       "K3'": 0, "P": 0}
+RLC_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 2, "K6": 5, "K7": 1, "K3": 0,
+                      "K3'": 4, "P": 0}
+# BASELINE config #3 as bench.py:194-394 (bench_sm1_n64_signed) runs it: 64
+# commanders, n = 64, m = 1; 65 536 verify lanes (the signed broadcasts tiled);
+# 3 reps of 3 timed calls a leg; the SM(1) round 20 calls a rep.
+B_C3, N_C3, NV_C3 = 64, 64, 65_536
+ITERS_C3, REPS_C3, SM1_ITERS = 3, 3, 20
+FMULS_PER_VERIFY = 3.66e3  # bench.py:351's estimate of one verify's field multiplies
+LADDER_FMULS_PER_LANE = 64 * 38 + 14 * 9  # bench.py:299: 38 a window, 126 a lane
+FM_VARIANTS = 12  # the probe's input variants (bench.py's BA_TPU_FMUL_PROBE_VARIANTS)
 # int32 operations of one field multiply in the kernels' radix (ed25519_field.cuh
 # fe_mul): 100 32x32->64 multiply-adds (2 each), the 9 wrapped columns times 19
 # (4 each), the 11-step carry chain in int64 (10 each), 5 doublings; of one
@@ -184,9 +241,20 @@ K7_WORK, K4_WORK, K3_WORK = (20, 255), (31 * 9 + 32 * 8, 0), (14 * 9 + 64 * 26 +
 K8_WORK = (15, 257)
 
 
+def k3p_work(nbytes):
+    """K3''s (multiplies, squarings) a lane for a k of nbytes: 14 additions
+    of 9 for the table, 2 nbytes windows of 26 multiplies and 12 squarings."""
+    return (14 * 9 + 26 * 2 * nbytes, 12 * 2 * nbytes)
+
+
 def field_ops(work):
     """int32 operations of (multiplies, squarings)."""
     return work[0] * FE_MUL_OPS + work[1] * FE_SQ_OPS
+
+
+# int32 operations of one per-signature verify in the port's kernels: K3, K4 ([S]B)
+# and K7 for A and for R (3 656 multiplies and squarings, bench.py's 3 660)
+VERIFY_OPS = field_ops(K3_WORK) + field_ops(K4_WORK) + 2 * field_ops(K7_WORK)
 # int32 operations of one SHA-512 block (80 rounds of ~48, 64 schedule steps of
 # ~26, the final adds) and of modl_core's folds (~900 int64 multiply-adds).
 SHA_BLOCK_OPS, MODL_OPS = 80 * 48 + 64 * 26 + 16, 1800
@@ -388,8 +456,9 @@ def phase_env(dev):
         jobs["native"] = pool.submit(timed, native.build)
         build_s = {name: job.result() for name, job in jobs.items()}
     for module in (scenario_step, sweep_step, decompress, sha512_kernel, treeadd, ladder, modl,
-                   powchain):
+                   powchain, fieldmul_probe):
         module._lib()
+    ladder._mult_lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
     ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -883,22 +952,36 @@ def phase_ed25519_middle(dev, rs):
 
 
 def reset_ed_launches():
-    for module in (decompress, sha512_kernel, treeadd, ladder, modl, powchain):
+    for module in (decompress, sha512_kernel, treeadd, ladder, modl, powchain, fieldmul_probe):
         module.reset_launches()
 
 
 def ed_launches():
-    return {key: fn.launches for key, (_, fn, _, _) in ED_KERNELS.items()}
+    return {key: fn.launches for key, (_, fn, *_) in ED_KERNELS.items()}
 
 
-def timed_setup(dev, sign_device):
+def timed_setup(dev, sign_device, verify="exact"):
     """One full-width setup of the route after a throwaway key-set has
     warmed it, as bench.py warms its setup; the launches of its own run."""
-    signed.setup_signed_tables(B_SIGNED, seed=1, device=dev, sign_device=sign_device)
+    signed.setup_signed_tables(B_SIGNED, seed=1, device=dev, sign_device=sign_device,
+                               verify=verify)
     sync()
     reset_ed_launches()
-    out = signed.setup_signed_tables(B_SIGNED, device=dev, sign_device=sign_device)
+    out = signed.setup_signed_tables(B_SIGNED, device=dev, sign_device=sign_device,
+                                     verify=verify)
     return out, ed_launches()
+
+
+def recorded_setup(dev, sign_device, verify, sigs):
+    """The timed setup of the route once more (the same seed, so the same
+    keys and signatures), its kernel dispatches recorded; its tables and
+    verdicts held against the timed run's."""
+    with recording() as calls:
+        out = signed.setup_signed_tables(B_SIGNED, device=dev, sign_device=sign_device,
+                                         verify=verify)
+    check(np.array_equal(out[3], sigs) and bool(out[4].all()),
+          f"the recorded setup ({verify}, sign_device={sign_device}) differs from the timed one")
+    return calls
 
 
 def phase_signed_setup(dev, rs):
@@ -913,7 +996,8 @@ def phase_signed_setup(dev, rs):
     signature corrupted (R, S or the message in turn) verifies on the
     card, held against the native host verifier on all 20 480; and the
     warm device sign and verify of the whole batch (CUDA events) beside
-    the host verify of the same tables."""
+    the host verify of the same tables.  Last, each route's timed setup
+    once more, its dispatches recorded for the kernels line."""
     (sks, pks, msgs, sigs, ok, timings), launches = timed_setup(dev, None)
     check(launches == DEVICE_SETUP_LAUNCHES, f"device-sign setup launches {launches}")
     check(timings["device_sign"] and timings["chunks"] == signed.DEVICE_SIGN_CHUNKS == 1
@@ -940,6 +1024,19 @@ def phase_signed_setup(dev, rs):
     check(bool(h_ok.all()) and np.array_equal(h_sigs, sigs) and np.array_equal(h_pks, pks),
           "the host-sign setup's tables differ from the device-sign setup's")
 
+    (_, r_pks, _, r_sigs, r_ok, r_timings), r_launches = timed_setup(dev, None, "rlc")
+    check(r_launches == RLC_SETUP_LAUNCHES, f"rlc setup launches {r_launches}")
+    check(r_timings["verify"] == "rlc" and r_timings["device_sign"]
+          and r_timings["chunks"] == 1, f"the rlc setup's route {r_timings}")
+    check(bool(r_ok.all()) and np.array_equal(r_sigs, sigs) and np.array_equal(r_pks, pks),
+          "the rlc setup's verdicts or tables differ from the device-sign setup's")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        queued = signed.queue_signed_tables(B_SIGNED, seed=3, device=dev, verify="rlc")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(signed.drain_signed_tables(queued)[4].all()), "the sync-checked rlc setup failed")
+
     flat_m, flat_s = msgs.reshape(-1, msgs.shape[-1]).copy(), sigs.reshape(-1, 64).copy()
     idx = np.arange(0, len(flat_s), 7)
     kind = np.arange(len(idx)) % 3
@@ -953,6 +1050,9 @@ def phase_signed_setup(dev, rs):
     want = signed.verify_host_exact(pks, bad_m, bad_s)
     host_bad_ms = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(got, want), f"{int((got != want).sum())} card verdicts differ from the host's")
+    got_rlc = signed.verify_received(pks, bad_m, bad_s, device=dev, verify="rlc").cpu().numpy()
+    check(np.array_equal(got_rlc, want),
+          f"{int((got_rlc != want).sum())} rlc-route verdicts differ from the host's")
 
     tables = [torch.tensor(a, device=dev) for a in (pks, msgs, sigs)]
     verify_ms = time_cuda(lambda: signed.verify_received(*tables, device=dev), reps=5)
@@ -965,11 +1065,17 @@ def phase_signed_setup(dev, rs):
           "device_sign": {**timings, "kernel_launches": launches, "all_valid": True,
                           "signatures_equal_native": True, "sync_checked": True},
           "host_sign": {**h_timings, "kernel_launches": h_launches, "all_valid": True},
+          "rlc": {**r_timings, "kernel_launches": r_launches, "all_valid": True,
+                  "sync_checked": True},
           "corrupted": len(idx), "rejected": int((~want).sum()), "card_equals_host": True,
+          "rlc_route_equals_host": True,
           "device_sign_ms": sign_ms, "device_verify_ms": verify_ms,
           "native_sign_ms": native_sign_ms, "host_verify_ms": host_ms,
           "host_verify_corrupted_ms": host_bad_ms})
-    return ok, (sks, pks, msgs, sigs), launches, {"device": timings, "host": h_timings}
+    paths = [("device-sign setup", recorded_setup(dev, None, "exact", sigs), launches, 1),
+             ("host-sign setup", recorded_setup(dev, False, "exact", sigs), h_launches, 1),
+             ("rlc setup", recorded_setup(dev, None, "rlc", sigs), r_launches, 1)]
+    return ok, paths, {"device": timings, "host": h_timings, "rlc": r_timings}
 
 
 def signed_seeds(dev, steps, buckets):
@@ -1041,15 +1147,17 @@ def phase_rate_with_setup(timings, walls, card):
     bench.py's horizons (bench.py:805-810): h steps of one 480-round
     dispatch per bucket after one setup, the step at the best window's
     pace; for each route: sign and verify on the card (the default, as
-    bench.py's accelerator default), and sign on the host, verify on the
-    card (the reference's BA_TPU_SIGN_DEVICE=0 path)."""
+    bench.py's accelerator default), sign on the host and verify on the
+    card (the reference's BA_TPU_SIGN_DEVICE=0 path), and sign on the card
+    with the batch check as the verify (BA_TPU_VERIFY_RLC=1)."""
     step_s = min(walls) / STEPS_SIGNED
     rounds_per_step = B_SIGNED * ROUNDS_SIGNED
-    for route, sign in (("device", "device"), ("host", "host")):
+    for route, sign, verify in (("device", "device", "exact"), ("host", "host", "exact"),
+                                ("rlc", "device", "rlc")):
         total_s = timings[route]["total_s"]
         rates = {f"h{h}": rounds_per_step * h / (total_s + h * step_s)
                  for h in (50, 100, 500, 5000)}
-        emit({"phase": "signed_sweep_rate_with_setup", "sign": sign, "verify": "device",
+        emit({"phase": "signed_sweep_rate_with_setup", "sign": sign, "verify": verify,
               "setup_total_s": total_s, "step_s": step_s, "agreement_rounds_per_s": rates,
               "card": card})
 
@@ -1160,111 +1268,391 @@ def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
             "buckets": buckets}
 
 
-def ed_dispatches(dev, tables):
-    """Every Ed25519 dispatch of the device-sign setup again, on its own
-    inputs: ``ed25519.sign`` stage by stage over the 10 240 x 2 table
-    rows (flattened as sign_value_tables_device flattens them), then
-    ``ed25519.verify`` on its signatures; the replayed signatures and
-    verdicts held against the main path's.  Returns, per kernel, its
-    dispatches in launch order as (what, run, plain, lanes, int32 ops a
-    lane, bytes)."""
-    sks, pks, msgs, sigs = tables
-    B, n = msgs.shape[:2]
-    S = B * n
-    sk = torch.tensor(np.repeat(signed.secret_rows(sks), n, 0), device=dev)
-    pk = torch.tensor(np.repeat(pks, n, axis=0), device=dev)
-    msg = torch.tensor(msgs.reshape(S, -1), device=dev)
-    table = ed25519.base_table(dev)
-    words = {}
-    words["h1"] = sha512._message_words(sk)
-    h1 = sha512_kernel.sha512_blocks(*words["h1"])
-    a = ed25519.clamp_scalar(h1[:, :32])
-    words["r"] = sha512._message_words(torch.cat([h1[:, 32:], msg], dim=1))
-    r = sha512_kernel.sha512_blocks_mod_l(*words["r"])
-    big_r = treeadd.fixed_base_fold(r, table)
-    r_enc = powchain.compress(big_r)
-    words["k"] = sha512._message_words(torch.cat([r_enc, pk, msg], dim=1))
-    k = sha512_kernel.sha512_blocks_mod_l(*words["k"])
-    wide = scalar.muladd_bytes(k, a, r)
-    sig = torch.cat([r_enc, modl.reduce_mod_l_planes(wide)], dim=1)
-    check(np.array_equal(sig.cpu().numpy(), sigs.reshape(S, 64)),
-          "the replayed signatures differ from the device-sign setup's")
-    s_enc = sig[:, 32:].contiguous()
-    enc = torch.cat([pk, r_enc])
-    words["h"] = sha512._message_words(torch.cat([r_enc, pk, msg], dim=1))
-    pts, ok_enc = decompress.decompress(enc)
-    h = sha512_kernel.sha512_blocks_mod_l(*words["h"])
-    left = treeadd.fixed_base_fold(s_enc, table)
-    pa, pr = pts[:S], pts[S:]
-    verdict = ladder.window_verify(pa, h, pr, left)
-    full = ok_enc[:S] & ok_enc[S:] & ed25519._lt_const(s_enc, oracle.L) & verdict
-    check(bool(full.all()), "the replayed verdicts differ from the main path's")
-
-    def sha(key, fn, plain, width):
-        wh, wl, nb = words[key]
-        ops = SHA_BLOCK_OPS * nb + (MODL_OPS if width == 32 else 0)
-        return (key, lambda: fn(wh, wl, nb), lambda: plain(wh, wl, nb), S, ops,
-                S * (2 * 8 * 16 * nb + width))
-
-    def fold(what, s):
-        return (what, lambda: treeadd.fixed_base_fold(s, table),
-                lambda: treeadd.plain_fixed_base_fold(s, table), S, field_ops(K4_WORK),
-                S * (32 + 128) + table.numel())
-
-    return {
-        "K5'": [sha("h1", sha512_kernel.sha512_blocks, sha512_kernel.plain_sha512_blocks, 64)],
-        "K5": [sha(key, sha512_kernel.sha512_blocks_mod_l,
-                   sha512_kernel.plain_sha512_blocks_mod_l, 32) for key in ("r", "k", "h")],
-        "K4": [fold("R = [r]B", r), fold("[S]B", s_enc)],
-        "K8": [("R", lambda: powchain.compress(big_r), lambda: powchain.plain_compress(big_r),
-                S, field_ops(K8_WORK), S * (128 + 32))],
-        "K6": [("S", lambda: modl.reduce_mod_l_planes(wide),
-                lambda: modl.plain_reduce_mod_l(wide), S, MODL_OPS, S * (64 + 32))],
-        "K7": [("A and R", lambda: decompress.decompress(enc),
-                lambda: decompress.plain_decompress(enc), 2 * S, field_ops(K7_WORK),
-                2 * S * (32 + 128 + 1))],
-        "K3": [("verdicts", lambda: ladder.window_verify(pa, h, pr, left),
-                lambda: ladder.plain_window_verify(pa, h, pr, left), S, field_ops(K3_WORK),
-                S * (3 * 128 + 32 + 1))],
-    }
+# -- the crypto kernels' lines: the main paths' own dispatches again ----------
 
 
-def kernel_lines_ed25519(dev, tables, launches, int_ops_per_s):
-    """The device-sign setup's Ed25519 dispatches again (``ed_dispatches``):
-    each against its plain version, its CUDA-event time (mean of 10 after
-    a warm-up), the plain time and the bound.  A kernel's line sums its
-    dispatches in the setup (K5 has three, K4 two), each listed beside
-    it.  The bound counts field multiplies and squarings (FE_MUL_OPS and
-    FE_SQ_OPS int32 operations each), SHA-512 blocks and mod-L folds,
-    the least work these inputs need, at the card's int32 rate; bytes:
-    each input read once, each output written once."""
+@contextlib.contextmanager
+def recording():
+    """While open, every call of an ED_KERNELS wrapper made through its
+    module (the port's callers import a wrapper from its module at each
+    call) is appended to the yielded list as (key, args, kwargs, output,
+    entry); ``entry`` names the outermost ``crypto/ed25519.py`` function
+    on the stack, else the caller.  While open, a wrapper's ``launches``
+    count goes to its stand-in: the recorded runs are not the counted
+    ones."""
+    calls, saved = [], []
+    for key, (_, fn, *_) in ED_KERNELS.items():
+        module = sys.modules[fn.__module__]
+
+        def stand_in(*args, _key=key, _fn=fn, **kw):
+            out = _fn(*args, **kw)
+            frame = sys._getframe(1)
+            entry = frame.f_code.co_name
+            while frame is not None:
+                if frame.f_globals.get("__name__") == ed25519.__name__:
+                    entry = frame.f_code.co_name
+                frame = frame.f_back
+            calls.append((_key, args, kw, out, entry))
+            return out
+
+        stand_in.launches = 0
+        saved.append((module, fn.__name__, fn))
+        setattr(module, fn.__name__, stand_in)
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def dispatch_work(key, args, kw):
+    """(lanes, int32 operations, bytes, shape) of one dispatch: field
+    multiplies and squarings (FE_MUL_OPS and FE_SQ_OPS int32 operations
+    each), SHA-512 blocks and mod-L folds, the least work these inputs
+    need; bytes, each input read once and each output written once."""
+    S = args[0].shape[0]
+    if key in ("K5'", "K5"):
+        nb = args[2]
+        width, fold_ops = (64, 0) if key == "K5'" else (32, MODL_OPS)
+        return (S, S * (SHA_BLOCK_OPS * nb + fold_ops), S * (2 * 8 * 16 * nb + width),
+                f"{S} lanes, {nb} blocks")
+    if key == "K3'":
+        nbytes = args[1].shape[1]
+        fold = kw.get("fold", args[2] if len(args) > 2 else False)
+        ops = S * field_ops(k3p_work(nbytes)) + (9 * (S - 1) * FE_MUL_OPS if fold else 0)
+        return (S, ops, S * (128 + nbytes) + 128 * (1 if fold else S),
+                f"{S} lanes, {8 * nbytes}-bit k" + (", summed" if fold else ""))
+    if key == "P":
+        return (S, S * fieldmul_probe.MULTIPLIES * FE_MUL_OPS, S * 96, f"{S} lanes")
+    if key == "K4":  # the scalars and the window table in, the points out
+        return S, S * field_ops(K4_WORK), (32 + 128) * S + args[1].numel(), f"{S} lanes"
+    ops, lane_bytes = {"K8": (field_ops(K8_WORK), 128 + 32), "K6": (MODL_OPS, 64 + 32),
+                       "K7": (field_ops(K7_WORK), 32 + 128 + 1),
+                       "K3": (field_ops(K3_WORK), 3 * 128 + 32 + 1)}[key]
+    return S, S * ops, S * lane_bytes, f"{S} lanes"
+
+
+def replay(calls, int_ops_per_s):
+    """Each recorded dispatch again on its own inputs: the kernel's output
+    held against the recorded one (the path's own) and against its plain
+    version's on the same inputs; its CUDA-event time (mean of 10 after a
+    warm-up), the plain version's (one call, host clock) and the bound
+    (``dispatch_work``) at the card's int32 rate or memory rate.
+    -> {key: [dispatch, ...]} in launch order."""
+    out = {}
+    pair = (lambda a, b: list(zip(a, b)) if isinstance(a, tuple) else [(a, b)])  # noqa: E731
+    for key, args, kw, recorded, entry in calls:
+        _, fn, plain, *_ = ED_KERNELS[key]
+        got = fn(*args, **kw)
+        want, plain_ms = timed_plain(lambda: plain(*args, **kw))
+        check(max_abs_err(pair(got, recorded)) == 0,
+              f"{key} replayed ({entry}) differs from its path's own output")
+        err = max_abs_err(pair(got, want))
+        ms = time_cuda(lambda: fn(*args, **kw), reps=10)
+        lanes, ops, nbytes, shape = dispatch_work(key, args, kw)
+        ops_s, bytes_s = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+        out.setdefault(key, []).append({
+            "what": f"{entry}: {shape}", "lanes": lanes, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "int32_ops": ops, "bytes": nbytes})
+    return out
+
+
+def totals(parts):
+    return {"max_abs_err": max(p["max_abs_err"] for p in parts),
+            "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
+            "bound_ms": sum(p["bound_ms"] for p in parts),
+            "bound_by": ("operations" if all(p["bound_by"] == "operations" for p in parts)
+                         else "bytes")}
+
+
+def kernel_lines_crypto(paths, int_ops_per_s):
+    """The Ed25519 kernels' and P's lines.  ``paths``: (path, recorded
+    calls, the launches counted on the path's main run, the calls that
+    run made of each recorded one).  Every recorded dispatch is replayed
+    (``replay``); a path's replayed dispatches of a kernel, times its
+    calls, must equal the kernel's launches there, so the replay covers
+    every launch of the counted run.  A line gives each path's dispatches
+    and sums; its own numbers sum one run of each path (config #3: one
+    call of each leg)."""
+    replayed = [(path, replay(calls, int_ops_per_s), launches, runs)
+                for path, calls, launches, runs in paths]
     lines = []
-    for key, dispatches in ed_dispatches(dev, tables).items():
-        parts, err = [], 0
-        for what, run, plain, lanes, ops_lane, nbytes in dispatches:
-            got = run()
-            want, plain_ms = timed_plain(plain)
-            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-            err = max(err, max_abs_err(pairs))
-            ms = time_cuda(run, reps=10)
-            ops_s, bytes_s = lanes * ops_lane / int_ops_per_s, nbytes / HBM_BYTES_PER_S
-            parts.append({"what": what, "lanes": lanes, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": max(ops_s, bytes_s) * 1e3,
-                          "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-                          "int32_ops": lanes * ops_lane, "bytes": nbytes})
-        check(err == 0, f"{key} differs from its plain version on the setup's inputs: {err}")
-        name, fn, source, replaces = ED_KERNELS[key]
-        ops_bound = all(p["bound_by"] == "operations" for p in parts)
+    for key, (name, fn, _, source, replaces) in ED_KERNELS.items():
+        entries = []
+        for path, by_key, launches, runs in replayed:
+            parts = by_key.get(key, [])
+            check(len(parts) * runs == launches[key],
+                  f"{key} on {path}: {len(parts)} dispatches replayed x {runs} calls, "
+                  f"{launches[key]} launches counted")
+            if parts:
+                entries.append({"path": path, "launches": launches[key], "calls": runs,
+                                **totals(parts), "dispatches": parts})
+        line = totals([p for e in entries for p in e["dispatches"]])
+        check(line["max_abs_err"] == 0,
+              f"{key} differs from its plain version on its paths' inputs: {line['max_abs_err']}")
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "wrapper": f"ba_tpu_torch/ops/{fn.__module__.rsplit('.', 1)[1]}.py:{fn.__name__}",
-            "launches": launches[key], "max_abs_err": err,
-            "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
-            "bound_ms": sum(p["bound_ms"] for p in parts),
-            "bound_by": "operations" if ops_bound else "bytes", "library_ms": None,
-            "checked_against_plain": True, "per": "device-sign setup (its dispatches)",
-            "dispatches": parts})
+            "launches": sum(e["launches"] for e in entries), **line, "library_ms": None,
+            "checked_against_plain": True,
+            "per": "one run of each path (config #3: one call of each leg)", "paths": entries})
     return lines
+
+# -- K3', P and the batch verify: BASELINE config #3 --------------------------
+
+
+def torsion_point():
+    """A small-order point: the first curve point by y whose [L]Q is not
+    the identity (tests/test_crypto.py:489)."""
+    for y in range(2, 200):
+        try:
+            q = oracle.decode_point(int(y).to_bytes(32, "little"))
+        except ValueError:
+            continue
+        x, yy = q
+        if (-x * x + yy * yy - 1 - oracle.D * x * x * yy * yy) % oracle.P == 0 \
+                and oracle.scalarmult(q, oracle.L) != (0, 1):
+            return oracle.scalarmult(q, oracle.L)
+    raise SmokeFailure("no small-order point in the scan range")
+
+
+def phase_rlc_known_answers(dev):
+    """verify_rlc on the card: a valid batch accepts with pk_group n and
+    1; one flipped signature byte rejects; S >= L is flagged in enc_ok
+    and rejects; a torsion-malleated signature is rejected by verify and
+    accepted by the cofactored batch check, and rejected with S + 1."""
+    L = oracle.L
+    B, n = 8, 8
+    sks, pks = signed.commander_keys(B, seed=41)
+    received = np.random.default_rng(41).integers(0, 2, (B, n))
+    msgs, sigs = signed.sign_received(sks, pks, received)
+    pk, msg, sig = (torch.tensor(a, device=dev) for a in
+                    (np.repeat(pks, n, axis=0), msgs.reshape(B * n, -1), sigs.reshape(B * n, 64)))
+    z = torch.tensor(signed.fresh_rlc_coeffs(B * n), device=dev)
+    out = {}
+    for group in (n, 1):
+        ok, enc = ed25519.verify_rlc(pk, msg, sig, z, pk_group=group)
+        check(bool(ok) and bool(enc.all()), f"a valid batch rejected at pk_group {group}")
+        out[f"valid_pk_group_{group}"] = True
+    flipped = sig.clone()
+    flipped[13, 40] ^= 1
+    ok, enc = ed25519.verify_rlc(pk, msg, flipped, z, pk_group=n)
+    check(not bool(ok) and bool(enc.all()), "one flipped signature byte was accepted")
+    big = sig.clone()
+    big[21, 32:] = 0xFF
+    ok, enc = ed25519.verify_rlc(pk, msg, big, z, pk_group=n)
+    check(not bool(ok) and not bool(enc[21]) and int(enc.sum()) == B * n - 1,
+          "S >= L was not flagged")
+    # torsion: lane 1 offsets its own R by a small-order point and re-signs
+    sks, pks = signed.commander_keys(16, seed=7)
+    tmsgs = [signed.order_message(i, i & 1) for i in range(16)]
+    tsigs = [oracle.sign(sk, pkb.tobytes(), m) for sk, pkb, m in zip(sks, pks, tmsgs)]
+    h = hashlib.sha512(sks[1]).digest()
+    a = oracle._clamp(h[:32])
+    r = oracle._hint(h[32:] + tmsgs[1]) % L
+    r_enc = oracle.encode_point(oracle.edwards_add(oracle.scalarmult(oracle.BASE, r),
+                                                   torsion_point()))
+    s = (r + oracle._hint(r_enc + pks[1].tobytes() + tmsgs[1]) % L * a) % L
+    tsigs[1] = r_enc + le32(s)
+    check(not oracle.verify(pks[1].tobytes(), tmsgs[1], tsigs[1]), "the oracle accepted torsion")
+    tpk, tmsg, tsig = torch.tensor(pks, device=dev), u8(tmsgs, dev), u8(tsigs, dev)
+    per_sig = ed25519.verify(tpk, tmsg, tsig).tolist()
+    check(per_sig == [True, False] + [True] * 14, f"per-signature verdicts {per_sig}")
+    tz = torch.tensor(signed.fresh_rlc_coeffs(16), device=dev)
+    ok, enc = ed25519.verify_rlc(tpk, tmsg, tsig, tz)
+    check(bool(ok) and bool(enc.all()), "the cofactored batch check rejected torsion")
+    tsig[1, 32:] = torch.tensor(np.frombuffer(le32((s + 1) % L), np.uint8), device=dev)
+    check(not bool(ed25519.verify_rlc(tpk, tmsg, tsig, tz)[0]), "S + 1 was accepted")
+    emit({"phase": "rlc_known_answers", **out, "flipped_byte_rejects": True,
+          "s_ge_l_flagged": True, "torsion_per_sig_rejects": True, "torsion_rlc_accepts": True,
+          "torsion_s_plus_1_rejects": True, "ok": True})
+
+
+def k3p_inputs(rs, S, nbytes, dev):
+    """K3''s lanes at S: the identity, B, [s]B from K4 (Z != 1), then
+    decompressed keys; scalars 0, 1, 15, 16, L - 1 (cut to nbytes) and
+    all ones, then random bytes."""
+    ends = torch.cat([ed25519.encode_point(ed25519.identity((1,), dev)),
+                      ed25519.encode_point(ed25519.base_point((1,), dev))])
+    sb = treeadd.fixed_base_fold(
+        torch.tensor(rs.integers(0, 256, (4, 32), dtype=np.uint8), device=dev),
+        ed25519.base_table(dev))
+    keys = torch.tensor(signed.commander_keys(S, seed=S + nbytes)[1], device=dev)
+    pts = torch.cat([ends, sb, decompress.decompress(keys)[0]])[:S].contiguous()
+    top = 2 ** (8 * nbytes) - 1
+    edges = np.stack([np.frombuffer(v.to_bytes(nbytes, "little"), np.uint8)
+                      for v in (0, 1, 15, 16, (oracle.L - 1) & top, top)])
+    k = np.concatenate([edges, rs.integers(0, 256, (S, nbytes), dtype=np.uint8)])[:S]
+    return pts, torch.tensor(np.ascontiguousarray(k), device=dev)
+
+
+def phase_k3p_middle(dev, rs):
+    """K3' (per lane and fold) and P against their plain versions at S in
+    {1, 37, 1024, 4096}, k of 16 and 32 bytes: encodings bit-equal."""
+    for S in (1, 37, 1024, 4096):
+        errs = {}
+        for nbytes in (16, 32):
+            pts, k = k3p_inputs(rs, S, nbytes, dev)
+            acc = ladder.plain_window_acc(ed25519.decode_point(pts), k)
+            errs[f"K3'_{8 * nbytes}bit"] = max_abs_err(
+                [(ladder.window_mult(pts, k), ed25519.encode_point(acc))])
+            errs[f"K3'_{8 * nbytes}bit_fold"] = max_abs_err(
+                [(ladder.window_mult(pts, k, fold=True),
+                  ed25519.encode_point(ladder.fold_points(acc)))])
+        a, b = (torch.tensor(rs.integers(0, 256, (S, 32), dtype=np.uint8), device=dev)
+                for _ in range(2))
+        errs["P"] = max_abs_err([(fieldmul_probe.fieldmul_probe(a, b),
+                                  fieldmul_probe.plain_fieldmul_probe(a, b))])
+        sync()
+        check(all(e == 0 for e in errs.values()), f"K3' or P differs from plain at S={S}: {errs}")
+        emit({"phase": "k3p_probe_vs_plain_middle", "S": S, "max_abs_err": errs})
+
+
+def leg_seconds(fn, args_of, iters):
+    """bench.py's _timed with reps=1: one warm call (args_of(0)), then
+    ``iters`` calls timed by host wall clock to the synchronised end."""
+    fn(*args_of(0))
+    sync()
+    t0 = time.perf_counter()
+    for i in range(1, iters + 1):
+        fn(*args_of(i))
+    sync()
+    return time.perf_counter() - t0
+
+
+def spread(times):
+    return (max(times) - min(times)) / min(times)
+
+
+def phase_config3(dev, card):
+    """BASELINE config #3 as bench_sm1_n64_signed runs it (bench.py:194-394):
+    commander_keys(64), n = 64, m = 1; 65 536 verify lanes, the 4096
+    signed broadcasts tiled 16 times, 10 variants from default_rng(2),
+    every signature valid; 3 reps, each interleaving 3 timed calls (after
+    a warm one) of the per-signature verify, verify_rlc(pk_group=64), K3'
+    alone on the 256-bit h (the ladder leg) and P; the best rep counts.
+    Then the exact SM(1) sm_agreement at B = 64, n = 64, 20 calls a rep,
+    best of 3.  Every verdict True; every SM(1) decision ATTACK."""
+    n = N_C3
+    sks, pks = signed.commander_keys(B_C3)
+    tile = -(-NV_C3 // (B_C3 * n))
+    t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    pk_rows = np.tile(np.repeat(pks, n, axis=0), (tile, 1))[:NV_C3]
+    pk_flat = t(pk_rows)
+    gen = np.random.default_rng(2)
+    variants, host_rows = [], []
+    for _ in range(1 + REPS_C3 * ITERS_C3):
+        msgs, sigs = signed.sign_received(sks, pks, gen.integers(0, 2, (B_C3, n)))
+        host_rows.append((np.tile(msgs.reshape(B_C3 * n, -1), (tile, 1))[:NV_C3],
+                          np.tile(sigs.reshape(B_C3 * n, 64), (tile, 1))[:NV_C3]))
+        variants.append((pk_flat, *(t(a) for a in host_rows[-1])))
+    zs = [t(signed.fresh_rlc_coeffs(NV_C3)) for _ in variants]
+    ladder_in = []  # (points, h) a variant, on the card before the clock starts
+    for pk_v, msg_v, sig_v in variants:
+        pts, _ = ed25519.decompress(pk_v)
+        h = sha512.sha512_mod_l(torch.cat([sig_v[:, :32], pk_v, msg_v], dim=1))
+        ladder_in.append((pts, h))
+    fm_gen = np.random.default_rng(11)
+    fm_in = [tuple(t(fm_gen.integers(0, 256, (NV_C3, 32), dtype=np.uint8)) for _ in range(2))
+             for _ in range(FM_VARIANTS)]
+    sync()
+
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)  # per-signature, rlc rejects
+    first = {}
+
+    def per_sig(pk, msg, sig):
+        ok = ed25519.verify(pk, msg, sig)
+        first.setdefault("verify", ok)
+        bad[0] += (~ok).sum()
+        return ok
+
+    def rlc(pk, msg, sig, z):
+        ok = ed25519.verify_rlc(pk, msg, sig, z, pk_group=n)[0]
+        first.setdefault("rlc", ok)
+        bad[1] += (~ok).to(torch.int64)
+        return ok
+
+    def ladder_leg(pts, h):
+        return first.setdefault("ladder", ladder.window_mult(pts, h))
+
+    def probe(a, b):
+        return first.setdefault("probe", fieldmul_probe.fieldmul_probe(a, b))
+
+    reset_ed_launches()
+    legs = {"verify": [], "probe": [], "rlc": [], "ladder": []}
+    nv = len(variants)
+    for r in range(REPS_C3):
+        at = lambda i, r=r: r * ITERS_C3 + i  # noqa: E731
+        legs["verify"].append(leg_seconds(per_sig, lambda i: variants[at(i) % nv], ITERS_C3))
+        legs["probe"].append(leg_seconds(probe, lambda i: fm_in[at(i) % FM_VARIANTS], ITERS_C3))
+        legs["rlc"].append(leg_seconds(
+            rlc, lambda i: (*variants[at(i) % nv], zs[at(i) % nv]), ITERS_C3))
+        legs["ladder"].append(leg_seconds(ladder_leg, lambda i: ladder_in[at(i) % nv], ITERS_C3))
+    launches = ed_launches()
+    check(bad.tolist() == [0, 0], f"config #3 rejects (per-signature, rlc): {bad.tolist()}")
+    with recording() as calls:  # one call of each leg on its first inputs, for the kernels line
+        again = {"verify": per_sig(*variants[0]), "rlc": rlc(*variants[0], zs[0]),
+                 "ladder": ladder_leg(*ladder_in[0]), "probe": probe(*fm_in[0])}
+    check(all(torch.equal(again[k], first[k]) for k in again),
+          "a recorded leg differs from its first call in the timed run")
+    want = native.verify_batch(pk_rows, *host_rows[0])
+    check(np.array_equal(first["verify"].cpu().numpy(), want),
+          "the per-signature mask differs from the native host verifier's")
+
+    # one call of each verify again: the host's time to queue it, and the
+    # card's from its first launch to its last (CUDA events)
+    one_call = {}
+    for name, fn in (("verify", lambda: ed25519.verify(*variants[0])),
+                     ("rlc", lambda: ed25519.verify_rlc(*variants[0], zs[0], pk_group=n))):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sync()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        queue_ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        one_call[name] = {"host_queue_ms": queue_ms, "card_ms": start.elapsed_time(end)}
+
+    faulty = torch.zeros((B_C3, n), dtype=torch.bool, device=dev)
+    faulty[:, 1] = True
+    state = make_state(B_C3, n, order=ATTACK, faulty=faulty, device=dev)
+    sig_valid = torch.ones((B_C3, n), dtype=torch.bool, device=dev)
+    keys = rng.fold_in(rng.key(3, device=dev)[None, :],
+                       torch.arange(1 + REPS_C3 * SM1_ITERS, device=dev))
+    not_attack = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def sm1_step(k):
+        out = sm.sm_agreement(k, state, 1, None, sig_valid, None, False)
+        not_attack.add_((out["decision"] != ATTACK).sum())
+
+    sm1_walls = [leg_seconds(sm1_step, lambda i, r=r: (keys[r * SM1_ITERS + i],), SM1_ITERS)
+                 for r in range(REPS_C3)]
+    check(int(not_attack) == 0, f"SM(1): {int(not_attack)} decisions were not ATTACK")
+
+    best = {k: min(v) for k, v in legs.items()}
+    verifies = NV_C3 * ITERS_C3 / best["verify"]
+    ladder_rate = NV_C3 * LADDER_FMULS_PER_LANE * ITERS_C3 / best["ladder"]
+    emit({"phase": "config3_sm1_n64_signed", "batch": B_C3, "n": n, "m": 1,
+          "verify_batch": NV_C3, "variants": len(variants), "iters": ITERS_C3, "reps": REPS_C3,
+          "leg_seconds": legs, "leg_spread": {k: spread(v) for k, v in legs.items()},
+          "ed25519_verifies_per_sec": verifies,
+          "rlc_batch_verifies_per_sec": NV_C3 * ITERS_C3 / best["rlc"],
+          "rlc_speedup_vs_per_sig": best["verify"] / best["rlc"],
+          "ladder_fieldmuls_per_sec": ladder_rate,
+          "probe_fieldmuls_per_sec": NV_C3 * fieldmul_probe.MULTIPLIES * ITERS_C3 / best["probe"],
+          "achieved_fieldmuls_per_sec": verifies * FMULS_PER_VERIFY,
+          "pct_of_ladder_rate": 100 * verifies * FMULS_PER_VERIFY / ladder_rate,
+          "pct_of_ladder_rate_port_ops": 100 * verifies * VERIFY_OPS * best["ladder"]
+          / (NV_C3 * ITERS_C3 * field_ops(k3p_work(32))),
+          "one_call": one_call,
+          "sm1_rounds_per_sec": B_C3 * SM1_ITERS / min(sm1_walls), "sm1_walls_s": sm1_walls,
+          "sm1_spread": spread(sm1_walls), "sm1_iters": SM1_ITERS,
+          "verdicts_all_true": True, "native_mask_equal": True, "sm1_all_attack": True,
+          "kernel_launches": launches, "card": card})
+    return "config #3", calls, launches, REPS_C3 * (1 + ITERS_C3)
 
 
 def main(argv=None) -> int:
@@ -1289,16 +1677,19 @@ def main(argv=None) -> int:
     phase_k2_middle(dev, rs)
     phase_ed25519_known_answers(dev, rs)
     phase_ed25519_middle(dev, rs)
-    ok, tables, ed_launches, setup_t = phase_signed_setup(dev, rs)
+    ok, setup_paths, setup_t = phase_signed_setup(dev, rs)
     states, oks, seeds, k2_main, k2_launches, walls = phase_signed_sweep(dev, ok, card)
     phase_rate_with_setup(setup_t, walls, card)
     phase_faulty_leaders(dev, rs, states, oks)
+    phase_rlc_known_answers(dev)
+    phase_k3p_middle(dev, rs)
+    c3 = phase_config3(dev, card)
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
-        *kernel_lines_ed25519(dev, tables, ed_launches, int_ops_per_s),
+        *kernel_lines_crypto([*setup_paths, c3], int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

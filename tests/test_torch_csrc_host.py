@@ -1,7 +1,8 @@
 """The Ed25519 kernels' per-lane arithmetic (``ba_tpu_torch/ops/csrc``),
 compiled for the host with g++ through ``tests/torch_csrc_host.cpp``,
-against their plain torch versions: K7, K5, K5', K6, K4, K8 and K3,
-bit-equal.
+against their plain torch versions: K7, K5, K5', K6, K4, K8, K3, K3'
+(the window accumulator K3 shares, and its fold) and the field-multiply
+probe P, bit-equal.
 
 The card runs the same functions inside the kernels; this catches an
 arithmetic fault in a CUDA source on the CPU.  Launch code, warp shuffles
@@ -20,7 +21,8 @@ import torch
 
 from ba_tpu_torch.crypto import ed25519 as E
 from ba_tpu_torch.crypto import oracle, scalar, sha512
-from ba_tpu_torch.ops import decompress, ladder, modl, powchain, sha512_kernel, treeadd
+from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, modl, powchain,
+                              sha512_kernel, treeadd)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / "ba_tpu_torch" / "ops" / "csrc"
@@ -43,6 +45,9 @@ def host(tmp_path_factory):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
     for name in ("host_modl", "host_compress"):
         getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
+    for name in ("host_window_mult", "host_window_mult_fold"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     return lib
 
@@ -194,3 +199,58 @@ def test_window_verify_lane_matches_plain(host):
     want = ladder.plain_window_verify(pts[:n], h, pts[n:], left)
     assert np.array_equal(ok.astype(bool), want.numpy())
     assert ok.tolist() == [1, 1, 0, 1, 1, 0, 1, 1]
+
+
+def _window_inputs(nbytes: int, S: int):
+    """K3''s lanes: the identity, B, [s]B from the plain K4 fold (Z != 1),
+    decompressed keys and one invalid encoding's point, beside the edge
+    scalars 0, 1, 15, 16, L - 1 and all ones, then random scalars."""
+    rs = np.random.default_rng(nbytes + S)
+    ends = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,)))])
+    sb = treeadd.plain_fixed_base_fold(torch.tensor(_scalars(rs, 2)), E.base_table("cpu"))
+    keys = torch.tensor(np.stack([np.frombuffer(oracle.keypair(bytes([90 + i]))[1], np.uint8)
+                                  for i in range(S)] + [_le(2)]))
+    pts = torch.cat([ends, sb, decompress.plain_decompress(keys)[0]])[:S].contiguous()
+    top = 2 ** (8 * nbytes) - 1
+    edges = [v.to_bytes(32, "little")[:nbytes] for v in (0, 1, 15, 16, L - 1)]
+    edges.append(top.to_bytes(nbytes, "little"))
+    k = np.concatenate([np.stack([np.frombuffer(e, np.uint8) for e in edges]),
+                        rs.integers(0, 256, (S, nbytes), dtype=np.uint8)])[:S]
+    return np.ascontiguousarray(pts.numpy()), np.ascontiguousarray(k)
+
+
+@pytest.mark.parametrize("nbytes", [1, 16, 32])
+def test_window_mult_lane_matches_plain(host, nbytes):
+    pts, k = _window_inputs(nbytes, 12)
+    out = np.zeros_like(pts)
+    host.host_window_mult(len(pts), nbytes, _ptr(pts), _ptr(k), _ptr(out))
+    want = ladder.plain_window_mult(torch.tensor(pts), torch.tensor(k))
+    assert np.array_equal(out, want.numpy())
+
+
+@pytest.mark.parametrize("S", [1, 5, 33, 70])
+def test_window_mult_fold_matches_plain(host, S):
+    """One block, a ragged one, two and three blocks of 32 lanes."""
+    pts, k = _window_inputs(16, S)
+    out = np.zeros((1, 4, 32), np.uint8)
+    host.host_window_mult_fold(S, 16, _ptr(pts), _ptr(k), _ptr(out))
+    want = ladder.plain_window_mult(torch.tensor(pts), torch.tensor(k), fold=True)
+    assert np.array_equal(out, want.numpy())
+
+
+def test_fieldmul_probe_lane_matches_plain_and_integers(host):
+    rs = np.random.default_rng(12)
+    a = rs.integers(0, 256, (9, 32), dtype=np.uint8)
+    b = rs.integers(0, 256, (9, 32), dtype=np.uint8)
+    a[0], b[0] = 0, 255  # zero, and all ones (bit 255 dropped)
+    a[1] = b[1] = np.frombuffer(_le(P - 1), np.uint8)
+    out = np.zeros_like(a)
+    host.host_fieldmul_probe(len(a), _ptr(a), _ptr(b), _ptr(out))
+    assert np.array_equal(out, fieldmul_probe.plain_fieldmul_probe(
+        torch.tensor(a), torch.tensor(b)).numpy())
+    low = (1 << 255) - 1
+    for ai, bi, got in zip(a, b, out):
+        x = int.from_bytes(ai.tobytes(), "little") & low
+        y = pow(int.from_bytes(bi.tobytes(), "little") & low, fieldmul_probe.DEPTH, P)
+        want = sum((x + c) * y for c in range(fieldmul_probe.CHAINS)) % P
+        assert int.from_bytes(got.tobytes(), "little") == want

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card: K1
-(``ba_tpu_torch/ops/csrc/megastep.cu``), K2 (``sweep_step.cu``) and the
-Ed25519 kernels K7, K5, K5', K6, K4, K8 and K3 (``decompress.cu``,
+(``ba_tpu_torch/ops/csrc/megastep.cu``), K2 (``sweep_step.cu``), the
+Ed25519 kernels K7, K5, K5', K6, K4, K8, K3 and K3' (``decompress.cu``,
 ``sha512_modl.cu``, ``modl.cu``, ``treeadd.cu``, ``powchain.cu``,
-``window_verify.cu``); and the signer and the setup on the card.
+``window_verify.cu``, ``window_mult.cu``) and the field-multiply probe P
+(``fieldmul_probe.cu``); and the signer, the batch verify and the setup
+on the card.
 
 These tests need a CUDA device and skip elsewhere.  On the card they
 run without the repository's conftest (which configures jax):
@@ -20,8 +22,8 @@ import torch
 from ba_tpu_torch import convert, native
 from ba_tpu_torch.core import rng
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
-from ba_tpu_torch.ops import (decompress, ladder, modl, powchain, scenario_step, sha512_kernel,
-                              sweep_step, treeadd)
+from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, modl, powchain, scenario_step,
+                              sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline
 from ba_tpu_torch.scenario.compile import ScenarioBlock
 
@@ -461,4 +463,131 @@ def test_device_sign_setup_queues_without_waiting(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     sks, pks, msgs, sigs, ok, t = signed.drain_signed_tables(queued)
     assert t["device_sign"] is True and bool(ok.all())
+    assert np.array_equal(sigs, signed.sign_value_tables(sks, pks)[1])
+
+
+# -- K3', P: the batch verify and the field-multiply probe ------------------------
+
+
+def _window_points(S: int, dev) -> torch.Tensor:
+    """The identity, B, then [s]B from K4 (Z != 1) and decompressed keys."""
+    ends = torch.cat([ed25519.encode_point(ed25519.identity((1,), dev)),
+                      ed25519.encode_point(ed25519.base_point((1,), dev))])
+    sb = ed25519.fixed_base_mult(torch.tensor(_scalar_bytes(S + 3, S), device=dev))
+    keys = torch.tensor(signed.commander_keys(S, S)[1], device=dev)
+    return torch.cat([ends, sb[: S // 2], decompress.decompress(keys)[0]])[:S].contiguous()
+
+
+def _window_scalars(S: int, nbytes: int) -> np.ndarray:
+    """0, 1, 15, 16, L - 1 (cut to nbytes) and all ones, then random."""
+    top = 2 ** (8 * nbytes) - 1
+    edges = [0, 1, 15, 16, (oracle.L - 1) & top, top]
+    rows = [np.frombuffer(v.to_bytes(nbytes, "little"), np.uint8) for v in edges]
+    rows += list(np.random.default_rng(S + nbytes).integers(0, 256, (S, nbytes), dtype=np.uint8))
+    return np.ascontiguousarray(np.stack(rows[:S]))
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("nbytes", [1, 16, 32])
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_window_mult_kernel_bit_equal(cuda_device, S, nbytes, fold):
+    pts = _window_points(S, cuda_device)
+    k = torch.tensor(_window_scalars(S, nbytes), device=cuda_device)
+    before = ladder.window_mult.launches
+    got = ladder.window_mult(pts, k, fold=fold)
+    assert ladder.window_mult.launches == before + 1
+    want = ladder.plain_window_mult(pts, k, fold=fold)
+    torch.cuda.synchronize()
+    assert got.shape == (1 if fold else S, 4, 32) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_fieldmul_probe_kernel_bit_equal(cuda_device, S):
+    rs = np.random.default_rng(S)
+    a, b = (torch.tensor(rs.integers(0, 256, (S, 32), dtype=np.uint8), device=cuda_device)
+            for _ in range(2))
+    before = fieldmul_probe.fieldmul_probe.launches
+    got = fieldmul_probe.fieldmul_probe(a, b)
+    assert fieldmul_probe.fieldmul_probe.launches == before + 1
+    want = fieldmul_probe.plain_fieldmul_probe(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_window_mult_kernel_rejects_bad_inputs(cuda_device):
+    pts = torch.zeros((4, 4, 32), dtype=torch.uint8, device=cuda_device)
+    k = torch.zeros((4, 16), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        ladder.window_mult(pts, k[:3])
+    with pytest.raises(ValueError):
+        ladder.window_mult(pts, k[:, :0])
+    with pytest.raises(ValueError):
+        ladder.window_mult(pts, k.int())
+    with pytest.raises(ValueError):
+        ladder.window_mult(pts[:0], k[:0], fold=True)
+    with pytest.raises(ValueError):
+        fieldmul_probe.fieldmul_probe(k, k)
+
+
+def _rlc_batch(dev, B=8, n=8, seed=31):
+    sks, pks = signed.commander_keys(B, seed)
+    received = np.random.default_rng(seed).integers(0, 2, (B, n))
+    msgs, sigs = signed.sign_received(sks, pks, received)
+    return [torch.tensor(a, device=dev) for a in
+            (np.repeat(pks, n, axis=0), msgs.reshape(B * n, -1), sigs.reshape(B * n, 64))]
+
+
+def test_verify_rlc_on_card_known_answers(cuda_device):
+    """A valid batch accepts (keys shared by 8 lanes, and unshared); one
+    flipped signature byte rejects; S >= L is flagged and rejects; each
+    verdict equals the plain version's on the same coefficients."""
+    pk, msg, sig = _rlc_batch(cuda_device)
+    z = torch.tensor(signed.fresh_rlc_coeffs(64), device=cuda_device)
+
+    def both(sig_, group):
+        got = ed25519.verify_rlc(pk, msg, sig_, z, pk_group=group)
+        want = ed25519.verify_rlc(pk.cpu(), msg.cpu(), sig_.cpu(), z.cpu(), pk_group=group)
+        assert bool(got[0]) == bool(want[0]) and torch.equal(got[1].cpu(), want[1])
+        return bool(got[0]), got[1].cpu()
+
+    counts = [ladder.window_mult.launches, powchain.compress.launches]
+    ok, enc = both(sig, 8)
+    assert ok and bool(enc.all())
+    assert [ladder.window_mult.launches - counts[0], powchain.compress.launches - counts[1]] \
+        == [4, 1]
+    assert both(sig, 1)[0]
+    bad = sig.clone()
+    bad[9, 40] ^= 1
+    ok, enc = both(bad, 8)
+    assert not ok and bool(enc.all())
+    big = sig.clone()
+    big[20, 32:] = 0xFF
+    ok, enc = both(big, 8)
+    assert not ok and not enc[20] and int(enc.sum()) == 63
+
+
+def test_verify_received_rlc_on_card_matches_host(cuda_device):
+    sks, pks = signed.commander_keys(16, 4)
+    received = np.random.default_rng(4).integers(0, 2, (16, 4))
+    msgs, sigs = signed.sign_received(sks, pks, received)
+    got = signed.verify_received(pks, msgs, sigs, device=cuda_device, verify="rlc")
+    assert got.device.type == "cuda" and bool(got.all())
+    sigs[3, 2, 7] ^= 1
+    got = signed.verify_received(pks, msgs, sigs, device=cuda_device, verify="rlc")
+    assert np.array_equal(got.cpu().numpy(), signed.verify_host_exact(pks, msgs, sigs))
+
+
+def test_rlc_setup_queues_without_waiting(cuda_device):
+    """The "rlc" setup: keys on the host, then signing and one batch check
+    queued with no stream sync and no blocking copy, up to the one fetch,
+    which brings the batch verdict with the signatures."""
+    signed.setup_signed_tables(16, seed=1, device=cuda_device, verify="rlc")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        queued = signed.queue_signed_tables(16, seed=2, device=cuda_device, verify="rlc")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sks, pks, msgs, sigs, ok, t = signed.drain_signed_tables(queued)
+    assert t["verify"] == "rlc" and t["device_sign"] is True and bool(ok.all())
     assert np.array_equal(sigs, signed.sign_value_tables(sks, pks)[1])

@@ -1,6 +1,7 @@
-"""The port's SM coin helpers, round-1 broadcast and collapsed SM(m)
-agreement against ``ba_tpu.core`` on the same keys: every output
-bit-equal, draws included (tolerance zero, integer outputs)."""
+"""The port's SM coin helpers, round-1 broadcast, signed send gates and
+SM(m) agreement on the collapsed and the exact relay against
+``ba_tpu.core`` on the same keys: every output bit-equal, draws included
+(tolerance zero, integer outputs)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,10 +15,12 @@ from ba_tpu.core import sm as jsm
 from ba_tpu.core.om import round1_broadcast as jax_round1
 from ba_tpu.core.state import SimState as JaxState
 from ba_tpu.crypto.signed import sig_valid_from_tables as jax_sig_valid
+from ba_tpu.scenario import strategies as jstrategies
 from ba_tpu_torch import convert
 from ba_tpu_torch.core import rng, sm
 from ba_tpu_torch.core.om import round1_broadcast
 from ba_tpu_torch.crypto.signed import sig_valid_from_tables
+from ba_tpu_torch.scenario import strategies
 
 
 @pytest.fixture(params=[True, False], ids=["partitionable", "original"])
@@ -133,12 +136,76 @@ def test_relay_and_choice_helpers(mode):
 
 
 def test_exact_relay_paths_are_queued():
+    """The exact relay is ported; what stays refused is what the
+    reference refuses: the collapsed relay with a withhold schedule or
+    strategies, and the exact one with both."""
     _, tstate = _states(0, 2, 4)
     k = rng.key(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        sm.sm_agreement(k, tstate, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    assert sm.sm_agreement(k, tstate, 1)["decision"].shape == (2,)
+    with pytest.raises(ValueError, match="withhold"):
         sm.sm_agreement(k, tstate, 1, withhold=torch.zeros(1), collapsed=True)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="strategies"):
         sm.sm_agreement(k, tstate, 1, collapsed=True,
                         strategies=torch.zeros((2, 4), dtype=torch.int8))
+    with pytest.raises(ValueError, match="strategies"):
+        sm.sm_agreement(k, tstate, 1, withhold=torch.zeros((1, 2, 4, 4, 2), dtype=torch.bool),
+                        strategies=torch.zeros((2, 4), dtype=torch.int8))
+
+
+def test_send_gate_every_strategy():
+    """Every id (the five strategies and unknown ones) against every coin,
+    receiver parity and value."""
+    strat = np.arange(-1, 7, dtype=np.int8)[:, None, None, None]
+    coins = np.array([False, True])[None, :, None, None]
+    recv = np.arange(4, dtype=np.int32)[None, None, :, None]
+    value = np.arange(2, dtype=np.int32)[None, None, None, :]
+    want = jstrategies.send_gate(*(jnp.asarray(a) for a in (strat, coins, recv, value)))
+    got = strategies.send_gate(*(torch.tensor(a) for a in (strat, coins, recv, value)))
+    assert got.shape == (8, 2, 4, 2)
+    _eq(want, got)
+
+
+def _exact_case(seed, B, n, m, kind):
+    """Inputs of one exact-relay case: states, key, and the withhold
+    schedule or the strategies (jax, torch) when ``kind`` asks for them."""
+    jstate, tstate = _states(seed, B, n)
+    rs = np.random.default_rng(seed + 50)
+    extra = {}
+    if kind == "withhold":
+        w = rs.random((m, B, n, n, 2)) < 0.5
+        extra = (dict(withhold=jnp.asarray(w)), dict(withhold=torch.tensor(w)))
+    elif kind == "strategies":
+        st = rs.integers(0, 6, (B, n)).astype(np.int8)
+        extra = (dict(strategies=jnp.asarray(st)), dict(strategies=torch.tensor(st)))
+    else:
+        extra = ({}, {})
+    return jstate, tstate, extra
+
+
+@pytest.mark.parametrize("kind", ["coins", "withhold", "strategies"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_sm_relay_rounds_exact(mode, m, kind):
+    B, n = 12, 11
+    jstate, tstate, (jx, tx) = _exact_case(m, B, n, m, kind)
+    recv = np.random.default_rng(m).integers(0, 2, (B, n)).astype(np.int8)
+    j_seen = jsm._initial_seen(jstate, jnp.asarray(recv))
+    t_seen = sm._initial_seen(tstate, torch.tensor(recv))
+    want = jsm.sm_relay_rounds(jr.key(m + 40), jstate, j_seen, m, **jx)
+    got = sm.sm_relay_rounds(rng.key(m + 40, device="cpu"), tstate, t_seen, m, **tx)
+    _eq(want, got)
+
+
+@pytest.mark.parametrize("kind", ["coins", "withhold", "strategies"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_sm_agreement_exact(mode, m, kind):
+    """The whole exact SM(m) round: round 1 (strategies shape it too),
+    the signature mask, the relay cube, the choice and the quorum."""
+    B, n = 16, 16
+    jstate, tstate, (jx, tx) = _exact_case(m + 7, B, n, m, kind)
+    ok = np.random.default_rng(m).random((B, n)) < 0.9
+    want = jsm.sm_agreement(jr.key(m + 60), jstate, m, sig_valid=jnp.asarray(ok), **jx)
+    got = sm.sm_agreement(rng.key(m + 60, device="cpu"), tstate, m,
+                          sig_valid=torch.tensor(ok), **tx)
+    assert set(want) == set(got)
+    for name in want:
+        _eq(want[name], got[name])

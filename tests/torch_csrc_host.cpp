@@ -1,17 +1,20 @@
 // The per-lane bodies of the Ed25519 kernels (ba_tpu_torch/ops/csrc/*.cu),
-// compiled as host C++ and looped over lanes, so the CPU tests can hold
-// the kernels' arithmetic against the plain versions without a card.
-// The CUDA launch code in each source sits behind __CUDACC__ and is not
-// compiled here; K4's warp-shuffle levels are replayed in the same
-// pairing by fixed_base below.
+// and of the field-multiply probe (fieldmul_probe.cu), compiled as host
+// C++ and looped over lanes, so the CPU tests can hold the kernels'
+// arithmetic against the plain versions without a card.  The CUDA launch
+// code in each source sits behind __CUDACC__ and is not compiled here;
+// K4's warp-shuffle levels and K3''s fold are replayed in the same
+// pairing by fixed_base and window_mult_fold below.
 //
 //   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
 
 #include "decompress.cu"
+#include "fieldmul_probe.cu"
 #include "modl.cu"
 #include "powchain.cu"
 #include "sha512_modl.cu"
 #include "treeadd.cu"
+#include "window_mult.cu"
 #include "window_verify.cu"
 
 extern "C" {
@@ -73,6 +76,58 @@ void host_window_verify(int n, const uint8_t* a, const uint8_t* h, const uint8_t
                         const uint8_t* left, uint8_t* ok) {
     for (int i = 0; i < n; i++)
         ok[i] = window_verify_lane(a + 128 * i, h + 32 * i, r + 128 * i, left + 128 * i) ? 1 : 0;
+}
+
+void host_window_mult(int n, int nbytes, const uint8_t* pt, const uint8_t* k, uint8_t* out) {
+    for (int i = 0; i < n; i++) {
+        ge acc;
+        window_mult_lane(pt + 128 * i, k + nbytes * i, nbytes, acc);
+        ge_tobytes4(out + 128 * i, acc);
+    }
+}
+
+// The fold kernel's halving tree over one warp: lane t adds lane t + o for
+// o = 16, 8, 4, 2, 1; lane 0 ends with the sum.
+static void halving_sum(ge v[32]) {
+    for (int o = 16; o > 0; o >>= 1)
+        for (int t = 0; t < o; t++) ge_add(v[t], v[t], v[t + o]);
+}
+
+void host_window_mult_fold(int n, int nbytes, const uint8_t* pt, const uint8_t* k,
+                           uint8_t* out) {
+    const int blocks = (n + 31) / 32;
+    ge* partials = new ge[blocks];
+    for (int g = 0; g < blocks; g++) {
+        ge v[32];
+        for (int t = 0; t < 32; t++) {
+            const int lane = 32 * g + t;
+            if (lane < n)
+                window_mult_lane(pt + 128 * lane, k + nbytes * lane, nbytes, v[t]);
+            else
+                ge_identity(v[t]);
+        }
+        halving_sum(v);
+        partials[g] = v[0];
+    }
+    ge total[32];
+    for (int t = 0; t < 32; t++) {
+        ge_identity(total[t]);
+        for (int row = 0; row * 32 < blocks; row++) {
+            ge part;
+            if (32 * row + t < blocks)
+                part = partials[32 * row + t];
+            else
+                ge_identity(part);
+            ge_add(total[t], total[t], part);
+        }
+    }
+    halving_sum(total);
+    ge_tobytes4(out, total[0]);
+    delete[] partials;
+}
+
+void host_fieldmul_probe(int n, const uint8_t* a, const uint8_t* b, uint8_t* out) {
+    for (int i = 0; i < n; i++) fieldmul_probe_lane(a + 32 * i, b + 32 * i, out + 32 * i);
 }
 
 }  // extern "C"
