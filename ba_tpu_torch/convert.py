@@ -2,8 +2,9 @@
 
 Arrays from the JAX package (``np.asarray`` of its jax arrays, or any
 object with the same field names) become the port's carry, and back:
-``SimState``, ``KeySchedule`` (key data + counter), the strategy plane,
-counter blocks and ``ScenarioBlock`` planes, and Ed25519 field elements
+``SimState``, ``KeySchedule`` (key data + counter; one key a slot for
+a coalesced batch), the strategy plane, counter blocks (per slot for a
+coalesced batch) and ``ScenarioBlock`` planes, and Ed25519 field elements
 and points.  The tests feed both packages the same carry through here.
 Numpy dtypes follow the reference: order int8, leader int32, faulty /
 alive bool, ids int32, key data uint32, counter int32, field limbs int32.
@@ -78,6 +79,23 @@ def schedule_to_numpy(sched: KeySchedule):
         sched.key_data.cpu().numpy().astype(np.uint32),
         np.int32(sched.counter.cpu().numpy()),
     )
+
+
+def slot_schedule_from_numpy(key_data, counter, device=None) -> KeySchedule:
+    """A slot schedule (one base key a slot): key data uint32 ``[B, 2]``."""
+    key_data = np.asarray(key_data)
+    if key_data.ndim != 2 or key_data.shape[1] != 2:
+        raise ValueError(f"slot key data must be [B, 2], got {key_data.shape}")
+    return schedule_from_numpy(key_data, counter, device)
+
+
+def slot_counters_from_numpy(block, device=None) -> torch.Tensor:
+    """Per-slot counter blocks, int32 ``[B, C]`` (C = 3, or 5 in scenario
+    mode)."""
+    block = np.asarray(block)
+    if block.ndim != 2 or block.shape[1] not in (3, 5):
+        raise ValueError(f"slot counters must be [B, 3] or [B, 5], got {block.shape}")
+    return counters_from_numpy(block, device)
 
 
 def strategy_from_numpy(plane, device=None) -> torch.Tensor:

@@ -1,12 +1,14 @@
 // K1 for Hopper: R whole OM(1) agreement rounds per launch, plain or
-// mutating (scenario) mode.
+// mutating (scenario) mode, for one batch or for a coalesced serving
+// cohort of independent slots (slot mode).
 //
 // Replaces ba_tpu/ops/scenario_step.py::_megastep_kernel (the Pallas TPU
-// kernel, plain and scenario modes).  Bit-exact against the port's plain
-// engine (ba_tpu_torch/parallel/pipeline.py, _pipeline_scan and
-// _scenario_scan), which is bit-exact against the reference's XLA scan
-// core under jax's partitionable threefry mode:
-//   kr = tf(base, (0, ctr + r)), ki = tf(kr, (0, b)),
+// kernel, plain, scenario and slot modes).  Bit-exact against the port's
+// plain engine (ba_tpu_torch/parallel/pipeline.py, _pipeline_scan,
+// _scenario_scan and coalesced_megastep), which is bit-exact against the
+// reference's XLA scan core under jax's partitionable threefry mode:
+//   kr = tf(base, (0, ctr + r)), ki = tf(kr, (0, b)) (slot mode: base is
+//   slot b's own key and ki = tf(kr, (0, 0)), the key its B = 1 run uses),
 //   ka = tf(ki, (0, 0)), kb = tf(ki, (0, 1)),
 //   round-1 coin j: bit j / nw1 of word j % nw1 of ka, nw1 = ceil(n / 32);
 //   cube coin (asker i, responder j), e = i * n + j: bit e / nw2 of word
@@ -28,7 +30,13 @@
 // - one warp per asker counts its coins with ballots, so no atomics;
 // - per-round histogram and counter verdicts go through integer atomics
 //   (exact, so the result does not depend on block order); a second
-//   one-thread kernel folds them into cumulative counter rows.
+//   one-thread kernel folds them into cumulative counter rows;
+// - slot mode touches no atomics across blocks: block b folds its own
+//   counter block and writes its row of every round itself.  Its last
+//   round also draws the coins of every dead asker, so that the
+//   majorities it returns for all n generals are the reference's (a dead
+//   general's majority is defined: it hears every alive responder); the
+//   earlier rounds pay nothing for that.
 // Each coin still costs one whole threefry word (32 coin bits are drawn,
 // one is used): batching the coins of one word is the next step.
 
@@ -53,7 +61,9 @@ enum Scalar {
 
 struct Params {
   int B, n, R;
-  const long long* key_data;  // [2] uint32 words held in int64
+  int C;                      // counter columns (slot mode): 3, or 5 with events
+  bool slot;                  // a coalesced cohort: per-slot keys and counters
+  const long long* key_data;  // [2] uint32 words held in int64 ([B, 2] in slot mode)
   const int* counter;         // schedule counter at entry (int32)
   const signed char* order;   // [B]
   int* leader;                // [B], updated in place
@@ -67,8 +77,11 @@ struct Params {
   const signed char* set_strategy;
   signed char* decisions;     // [R, B] or null
   int* leaders;               // [R, B] or null
-  int* hist;                  // [R, 3], zeroed by the launcher
-  int* verdicts;              // [R, 3]: equivocation, ic1, ic2; zeroed
+  int* hist;                  // [R, 3], zeroed by the launcher (null in slot mode)
+  int* verdicts;              // [R, 3]: equivocation, ic1, ic2; zeroed (null in slot mode)
+  const int* counters_in;     // slot mode: [B, C] incoming blocks
+  int* rows;                  // slot mode: [R, B, C] cumulative rows
+  signed char* majorities;    // slot mode: [B, n], the last round's
 };
 
 __device__ __forceinline__ void tf2x32(uint32_t k0, uint32_t k1, uint32_t x0,
@@ -172,8 +185,12 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
   }
   int leader = p.leader[b];
   const int order = p.order[b];
-  const uint32_t base0 = static_cast<uint32_t>(p.key_data[0]);
-  const uint32_t base1 = static_cast<uint32_t>(p.key_data[1]);
+  const long long* kd = p.key_data + (p.slot ? 2 * b : 0);
+  const uint32_t base0 = static_cast<uint32_t>(kd[0]);
+  const uint32_t base1 = static_cast<uint32_t>(kd[1]);
+  int cum[5];  // slot mode: this block's counter block (thread 0's)
+  if (p.slot && tid == 0)
+    for (int c = 0; c < p.C; ++c) cum[c] = p.counters_in[b * p.C + c];
   const uint32_t ctr0 = static_cast<uint32_t>(*p.counter);
   const uint32_t nw1 = (static_cast<uint32_t>(n) + 31u) / 32u;
   const uint32_t nw2 = static_cast<uint32_t>(
@@ -212,11 +229,13 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
 
     uint32_t kr0, kr1, ki0, ki1, ka0, ka1, kb0, kb1;
     tf2x32(base0, base1, 0u, ctr0 + static_cast<uint32_t>(r), kr0, kr1);
-    tf2x32(kr0, kr1, 0u, static_cast<uint32_t>(b), ki0, ki1);
+    tf2x32(kr0, kr1, 0u, p.slot ? 0u : static_cast<uint32_t>(b), ki0, ki1);
     tf2x32(ki0, ki1, 0u, 0u, ka0, ka1);
     tf2x32(ki0, ki1, 0u, 1u, kb0, kb1);
     const bool lf = s_faulty[leader];
     const int ls = s_strat[leader];
+    // Slot mode's last round: every general but the leader asks.
+    const bool all_ask = p.slot && r == p.R - 1;
 
     // Round 1 and the per-instance classification of responders.
     for (int base = 0; base < n; base += kThreads) {
@@ -239,8 +258,8 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
             ov = lie_value(s_strat[j], 1);
             kind = ev >= 0 ? 2 : 3;
           }
-          ones[j] = 0;
         }
+        ones[j] = 0;
         s_recv[j] = static_cast<signed char>(recv);
         s_kind[j] = static_cast<unsigned char>(kind);
       }
@@ -252,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
       count(&sc[KO_RET], kind == 2 && ov == RETREAT, lane);
       count(&sc[TRAITOR], traitor, lane);
       append(ulist, &sc[U_CNT], kind == 3, j, lane);
-      append(alist, &sc[A_CNT], kind != 0, j, lane);
+      append(alist, &sc[A_CNT], kind != 0 || (all_ask && valid && j != leader), j, lane);
     }
     __syncthreads();
 
@@ -291,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
         const int kind = s_kind[i];
         if (i == leader) {
           maj = order;
-        } else if (kind != 0) {
+        } else if (kind != 0 || all_ask) {  // kind 0 here: a dead asker
           const bool odd = i & 1;
           int att = sc[H_ATT] + (odd ? sc[KO_ATT] : sc[KE_ATT]) + ones[i];
           int ret = sc[H_RET] + (odd ? sc[KO_RET] : sc[KE_RET]) +
@@ -306,12 +325,13 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
             ret += s_recv[i] == RETREAT;
           }
           maj = att > ret ? ATTACK : (ret > att ? RETREAT : UNDEFINED);
-          seen_lt = 1 << maj;
+          if (kind != 0) seen_lt = 1 << maj;
           if (kind == 1) {
             seen_hlt = 1 << maj;
             disobey = maj != order;
           }
         }
+        if (all_ask) p.majorities[row + i] = static_cast<signed char>(maj);
       }
       count(&sc[C_ATT], alive_i && maj == ATTACK, lane);
       count(&sc[C_RET], alive_i && maj == RETREAT, lane);
@@ -333,11 +353,21 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
       const size_t out = static_cast<size_t>(r) * p.B + b;
       if (p.decisions) p.decisions[out] = static_cast<signed char>(dec);
       if (p.leaders) p.leaders[out] = leader;
-      atomicAdd(&p.hist[3 * r + dec], 1);
-      if (__popc(sc[SEEN_LT]) > 1 && sc[TRAITOR] > 0)
-        atomicAdd(&p.verdicts[3 * r + 0], 1);
-      if (__popc(sc[SEEN_HLT]) > 1) atomicAdd(&p.verdicts[3 * r + 1], 1);
-      if (!lf && sc[DISOBEY] > 0) atomicAdd(&p.verdicts[3 * r + 2], 1);
+      const int equivocation = __popc(sc[SEEN_LT]) > 1 && sc[TRAITOR] > 0;
+      const int ic1 = __popc(sc[SEEN_HLT]) > 1;
+      const int ic2 = !lf && sc[DISOBEY] > 0;
+      if (p.slot) {  // one instance: always unanimous
+        const int delta[5] = {dec == UNDEFINED, 1, equivocation, ic1, ic2};
+        for (int c = 0; c < p.C; ++c) {
+          cum[c] += delta[c];
+          p.rows[out * p.C + c] = cum[c];
+        }
+      } else {
+        atomicAdd(&p.hist[3 * r + dec], 1);
+        if (equivocation) atomicAdd(&p.verdicts[3 * r + 0], 1);
+        if (ic1) atomicAdd(&p.verdicts[3 * r + 1], 1);
+        if (ic2) atomicAdd(&p.verdicts[3 * r + 2], 1);
+      }
       for (int s = 0; s < N_SCALARS; ++s) sc[s] = 0;
       s_min = ~0ull;
     }
@@ -381,20 +411,25 @@ extern "C" size_t ba_megastep_smem_bytes(int n) {
 }
 
 // Launch one dispatch on `stream`.  Plain mode passes null strategy and
-// event planes; n_counters is 0 (no counter rows), 3 or 5.  Returns
+// event planes; n_counters is 0 (no counter rows), 3 or 5.  Slot mode
+// (slot != 0) takes [B, 2] keys, [B, n_counters] counters_in and writes
+// [R, B, n_counters] counter_rows and [B, n] majorities; it passes null
+// hist and verdicts and launches nothing else.  Returns
 // cudaGetLastError() after the launches.
 extern "C" int ba_megastep(
-    int B, int n, int R, int n_counters, const void* key_data,
+    int B, int n, int R, int n_counters, int slot, const void* key_data,
     const void* counter, const void* order, void* leader, void* faulty,
     void* alive, const void* ids, void* strategy, const void* kill,
     const void* revive, const void* set_faulty, const void* set_strategy,
     void* decisions, void* leaders, void* hist, void* verdicts,
-    const void* counters_in, void* counter_rows, void* stream) {
+    const void* counters_in, void* counter_rows, void* majorities, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p;
   p.B = B;
   p.n = n;
   p.R = R;
+  p.C = n_counters;
+  p.slot = slot != 0;
   p.key_data = static_cast<const long long*>(key_data);
   p.counter = static_cast<const int*>(counter);
   p.order = static_cast<const signed char*>(order);
@@ -411,16 +446,23 @@ extern "C" int ba_megastep(
   p.leaders = static_cast<int*>(leaders);
   p.hist = static_cast<int*>(hist);
   p.verdicts = static_cast<int*>(verdicts);
+  p.counters_in = static_cast<const int*>(counters_in);
+  p.rows = static_cast<int*>(counter_rows);
+  p.majorities = static_cast<signed char*>(majorities);
 
   const size_t smem = ba_megastep_smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(
       megastep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaMemsetAsync(hist, 0, sizeof(int) * 3 * R, s);
-  cudaMemsetAsync(verdicts, 0, sizeof(int) * 3 * R, s);
+  if (p.slot && (n_counters == 0 || !counters_in || !counter_rows || !majorities))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!p.slot) {
+    cudaMemsetAsync(hist, 0, sizeof(int) * 3 * R, s);
+    cudaMemsetAsync(verdicts, 0, sizeof(int) * 3 * R, s);
+  }
   megastep_kernel<<<B, kThreads, smem, s>>>(p);
-  if (n_counters > 0) {
+  if (n_counters > 0 && !p.slot) {
     counter_rows_kernel<<<1, 32, 0, s>>>(
         R, B, n_counters, p.hist, p.verdicts,
         static_cast<const int*>(counters_in), static_cast<int*>(counter_rows));

@@ -6,7 +6,11 @@
 // verifier (ed25519.verify_rlc) runs for [z]R and [W]A, and in fold mode
 // also the sum the reference leaves to XLA (ed25519.batch_point_sum).
 // Per lane window_acc (window.cuh, the code K3 runs) over the nbytes of
-// the little-endian k, 2 nbytes windows.
+// the little-endian k, 2 nbytes windows.  nbytes is a template parameter:
+// K3' is built for the lengths its callers pass (K3P_LENGTHS: 1 for
+// verify_rlc's cofactor 8, 16 for [z]R, 32 for [W]A and the ladder leg),
+// so each instance runs a window loop of constant trip count, as K3
+// does; the launchers refuse any other length.
 //
 // Fold: a block is one warp of 32 lanes (lanes past n hold the
 // identity).  Five shuffle levels sum the block as a halving tree: lane
@@ -29,12 +33,27 @@
 // [n, nbytes] -> out uint8 [n, 4, 32], or [1, 4, 32] with fold; fold
 // scratch: partials int32 [ceil(n / 32), 40], done int32 [1] = 0.
 
+#include <type_traits>
+
 #include "window.cuh"
 
-ED_FN void window_mult_lane(const uint8_t* pt, const uint8_t* k, int nbytes, ge& acc) {
+template <int NBYTES>
+ED_FN void window_mult_lane(const uint8_t* pt, const uint8_t* k, ge& acc) {
     ge p;
     ge_frombytes4(p, pt);
-    window_acc(acc, p, k, nbytes);
+    window_acc<NBYTES>(acc, p, k);
+}
+
+// Calls f(std::integral_constant<int, nbytes>{}) when K3' is built for
+// nbytes, and returns whether it is.
+template <class F>
+inline bool with_k3p_length(int nbytes, F&& f) {
+    switch (nbytes) {
+        case 1: f(std::integral_constant<int, 1>{}); return true;
+        case 16: f(std::integral_constant<int, 16>{}); return true;
+        case 32: f(std::integral_constant<int, 32>{}); return true;
+        default: return false;
+    }
 }
 
 #if defined(__CUDACC__)
@@ -56,18 +75,24 @@ __device__ __forceinline__ void warp_halving_sum(ge& acc) {
     }
 }
 
-__global__ void __launch_bounds__(32) window_mult_kernel(int n, int nbytes,
-                                                         const uint8_t* __restrict__ pt,
+// The per-lane kernel (the ladder leg, K3's 64 windows alone) is built as
+// K3 is: no spill.  With (32, 1) ptxas may take 255 registers and spills
+// nothing; under (32) it settles at 168 and spills, which is faster where
+// the lanes of a warp index the table with different digits and slower
+// where they share them, as config #3's lanes do (scripts/k3p_variants.py).
+template <int NBYTES>
+__global__ void __launch_bounds__(32, 1) window_mult_kernel(int n, const uint8_t* __restrict__ pt,
                                                          const uint8_t* __restrict__ k,
                                                          uint8_t* __restrict__ out) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
     ge acc;
-    window_mult_lane(pt + 128 * (size_t)lane, k + (size_t)nbytes * lane, nbytes, acc);
+    window_mult_lane<NBYTES>(pt + 128 * (size_t)lane, k + (size_t)NBYTES * lane, acc);
     ge_tobytes4(out + 128 * (size_t)lane, acc);
 }
 
-__global__ void __launch_bounds__(32) window_mult_fold_kernel(int n, int nbytes,
+template <int NBYTES>
+__global__ void __launch_bounds__(32) window_mult_fold_kernel(int n,
                                                               const uint8_t* __restrict__ pt,
                                                               const uint8_t* __restrict__ k,
                                                               ge* partials, unsigned int* done,
@@ -75,7 +100,7 @@ __global__ void __launch_bounds__(32) window_mult_fold_kernel(int n, int nbytes,
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     ge acc;
     if (lane < n)
-        window_mult_lane(pt + 128 * (size_t)lane, k + (size_t)nbytes * lane, nbytes, acc);
+        window_mult_lane<NBYTES>(pt + 128 * (size_t)lane, k + (size_t)NBYTES * lane, acc);
     else
         ge_identity(acc);
     warp_halving_sum(acc);
@@ -108,21 +133,28 @@ __global__ void __launch_bounds__(32) window_mult_fold_kernel(int n, int nbytes,
     if (threadIdx.x == 0) ge_tobytes4(out, total);
 }
 
+// Both launchers return cudaErrorInvalidValue for a length K3' is not
+// built for, else cudaGetLastError() after the launch.
 extern "C" int ba_window_mult(int n, int nbytes, const void* pt, const void* k, void* out,
                               void* stream) {
     if (n <= 0) return 0;
-    window_mult_kernel<<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
-        n, nbytes, (const uint8_t*)pt, (const uint8_t*)k, (uint8_t*)out);
-    return (int)cudaGetLastError();
+    const bool built = with_k3p_length(nbytes, [&](auto nb) {
+        window_mult_kernel<decltype(nb)::value><<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+            n, (const uint8_t*)pt, (const uint8_t*)k, (uint8_t*)out);
+    });
+    return built ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ba_window_mult_fold(int n, int nbytes, const void* pt, const void* k,
                                    void* partials, void* done, void* out, void* stream) {
     if (n <= 0) return 0;
-    window_mult_fold_kernel<<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
-        n, nbytes, (const uint8_t*)pt, (const uint8_t*)k, (ge*)partials, (unsigned int*)done,
-        (uint8_t*)out);
-    return (int)cudaGetLastError();
+    const bool built = with_k3p_length(nbytes, [&](auto nb) {
+        window_mult_fold_kernel<decltype(nb)::value>
+            <<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+                n, (const uint8_t*)pt, (const uint8_t*)k, (ge*)partials, (unsigned int*)done,
+                (uint8_t*)out);
+    });
+    return built ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 #endif

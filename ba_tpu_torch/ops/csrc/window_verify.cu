@@ -25,7 +25,7 @@ ED_FN bool window_verify_lane(const uint8_t* a_pt, const uint8_t* h, const uint8
                               const uint8_t* left) {
     ge a, acc;
     ge_frombytes4(a, a_pt);
-    window_acc(acc, a, h, 32);
+    window_acc<32>(acc, a, h);
     ge r;
     ge_frombytes4(r, r_pt);
     ge_add(r, r, acc);

@@ -16,8 +16,10 @@ R + [h]A and the cross-multiplied equality with [S]B:
     a, r uint8 [S, 4, 32], h uint8 [S, 32], left uint8 [S, 4, 32]  ->  bool [S]
 
 K3' replaces ``_window_kernel`` (through ``window_mult``): [k]P a lane,
-with k of any byte width (16 bytes for the batch verifier's [z]R, 32 for
-[W]A and the ladder leg):
+for k of the byte widths in ``K3P_LENGTHS`` (1 byte for the batch
+verifier's cofactor 8, 16 for its [z]R, 32 for [W]A and the ladder leg;
+the kernel has one instance a width, with the window loop's trip count
+fixed at compile time; the plain version takes any width):
 
     point uint8 [S, 4, 32], k uint8 [S, nbytes]  ->  uint8 [S, 4, 32]
 
@@ -50,6 +52,7 @@ from ba_tpu_torch.ops.treeadd import digits
 SOURCE = "window_verify.cu"
 MULT_SOURCE = "window_mult.cu"
 FOLD = 32  # lanes a block of K3' sums (one warp)
+K3P_LENGTHS = (1, 16, 32)  # the k widths in bytes K3' is built for (window_mult.cu)
 GE_INT32 = 40  # a point in the kernels' radix: 4 x 10 int32 limbs
 
 
@@ -156,7 +159,11 @@ def window_verify(a: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
 
 def window_mult(point: torch.Tensor, k: torch.Tensor, fold: bool = False) -> torch.Tensor:
     """[k]P per lane: point uint8 [S, 4, 32], k uint8 [S, nbytes] -> uint8
-    [S, 4, 32]; with ``fold`` their sum, uint8 [1, 4, 32] (S >= 1)."""
+    [S, 4, 32]; with ``fold`` their sum, uint8 [1, 4, 32] (S >= 1).
+
+    On a CUDA tensor, nbytes must be one of ``K3P_LENGTHS``: any other
+    length raises, as the kernel has no instance for it.  On a CPU tensor
+    the plain version takes any length."""
     dev = point.device
     if point.dim() != 3 or tuple(point.shape[1:]) != (4, 32):
         raise ValueError(f"point must be [S, 4, 32], got {tuple(point.shape)}")
@@ -169,6 +176,9 @@ def window_mult(point: torch.Tensor, k: torch.Tensor, fold: bool = False) -> tor
         return plain_window_mult(point, k, fold)
     if dev.type != "cuda":
         raise ValueError(f"the window-multiply kernel runs on a CUDA device, not {dev}")
+    if nbytes not in K3P_LENGTHS:
+        raise ValueError(f"the window-multiply kernel is built for k of {K3P_LENGTHS} "
+                         f"bytes, got {nbytes}")
     _build.check_tensor(point, "point", torch.uint8, (n, 4, 32), dev)
     _build.check_tensor(k, "k", torch.uint8, (n, nbytes), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -20,12 +20,18 @@
   the only synchronization is waiting on that event ``depth`` dispatches
   later.  Host work (``host_work``) and the next scenario chunk's upload
   overlap the dispatches in flight.
+- **Coalesced serving batch**: :func:`coalesced_sweep` runs B independent
+  requests as one batch.  Its schedule holds one base key per slot and
+  every slot folds instance index 0 (:func:`slot_round_keys`), and each
+  slot keeps its own counter block (:func:`slot_counter_delta`), so slot
+  ``b`` is bit-identical to its own B = 1 run at equal padded capacity.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -88,6 +94,25 @@ def round_keys(sched: KeySchedule, batch: int, index_base: int = 0) -> torch.Ten
     return rng.fold_in(kr[None, :], idx)
 
 
+def make_slot_key_schedule(slot_keys, counter: int = 0) -> KeySchedule:
+    """A :class:`KeySchedule` holding one base key PER SLOT: ``key_data``
+    int64 ``[B, 2]`` (the slots' keys stacked, so copied) and an int32
+    counter."""
+    data = torch.stack([torch.as_tensor(k) for k in slot_keys]).to(torch.int64)
+    return KeySchedule(
+        key_data=data,
+        counter=torch.tensor(counter, dtype=torch.int32, device=data.device),
+    )
+
+
+def slot_round_keys(sched: KeySchedule) -> torch.Tensor:
+    """The current round's per-slot keys ``[B, 2]`` from a slot schedule:
+    slot ``b`` draws ``fold_in(fold_in(base_b, counter), 0)``, the key
+    its own B = 1 run derives for instance 0.  The folded index is 0 for
+    every slot: that is the whole bit-exactness contract."""
+    return rng.fold_in(rng.fold_in(sched.key_data, sched.counter), 0)
+
+
 def agreement_counters_init(device=None) -> torch.Tensor:
     return torch.zeros(len(COUNTER_NAMES), dtype=torch.int32, device=resolve_device(device))
 
@@ -112,32 +137,45 @@ def _lieutenants(state: SimState) -> torch.Tensor:
     return state.alive & (idx[None, :] != state.leader[:, None])
 
 
+def slot_counter_delta(out: dict, state: SimState, scenario: bool) -> torch.Tensor:
+    """One round's counter increments per instance, int32 ``[B, C]``: row
+    ``b`` is what a B = 1 run of instance ``b`` alone folds into its
+    block.  Columns: the decision is UNDEFINED; 1 (one instance always
+    decides unanimously); a live traitor is present and the alive
+    lieutenants disagree; in scenario mode also IC1 (honest alive
+    lieutenants disagree) and IC2 (the commander is honest yet an honest
+    alive lieutenant's majority differs from its order)."""
+    decision = out["decision"]
+    maj = out["majorities"]
+    lieutenants = _lieutenants(state)
+    traitor_present = (state.faulty & state.alive).any(dim=1)
+    cols = [decision == UNDEFINED, torch.ones_like(traitor_present),
+            _disagree(maj, lieutenants) & traitor_present]
+    if scenario:
+        honest_lt = lieutenants & ~state.faulty
+        leader_faulty = state.faulty.gather(1, state.leader.long()[:, None])[:, 0]
+        disobey = (honest_lt & (maj != state.order[:, None])).any(dim=1)
+        cols += [_disagree(maj, honest_lt), ~leader_faulty & disobey]
+    return torch.stack(cols, dim=-1).to(torch.int32)
+
+
+def _batch_counter_delta(out: dict, state: SimState, scenario: bool) -> torch.Tensor:
+    delta = slot_counter_delta(out, state, scenario).sum(dim=0, dtype=torch.int32)
+    delta[1] = (out["histogram"].max() == out["decision"].shape[0]).to(torch.int32)
+    return delta
+
+
 def agreement_counter_delta(out: dict, state: SimState) -> torch.Tensor:
     """One round's increments of COUNTER_NAMES, int32 ``[3]``:
     UNDEFINED quorum decisions, 1 if every instance decided alike, and
     instances with a live traitor whose alive lieutenants disagree."""
-    decision = out["decision"]
-    quorum_failures = (decision == UNDEFINED).sum(dtype=torch.int32)
-    unanimous = (out["histogram"].max() == decision.shape[0]).to(torch.int32)
-    traitor_present = (state.faulty & state.alive).any(dim=1)
-    equivocation = (
-        _disagree(out["majorities"], _lieutenants(state)) & traitor_present
-    ).sum(dtype=torch.int32)
-    return torch.stack([quorum_failures, unanimous, equivocation])
+    return _batch_counter_delta(out, state, False)
 
 
 def scenario_counter_delta(out: dict, state: SimState) -> torch.Tensor:
-    """The agreement deltas followed by the IC1/IC2 verdicts, int32 ``[5]``:
-    honest alive lieutenants disagree (IC1); the commander is honest yet
-    an honest alive lieutenant's majority differs from its order (IC2)."""
-    base = agreement_counter_delta(out, state)
-    maj = out["majorities"]
-    honest_lt = _lieutenants(state) & ~state.faulty
-    ic1 = _disagree(maj, honest_lt).sum(dtype=torch.int32)
-    leader_faulty = state.faulty.gather(1, state.leader.long()[:, None])[:, 0]
-    disobey = (honest_lt & (maj != state.order[:, None])).any(dim=1)
-    ic2 = (~leader_faulty & disobey).sum(dtype=torch.int32)
-    return torch.cat([base, torch.stack([ic1, ic2])])
+    """The agreement deltas followed by the IC1 / IC2 instance counts,
+    int32 ``[5]`` (the verdicts of :func:`slot_counter_delta`)."""
+    return _batch_counter_delta(out, state, True)
 
 
 def _advanced(sched: KeySchedule, rounds: int) -> KeySchedule:
@@ -177,6 +215,21 @@ def _pipeline_scan(
     return carry, ys
 
 
+def _apply_events(st: SimState, strat: torch.Tensor, events: dict, r: int):
+    """Round ``r``'s transition: ``alive = (alive & ~kill) | revive``,
+    tri-state fault / strategy flips (-1 = keep), then instances whose
+    leader died re-elect the lowest alive id (a living leader is never
+    displaced).  Returns the new (state, strategy)."""
+    kill, revive = events["kill"][r], events["revive"][r]
+    fset, sset = events["set_faulty"][r], events["set_strategy"][r]
+    alive = (st.alive & ~kill) | revive
+    faulty = torch.where(fset >= 0, fset > 0, st.faulty)
+    strat = torch.where(sset >= 0, sset, strat)
+    leader_alive = alive.gather(1, st.leader.long()[:, None])[:, 0]
+    leader = torch.where(leader_alive, st.leader, elect_lowest_id(st.ids, alive))
+    return SimState(st.order, leader, faulty, alive, st.ids), strat
+
+
 def _scenario_scan(
     state: SimState,
     sched: KeySchedule,
@@ -189,11 +242,9 @@ def _scenario_scan(
     collect_decisions: bool = False,
     index_base: int = 0,
 ):
-    """The mutating-round scan core.  Per round: the event planes apply
-    (``alive = (alive & ~kill) | revive``, tri-state fault / strategy
-    flips with -1 = keep); instances whose leader died re-elect the
-    lowest alive id (a living leader is never displaced); the
-    strategy-aware round runs and the scenario counters fold.
+    """The mutating-round scan core.  Per round: the event transition
+    (:func:`_apply_events`), then the strategy-aware round, and the
+    scenario counters fold.
 
     Returns ``(carry, ys)`` with carry ``(state, sched, strategy,
     counters)`` and ys ``(histograms, leaders, counter_rows[,
@@ -202,19 +253,12 @@ def _scenario_scan(
     hists, leaders, rows, decs = [], [], [], []
     st, strat = state, strategy
     for r in range(rounds):
-        kill, revive = events["kill"][r], events["revive"][r]
-        fset, sset = events["set_faulty"][r], events["set_strategy"][r]
-        alive = (st.alive & ~kill) | revive
-        faulty = torch.where(fset >= 0, fset > 0, st.faulty)
-        strat = torch.where(sset >= 0, sset, strat)
-        leader_alive = alive.gather(1, st.leader.long()[:, None])[:, 0]
-        leader = torch.where(leader_alive, st.leader, elect_lowest_id(st.ids, alive))
-        st = SimState(st.order, leader, faulty, alive, st.ids)
+        st, strat = _apply_events(st, strat, events, r)
         keys = round_keys(_advanced(sched, r), st.batch, index_base)
         out = agreement_step(keys, st, m=m, strategies=strat)
         counters = counters + scenario_counter_delta(out, st)
         hists.append(out["histogram"])
-        leaders.append(leader)
+        leaders.append(st.leader)
         rows.append(counters)
         if collect_decisions:
             decs.append(out["decision"])
@@ -277,6 +321,63 @@ def scenario_megastep(
     return (state, sched, strategy, *ys)
 
 
+def coalesced_megastep(
+    state: SimState,
+    sched: KeySchedule,
+    strategy,
+    slot_counters: torch.Tensor,
+    events,
+    *,
+    rounds: int,
+    m: int = 1,
+    scenario: bool = False,
+):
+    """``rounds`` rounds of a coalesced serving batch in one dispatch (the
+    plain engine); every slot is an independent request.
+
+    ``sched`` is a slot schedule (:func:`make_slot_key_schedule`), so slot
+    ``b``'s decisions, majorities and counters are bit-identical to its
+    own B = 1 run at equal padded capacity.  ``slot_counters`` is the
+    ``[B, C]`` block (C = 5 in scenario mode, else 3).  With
+    ``scenario=True`` each round first applies ``events`` (``[rounds, B,
+    n]`` planes, the slots' campaigns side by side along the batch) and
+    re-elects, as :func:`scenario_megastep` does; ``strategy`` is the
+    ``[B, n]`` plane there (``None`` in plain mode).
+
+    Returns ``(state, sched, strategy, last_majorities, decisions,
+    counter_rows[, leaders])``: ``last_majorities`` int8 ``[B, n]`` is the
+    final round's majority plane for every general, dead ones included;
+    ``decisions`` int8 ``[rounds, B]``; ``counter_rows`` int32 ``[rounds,
+    B, C]`` cumulative; ``leaders`` int32 ``[rounds, B]`` post-election
+    (scenario only).  The state planes, leader, strategy plane and the
+    schedule's counter are updated in place.
+    """
+    if m != 1:
+        raise ValueError(f"the port runs OM(1) only (m == 1), got m={m}")
+    if rounds < 1:
+        raise ValueError(f"rounds={rounds} must be >= 1")
+    st, strat, ctr = state, strategy, slot_counters
+    decs, rows, leaders = [], [], []
+    for r in range(rounds):
+        if scenario:
+            st, strat = _apply_events(st, strat, events, r)
+            leaders.append(st.leader)
+        out = agreement_step(slot_round_keys(_advanced(sched, r)), st, m=m,
+                             strategies=strat if scenario else None)
+        ctr = ctr + slot_counter_delta(out, st, scenario)
+        decs.append(out["decision"])
+        rows.append(ctr)
+    if scenario:
+        for name in ("leader", "faulty", "alive"):
+            getattr(state, name).copy_(getattr(st, name))
+        strategy.copy_(strat)
+    sched.counter.add_(rounds)
+    ys = (torch.stack(decs), torch.stack(rows))
+    if scenario:
+        ys += (torch.stack(leaders),)
+    return (state, sched, strategy, out["majorities"], *ys)
+
+
 def resolve_engine(engine: str | None, device: torch.device) -> str:
     """``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the
     CPU.  ``"cuda"`` off the card, or under the non-partitionable
@@ -297,11 +398,13 @@ def resolve_engine(engine: str | None, device: torch.device) -> str:
 
 
 def _engine_megasteps(engine: str):
+    """(plain, scenario, coalesced) megasteps of ``engine``."""
     if engine == "torch":
-        return pipeline_megastep, scenario_megastep
+        return pipeline_megastep, scenario_megastep, coalesced_megastep
     from ba_tpu_torch.ops import scenario_step
 
-    return scenario_step.cuda_pipeline_megastep, scenario_step.cuda_scenario_megastep
+    return (scenario_step.cuda_pipeline_megastep, scenario_step.cuda_scenario_megastep,
+            scenario_step.cuda_coalesced_megastep)
 
 
 class _Inflight:
@@ -360,6 +463,14 @@ def _stage_chunk(host: dict, device: torch.device, stream=None):
     return planes, ready
 
 
+def _chunks(rounds: int, rounds_per_dispatch: int) -> list:
+    """Rounds a dispatch: full dispatches, then the remainder."""
+    chunks = [rounds_per_dispatch] * (rounds // rounds_per_dispatch)
+    if rounds % rounds_per_dispatch:
+        chunks.append(rounds % rounds_per_dispatch)
+    return chunks
+
+
 def pipeline_sweep(
     key: torch.Tensor,
     state: SimState,
@@ -410,7 +521,7 @@ def pipeline_sweep(
         raise ValueError(f"the port runs OM(1) only (m == 1), got m={m}")
     dev = resolve_device(device)
     engine = resolve_engine(engine, dev)
-    plain_fn, scen_fn = _engine_megasteps(engine)
+    plain_fn, scen_fn, _ = _engine_megasteps(engine)
     state = state.to(dev)
     B, n = state.faulty.shape
     sched = make_key_schedule(key.to(dev))
@@ -441,10 +552,7 @@ def pipeline_sweep(
     else:
         counters = agreement_counters_init(dev) if with_counters else None
 
-    chunks = [rounds_per_dispatch] * (rounds // rounds_per_dispatch)
-    if rounds % rounds_per_dispatch:
-        chunks.append(rounds % rounds_per_dispatch)
-
+    chunks = _chunks(rounds, rounds_per_dispatch)
     zero_staged: dict = {}
     upload = torch.cuda.Stream(dev) if scenario is not None and dev.type == "cuda" else None
 
@@ -544,3 +652,160 @@ def scenario_sweep(key: torch.Tensor, state: SimState, scenario, **kwargs):
     """Run a compiled scenario campaign: ``pipeline_sweep(...,
     scenario=block)`` with the round count read off the block."""
     return pipeline_sweep(key, state, scenario.rounds, scenario=scenario, **kwargs)
+
+
+def coalesced_sweep(
+    slot_keys,
+    state: SimState,
+    rounds: int,
+    *,
+    m: int = 1,
+    depth: int = 2,
+    rounds_per_dispatch: int = 8,
+    scenario=None,
+    initial_strategy=None,
+    signed: bool = False,
+    collapsed: bool = False,
+    exec_seam=None,
+    on_retire=None,
+    engine: str | None = None,
+    device=None,
+):
+    """Run a coalesced serving batch through the depth-k pipelined loop:
+    B independent requests, one padded batch, bit-exact slot results.
+
+    ``slot_keys`` holds one key per slot (key data ``[2]`` each, or a
+    ``[B, 2]`` tensor).  Slot ``b``'s outputs are bit-identical to
+    ``pipeline_sweep(slot_keys[b], <its B = 1 state>, rounds)`` (or
+    ``scenario_sweep`` with its own ``[R, 1, n]`` planes) at equal padded
+    capacity.  ``scenario`` is a ``ScenarioBlock`` or a dict of ``[rounds,
+    B, n]`` planes (numpy arrays, or tensors), the slots' campaigns side
+    by side along the batch; ``initial_strategy`` seeds its strategy
+    plane (default all RANDOM).
+
+    ``exec_seam(call, phase, dispatch, lo, hi)``, where given, makes each
+    dispatch (``phase="dispatch"``) and each retire fetch
+    (``phase="retire"``) by calling ``call()`` itself.
+    ``on_retire(dispatch, lo, hi, host_ys)`` receives each retired
+    window's host block ``(decisions, counter_rows[, leaders])``.
+    ``device`` and ``engine`` follow :func:`resolve_engine`; the state
+    moves to the device and is consumed.  ``signed`` and ``collapsed``
+    raise: the signed coalesced megastep is not ported yet; so does any
+    ``m`` other than 1.
+
+    Returns a dict: ``decisions`` [rounds, B] int8, ``majorities`` [B, n]
+    (the final round's), ``counters`` [B, C] int32 (each slot's final
+    block) and ``counter_names``, ``leaders`` [rounds, B] (scenario only),
+    and ``stats``.
+    """
+    if rounds < 1:
+        raise ValueError(f"rounds={rounds} must be >= 1")
+    if depth < 1:
+        raise ValueError(f"depth={depth} must be >= 1")
+    if rounds_per_dispatch < 1:
+        raise ValueError(f"rounds_per_dispatch={rounds_per_dispatch} must be >= 1")
+    if signed or collapsed:
+        raise ValueError("signed and collapsed cohorts wait for the signed coalesced "
+                         "megastep, which the port does not have yet")
+    if m != 1:
+        raise ValueError(f"the port runs OM(1) only (m == 1), got m={m}")
+    dev = resolve_device(device)
+    engine = resolve_engine(engine, dev)
+    B, n = state.faulty.shape
+    if len(slot_keys) != B:
+        raise ValueError(f"{len(slot_keys)} slot key(s) for a batch of {B}")
+    state = state.to(dev)
+    sched = make_slot_key_schedule(slot_keys)
+    sched = KeySchedule(sched.key_data.to(dev), sched.counter.to(dev))
+    is_scenario = scenario is not None
+    strategy = planes = None
+    if is_scenario:
+        planes = scenario if isinstance(scenario, dict) else (
+            scenario.chunk(0, rounds) if hasattr(scenario, "chunk") else None)
+        if planes is None or set(planes) != set(EVENT_PLANES):
+            raise ValueError("scenario must be a ScenarioBlock or a plane dict")
+        got = tuple(planes["kill"].shape)
+        if got != (rounds, B, n):
+            raise ValueError(f"scenario planes are {got}, batch wants {(rounds, B, n)}")
+        if initial_strategy is None:
+            strategy = torch.zeros((B, n), dtype=torch.int8, device=dev)
+        else:
+            strategy = torch.as_tensor(initial_strategy).to(dev, torch.int8).clone()
+    elif initial_strategy is not None:
+        raise ValueError("initial_strategy needs a scenario block")
+    names = SCENARIO_COUNTER_NAMES if is_scenario else COUNTER_NAMES
+    counters = torch.zeros((B, len(names)), dtype=torch.int32, device=dev)
+    upload = torch.cuda.Stream(dev) if is_scenario and dev.type == "cuda" else None
+
+    def stage(lo, hi):
+        chunk = {name: planes[name][lo:hi] for name in EVENT_PLANES}
+        if all(isinstance(v, torch.Tensor) for v in chunk.values()):
+            return {name: v.to(dev).contiguous() for name, v in chunk.items()}, None
+        return _stage_chunk(chunk, dev, upload)
+
+    out = _coalesced_loop(
+        state, sched, strategy, counters, stage if is_scenario else None,
+        _chunks(rounds, rounds_per_dispatch), m=m, depth=depth,
+        coalesced_fn=_engine_megasteps(engine)[2], exec_seam=exec_seam,
+        on_retire=on_retire,
+    )
+    out["counter_names"] = list(names)
+    out["stats"]["engine"] = engine
+    return out
+
+
+def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, depth,
+                    coalesced_fn, exec_seam, on_retire):
+    """The coalesced batch's dispatch loop: :func:`pipeline_sweep`'s
+    depth-k retire discipline (pinned copies behind a CUDA event, no other
+    wait), each dispatch's event planes staged just before it."""
+    inflight: collections.deque = collections.deque()
+    retired = []
+    max_in_flight = 0
+
+    def retire():
+        d, lo, hi, box = inflight.popleft()
+        host_ys = box.fetch() if exec_seam is None else exec_seam(
+            box.fetch, "retire", d, lo, hi)
+        retired.append(host_ys)
+        if on_retire is not None:
+            on_retire(d, lo, hi, host_ys)
+
+    lo = 0
+    majorities = None
+    for d, nr in enumerate(chunks):
+        hi = lo + nr
+        events = None
+        if stage is not None:
+            events, ready = stage(lo, hi)
+            if ready is not None:
+                torch.cuda.current_stream(state.device).wait_event(ready)
+        call = functools.partial(coalesced_fn, state, sched, strategy, counters, events,
+                                 rounds=nr, m=m, scenario=stage is not None)
+        out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
+        state, sched, strategy, majorities = out[:4]
+        ys = out[4:]
+        counters = ys[1][-1]  # the cumulative rows' last row continues
+        inflight.append((d, lo, hi, _Inflight(ys)))
+        max_in_flight = max(max_in_flight, len(inflight))
+        while len(inflight) > depth:
+            retire()
+        lo = hi
+    while inflight:
+        retire()
+
+    result = {
+        "decisions": np.concatenate([ys[0] for ys in retired]),
+        "majorities": majorities.cpu().numpy(),
+        "counters": counters.cpu().numpy(),
+        "stats": {
+            "rounds": lo,
+            "slots": state.batch,
+            "dispatches": len(chunks),
+            "depth": depth,
+            "max_in_flight": max_in_flight,
+        },
+    }
+    if stage is not None:
+        result["leaders"] = np.concatenate([ys[2] for ys in retired])
+    return result

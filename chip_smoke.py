@@ -24,7 +24,12 @@ Three paths, each through its hand-written kernels:
   per-signature verify, the batch verify ``verify_rlc`` (K7, K5, K6,
   K3' ``window_mult.cu``, K4, K8), K3' alone (the ladder leg) and the
   field-multiply probe P (``fieldmul_probe.cu``), interleaved, then the
-  exact SM(1) round.
+  exact SM(1) round;
+- the coalesced serving batch, ``coalesced_sweep``, through K1's slot
+  mode (the same source): ``bench.py``'s ``bench_serving`` requests alone
+  and coalesced, and a full-width scenario cohort;
+- BASELINE configs #1 (``bench_om1_n4``) and #4 (``bench_n1024_m32``),
+  which run no kernel: the plain OM(1) round and the collapsed SM(32).
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
@@ -122,9 +127,34 @@ Phases, one JSON line each:
    and the card's time of one call of each verify; then the exact SM(1)
    ``sm_agreement`` at B = 64, n = 64 (honest leader, lieutenant 1
    faulty), 20 calls a rep, best of 3, every decision ATTACK;
-then the kernels line.  For K1 and K2 it replays the main paths' own
-dispatches with the same keys, inputs and rounds a dispatch.  For the
-Ed25519 kernels, K3' and P it replays what the main paths recorded: each
+16. K1's slot mode against the plain ``coalesced_megastep``
+   (``coalesced_vs_plain_middle``): plain and scenario modes, B in {1, 8,
+   64}, n in {4, 33, 300}, R = 5, random leaders, strategies and events,
+   an all-dead row — every output bit-equal, the last round's
+   majorities of every general (dead ones included);
+17. ``coalesced_serving``, ``bench_serving``'s shape: 32 requests (8
+   clients x 4; n = 4 at capacity 4, 32 rounds 8 a dispatch, seeds 1000 +
+   i, faulty sets (2,), (), (1, 3) in turn, orders attack / retreat) run
+   alone (B = 1) and as 4 cohorts of 8 — decisions, counters and
+   majorities bit-equal between the legs; requests/s of each leg and the
+   per-cohort walls;
+18. ``coalesced_full_width``: B = 10 000 slots at capacity 1024 (the
+   arrays of phase 4's kind), every slot running colluding_coalition.json
+   (its planes whole on the card), slot b keyed by key(seed + b), 8
+   rounds 4 a dispatch; shapes, ranges and per-slot counters checked, 64
+   slots against their own B = 1 runs; the wall and slots x rounds / s;
+19. BASELINE config #1 (``bench_om1_n4``): ``om1_agreement`` at B = 4 194
+   304, n = 4, general 2 faulty, 30 calls a rep after a warm one, best
+   of 3 reps with the spread — every decision ATTACK, needed 3 of 4;
+20. BASELINE config #4 (``bench_n1024_m32``): the collapsed
+   ``sm_agreement`` at B = 1, n = 1024, m = 32, the first 32 generals
+   faulty, 100 rounds a call, 5 calls a rep, best of 3 with the spread —
+   every round's honest lieutenants agree (IC1);
+then the kernels line.  For K1's plain and scenario modes and K2 it replays
+the main paths' own dispatches with the same keys, inputs and rounds a
+dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
+what the main paths recorded (phases 17 and 18 each run once more with
+their dispatches recorded, inputs copied before each dispatch): each
 setup route run once more with its dispatches recorded (the wrappers'
 arguments and outputs, taken at their modules), and one call of each of
 config #3's legs on its first inputs; every recorded dispatch is held
@@ -155,7 +185,7 @@ import torch
 from ba_tpu_torch import convert, native
 from ba_tpu_torch.core import rng, sm
 from ba_tpu_torch.core.election import elect_lowest_id
-from ba_tpu_torch.core.om import round1_broadcast
+from ba_tpu_torch.core.om import om1_agreement, round1_broadcast
 from ba_tpu_torch.core.state import SimState, make_state
 from ba_tpu_torch.core.types import ATTACK
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
@@ -209,6 +239,7 @@ ED_KERNELS = {
     "P": ("fieldmul_probe", fieldmul_probe.fieldmul_probe, fieldmul_probe.plain_fieldmul_probe,
           "ba_tpu_torch/ops/csrc/fieldmul_probe.cu", "bench.py:3404"),
 }
+ED_WRAPPERS = {key: fn for key, (_, fn, *_) in ED_KERNELS.items()}
 # Launches of each on the device-sign setup: sign (K5', K5 twice, K4, K8, K6),
 # then verify (K7, K5, K4, K3); on the "rlc" route the verify is one batch check
 # (K7, K5, K6 four times, K3' four times, K4, K8).
@@ -377,14 +408,16 @@ def plain_chunked(state, sched, rounds, counters, strategy=None, events=None):
 # -- the bound ----------------------------------------------------------------
 
 
-def work_counts(state, rounds, strategy=None, events=None):
+def work_counts(state, rounds, strategy=None, events=None, slot=False):
     """(threefry words, tally steps) that these inputs need at least.
 
     Per instance-round: the coins that decide a vote — one per recipient
     of a faulty coin-drawing leader, one per (counted asker, counted
     coin-drawing responder other than itself) — take at least coins / 32
     threefry words, plus four words of round keys; each coin vote is one
-    tally step, and each counted general one more.
+    tally step, and each counted general one more.  In slot mode the last
+    round's askers are every general but the leader, dead ones included
+    (their majorities are returned).
     """
     alive, faulty, leader = state.alive, state.faulty, state.leader
     strat = torch.zeros_like(faulty, dtype=torch.int8) if strategy is None else strategy
@@ -405,9 +438,10 @@ def work_counts(state, rounds, strategy=None, events=None):
         lead = leader.long()[:, None]
         lcoin = (faulty.gather(1, lead) & coin_type.gather(1, lead))[:, 0]
         coins1 = torch.where(lcoin, a, torch.zeros_like(a))
-        coins2 = u * (a - 1).clamp(min=0)
+        askers = (idx != leader[:, None]).sum(1) if slot and r == rounds - 1 else a
+        coins2 = u * (askers - 1).clamp(min=0)
         words += int(((coins1 + 31) // 32 + (coins2 + 31) // 32 + 4).sum())
-        steps += int((coins2 + a).sum())
+        steps += int((coins2 + askers).sum())
     return words, steps
 
 
@@ -461,7 +495,7 @@ def phase_env(dev):
     ladder._mult_lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
     ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln or "spill" in ln]
              for name in CUDA_SOURCES}
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(dev), "gpu": smi("name,power.limit"),
@@ -976,7 +1010,7 @@ def recorded_setup(dev, sign_device, verify, sigs):
     """The timed setup of the route once more (the same seed, so the same
     keys and signatures), its kernel dispatches recorded; its tables and
     verdicts held against the timed run's."""
-    with recording() as calls:
+    with recording(ED_WRAPPERS) as calls:
         out = signed.setup_signed_tables(B_SIGNED, device=dev, sign_device=sign_device,
                                          verify=verify)
     check(np.array_equal(out[3], sigs) and bool(out[4].all()),
@@ -1272,19 +1306,23 @@ def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
 
 
 @contextlib.contextmanager
-def recording():
-    """While open, every call of an ED_KERNELS wrapper made through its
-    module (the port's callers import a wrapper from its module at each
-    call) is appended to the yielded list as (key, args, kwargs, output,
-    entry); ``entry`` names the outermost ``crypto/ed25519.py`` function
-    on the stack, else the caller.  While open, a wrapper's ``launches``
+def recording(wrappers, snapshot=False):
+    """While open, every call of a wrapper in ``wrappers`` ({key: wrapper})
+    made through its module (the port's callers import a wrapper from its
+    module at each call) is appended to the yielded list as (key, args,
+    kwargs, output, entry); ``entry`` names the outermost
+    ``crypto/ed25519.py`` function on the stack, else the caller.  With
+    ``snapshot`` the arguments are copied before the call and the output
+    after it (a megastep updates its carry in place, and the next
+    dispatch updates it again).  While open, a wrapper's ``launches``
     count goes to its stand-in: the recorded runs are not the counted
     ones."""
     calls, saved = [], []
-    for key, (_, fn, *_) in ED_KERNELS.items():
+    for key, fn in wrappers.items():
         module = sys.modules[fn.__module__]
 
         def stand_in(*args, _key=key, _fn=fn, **kw):
+            recorded_args = pipeline.fresh_copy(args) if snapshot else args
             out = _fn(*args, **kw)
             frame = sys._getframe(1)
             entry = frame.f_code.co_name
@@ -1292,7 +1330,8 @@ def recording():
                 if frame.f_globals.get("__name__") == ed25519.__name__:
                     entry = frame.f_code.co_name
                 frame = frame.f_back
-            calls.append((_key, args, kw, out, entry))
+            calls.append((_key, recorded_args, kw,
+                          pipeline.fresh_copy(out) if snapshot else out, entry))
             return out
 
         stand_in.launches = 0
@@ -1592,7 +1631,7 @@ def phase_config3(dev, card):
         legs["ladder"].append(leg_seconds(ladder_leg, lambda i: ladder_in[at(i) % nv], ITERS_C3))
     launches = ed_launches()
     check(bad.tolist() == [0, 0], f"config #3 rejects (per-signature, rlc): {bad.tolist()}")
-    with recording() as calls:  # one call of each leg on its first inputs, for the kernels line
+    with recording(ED_WRAPPERS) as calls:  # one call of each leg on its first inputs
         again = {"verify": per_sig(*variants[0]), "rlc": rlc(*variants[0], zs[0]),
                  "ladder": ladder_leg(*ladder_in[0]), "probe": probe(*fm_in[0])}
     check(all(torch.equal(again[k], first[k]) for k in again),
@@ -1654,6 +1693,373 @@ def phase_config3(dev, card):
           "kernel_launches": launches, "card": card})
     return "config #3", calls, launches, REPS_C3 * (1 + ITERS_C3)
 
+# -- K1's slot mode: the coalesced serving batch -----------------------------
+
+# bench.py:1532-1580 (bench_serving): 8 clients x 4 requests, n = 4 at
+# capacity 4, 32 rounds 8 a dispatch, seeds 1000 + i, cohorts of 8.
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_ROUNDS, SERVE_RPD = 8, 4, 32, 8
+SERVE_COHORT, SERVE_CAP = 8, 4
+RPD_COAL = 4   # the full-width cohort's rounds a dispatch (the scenario phase's)
+SAMPLE_COAL = 64  # full-width slots held against their own B = 1 runs
+SLOT_WRAPPERS = {"K1 slot": scenario_step.cuda_coalesced_megastep}
+
+
+def slot_flat(out):
+    """A coalesced megastep's outputs as one tuple of tensors: the state's
+    five, the counter, the strategy plane (scenario mode), the last
+    round's majorities, decisions, counter rows and leaders (scenario)."""
+    state, sched, strategy, *rest = out
+    return (*state.tensors(), sched.counter, *(() if strategy is None else (strategy,)), *rest)
+
+
+def slot_carry(arrays, seeds, dev, counters, counter=0):
+    state = to_state(arrays, dev)
+    sched = pipeline.make_slot_key_schedule([rng.key(s, device=dev) for s in seeds], counter)
+    return state, sched, convert.slot_counters_from_numpy(counters, dev)
+
+
+def phase_coalesced_middle(dev, rs):
+    """K1's slot mode against the plain ``coalesced_megastep`` on the card:
+    plain and scenario modes, B in {1, 8, 64}, n in {4, 33, 300} (the
+    block's thread loop wraps at 300), random leaders, dead generals, an
+    all-dead row, random strategies and events — every output bit-equal,
+    the last round's majorities of every general included."""
+    R, errs = 5, {}
+    for n in (4, 33, 300):
+        for B in (1, 8, 64):
+            arrays, events, strategy = random_arrays(rs, B, n, R)
+            seeds = [int(v) for v in rs.integers(0, 2**31, B)]
+            for scenario in (False, True):
+                C = 5 if scenario else 3
+                block = rs.integers(0, 100, (B, C))
+                outs = []
+                for fn in (pipeline.coalesced_megastep, scenario_step.cuda_coalesced_megastep):
+                    st, sc, ctr = slot_carry(arrays, seeds, dev, block, counter=2**31 - 3)
+                    out = fn(st, sc, convert.strategy_from_numpy(strategy, dev) if scenario
+                             else None, ctr,
+                             convert.events_from_numpy(events, dev) if scenario else None,
+                             rounds=R, scenario=scenario)
+                    outs.append(slot_flat(out))
+                errs[f"{'scenario' if scenario else 'plain'}_B{B}_n{n}"] = max_abs_err(
+                    zip(*outs))
+    sync()
+    check(all(e == 0 for e in errs.values()), f"slot mode differs from plain: {errs}")
+    emit({"phase": "coalesced_vs_plain_middle", "R": R, "max_abs_err": errs})
+
+
+def serve_requests():
+    """bench_serving's requests: (order, faulty generals, seed), n = 4."""
+    return [((1, 0)[i % 2], ((2,), (), (1, 3))[i % 3], 1000 + i)
+            for i in range(SERVE_CLIENTS * SERVE_PER_CLIENT)]
+
+
+def serve_cohort(reqs, dev):
+    """One coalesced batch of the requests at capacity SERVE_CAP through
+    ``coalesced_sweep`` on the kernel (the first n = 4 generals alive,
+    leader 0)."""
+    B = len(reqs)
+    faulty = np.zeros((B, SERVE_CAP), bool)
+    for i, (_, fl, _) in enumerate(reqs):
+        faulty[i, list(fl)] = True
+    arrays = dict(order=np.array([o for o, _, _ in reqs], np.int8),
+                  leader=np.zeros(B, np.int32), faulty=faulty,
+                  alive=np.ones((B, SERVE_CAP), bool),
+                  ids=np.tile(np.arange(1, SERVE_CAP + 1, dtype=np.int32), (B, 1)))
+    return pipeline.coalesced_sweep(
+        [rng.key(seed, device="cpu") for _, _, seed in reqs], to_state(arrays, dev),
+        SERVE_ROUNDS, rounds_per_dispatch=SERVE_RPD, engine="cuda", device=dev)
+
+
+def phase_coalesced_serving(dev, card):
+    """``bench_serving``'s shape (bench.py:1532-1580): 32 requests, each
+    run alone (B = 1) and then as 4 cohorts of 8, both through K1's slot
+    mode; every request's decisions, counters and last-round majorities
+    bit-equal between the legs; requests/s of each leg by host wall clock
+    and the per-cohort walls.  Then both legs once more, their dispatches
+    recorded for the kernels line."""
+    reqs = serve_requests()
+
+    def legs():
+        t0 = time.perf_counter()
+        alone = [serve_cohort([r], dev) for r in reqs]
+        alone_s = time.perf_counter() - t0
+        cohorts, walls = [], []
+        for lo in range(0, len(reqs), SERVE_COHORT):
+            t0 = time.perf_counter()
+            cohorts.append(serve_cohort(reqs[lo:lo + SERVE_COHORT], dev))
+            walls.append(time.perf_counter() - t0)
+        return alone, alone_s, cohorts, walls
+
+    serve_cohort(reqs[:1], dev)  # both shapes warm, off the clock
+    serve_cohort(reqs[:SERVE_COHORT], dev)
+    scenario_step.reset_launches()
+    sync()
+    alone, alone_s, cohorts, walls = legs()
+    launches = scenario_step.cuda_coalesced_megastep.launches
+    per = -(-SERVE_ROUNDS // SERVE_RPD)
+    check(launches == per * (len(reqs) + len(cohorts)), f"slot-mode launches {launches}")
+
+    def results(alone, cohorts):
+        out = []
+        for i, solo in enumerate(alone):
+            co, b = cohorts[i // SERVE_COHORT], i % SERVE_COHORT
+            check(np.array_equal(co["decisions"][:, b], solo["decisions"][:, 0])
+                  and np.array_equal(co["counters"][b], solo["counters"][0])
+                  and np.array_equal(co["majorities"][b], solo["majorities"][0]),
+                  f"request {i}: coalesced differs from alone")
+            out.append((solo["decisions"][:, 0], solo["counters"][0]))
+        return out
+
+    first = results(alone, cohorts)
+    check(all(c["decisions"].shape == (SERVE_ROUNDS, SERVE_COHORT) for c in cohorts),
+          "cohort decisions shape")
+    with recording(SLOT_WRAPPERS, snapshot=True) as calls:
+        again = results(*legs()[::2])
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(first, again)), "the recorded serving run differs")
+    n_req = len(reqs)
+    emit({"phase": "coalesced_serving", "requests": n_req, "n": 4, "capacity": SERVE_CAP,
+          "rounds": SERVE_ROUNDS, "rounds_per_dispatch": SERVE_RPD, "cohort": SERVE_COHORT,
+          "alone_wall_s": alone_s, "alone_requests_per_s": n_req / alone_s,
+          "coalesced_wall_s": sum(walls), "coalesced_requests_per_s": n_req / sum(walls),
+          "cohort_walls_s": walls, "bit_equal_alone_vs_coalesced": True,
+          "decisions_attack": int(sum((d == ATTACK).sum() for d, _ in first)),
+          "kernel_launches": launches, "card": card})
+    return "coalesced serving", calls, launches, 1
+
+
+def phase_coalesced_full_width(dev, seed, card):
+    """A coalesced scenario cohort at full width: B = 10 000 slots at
+    capacity 1024 (``make_sweep_state``'s arrays), every slot running
+    examples/scenarios/colluding_coalition.json (its B = 1 planes, the
+    whole [8, B, 1024] on the card), slot b keyed by key(seed + b), 8
+    rounds 4 a dispatch.  Checks: shapes, decisions and leaders in range,
+    each slot's unanimity column = rounds and quorum failures = its
+    UNDEFINED decisions, and 64 slots against their own B = 1 runs.
+    Then the cohort once more, its dispatches recorded."""
+    spec = scenario_spec.load(COALITION)
+    R = spec.rounds
+    arrays = sweep_arrays(rng.fold_in(rng.key(seed + 2, device=dev), 1000), B_FULL, CAP_FULL,
+                          order=0 if spec.order == "retreat" else 1)
+    one = scenario_compile.compile_scenario(spec, 1, CAP_FULL)
+    planes = {name: torch.from_numpy(np.ascontiguousarray(getattr(one, name))).to(dev)
+              .expand(R, B_FULL, CAP_FULL).contiguous()
+              for name in scenario_compile.PLANE_NAMES}
+    keys = [rng.key(seed + b, device="cpu") for b in range(B_FULL)]
+    kw = dict(rounds_per_dispatch=RPD_COAL, scenario=planes, engine="cuda", device=dev)
+
+    scenario_step.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = pipeline.coalesced_sweep(keys, to_state(arrays, dev), R, **kw)
+    wall = time.perf_counter() - t0
+    launches = scenario_step.cuda_coalesced_megastep.launches
+    check(launches == -(-R // RPD_COAL), f"full-width slot-mode launches {launches}")
+    dec, lead, ctr = out["decisions"], out["leaders"], out["counters"]
+    check(dec.shape == (R, B_FULL) and lead.shape == (R, B_FULL)
+          and ctr.shape == (B_FULL, 5) and out["majorities"].shape == (B_FULL, CAP_FULL),
+          "full-width cohort shapes")
+    check(((dec >= 0) & (dec <= 2)).all() and ((lead >= 0) & (lead < CAP_FULL)).all(),
+          "decisions or leaders out of range")
+    check((ctr[:, 1] == R).all() and (ctr[:, 0] == (dec == 2).sum(0)).all(),
+          "per-slot unanimity or quorum-failure counters")
+    for b in np.linspace(0, B_FULL - 1, SAMPLE_COAL).astype(int):
+        solo = pipeline.coalesced_sweep(
+            [keys[b]], to_state({k: v[b:b + 1] for k, v in arrays.items()}, dev), R,
+            **dict(kw, scenario={k: v[:, b:b + 1] for k, v in planes.items()}))
+        for name in ("decisions", "leaders"):
+            check(np.array_equal(out[name][:, b], solo[name][:, 0]), f"slot {b} {name}")
+        for name in ("counters", "majorities"):
+            check(np.array_equal(out[name][b], solo[name][0]), f"slot {b} {name}")
+    with recording(SLOT_WRAPPERS, snapshot=True) as calls:
+        again = pipeline.coalesced_sweep(keys, to_state(arrays, dev), R, **kw)
+    check(all(np.array_equal(out[k], again[k]) for k in ("decisions", "counters", "leaders",
+                                                         "majorities")),
+          "the recorded full-width cohort differs")
+    emit({"phase": "coalesced_full_width", "spec": os.path.basename(COALITION),
+          "slots": B_FULL, "capacity": CAP_FULL, "rounds": R,
+          "rounds_per_dispatch": RPD_COAL, "wall_s": wall,
+          "slot_rounds_per_s": B_FULL * R / wall, "sample_equal_alone": SAMPLE_COAL,
+          "counters_sum": dict(zip(out["counter_names"], ctr.sum(0).tolist())),
+          "decision_histogram": np.bincount(dec.ravel(), minlength=3).tolist(),
+          "kernel_launches": launches, "card": card})
+    return "coalesced full width", calls, launches, 1
+
+
+def slot_nbytes(B, n, R, scenario):
+    """Bytes each input read once and each output written once: order,
+    leader, faulty, alive, ids, keys, counter and counter blocks in
+    (strategy and the four event planes in scenario mode); majorities,
+    decisions and counter rows out (leader, faulty, alive, strategy and
+    leaders in scenario mode)."""
+    C = 5 if scenario else 3
+    nbytes = B * 5 + B * n * 6 + B * 16 + 4 + B * C * 4 + B * n + R * B + R * B * C * 4
+    if scenario:
+        nbytes += B * n + R * B * n * 4 + B * 4 + B * n * 3 + R * B * 4
+    return nbytes
+
+
+def plain_slots(args, kw):
+    """The plain ``coalesced_megastep`` on a recorded dispatch's inputs,
+    CHUNK slots at a time (slots are independent), as one flat tuple."""
+    state, sched, strategy, counters, events = args
+    parts = []
+    for lo in range(0, state.batch, CHUNK):
+        hi = min(state.batch, lo + CHUNK)
+        parts.append(slot_flat(pipeline.coalesced_megastep(
+            rows_of(state, lo, hi), pipeline.KeySchedule(sched.key_data[lo:hi].clone(),
+                                                          sched.counter.clone()),
+            None if strategy is None else strategy[lo:hi].clone(), counters[lo:hi],
+            None if events is None else {k: v[:, lo:hi] for k, v in events.items()}, **kw)))
+    # concatenation axis of each slot_flat entry; the counter is shared
+    axes = [0] * 5 + [None] + ([0] if strategy is not None else []) + [0, 1, 1] \
+        + ([1] if events is not None else [])
+    return tuple(parts[0][i] if ax is None else torch.cat([p[i] for p in parts], dim=ax)
+                 for i, ax in enumerate(axes))
+
+
+def replay_slot(calls, int_ops_per_s):
+    """Each recorded slot-mode dispatch again on its own inputs: held
+    against the recorded output (the path's own) and the plain version;
+    its CUDA-event time (mean of 10 after a warm-up, 3 at full width),
+    the plain version's (one call, host clock) and the bound.  Dispatches
+    of one shape are summed into one entry."""
+    groups = {}
+    kernel = scenario_step.cuda_coalesced_megastep
+    for _, args, kw, recorded, _ in calls:
+        state = args[0]
+        B, n = state.faulty.shape
+        R, scen = kw["rounds"], kw.get("scenario", False)
+        got = slot_flat(kernel(*pipeline.fresh_copy(args), **kw))
+        check(max_abs_err(zip(got, slot_flat(recorded))) == 0,
+              "a replayed slot-mode dispatch differs from its path's own output")
+        want, plain_ms = timed_plain(lambda: plain_slots(pipeline.fresh_copy(args), kw))
+        reps = 10 if B * n <= 1 << 16 else 3
+        copies = iter([pipeline.fresh_copy(args) for _ in range(reps + 1)])
+        ms = time_cuda(lambda: kernel(*next(copies), **kw), reps=reps)
+        words, steps = work_counts(state, R, strategy=args[2], events=args[4], slot=True)
+        bound_ms, bound_by = bound(words, steps, slot_nbytes(B, n, R, scen), int_ops_per_s)
+        what = f"B {B}, n {n}, R {R}, {'scenario' if scen else 'plain'}"
+        g = groups.setdefault(what, {"what": what, "dispatches": 0, "max_abs_err": 0,
+                                     "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                     "bound_by": bound_by, "threefry_words_needed": 0,
+                                     "tally_steps": 0})
+        g["dispatches"] += 1
+        g["max_abs_err"] = max(g["max_abs_err"], max_abs_err(zip(got, want)))
+        g["ms"] += ms
+        g["plain_ms"] += plain_ms
+        g["bound_ms"] += bound_ms
+        g["threefry_words_needed"] += words
+        g["tally_steps"] += steps
+        if bound_by != g["bound_by"]:
+            g["bound_by"] = "bytes"
+    return list(groups.values())
+
+
+def kernel_line_slot(paths, int_ops_per_s):
+    """K1's slot-mode line.  ``paths``: (path, recorded calls, launches
+    counted on the path's main run, the calls that run made of each
+    recorded one).  Every recorded dispatch is replayed
+    (``replay_slot``); a path's dispatches replayed, times its calls,
+    must equal its counted launches."""
+    entries = []
+    for path, calls, launches, runs in paths:
+        parts = replay_slot(calls, int_ops_per_s)
+        replayed = sum(p["dispatches"] for p in parts)
+        check(replayed * runs == launches,
+              f"K1 slot on {path}: {replayed} dispatches replayed x {runs} calls, "
+              f"{launches} launches counted")
+        entries.append({"path": path, "launches": launches, "calls": runs,
+                        **totals(parts), "dispatches": parts})
+    line = totals([p for e in entries for p in e["dispatches"]])
+    check(line["max_abs_err"] == 0, f"K1 slot differs from its plain version: {line}")
+    return {"name": "megastep_slot", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES, "mode": "slot (pallas_coalesced_megastep, "
+            "ba_tpu/ops/scenario_step.py:745)",
+            "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_coalesced_megastep",
+            "launches": sum(e["launches"] for e in entries), **line, "library_ms": None,
+            "checked_against_plain": True, "per": "one run of each path", "paths": entries}
+
+
+# -- BASELINE configs #1 and #4 ------------------------------------------------
+
+# bench.py:130 (bench_om1_n4): om1_agreement at B = 4 194 304, n = 4, general 2
+# faulty, 30 calls a rep; bench.py:628 (bench_n1024_m32): the collapsed SM(32) at
+# B = 1, n = 1024, the first 32 generals faulty, 100 rounds a call, 5 calls a rep.
+B_C1, N_C1, ITERS_C1 = 4_194_304, 4, 30
+N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 100, 5
+
+
+def bench_timed(fn, args_of, iters, reps=3):
+    """bench.py's _timed: one warm call (args_of(0)), then ``reps`` reps of
+    ``iters`` calls, each timed by host wall clock to the synchronised
+    end; -> the reps' seconds (the best is the reading)."""
+    fn(*args_of(0))
+    sync()
+    walls = []
+    for r in range(reps):
+        t0 = time.perf_counter()
+        for i in range(1, iters + 1):
+            fn(*args_of(r * iters + i))
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def phase_config1(dev, card):
+    """BASELINE config #1 as bench_om1_n4 runs it: om1_agreement on the
+    constant state, keys fold_in(key(0), i); every decision ATTACK with
+    needed 3 of 4 (counted on the card, read after the clock)."""
+    faulty = torch.zeros((B_C1, N_C1), dtype=torch.bool, device=dev)
+    faulty[:, 2] = True
+    state = make_state(B_C1, N_C1, order=ATTACK, faulty=faulty, device=dev)
+    keys = rng.fold_in(rng.key(0, device=dev)[None, :],
+                       torch.arange(1 + 3 * ITERS_C1, device=dev))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(k):
+        out = om1_agreement(k, state)
+        bad.add_((out["decision"] != ATTACK).sum() + (out["needed"] != 3).sum()
+                 + (out["total"] != N_C1).sum())
+        return out["decision"].to(torch.int32).sum(), out["needed"].sum()
+
+    walls = bench_timed(step, lambda i: (keys[i],), ITERS_C1)
+    check(int(bad) == 0, f"config #1: {int(bad)} decisions not ATTACK with 3 of 4")
+    emit({"phase": "config1_om1_n4", "batch": B_C1, "n": N_C1, "m": 1, "iters": ITERS_C1,
+          "rep_seconds": walls, "spread": spread(walls),
+          "rounds_per_sec": B_C1 * ITERS_C1 / min(walls),
+          "all_attack_needed_3_of_4": True, "card": card})
+
+
+def phase_config4(dev, card):
+    """BASELINE config #4 as bench_n1024_m32 runs it: the collapsed
+    sm_agreement at B = 1, n = 1024, m = 32, the first 32 generals faulty
+    (the commander among them), 100 rounds a call on split(key, 100),
+    keys fold_in(key(4), i); every round's honest lieutenants agree (IC1)
+    and count all 1024 (counted on the card, read after the clock)."""
+    faulty = torch.zeros((1, N_C4), dtype=torch.bool, device=dev)
+    faulty[:, :M_C4] = True
+    state = make_state(1, N_C4, order=ATTACK, faulty=faulty, device=dev)
+    honest_lt = pipeline._lieutenants(state) & ~state.faulty
+    keys = rng.fold_in(rng.key(4, device=dev)[None, :],
+                       torch.arange(1 + 3 * ITERS_C4, device=dev))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(k):
+        acc = torch.zeros((), dtype=torch.int32, device=dev)
+        for kk in rng.split(k, INNER_C4).unbind(0):
+            out = sm.sm_agreement(kk, state, M_C4, None, None, None, True)
+            acc = acc + out["decision"].to(torch.int32).sum()
+            bad.add_(pipeline._disagree(out["majorities"], honest_lt).sum()
+                     + (out["total"] != N_C4).sum())
+        return acc
+
+    walls = bench_timed(step, lambda i: (keys[i],), ITERS_C4)
+    check(int(bad) == 0, f"config #4: {int(bad)} rounds broke IC1 or the count")
+    emit({"phase": "config4_n1024_m32", "batch": 1, "n": N_C4, "m": M_C4,
+          "rounds_per_call": INNER_C4, "iters": ITERS_C4, "rep_seconds": walls,
+          "spread": spread(walls), "rounds_per_sec": INNER_C4 * ITERS_C4 / min(walls),
+          "ic1_all_rounds": True, "card": card})
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1684,10 +2090,16 @@ def main(argv=None) -> int:
     phase_rlc_known_answers(dev)
     phase_k3p_middle(dev, rs)
     c3 = phase_config3(dev, card)
+    phase_coalesced_middle(dev, rs)
+    slot_paths = [phase_coalesced_serving(dev, card),
+                  phase_coalesced_full_width(dev, args.seed, card)]
+    phase_config1(dev, card)
+    phase_config4(dev, card)
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s),
+        kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
         *kernel_lines_crypto([*setup_paths, c3], int_ops_per_s),
     ]

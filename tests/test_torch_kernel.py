@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions on the card: K1
-(``ba_tpu_torch/ops/csrc/megastep.cu``), K2 (``sweep_step.cu``), the
+(``ba_tpu_torch/ops/csrc/megastep.cu``, plain, scenario and slot modes), K2 (``sweep_step.cu``), the
 Ed25519 kernels K7, K5, K5', K6, K4, K8, K3 and K3' (``decompress.cu``,
 ``sha512_modl.cu``, ``modl.cu``, ``treeadd.cu``, ``powchain.cu``,
 ``window_verify.cu``, ``window_mult.cu``) and the field-multiply probe P
@@ -137,6 +137,111 @@ def test_sweeps_cuda_engine_equal_torch_engine(cuda_device):
                 assert np.array_equal(a[key], b[key]), key
         _same(a["final_state"].tensors(), b["final_state"].tensors())
     assert res["cuda"][0]["stats"]["engine"] == "cuda"
+
+
+def _slot_carry(arrays, seed, device, C, counter=2**31 - 2):
+    """A coalesced cohort's carry: the state, a slot schedule with one key
+    a slot (seed * 1000 + b) and random [B, C] counter blocks."""
+    B = arrays["order"].shape[0]
+    state = convert.state_from_numpy(type("S", (), arrays), device)
+    keys = torch.stack([rng.key(seed * 1000 + b, device="cpu") for b in range(B)])
+    sched = convert.slot_schedule_from_numpy(keys.numpy(), counter, device)
+    block = np.random.default_rng(seed).integers(0, 50, (B, C))
+    return state, sched, convert.slot_counters_from_numpy(block, device)
+
+
+def _coalesced(fn, arrays, events, strategy, seed, device, R, scenario):
+    state, sched, counters = _slot_carry(arrays, seed, device, 5 if scenario else 3)
+    strat = convert.strategy_from_numpy(strategy, device) if scenario else None
+    ev = convert.events_from_numpy(events, device) if scenario else None
+    out = fn(state, sched, strat, counters, ev, rounds=R, scenario=scenario)
+    return (*out[0].tensors(), out[1].counter, *out[2:])
+
+
+@pytest.mark.parametrize("scenario", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("n", [4, 33, 300])
+def test_coalesced_megastep_bit_equal(cuda_device, B, n, scenario):
+    """K1's slot mode against the plain ``coalesced_megastep``: the carry,
+    the counter, the strategy plane, every column of the last round's
+    majorities, decisions, per-slot counter rows and leaders."""
+    R, seed = 5, B + n
+    arrays, events, strategy = _arrays(seed, B, n, R)
+    before = scenario_step.cuda_coalesced_megastep.launches
+    plain = _coalesced(pipeline.coalesced_megastep, arrays, events, strategy, seed,
+                       cuda_device, R, scenario)
+    kernel = _coalesced(scenario_step.cuda_coalesced_megastep, arrays, events, strategy,
+                        seed, cuda_device, R, scenario)
+    assert scenario_step.cuda_coalesced_megastep.launches == before + 1
+    assert len(plain) == len(kernel) == (11 if scenario else 10)
+    _same(plain, kernel)
+
+
+def test_coalesced_slot_alone_equals_cohort_and_dead_askers(cuda_device):
+    """Every slot of a B = 64 cohort through K1's slot mode equals that
+    slot run alone (B = 1) through the kernel, and the plain version; the
+    last round's majorities of dead generals are compared, and some of
+    them are decided values (their coins were drawn)."""
+    B, n, R, seed = 64, 33, 4, 71
+    arrays, events, strategy = _arrays(seed, B, n, R)
+    co = _coalesced(scenario_step.cuda_coalesced_megastep, arrays, events, strategy, seed,
+                    cuda_device, R, True)
+    plain = _coalesced(pipeline.coalesced_megastep, arrays, events, strategy, seed,
+                       cuda_device, R, True)
+    _same(co, plain)
+    state, sched, counters = _slot_carry(arrays, seed, cuda_device, 5)
+    for b in range(B):
+        one = {k: v[b:b + 1] for k, v in arrays.items()}
+        ev = convert.events_from_numpy({k: v[:, b:b + 1] for k, v in events.items()},
+                                       cuda_device)
+        alone = scenario_step.cuda_coalesced_megastep(
+            convert.state_from_numpy(type("S", (), one), cuda_device),
+            pipeline.KeySchedule(sched.key_data[b:b + 1].clone(), sched.counter.clone()),
+            convert.strategy_from_numpy(strategy[b:b + 1], cuda_device),
+            counters[b:b + 1].clone(), ev, rounds=R, scenario=True)
+        # majorities [1, n], decisions, counter rows and leaders [R, 1, ...]
+        for got, want in zip(alone[3:], (co[7][b:b + 1], co[8][:, b:b + 1],
+                                         co[9][:, b:b + 1], co[10][:, b:b + 1])):
+            assert torch.equal(got, want), b
+    maj, alive = co[7].cpu(), co[3].cpu()
+    dead_maj = maj[~alive]
+    assert dead_maj.numel() and bool((dead_maj != 2).any())
+
+
+def test_coalesced_sweep_cuda_engine_equals_torch(cuda_device):
+    B, n, R = 12, 21, 7
+    arrays, events, strategy = _arrays(13, B, n, R)
+    keys = [rng.key(40 + b, device="cpu") for b in range(B)]
+    res = {}
+    for engine in ("torch", "cuda"):
+        for scenario in (None, events):
+            state = convert.state_from_numpy(type("S", (), arrays), cuda_device)
+            res[engine, scenario is None] = pipeline.coalesced_sweep(
+                keys, state, R, rounds_per_dispatch=3, scenario=scenario,
+                initial_strategy=None if scenario is None else strategy,
+                engine=engine, device=cuda_device)
+    for plain in (True, False):
+        a, b = res["torch", plain], res["cuda", plain]
+        for key in ("decisions", "majorities", "counters", "leaders"):
+            if key in a:
+                assert np.array_equal(a[key], b[key]), key
+    assert res["cuda", True]["stats"]["engine"] == "cuda"
+
+
+def test_coalesced_kernel_rejects_bad_inputs(cuda_device):
+    arrays, events, strategy = _arrays(3, 4, 6, 2)
+    state, sched, counters = _slot_carry(arrays, 3, cuda_device, 3)
+    with pytest.raises(ValueError):  # a shared (2,) key in slot mode
+        scenario_step.cuda_coalesced_megastep(
+            state, pipeline.make_key_schedule(rng.key(0, device=cuda_device)), None,
+            counters, None, rounds=2)
+    with pytest.raises(ValueError):  # counters of the wrong width
+        scenario_step.cuda_coalesced_megastep(state, sched, None, counters[:, :2], None,
+                                              rounds=2)
+    with pytest.raises(ValueError):  # event planes without scenario mode
+        scenario_step.cuda_coalesced_megastep(
+            state, sched, None, counters, convert.events_from_numpy(events, cuda_device),
+            rounds=2)
 
 
 def test_kernel_rejects_a_bad_carry(cuda_device):
@@ -512,6 +617,23 @@ def test_fieldmul_probe_kernel_bit_equal(cuda_device, S):
     want = fieldmul_probe.plain_fieldmul_probe(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nbytes", [16, 32])
+def test_window_mult_instance_bit_equal(cuda_device, nbytes):
+    """K3''s compile-time instances for 16- and 32-byte k at a full warp
+    and a ragged one, per lane and summed, against the plain version; a
+    length K3' is not built for raises on the card (the plain version
+    takes it on the CPU)."""
+    S = 65
+    pts = _window_points(S, cuda_device)
+    k = torch.tensor(_window_scalars(S, nbytes), device=cuda_device)
+    for fold in (False, True):
+        got = ladder.window_mult(pts, k, fold=fold)
+        assert torch.equal(got, ladder.plain_window_mult(pts, k, fold=fold))
+    with pytest.raises(ValueError):
+        ladder.window_mult(pts, k[:, :nbytes - 1])
+    assert ladder.window_mult(pts.cpu(), k[:, :nbytes - 1].cpu()).shape == (S, 4, 32)
 
 
 def test_window_mult_kernel_rejects_bad_inputs(cuda_device):

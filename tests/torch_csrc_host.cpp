@@ -8,6 +8,8 @@
 //
 //   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
 
+#include <cstdlib>
+
 #include "decompress.cu"
 #include "fieldmul_probe.cu"
 #include "modl.cu"
@@ -78,10 +80,16 @@ void host_window_verify(int n, const uint8_t* a, const uint8_t* h, const uint8_t
         ok[i] = window_verify_lane(a + 128 * i, h + 32 * i, r + 128 * i, left + 128 * i) ? 1 : 0;
 }
 
+// K3''s lane for a k of nbytes, through the instance the kernel launches.
+static void mult_lane(int nbytes, const uint8_t* pt, const uint8_t* k, ge& acc) {
+    if (!with_k3p_length(nbytes, [&](auto nb) { window_mult_lane<decltype(nb)::value>(pt, k, acc); }))
+        abort();  // a length K3' is not built for
+}
+
 void host_window_mult(int n, int nbytes, const uint8_t* pt, const uint8_t* k, uint8_t* out) {
     for (int i = 0; i < n; i++) {
         ge acc;
-        window_mult_lane(pt + 128 * i, k + nbytes * i, nbytes, acc);
+        mult_lane(nbytes, pt + 128 * i, k + nbytes * i, acc);
         ge_tobytes4(out + 128 * i, acc);
     }
 }
@@ -102,7 +110,7 @@ void host_window_mult_fold(int n, int nbytes, const uint8_t* pt, const uint8_t* 
         for (int t = 0; t < 32; t++) {
             const int lane = 32 * g + t;
             if (lane < n)
-                window_mult_lane(pt + 128 * lane, k + nbytes * lane, nbytes, v[t]);
+                mult_lane(nbytes, pt + 128 * lane, k + nbytes * lane, v[t]);
             else
                 ge_identity(v[t]);
         }
