@@ -15,7 +15,9 @@ from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
 
 
 def _const(value: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=COMMAND_DTYPE, device=like.device)
+    # A fill on the device: torch.tensor(value, device=...) would copy from
+    # pageable host memory on every call, which can hold the host up.
+    return torch.full((), value, dtype=COMMAND_DTYPE, device=like.device)
 
 
 def strict_majority(n_attack: torch.Tensor, n_retreat: torch.Tensor) -> torch.Tensor:

@@ -119,14 +119,14 @@ def _launch(state, sched, strategy, counters, events, *, rounds, collect_decisio
 
 
 def cuda_pipeline_megastep(
-    state, sched, *, rounds: int, m: int = 1, collect_decisions: bool = False,
-    counters=None,
+    state, sched, *, rounds: int, m: int = 1, max_liars: int | None = None,
+    collect_decisions: bool = False, counters=None,
 ):
     """K1 twin of ``pipeline_megastep``: returns ``(state, sched,
     histograms[, decisions][, counter_rows])``."""
     if state.device.type == "cpu":
         return pipeline.pipeline_megastep(
-            state, sched, rounds=rounds, m=m,
+            state, sched, rounds=rounds, m=m, max_liars=max_liars,
             collect_decisions=collect_decisions, counters=counters,
         )
     if m != 1:
@@ -146,14 +146,14 @@ def cuda_pipeline_megastep(
 
 def cuda_scenario_megastep(
     state, sched, strategy, counters, events, *, rounds: int, m: int = 1,
-    collect_decisions: bool = False,
+    max_liars: int | None = None, collect_decisions: bool = False,
 ):
     """K1 twin of ``scenario_megastep``: returns ``(state, sched,
     strategy, histograms, leaders, counter_rows[, decisions])``."""
     if state.device.type == "cpu":
         return pipeline.scenario_megastep(
             state, sched, strategy, counters, events, rounds=rounds, m=m,
-            collect_decisions=collect_decisions,
+            max_liars=max_liars, collect_decisions=collect_decisions,
         )
     if m != 1:
         raise ValueError(f"the megastep kernel runs OM(1) only (m == 1), got m={m}")
@@ -170,7 +170,7 @@ def cuda_scenario_megastep(
 
 def cuda_coalesced_megastep(
     state, sched, strategy, slot_counters, events, *, rounds: int, m: int = 1,
-    scenario: bool = False,
+    max_liars: int | None = None, scenario: bool = False,
 ):
     """K1's slot mode, the twin of ``coalesced_megastep``: returns
     ``(state, sched, strategy, last_majorities, decisions,
@@ -178,7 +178,7 @@ def cuda_coalesced_megastep(
     if state.device.type == "cpu":
         return pipeline.coalesced_megastep(
             state, sched, strategy, slot_counters, events, rounds=rounds, m=m,
-            scenario=scenario,
+            max_liars=max_liars, scenario=scenario,
         )
     if m != 1:
         raise ValueError(f"the megastep kernel runs OM(1) only (m == 1), got m={m}")

@@ -9,6 +9,9 @@
   :func:`scenario_megastep` over the scan cores :func:`_pipeline_scan` /
   :func:`_scenario_scan`; the Hopper kernel (``engine="cuda"``) is
   ``ops/scenario_step.py``'s twins with the same signatures and returns.
+  K1 runs OM(1) only: at m != 1 the composed torch engine runs OM(m) by
+  the EIG tree (K9 at every resolve level on the card), and an explicit
+  ``engine="cuda"`` raises (:func:`engine_support`).
 - **In-place carry**: jax's donation becomes in-place reuse.  A megastep
   writes the advanced counter and the mutated state / strategy planes
   back into the tensors it was given and returns those same objects.
@@ -189,6 +192,7 @@ def _pipeline_scan(
     *,
     rounds: int,
     m: int = 1,
+    max_liars: int | None = None,
     collect_decisions: bool = False,
     index_base: int = 0,
 ):
@@ -198,7 +202,7 @@ def _pipeline_scan(
     hists, decs, rows = [], [], []
     for r in range(rounds):
         keys = round_keys(_advanced(sched, r), state.batch, index_base)
-        out = agreement_step(keys, state, m=m)
+        out = agreement_step(keys, state, m=m, max_liars=max_liars)
         hists.append(out["histogram"])
         if collect_decisions:
             decs.append(out["decision"])
@@ -239,6 +243,7 @@ def _scenario_scan(
     *,
     rounds: int,
     m: int = 1,
+    max_liars: int | None = None,
     collect_decisions: bool = False,
     index_base: int = 0,
 ):
@@ -255,7 +260,7 @@ def _scenario_scan(
     for r in range(rounds):
         st, strat = _apply_events(st, strat, events, r)
         keys = round_keys(_advanced(sched, r), st.batch, index_base)
-        out = agreement_step(keys, st, m=m, strategies=strat)
+        out = agreement_step(keys, st, m=m, max_liars=max_liars, strategies=strat)
         counters = counters + scenario_counter_delta(out, st)
         hists.append(out["histogram"])
         leaders.append(st.leader)
@@ -274,6 +279,7 @@ def pipeline_megastep(
     *,
     rounds: int,
     m: int = 1,
+    max_liars: int | None = None,
     collect_decisions: bool = False,
     counters=None,
 ):
@@ -285,7 +291,8 @@ def pipeline_megastep(
     the previous block).  The schedule's counter advances in place.
     """
     carry, ys = _pipeline_scan(
-        state, sched, counters, rounds=rounds, m=m, collect_decisions=collect_decisions
+        state, sched, counters, rounds=rounds, m=m, max_liars=max_liars,
+        collect_decisions=collect_decisions,
     )
     sched.counter.copy_(carry[1].counter)
     return (state, sched, *ys)
@@ -300,6 +307,7 @@ def scenario_megastep(
     *,
     rounds: int,
     m: int = 1,
+    max_liars: int | None = None,
     collect_decisions: bool = False,
 ):
     """``rounds`` mutating rounds in one dispatch (the plain engine).
@@ -312,7 +320,7 @@ def scenario_megastep(
     """
     (st, sc, strat, _), ys = _scenario_scan(
         state, sched, strategy, counters, events,
-        rounds=rounds, m=m, collect_decisions=collect_decisions,
+        rounds=rounds, m=m, max_liars=max_liars, collect_decisions=collect_decisions,
     )
     for name in ("leader", "faulty", "alive"):
         getattr(state, name).copy_(getattr(st, name))
@@ -330,6 +338,7 @@ def coalesced_megastep(
     *,
     rounds: int,
     m: int = 1,
+    max_liars: int | None = None,
     scenario: bool = False,
 ):
     """``rounds`` rounds of a coalesced serving batch in one dispatch (the
@@ -352,8 +361,6 @@ def coalesced_megastep(
     (scenario only).  The state planes, leader, strategy plane and the
     schedule's counter are updated in place.
     """
-    if m != 1:
-        raise ValueError(f"the port runs OM(1) only (m == 1), got m={m}")
     if rounds < 1:
         raise ValueError(f"rounds={rounds} must be >= 1")
     st, strat, ctr = state, strategy, slot_counters
@@ -363,7 +370,7 @@ def coalesced_megastep(
             st, strat = _apply_events(st, strat, events, r)
             leaders.append(st.leader)
         out = agreement_step(slot_round_keys(_advanced(sched, r)), st, m=m,
-                             strategies=strat if scenario else None)
+                             max_liars=max_liars, strategies=strat if scenario else None)
         ctr = ctr + slot_counter_delta(out, st, scenario)
         decs.append(out["decision"])
         rows.append(ctr)
@@ -378,16 +385,30 @@ def coalesced_megastep(
     return (state, sched, strategy, out["majorities"], *ys)
 
 
-def resolve_engine(engine: str | None, device: torch.device) -> str:
-    """``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the
-    CPU.  ``"cuda"`` off the card, or under the non-partitionable
-    threefry mode (the kernel encodes only the partitionable one),
-    raises: there is no fallback."""
+def engine_support(m: int = 1) -> str | None:
+    """None when K1 covers this combination, else the reason it cannot
+    (``ba_tpu/parallel/pipeline.py:109``): K1 runs OM(1) only."""
+    if m != 1:
+        return f"m={m} (the dense EIG tree stays on the composed torch engine)"
+    return None
+
+
+def resolve_engine(engine: str | None, device: torch.device, m: int = 1) -> str:
+    """``None`` picks ``"cuda"`` on a CUDA device at m = 1, and ``"torch"``
+    on the CPU or at any other m (OM(m) by the EIG tree, which launches K9
+    at every resolve level on the card).  ``"cuda"`` off the card, at
+    m != 1, or under the non-partitionable threefry mode (the kernel
+    encodes only the partitionable one) raises: there is no fallback."""
+    if m < 0:
+        raise ValueError(f"m={m} must be >= 0")
     if engine is None:
-        engine = "cuda" if device.type == "cuda" else "torch"
+        engine = "cuda" if device.type == "cuda" and engine_support(m) is None else "torch"
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r} unknown; choose from {ENGINES}")
     if engine == "cuda":
+        reason = engine_support(m)
+        if reason is not None:
+            raise ValueError(f"engine='cuda' cannot run {reason}")
         if device.type != "cuda":
             raise ValueError(f"engine='cuda' runs on a CUDA device, not {device}")
         if not rng.threefry_partitionable():
@@ -477,6 +498,7 @@ def pipeline_sweep(
     rounds: int,
     *,
     m: int = 1,
+    max_liars: int | None = None,
     depth: int = 2,
     rounds_per_dispatch: int = 1,
     collect_decisions: bool = False,
@@ -496,7 +518,10 @@ def pipeline_sweep(
     device works; ``on_event(kind, d)`` reports ``"dispatch"`` and
     ``"retire"``.  ``device`` (default: the card) and ``engine`` follow
     :func:`resolve_engine`; the state and key move to the device, and
-    the state is consumed — use the returned ``final_state``.
+    the state is consumed — use the returned ``final_state``.  At m != 1
+    every round is OM(m) by the EIG tree on the composed torch engine
+    (``max_liars`` caps its fused level's lying count; derive it from
+    the state).
 
     With ``scenario`` (a compiled ``ScenarioBlock`` or
     ``SparseScenarioBlock`` of matching shape) every dispatch runs the
@@ -517,10 +542,8 @@ def pipeline_sweep(
         raise ValueError(f"depth={depth} must be >= 1")
     if rounds_per_dispatch < 1:
         raise ValueError(f"rounds_per_dispatch={rounds_per_dispatch} must be >= 1")
-    if m != 1:
-        raise ValueError(f"the port runs OM(1) only (m == 1), got m={m}")
     dev = resolve_device(device)
-    engine = resolve_engine(engine, dev)
+    engine = resolve_engine(engine, dev, m)
     plain_fn, scen_fn, _ = _engine_megasteps(engine)
     state = state.to(dev)
     B, n = state.faulty.shape
@@ -586,14 +609,14 @@ def pipeline_sweep(
                 torch.cuda.current_stream(dev).wait_event(ready)
             out = scen_fn(
                 state, sched, strategy, counters, events,
-                rounds=nr, collect_decisions=collect_decisions,
+                rounds=nr, m=m, max_liars=max_liars, collect_decisions=collect_decisions,
             )
             state, sched, strategy = out[:3]
             ys = out[3:]
             counters = ys[2][-1]
         else:
             out = plain_fn(
-                state, sched, rounds=nr,
+                state, sched, rounds=nr, m=m, max_liars=max_liars,
                 collect_decisions=collect_decisions, counters=counters,
             )
             state, sched = out[:2]
@@ -660,6 +683,7 @@ def coalesced_sweep(
     rounds: int,
     *,
     m: int = 1,
+    max_liars: int | None = None,
     depth: int = 2,
     rounds_per_dispatch: int = 8,
     scenario=None,
@@ -690,8 +714,9 @@ def coalesced_sweep(
     window's host block ``(decisions, counter_rows[, leaders])``.
     ``device`` and ``engine`` follow :func:`resolve_engine`; the state
     moves to the device and is consumed.  ``signed`` and ``collapsed``
-    raise: the signed coalesced megastep is not ported yet; so does any
-    ``m`` other than 1.
+    raise: the signed coalesced megastep is not ported yet.  At m != 1
+    every slot runs OM(m) by the EIG tree on the composed torch engine,
+    ``max_liars`` capping its fused level's lying count.
 
     Returns a dict: ``decisions`` [rounds, B] int8, ``majorities`` [B, n]
     (the final round's), ``counters`` [B, C] int32 (each slot's final
@@ -707,10 +732,8 @@ def coalesced_sweep(
     if signed or collapsed:
         raise ValueError("signed and collapsed cohorts wait for the signed coalesced "
                          "megastep, which the port does not have yet")
-    if m != 1:
-        raise ValueError(f"the port runs OM(1) only (m == 1), got m={m}")
     dev = resolve_device(device)
-    engine = resolve_engine(engine, dev)
+    engine = resolve_engine(engine, dev, m)
     B, n = state.faulty.shape
     if len(slot_keys) != B:
         raise ValueError(f"{len(slot_keys)} slot key(s) for a batch of {B}")
@@ -745,7 +768,7 @@ def coalesced_sweep(
 
     out = _coalesced_loop(
         state, sched, strategy, counters, stage if is_scenario else None,
-        _chunks(rounds, rounds_per_dispatch), m=m, depth=depth,
+        _chunks(rounds, rounds_per_dispatch), m=m, max_liars=max_liars, depth=depth,
         coalesced_fn=_engine_megasteps(engine)[2], exec_seam=exec_seam,
         on_retire=on_retire,
     )
@@ -754,7 +777,7 @@ def coalesced_sweep(
     return out
 
 
-def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, depth,
+def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_liars, depth,
                     coalesced_fn, exec_seam, on_retire):
     """The coalesced batch's dispatch loop: :func:`pipeline_sweep`'s
     depth-k retire discipline (pinned copies behind a CUDA event, no other
@@ -781,7 +804,8 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, depth
             if ready is not None:
                 torch.cuda.current_stream(state.device).wait_event(ready)
         call = functools.partial(coalesced_fn, state, sched, strategy, counters, events,
-                                 rounds=nr, m=m, scenario=stage is not None)
+                                 rounds=nr, m=m, max_liars=max_liars,
+                                 scenario=stage is not None)
         out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
         state, sched, strategy, majorities = out[:4]
         ys = out[4:]

@@ -1,13 +1,14 @@
 """Sweep states and one agreement round per instance with per-instance
 keys (``ba_tpu/parallel/sweep.py``: ``make_sweep_state``,
-``bucketed_sweep_states``, ``decision_histogram``, and ``agreement_step``
-on its m = 1 coin-injected path)."""
+``bucketed_sweep_states``, ``decision_histogram``, and ``agreement_step``:
+OM(1) on its coin-injected path, OM(m) through ``core/eig.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from ba_tpu_torch.core import rng
+from ba_tpu_torch.core.eig import eig_round
 from ba_tpu_torch.core.om import om1_round_from_coins
 from ba_tpu_torch.core.quorum import majority_counts, quorum_decision
 from ba_tpu_torch.core.state import SimState
@@ -105,27 +106,33 @@ def decision_histogram(decision: torch.Tensor) -> torch.Tensor:
     )
 
 
-def agreement_step(keys: torch.Tensor, state: SimState, m: int = 1, strategies=None) -> dict:
-    """OM(1) round per instance; ``keys`` is ``[B, 2]`` key data.
+def agreement_step(keys: torch.Tensor, state: SimState, m: int = 1,
+                   max_liars: int | None = None, strategies=None) -> dict:
+    """One agreement round per instance; ``keys`` is ``[B, 2]`` key data.
 
-    Instance ``b`` splits its key into (round-1, cube) subkeys and draws
-    exactly what a B = 1 round would draw.  Without strategies the coins
-    unpack through ``coin_bits``; with a strategies plane (``[B, n]``
-    int8) through ``coin_words`` + ``unpack_coin_words`` — the same bits
-    either way, as in the reference.  Only m = 1 is ported.
+    Instance ``b`` draws exactly what a B = 1 round under its own key
+    draws.  At m = 1 it splits its key into (round-1, cube) subkeys;
+    without strategies the coins unpack through ``coin_bits``, with a
+    strategies plane (``[B, n]`` int8) through ``coin_words`` +
+    ``unpack_coin_words`` — the same bits either way, as in the
+    reference.  Any other m runs ``eig_round`` with one key a row
+    (OM(m) by the EIG tree, fused at m >= 2 unless strategies are given);
+    ``max_liars``, the known traitor cap, sizes its fused level's draw
+    and clamps its lying count, so derive it from the state.
     """
-    if m != 1:
-        raise ValueError(f"agreement_step supports OM(1) only (m == 1), got m={m}")
     n = state.n
-    sub = rng.split(keys)
-    k1, k2 = sub[:, 0], sub[:, 1]
-    if strategies is None:
-        coins1 = rng.coin_bits(k1, (n,))
-        coins2 = rng.coin_bits(k2, (n, n))
+    if m != 1:
+        majorities = eig_round(keys, state, m, max_liars, strategies)
     else:
-        coins1 = rng.unpack_coin_words(rng.coin_words(k1, n), (n,))
-        coins2 = rng.unpack_coin_words(rng.coin_words(k2, n * n), (n, n))
-    majorities = om1_round_from_coins(state, coins1, coins2, strategies)
+        sub = rng.split(keys)
+        k1, k2 = sub[:, 0], sub[:, 1]
+        if strategies is None:
+            coins1 = rng.coin_bits(k1, (n,))
+            coins2 = rng.coin_bits(k2, (n, n))
+        else:
+            coins1 = rng.unpack_coin_words(rng.coin_words(k1, n), (n,))
+            coins2 = rng.unpack_coin_words(rng.coin_words(k2, n * n), (n, n))
+        majorities = om1_round_from_coins(state, coins1, coins2, strategies)
     n_attack, n_retreat, n_undefined = majority_counts(majorities, state.alive)
     decision, needed, total = quorum_decision(n_attack, n_retreat, n_undefined)
     return {

@@ -29,11 +29,15 @@ Three paths, each through its hand-written kernels:
   mode (the same source): ``bench.py``'s ``bench_serving`` requests alone
   and coalesced, and a full-width scenario cohort;
 - BASELINE configs #1 (``bench_om1_n4``) and #4 (``bench_n1024_m32``),
-  which run no kernel: the plain OM(1) round and the collapsed SM(32).
+  which run no kernel: the plain OM(1) round and the collapsed SM(32);
+- OM(m) by the EIG tree (``core/eig.py``), through K9, the masked
+  majority (``ba_tpu_torch/ops/csrc/majority.cu``), at every resolve
+  level: BASELINE config #2 (``bench_om3_n10``), ``bench_eig_n1024`` and
+  the sweeps at m = 2 (the composed torch engine: K1 is OM(1) only).
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
-   together: one nvcc a CUDA source (ten) and the native Ed25519
+   together: one nvcc a CUDA source (eleven) and the native Ed25519
    signer (g++);
 2. threefry and Philox4x32-10 known answers on the card, the latter
    through the very Philox rounds K2 draws from (its source's
@@ -150,6 +154,28 @@ Phases, one JSON line each:
    ``sm_agreement`` at B = 1, n = 1024, m = 32, the first 32 generals
    faulty, 100 rounds a call, 5 calls a rep, best of 3 with the spread —
    every round's honest lieutenants agree (IC1);
+21. K9 against its plain version (``majority_middle``): R in {1, 255,
+   257, 70 001}, K in {1, 7, 10, 33, 128, 1024, 1025}, dense and with the
+   mask shared by 3 receivers, rows with no valid responder and exact
+   ties — bit-equal;
+22. ``eig_middle``: the port on the card against the port on the CPU,
+   bit-equal: ``eig_agreement`` at config #2's shape (B = 64, fused and
+   dense), B = 4 at n = 300, m = 2 (tallies past 256), ``pipeline_sweep``
+   at m = 2 (B = 64, capacity 16, 8 rounds 4 a dispatch; K9's launches
+   counted there), ``scenario_sweep`` of the coalition campaign at m = 2,
+   ``coalesced_sweep`` at m = 2 (each slot also against its own B = 1
+   run);
+23. BASELINE config #2 (``bench_om3_n10``): ``eig_agreement`` at B = 131
+   072, n = 10, m = 3, generals 2, 5, 7 faulty, max_liars 3 from the
+   state, one key fold_in(key(1), i) a call, 20 calls a rep after a warm
+   one, best of 3 with the spread — every decision ATTACK, needed 7 of
+   10; K9's launches, the peak device memory, and one call's stages
+   (send, fused deepest level, its Binomial draw, the resolve levels) by
+   CUDA events;
+24. ``bench_eig_n1024``: B = 128, n = 1024, m = 2, generals 3 and 7
+   faulty, 5 calls a rep — every decision ATTACK; bench's stage split
+   (the fused level alone, its float32 product alone) and K9 alone, by
+   CUDA events on device-resident inputs;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
@@ -157,7 +183,8 @@ what the main paths recorded (phases 17 and 18 each run once more with
 their dispatches recorded, inputs copied before each dispatch): each
 setup route run once more with its dispatches recorded (the wrappers'
 arguments and outputs, taken at their modules), and one call of each of
-config #3's legs on its first inputs; every recorded dispatch is held
+config #3's legs on its first inputs; K9 likewise, from one more call of
+config #2 and of eig_n1024 and one more m = 2 sweep; every recorded dispatch is held
 against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
@@ -183,14 +210,14 @@ import numpy as np
 import torch
 
 from ba_tpu_torch import convert, native
-from ba_tpu_torch.core import rng, sm
+from ba_tpu_torch.core import eig, om, rng, sm
 from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.om import om1_agreement, round1_broadcast
 from ba_tpu_torch.core.state import SimState, make_state
 from ba_tpu_torch.core.types import ATTACK
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
-from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, modl, powchain,
-                              scenario_step, sha512_kernel, sweep_step, treeadd)
+from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, majority, modl,
+                              powchain, scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
@@ -215,7 +242,7 @@ RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
                 "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu", "window_mult.cu",
-                "fieldmul_probe.cu")
+                "fieldmul_probe.cu", "majority.cu")
 # The Ed25519 kernels and the field-multiply probe: (name, wrapper, its plain
 # version, source, the TPU kernel it replaces).
 ED_KERNELS = {
@@ -490,7 +517,7 @@ def phase_env(dev):
         jobs["native"] = pool.submit(timed, native.build)
         build_s = {name: job.result() for name, job in jobs.items()}
     for module in (scenario_step, sweep_step, decompress, sha512_kernel, treeadd, ladder, modl,
-                   powchain, fieldmul_probe):
+                   powchain, fieldmul_probe, majority):
         module._lib()
     ladder._mult_lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
@@ -2061,6 +2088,325 @@ def phase_config4(dev, card):
           "spread": spread(walls), "rounds_per_sec": INNER_C4 * ITERS_C4 / min(walls),
           "ic1_all_rounds": True, "card": card})
 
+
+# -- OM(m) by the EIG tree and K9: BASELINE config #2 and eig_n1024 ------------
+
+K9_SOURCE = "ba_tpu_torch/ops/csrc/majority.cu"
+K9_REPLACES = "ba_tpu/ops/majority.py:37"
+K9_WRAPPERS = {"K9": majority.masked_majority_rows}
+MAJ_R, MAJ_K = (1, 255, 257, 70_001), (1, 7, 10, 33, 128, 1024, 1025)
+# bench.py:161 (bench_om3_n10): eig_agreement at B = 131 072, n = 10, m = 3, order
+# ATTACK, generals 2, 5, 7 faulty, 20 calls a rep; bench.py:523 (bench_eig_n1024):
+# B = 128, n = 1024, m = 2, generals 3, 7 faulty, 5 calls a rep.  max_liars from
+# the state, keys fold_in(key(1 or 8), i), as bench.py derives them.
+B_C2, N_C2, M_C2, FAULTY_C2, ITERS_C2, SEED_C2 = 131_072, 10, 3, (2, 5, 7), 20, 1
+B_E, N_E, M_E, FAULTY_E, ITERS_E, SEED_E = 128, 1024, 2, (3, 7), 5, 8
+# the m = 2 sweep of the middle phase: B, capacity, rounds, rounds a dispatch
+B_SW2, CAP_SW2, R_SW2, RPD_SW2 = 64, 16, 8, 4
+CPU = torch.device("cpu")
+
+
+def majority_case(rs, lead, K, shared=False):
+    """Random K9 inputs (numpy): any small int8 code, every 7th row with no
+    valid responder, every 7th from the 4th an exact tie over all K (one
+    UNDEFINED slot where K is odd); ``shared`` gives the [G, S, P, K]
+    form with a [G, 1, P, K] mask."""
+    a = rs.integers(-2, 4, (*lead, K)).astype(np.int8)
+    v = rs.random((*lead[:-2], 1, lead[-1], K) if shared else (*lead, K)) < 0.5
+    flat_a, flat_v = a.reshape(-1, K), v.reshape(-1, K)
+    flat_v[0::7] = False
+    tie = (np.arange(K) % 2).astype(np.int8)
+    if K % 2:
+        tie[-1] = 2
+    flat_a[3::7] = tie
+    if not shared:
+        flat_v[3::7] = True
+    return a, v, rs.integers(0, 3, lead).astype(np.int8)
+
+
+def phase_majority_middle(dev, rs):
+    """K9 against its plain version on the card, bit-equal: R in MAJ_R, K
+    in MAJ_K, dense, and the shared-mask form the resolve uses."""
+    errs, rows = {}, 0
+    for R in MAJ_R:
+        for K in MAJ_K:
+            for shared in (False, True):
+                lead = (max(1, R // 6), 3, 2) if shared else (R,)
+                a, v, f = (torch.tensor(x, device=dev) for x in majority_case(rs, lead, K, shared))
+                got = majority.masked_majority_rows(a, v, f)
+                want = majority.plain_masked_majority_rows(a, v, f)
+                errs[f"R{R}_K{K}{'_shared' if shared else ''}"] = max_abs_err([(got, want)])
+                rows += f.numel()
+    sync()
+    check(all(e == 0 for e in errs.values()), f"K9 differs from plain: {errs}")
+    emit({"phase": "majority_middle", "cases": len(errs), "rows": rows, "max_abs_err": 0})
+
+
+def both_devices(fn, dev):
+    """``fn(device)`` -> tuple of tensors, on the card and on the CPU: the
+    largest difference (0 expected: the EIG path is exact integer work)."""
+    card = fn(dev)
+    sync()
+    return max_abs_err(zip((t.cpu() for t in card), fn(CPU))), card
+
+
+def sweep2_state(device):
+    """The m = 2 sweep's state: make_sweep_state at capacity 16, n in [8,
+    16], traitors at most a quarter (OM(2) validity holds)."""
+    return sweep.make_sweep_state(rng.key(2, device=device), B_SW2, CAP_SW2, min_n=8,
+                                  max_traitor_frac=0.25, order=ATTACK)
+
+
+def sweep2(device, engine=None):
+    out = pipeline.pipeline_sweep(rng.key(13, device=device), sweep2_state(device), R_SW2,
+                                  m=2, depth=2,
+                                  rounds_per_dispatch=RPD_SW2, collect_decisions=True,
+                                  with_counters=True, engine=engine, device=device)
+    check(out["stats"]["engine"] == "torch", "the m = 2 sweep ran another engine")
+    return tuple(torch.tensor(out[k]) for k in ("histograms", "decisions",
+                                                 "counters_per_round"))
+
+
+def config_state(B, n, faulty_ids, device):
+    faulty = torch.zeros((B, n), dtype=torch.bool, device=device)
+    faulty[:, list(faulty_ids)] = True
+    return make_state(B, n, order=ATTACK, faulty=faulty, device=device)
+
+
+def phase_eig_middle(dev, rs):
+    """The port's EIG path on the card against the port on the CPU,
+    bit-equal: eig_agreement at config #2's shape (B = 64; one key over
+    the batch; fused and dense); B = 4, n = 300, m = 2 (tallies pass 256:
+    the product's float32 is exact); the m = 2 pipeline_sweep (its K9
+    launches counted: a main path of the kernels line), a scenario_sweep
+    of the coalition campaign at m = 2, and a coalesced_sweep at m = 2,
+    each slot also against its own B = 1 run on the card."""
+    errs = {}
+    for fused in (True, False):
+        def agree(device, fused=fused):
+            out = eig.eig_agreement(rng.key(5, device=device),
+                                    config_state(64, N_C2, FAULTY_C2, device), M_C2, 3,
+                                    fused=fused)
+            return out["majorities"], out["decision"], out["needed"], out["total"]
+        errs[f"config2_B64_{'fused' if fused else 'dense'}"], out = both_devices(agree, dev)
+        check(bool((out[1] == ATTACK).all()), "OM(3) with 3 of 10 faulty did not decide ATTACK")
+
+    def n300(device):
+        state = config_state(4, 300, (4, 150), device)
+        state.order[1] = 0  # one instance ordered to retreat
+        out = eig.eig_agreement(rng.key(30, device=device), state, 2, 2)
+        return out["majorities"], out["decision"]
+    errs["n300_m2"], out = both_devices(n300, dev)
+    check(out[1].tolist() == [ATTACK, 0, ATTACK, ATTACK], f"n = 300: {out[1].tolist()}")
+
+    majority.reset_launches()
+    card = sweep2(dev)
+    sync()
+    sweep_launches = majority.masked_majority_rows.launches
+    errs["pipeline_sweep_m2"] = max_abs_err(zip(card, sweep2(CPU)))
+    check(bool((card[0][:, 1] == B_SW2).all()), "the m = 2 sweep did not decide ATTACK")
+    check(sweep_launches == R_SW2, f"m = 2 sweep: {sweep_launches} K9 launches, "
+          f"{R_SW2} expected (one resolve level a round)")
+
+    def campaign(device):
+        B, n = 16, 16
+        arrays, _, _ = random_arrays(np.random.default_rng(3), B, n, 1)
+        arrays["leader"][:] = 0
+        block = scenario_compile.compile_scenario(scenario_spec.load(COALITION), B, n)
+        out = pipeline.scenario_sweep(rng.key(9, device=device), to_state(arrays, device),
+                                      block, m=2, rounds_per_dispatch=4,
+                                      collect_decisions=True, device=device)
+        return tuple(torch.tensor(out[k]) for k in ("histograms", "decisions", "leaders",
+                                                      "counters_per_round"))
+    errs["scenario_sweep_m2"], _ = both_devices(campaign, dev)
+
+    B, n, R = 8, 6, 4
+    arrays, _, _ = random_arrays(rs, B, n, 1)
+    arrays["leader"][:] = 0
+    seeds = [int(s) for s in rs.integers(0, 2**31, B)]
+
+    def cohort(device, lo=0, hi=B):
+        out = pipeline.coalesced_sweep(
+            [rng.key(s, device=device) for s in seeds[lo:hi]],
+            to_state({k: v[lo:hi] for k, v in arrays.items()}, device), R, m=2,
+            max_liars=n - 1, rounds_per_dispatch=2, device=device)
+        return tuple(torch.tensor(out[k]) for k in ("decisions", "majorities", "counters"))
+    errs["coalesced_sweep_m2"], co = both_devices(cohort, dev)
+    alone = [cohort(dev, b, b + 1) for b in range(B)]
+    errs["coalesced_slots_alone"] = max(
+        max_abs_err([(co[0][:, b:b + 1], a[0]), (co[1][b:b + 1], a[1]), (co[2][b:b + 1], a[2])])
+        for b, a in enumerate(alone))
+    check(all(e == 0 for e in errs.values()), f"EIG on the card differs: {errs}")
+    emit({"phase": "eig_middle", "max_abs_err": errs, "k9_launches_m2_sweep": sweep_launches})
+    with recording(K9_WRAPPERS) as calls:
+        again = sweep2(dev)
+    check(max_abs_err(zip(again, card)) == 0, "the recorded m = 2 sweep differs")
+    return ("pipeline_sweep m=2 (B 64, capacity 16, 8 rounds)", calls, sweep_launches, 1)
+
+
+def eig_stages(key, state, m, max_liars, reps=3):
+    """CUDA-event ms of one fused call's parts on device-resident inputs:
+    the send levels 0..m-1, the fused deepest level, its Binomial draw
+    alone, and the remaining resolve levels (K9)."""
+    k_send, k_coin = rng.split(key).unbind(-2)
+    levels = eig.eig_send(k_send, state, m - 1)
+    resolved = eig.eig_deepest_fused(k_coin, state, levels, m, max_liars)
+    k_full = torch.full(resolved.shape, max_liars, dtype=torch.int32, device=state.device)
+    return {
+        "send_ms": time_cuda(lambda: eig.eig_send(k_send, state, m - 1), reps),
+        "fused_level_ms": time_cuda(
+            lambda: eig.eig_deepest_fused(k_coin, state, levels, m, max_liars), reps),
+        "binomial_draw_ms": time_cuda(lambda: eig._binomial_half(k_coin, k_full, max_liars),
+                                      reps),
+        "resolve_levels_ms": time_cuda(lambda: eig._resolve_from(state, levels, resolved, m - 1),
+                                       reps),
+    }
+
+
+def timed_eig(name, dev, B, n, m, faulty_ids, iters, seed):
+    """bench.py's _timed of eig_agreement at one key a call (fold_in(key(seed),
+    i)): one warm call, 3 reps of ``iters``, best rep; every decision
+    ATTACK with the quorum of all n (counted on the card, read after the
+    clock); K9's launches counted over exactly those calls, and the peak
+    device memory.  Returns (state, first key, max_liars, rep walls,
+    launches, calls, peak bytes)."""
+    want_needed = 2 * ((n - 1) // 3) + 1  # the 3f + 1 quorum of n alive (n > 3)
+    state = config_state(B, n, faulty_ids, dev)
+    max_liars = int(state.faulty.sum(-1).max())  # derived, never hardcoded
+    keys = rng.fold_in(rng.key(seed, device=dev)[None, :],
+                       torch.arange(1 + 3 * iters, device=dev))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(k):
+        out = eig.eig_agreement(k, state, m, max_liars)
+        bad.add_((out["decision"] != ATTACK).sum() + (out["needed"] != want_needed).sum()
+                 + (out["total"] != n).sum())
+        return out["decision"].to(torch.int32).sum(), out["needed"].sum()
+
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    majority.reset_launches()
+    walls = bench_timed(step, lambda i: (keys[i],), iters)
+    launches = majority.masked_majority_rows.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    calls = 1 + 3 * iters
+    check(int(bad) == 0, f"{name}: {int(bad)} decisions not ATTACK with {want_needed} of {n}")
+    check(launches == calls * (m - 1), f"{name}: {launches} K9 launches in {calls} calls")
+    return state, keys[0], max_liars, walls, launches, calls, peak
+
+
+def phase_config2(dev, card):
+    """BASELINE config #2 as bench_om3_n10 runs it (bench.py:161): OM(3),
+    n = 10, 3 traitors; every decision ATTACK, needed 7 of 10; then one
+    call's stages by CUDA events, and one call recorded for K9's line."""
+    state, key0, max_liars, walls, launches, calls, peak = timed_eig(
+        "config #2", dev, B_C2, N_C2, M_C2, FAULTY_C2, ITERS_C2, SEED_C2)
+    emit({"phase": "config2_om3_n10", "batch": B_C2, "n": N_C2, "m": M_C2,
+          "max_liars": max_liars, "iters": ITERS_C2, "rep_seconds": walls,
+          "spread": spread(walls), "rounds_per_sec": B_C2 * ITERS_C2 / min(walls),
+          "all_attack_needed_7_of_10": True, "k9_launches": launches, "calls": calls,
+          "peak_device_bytes": peak, "stages": eig_stages(key0, state, M_C2, max_liars),
+          "card": card})
+    want = eig.eig_agreement(key0, state, M_C2, max_liars)["majorities"]
+    with recording(K9_WRAPPERS) as recorded:
+        got = eig.eig_agreement(key0, state, M_C2, max_liars)["majorities"]
+    check(torch.equal(got, want), "config #2: the recorded call differs")
+    return ("config2_om3_n10 (one call)", recorded, launches, calls)
+
+
+def phase_eig_n1024(dev, card):
+    """bench_eig_n1024 (bench.py:523): OM(2) at n = 1024, generals 3 and 7
+    faulty, B = 128; every decision ATTACK with 683 of 1024 needed; then
+    bench's stage split on device-resident levels (key(9)): the fused
+    deepest level alone, its matrix product alone and its Binomial draw
+    alone, and K9 alone on the last resolve level's inputs, each by CUDA
+    events; one call recorded."""
+    state, key0, max_liars, walls, launches, calls, peak = timed_eig(
+        "eig_n1024", dev, B_E, N_E, M_E, FAULTY_E, ITERS_E, SEED_E)
+    levels = eig.eig_send(rng.key(9, device=dev), state, M_E - 1)
+    prev = levels[M_E - 1].reshape(B_E, N_E, N_E ** (M_E - 1))
+    eligible = state.alive & ~om._leader_mask(state)
+    eye = torch.eye(N_E, dtype=torch.bool, device=dev)
+    m1 = (eligible[:, None, :] & (~state.faulty[:, None, :] | eye[None])).to(torch.float32)
+
+    def product():
+        return torch.bmm(m1, (prev == ATTACK).to(torch.float32)).to(torch.int32)
+
+    k_coin = rng.key(100, device=dev)
+    resolved = eig.eig_deepest_fused(k_coin, state, levels, M_E, max_liars)
+    valid = (state.alive & ~om._leader_mask(state))[:, None, None, :]
+    fallback = levels[0].reshape(B_E, N_E, 1)
+    children = resolved.reshape(B_E, N_E, 1, N_E)
+    t_level = time_cuda(lambda: eig.eig_deepest_fused(k_coin, state, levels, M_E, max_liars),
+                        ITERS_E)
+    t_product = time_cuda(product, ITERS_E)
+    k_full = torch.full(resolved.shape, max_liars, dtype=torch.int32, device=dev)
+    t_draw = time_cuda(lambda: eig._binomial_half(k_coin, k_full, max_liars), ITERS_E)
+    t_k9 = time_cuda(lambda: majority.masked_majority_rows(children, valid, fallback), 10)
+    flops = 2 * B_E * N_E ** 3
+    emit({"phase": "eig_n1024", "batch": B_E, "n": N_E, "m": M_E, "max_liars": max_liars,
+          "iters": ITERS_E, "rep_seconds": walls, "spread": spread(walls),
+          "rounds_per_sec": B_E * ITERS_E / min(walls), "all_attack": True,
+          "k9_launches": launches, "calls": calls, "peak_device_bytes": peak,
+          "stages": {"full_call_ms": min(walls) / ITERS_E * 1e3,
+                     "fused_level_ms": t_level, "product_only_ms": t_product,
+                     "product_tflops_fp32": flops / t_product / 1e9,
+                     "binomial_draw_ms": t_draw, "k9_ms": t_k9},
+          "card": card})
+    with recording(K9_WRAPPERS) as recorded:
+        eig.eig_agreement(key0, state, M_E, max_liars)
+    return ("eig_n1024 (one call)", recorded, launches, calls)
+
+
+def kernel_line_k9(paths, int_ops_per_s):
+    """K9's line.  ``paths``: (path, recorded calls, launches counted on the
+    path's main run, calls in that run).  Every recorded dispatch is
+    replayed on its own inputs: bit-equal to the path's own output and to
+    the plain version's; its CUDA-event mean of 10, the plain version's
+    time (one call, host clock), and the bound: each input byte read once
+    and each output byte written once at the memory rate, against one
+    int32 tally step a responder slot.  Dispatches of one shape are
+    summed; dispatches replayed x calls must equal the launches."""
+    entries = []
+    for path, calls, launches, runs in paths:
+        groups = {}
+        for _, (a, v, f), kw, recorded, entry in calls:
+            got = majority.masked_majority_rows(a, v, f, **kw)
+            check(torch.equal(got, recorded), f"K9 replayed ({path}) differs from its path")
+            want, plain_ms = timed_plain(lambda: majority.plain_masked_majority_rows(a, v, f))
+            ms = time_cuda(lambda: majority.masked_majority_rows(a, v, f), reps=10)
+            R, K = f.numel(), a.shape[-1]
+            nbytes = a.numel() + v.numel() + f.numel() + R
+            ops_s, bytes_s = R * K / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+            what = f"{entry}: R {R}, K {K}, mask rows {v.numel() // K}"
+            g = groups.setdefault(what, {"what": what, "dispatches": 0, "max_abs_err": 0,
+                                         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "bound_by": "bytes", "bytes": 0})
+            g["dispatches"] += 1
+            g["max_abs_err"] = max(g["max_abs_err"], max_abs_err([(got, want)]))
+            g["ms"] += ms
+            g["plain_ms"] += plain_ms
+            g["bound_ms"] += max(ops_s, bytes_s) * 1e3
+            g["bytes"] += nbytes
+            if ops_s > bytes_s:
+                g["bound_by"] = "operations"
+        parts = list(groups.values())
+        replayed = sum(p["dispatches"] for p in parts)
+        check(replayed * runs == launches,
+              f"K9 on {path}: {replayed} dispatches replayed x {runs} calls, "
+              f"{launches} launches counted")
+        entries.append({"path": path, "launches": launches, "calls": runs, **totals(parts),
+                        "dispatches": parts})
+    line = totals([p for e in entries for p in e["dispatches"]])
+    check(line["max_abs_err"] == 0, f"K9 differs from its plain version: {line}")
+    return {"name": "masked_majority", "route": "cuda", "source": K9_SOURCE,
+            "replaces": K9_REPLACES,
+            "wrapper": "ba_tpu_torch/ops/majority.py:masked_majority_rows",
+            "launches": sum(e["launches"] for e in entries), **line, "library_ms": None,
+            "checked_against_plain": True, "per": "one call of each path", "paths": entries}
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2095,6 +2441,8 @@ def main(argv=None) -> int:
                   phase_coalesced_full_width(dev, args.seed, card)]
     phase_config1(dev, card)
     phase_config4(dev, card)
+    phase_majority_middle(dev, rs)
+    k9_paths = [phase_eig_middle(dev, rs), phase_config2(dev, card), phase_eig_n1024(dev, card)]
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
@@ -2102,6 +2450,7 @@ def main(argv=None) -> int:
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
         *kernel_lines_crypto([*setup_paths, c3], int_ops_per_s),
+        kernel_line_k9(k9_paths, int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

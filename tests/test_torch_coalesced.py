@@ -281,8 +281,8 @@ def test_coalesced_validation():
         run(keys, _tstate(arrays), 4, signed=True)
     with pytest.raises(ValueError, match="signed"):
         run(keys, _tstate(arrays), 4, collapsed=True)
-    with pytest.raises(ValueError, match="m == 1"):
-        run(keys, _tstate(arrays), 4, m=2)
+    with pytest.raises(ValueError, match="m=2"):  # K1 is OM(1) only; m = 2 runs on "torch"
+        run(keys, _tstate(arrays), 4, m=2, engine="cuda")
     with pytest.raises(ValueError, match="initial_strategy"):
         run(keys, _tstate(arrays), 4, initial_strategy=np.zeros((3, CAP), np.int8))
     with pytest.raises(ValueError, match="ScenarioBlock"):

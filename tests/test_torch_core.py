@@ -18,7 +18,7 @@ from ba_tpu.parallel import sweep as j_sweep
 from ba_tpu.scenario import spec as j_spec
 from ba_tpu.scenario import strategies as j_strategies
 from ba_tpu_torch import convert
-from ba_tpu_torch.core import election, om, quorum, rng, state, types
+from ba_tpu_torch.core import eig, election, om, quorum, rng, state, types
 from ba_tpu_torch.parallel import sweep
 from ba_tpu_torch.scenario import spec, strategies
 
@@ -148,10 +148,16 @@ def test_agreement_step_matches(seed, B, n, with_strategies):
 
 
 def test_agreement_step_is_om1_only():
+    """Only m = 1 takes the coin-injected OM(1) path; m = 2 runs OM(2) by
+    the EIG tree with one key a row (tests/test_torch_eig.py holds it to
+    the reference), and a negative m raises."""
     _, tstate, _ = _random_state(0, 2, 4)
+    keys = rng.fold_in(rng.key(0, device="cpu")[None], torch.arange(2))
+    out = sweep.agreement_step(keys, tstate, m=2)
+    _eq(eig.eig_round(keys, tstate, 2), out["majorities"])
+    assert out["decision"].shape == (2,) and int(out["histogram"].sum()) == 2
     with pytest.raises(ValueError):
-        sweep.agreement_step(rng.fold_in(rng.key(0, device="cpu")[None], torch.arange(2)),
-                             tstate, m=2)
+        sweep.agreement_step(keys, tstate, m=-1)
 
 
 def test_make_state_matches():

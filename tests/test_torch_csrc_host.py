@@ -1,8 +1,9 @@
 """The Ed25519 kernels' per-lane arithmetic (``ba_tpu_torch/ops/csrc``),
 compiled for the host with g++ through ``tests/torch_csrc_host.cpp``,
 against their plain torch versions: K7, K5, K5', K6, K4, K8, K3, K3'
-(the window accumulator K3 shares, and its fold) and the field-multiply
-probe P, bit-equal.
+(the window accumulator K3 shares, and its fold), the field-multiply
+probe P and K9's row tallies (byte and four-byte lanes, one lane a row or
+32), bit-equal.
 
 The card runs the same functions inside the kernels; this catches an
 arithmetic fault in a CUDA source on the CPU.  Launch code, warp shuffles
@@ -21,7 +22,7 @@ import torch
 
 from ba_tpu_torch.crypto import ed25519 as E
 from ba_tpu_torch.crypto import oracle, scalar, sha512
-from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, modl, powchain,
+from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, majority, modl, powchain,
                               sha512_kernel, treeadd)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -49,6 +50,9 @@ def host(tmp_path_factory):
         getattr(lib, name).argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.host_majority.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                                  + [ctypes.c_void_p] * 4)
     return lib
 
 
@@ -254,3 +258,30 @@ def test_fieldmul_probe_lane_matches_plain_and_integers(host):
         y = pow(int.from_bytes(bi.tobytes(), "little") & low, fieldmul_probe.DEPTH, P)
         want = sum((x + c) * y for c in range(fieldmul_probe.CHAINS)) % P
         assert int.from_bytes(got.tobytes(), "little") == want
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("K", [1, 7, 10, 33, 128, 1024, 1025])
+def test_majority_rows_match_plain(host, K, shared):
+    """K9's tally on every code an int8 can hold, rows with no valid
+    responder and exact ties, in the lanes each kernel runs: one thread a
+    row and 32 lanes a row, byte loads always and four-byte ones where K
+    allows; dense and shared-mask forms."""
+    rs = np.random.default_rng(K)
+    G, S, P = (3, 5, 4) if shared else (1, 1, 60)
+    a = rs.integers(-128, 128, (G, S, P, K)).astype(np.int8)
+    a[..., : K // 2] = rs.integers(0, 3, (G, S, P, K // 2))  # mostly real codes
+    v = rs.random((G, 1 if shared else S, P, K)) < 0.5
+    v[0, 0, 0] = False  # no valid responder: the fallback
+    tie = np.zeros(K, np.int8)
+    tie[1::2] = 1  # an exact tie wherever K is even and every slot counts
+    a[0, 0, -1], v[0, 0, -1] = tie, True
+    f = rs.integers(0, 3, (G, S, P)).astype(np.int8)
+    want = majority.plain_masked_majority_rows(torch.tensor(a), torch.tensor(v), torch.tensor(f))
+    a, v, f = np.ascontiguousarray(a), np.ascontiguousarray(v).view(np.uint8), f.copy()
+    for lanes in (1, 32):
+        for words in ((0, 1) if K % 4 == 0 else (0,)):
+            out = np.zeros(G * S * P, np.int8)
+            host.host_majority(G * S * P, K, S, P, lanes, words, _ptr(a), _ptr(v), _ptr(f),
+                               _ptr(out))
+            assert np.array_equal(out, want.numpy().reshape(-1)), (lanes, words)

@@ -2,9 +2,9 @@
 (``ba_tpu_torch/ops/csrc/megastep.cu``, plain, scenario and slot modes), K2 (``sweep_step.cu``), the
 Ed25519 kernels K7, K5, K5', K6, K4, K8, K3 and K3' (``decompress.cu``,
 ``sha512_modl.cu``, ``modl.cu``, ``treeadd.cu``, ``powchain.cu``,
-``window_verify.cu``, ``window_mult.cu``) and the field-multiply probe P
-(``fieldmul_probe.cu``); and the signer, the batch verify and the setup
-on the card.
+``window_verify.cu``, ``window_mult.cu``), the field-multiply probe P
+(``fieldmul_probe.cu``) and K9 (``majority.cu``); and the signer, the
+batch verify, the setup and OM(m) by the EIG tree on the card.
 
 These tests need a CUDA device and skip elsewhere.  On the card they
 run without the repository's conftest (which configures jax):
@@ -20,10 +20,11 @@ import pytest
 import torch
 
 from ba_tpu_torch import convert, native
-from ba_tpu_torch.core import rng
+from ba_tpu_torch.core import eig, rng
+from ba_tpu_torch.core.state import make_state
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
-from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, modl, powchain, scenario_step,
-                              sha512_kernel, sweep_step, treeadd)
+from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, majority, modl, powchain,
+                              scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline
 from ba_tpu_torch.scenario.compile import ScenarioBlock
 
@@ -713,3 +714,67 @@ def test_rlc_setup_queues_without_waiting(cuda_device):
     sks, pks, msgs, sigs, ok, t = signed.drain_signed_tables(queued)
     assert t["verify"] == "rlc" and t["device_sign"] is True and bool(ok.all())
     assert np.array_equal(sigs, signed.sign_value_tables(sks, pks)[1])
+
+
+@pytest.mark.parametrize("K", [1, 7, 10, 33, 128, 1024, 1025])
+@pytest.mark.parametrize("R", [1, 257, 70_001])
+def test_majority_kernel_bit_equal(cuda_device, R, K):
+    """K9 against its plain version: any int8 code, rows with no valid
+    responder, exact ties; dense and shared-mask forms, and a base that
+    is not 4-byte aligned (byte loads)."""
+    rs = np.random.default_rng(R + K)
+    a = torch.tensor(rs.integers(-4, 5, (R, K)).astype(np.int8))
+    v = torch.tensor(rs.random((R, K)) < 0.5)
+    v[0] = False
+    if R > 1 and K % 2 == 0:
+        a[1], v[1] = torch.arange(K) % 2, True  # an exact tie
+    f = torch.tensor(rs.integers(0, 3, R).astype(np.int8))
+    want = majority.plain_masked_majority_rows(a, v, f)
+    before = majority.masked_majority_rows.launches
+    got = majority.masked_majority_rows(a.to(cuda_device), v.to(cuda_device), f.to(cuda_device))
+    torch.cuda.synchronize()
+    assert majority.masked_majority_rows.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    buf = torch.empty(R * K + 1, dtype=torch.int8, device=cuda_device)
+    buf[1:] = a.reshape(-1).to(cuda_device)
+    off = majority.masked_majority_rows(buf[1:].view(R, K), v.to(cuda_device),
+                                        f.to(cuda_device))
+    assert torch.equal(off.cpu(), want)
+    G, P = 7, 5
+    a4 = torch.tensor(rs.integers(0, 3, (G, 3, P, K)).astype(np.int8))
+    v4 = torch.tensor(rs.random((G, 1, P, K)) < 0.5)
+    f4 = torch.tensor(rs.integers(0, 3, (G, 3, P)).astype(np.int8))
+    got4 = majority.masked_majority_rows(a4.to(cuda_device), v4.to(cuda_device),
+                                         f4.to(cuda_device))
+    assert torch.equal(got4.cpu(), majority.plain_masked_majority_rows(a4, v4, f4))
+
+
+def test_majority_kernel_rejects_bad_inputs(cuda_device):
+    a = torch.zeros(4, 6, dtype=torch.int8, device=cuda_device)
+    v = torch.ones(4, 6, dtype=torch.bool, device=cuda_device)
+    f = torch.zeros(4, dtype=torch.int8, device=cuda_device)
+    for bad in ((a.to(torch.int32), v, f), (a, v.to(torch.int8), f),
+                (a.t().contiguous().t(), v, f), (a, v, f.cpu())):
+        with pytest.raises(ValueError):
+            majority.masked_majority_rows(*bad)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_eig_agreement_on_card_matches_cpu(cuda_device, fused):
+    """BASELINE config #2's shape at B = 64 (one key over the batch) and
+    OM(2) with one key a row: the card, through K9 at every resolve
+    level, bit-equal to the CPU."""
+    faulty = torch.zeros(64, 10, dtype=torch.bool)
+    faulty[:, [2, 5, 7]] = True
+    outs = []
+    for dev in ("cpu", cuda_device):
+        state = make_state(64, 10, order=1, faulty=faulty, device=dev)
+        before = majority.masked_majority_rows.launches
+        out = eig.eig_agreement(rng.key(5, device=dev), state, 3, 3, fused=fused)
+        keys = rng.fold_in(rng.key(6, device=dev)[None, :], torch.arange(64, device=dev))
+        row = eig.eig_round(keys, state, 2, 3, fused=fused)
+        outs.append((out["majorities"].cpu(), out["decision"].cpu(), row.cpu(),
+                     majority.masked_majority_rows.launches - before))
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][:3], outs[1][:3]))
+    assert outs[0][3] == 0 and outs[1][3] == (2 if fused else 3) + (1 if fused else 2)
+    assert (outs[1][1] == 1).all()

@@ -214,8 +214,12 @@ def test_carry_is_reused_in_place_and_fresh_copy_keeps_it():
 
 def test_sweep_validation():
     arrays, _, _ = _arrays(12, 3, 4, 2)
-    with pytest.raises(ValueError):
-        tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), 2, m=2, device="cpu")
+    # m = 2 runs on the composed engine; K1 is OM(1) only, so engine="cuda" raises
+    assert tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), 2, m=2,
+                             device="cpu")["stats"]["engine"] == "torch"
+    with pytest.raises(ValueError, match="m=2"):
+        tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), 2, m=2, device="cpu",
+                          engine="cuda")
     with pytest.raises(ValueError):
         tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), 2, depth=0, device="cpu")
     with pytest.raises(ValueError):

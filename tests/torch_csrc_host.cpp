@@ -1,5 +1,5 @@
 // The per-lane bodies of the Ed25519 kernels (ba_tpu_torch/ops/csrc/*.cu),
-// and of the field-multiply probe (fieldmul_probe.cu), compiled as host
+// of the field-multiply probe (fieldmul_probe.cu) and of K9 (majority.cu), compiled as host
 // C++ and looped over lanes, so the CPU tests can hold the kernels'
 // arithmetic against the plain versions without a card.  The CUDA launch
 // code in each source sits behind __CUDACC__ and is not compiled here;
@@ -12,6 +12,7 @@
 
 #include "decompress.cu"
 #include "fieldmul_probe.cu"
+#include "majority.cu"
 #include "modl.cu"
 #include "powchain.cu"
 #include "sha512_modl.cu"
@@ -136,6 +137,23 @@ void host_window_mult_fold(int n, int nbytes, const uint8_t* pt, const uint8_t* 
 
 void host_fieldmul_probe(int n, const uint8_t* a, const uint8_t* b, uint8_t* out) {
     for (int i = 0; i < n; i++) fieldmul_probe_lane(a + 32 * i, b + 32 * i, out + 32 * i);
+}
+
+// K9's rows: `lanes` lanes of a row tallied apart, then summed as the warp
+// kernel's shuffles sum them (lanes = 1 is the thread-a-row kernel).
+void host_majority(long long R, int K, long long S, long long P, int lanes, int words,
+                   const uint8_t* a, const uint8_t* v, const int8_t* f, int8_t* out) {
+    for (long long r = 0; r < R; r++) {
+        Tally t = {0, 0, 0};
+        for (int l = 0; l < lanes; l++) {
+            const Tally u = tally_lane(a + r * K, v + mask_row(r, S, P) * K, K, words != 0, l,
+                                       lanes);
+            t.att += u.att;
+            t.ret += u.ret;
+            t.elig += u.elig;
+        }
+        out[r] = majority_of(t, f[r]);
+    }
 }
 
 }  // extern "C"
