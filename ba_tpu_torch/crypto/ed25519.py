@@ -36,8 +36,17 @@ the nonce r and the challenge k, K4 for R = [r]B, K8
 batch, through K7, K5, K6 (the mod-L reductions of ``scalar.mul_bytes``
 and ``scalar.sum_bytes``), K3' ``ops/ladder.window_mult`` ([z]R and
 [W]A summed in the kernel, then the two sides times 8), K4 for [c]B and
-K8 for the comparison.  The reference's double-and-add ``scalar_mult``
-(K3'', no production caller) is not ported yet (ROADMAP Queue 2).
+K8 for the comparison.
+
+:func:`scalar_mult` and :func:`scalar_mult_base`
+(``ba_tpu/crypto/ed25519.py:100-120``) are [k]P by double-and-add-always
+on limb-form points, the scalar as bits ``[..., nbits]``, LSB first.  On
+a CPU tensor they run :func:`ladder`, the reference's loop; on a CUDA
+one the point is encoded, K3'' ``ops/ladder.scalar_mult`` (the port of
+``ba_tpu/ops/ladder.py:53 _ladder_kernel``) runs the loop, and the
+product comes back as canonical limbs.  Either way its canonical X, Y, Z
+and T are the reference's.  They have no production caller, here or in
+the reference.
 """
 
 from __future__ import annotations
@@ -80,6 +89,45 @@ def point_add(p: Point, q: Point) -> Point:
     g = F.add(d, c)
     h = F.add(b, a)
     return (F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
+
+
+def point_select(mask: torch.Tensor, p: Point, q: Point) -> Point:
+    """Per-lane select (``ba_tpu/crypto/ed25519.py:94``): mask [...] bool
+    -> p where True, else q."""
+    m = mask[..., None]
+    return tuple(torch.where(m, a, b) for a, b in zip(p, q))
+
+
+def ladder(point: Point, bits: torch.Tensor) -> Point:
+    """[k]P by double-and-add-always, the reference's loop and K3''s plain
+    version, on any device: per bit, LSB first, acc = select(bit,
+    acc + q, acc), then q = q + q by the unified addition."""
+    acc = identity(bits.shape[:-1], bits.device)
+    q = tuple(c.expand(*bits.shape[:-1], F.LIMBS) for c in point)
+    for t in range(bits.shape[-1]):
+        acc = point_select(bits[..., t] == 1, point_add(acc, q), acc)
+        q = point_add(q, q)
+    return acc
+
+
+def scalar_mult(point: Point, bits: torch.Tensor) -> Point:
+    """[k]P: point limbs [..., 22] x 4, bits [..., nbits] 0/1, LSB first
+    (nbits a multiple of 32 on the card) -> point limbs.  A CPU tensor
+    runs :func:`ladder`; a CUDA one runs K3''
+    (``ops/ladder.scalar_mult``), or raises."""
+    if bits.device.type == "cpu":
+        return ladder(point, bits)
+    from ba_tpu_torch.ops.ladder import scalar_mult as k3pp
+
+    shape, nbits = bits.shape[:-1], bits.shape[-1]
+    pts = encode_point(tuple(c.expand(*shape, F.LIMBS) for c in point))
+    out = k3pp(pts.reshape(-1, 4, 32).contiguous(), bits.reshape(-1, nbits))
+    return decode_point(out.reshape(*shape, 4, 32))
+
+
+def scalar_mult_base(bits: torch.Tensor) -> Point:
+    """[k]B for the base point B (``ba_tpu/crypto/ed25519.py:119``)."""
+    return scalar_mult(base_point(bits.shape[:-1], bits.device), bits)
 
 
 def point_dbl(p: Point, with_t: bool = True) -> Point:

@@ -53,6 +53,13 @@ def constant(v: int, device=None) -> torch.Tensor:
     return torch.tensor(_np_limbs(v % P_INT), dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _limbs_on(v: int, device: torch.device) -> torch.Tensor:
+    """The limbs of v on ``device``, uploaded once a device: a per-call
+    upload from pageable memory would make the host wait for the card."""
+    return torch.tensor(_np_limbs(v), dtype=torch.int32, device=device)
+
+
 def zeros(shape, device=None) -> torch.Tensor:
     return torch.zeros((*shape, LIMBS), dtype=torch.int32, device=device)
 
@@ -193,7 +200,7 @@ def canonical(a: torch.Tensor) -> torch.Tensor:
     dev = a.device
     # Carried form encodes a value in (-2^20, 2^264); + 16p clears the
     # negative edge without leaving 22 limbs.
-    a = carry(carry(a) + torch.tensor(_np_limbs(16 * P_INT), dtype=torch.int32, device=dev))
+    a = carry(carry(a) + _limbs_on(16 * P_INT, dev))
     # 2^256 = 38 (mod p): squash bits 256+ three times.
     for _ in range(3):
         top = a[..., LIMBS - 1:] >> 4
@@ -201,7 +208,7 @@ def canonical(a: torch.Tensor) -> torch.Tensor:
                        a[..., LIMBS - 1:] - top * 16], dim=-1)
         a = _fold_pass(a)
     # Value now in [0, 2p + small): subtract p while >= p, at most 3 times.
-    p_limbs = torch.tensor(_np_limbs(P_INT), dtype=torch.int32, device=dev)
+    p_limbs = _limbs_on(P_INT, dev)
     for _ in range(3):
         diff = a - p_limbs
         borrow = torch.zeros_like(diff[..., 0])

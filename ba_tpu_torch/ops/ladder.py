@@ -1,8 +1,8 @@
-"""K3, the verification tail (``csrc/window_verify.cu``), and K3', the
-4-bit window multiply (``csrc/window_mult.cu``), with their plain torch
-versions.
+"""K3, the verification tail (``csrc/window_verify.cu``), K3', the 4-bit
+window multiply (``csrc/window_mult.cu``), and K3'', the double-and-add
+ladder (``csrc/scalar_mult.cu``), with their plain torch versions.
 
-Both run one accumulator, ``window_acc`` in ``csrc/window.cuh``, the
+K3 and K3' run one accumulator, ``window_acc`` in ``csrc/window.cuh``, the
 body of ``ba_tpu/ops/ladder.py::_window_acc``: per lane the 16 multiples
 [j]P (14 additions), then one window a digit of k, most significant
 first, each four doublings (T only on the fourth) and one addition from
@@ -30,12 +30,21 @@ is summed by a halving tree, lane i plus lane i + 16, then + 8, ..., as
 ``batch_point_sum`` pairs 32 points; column t of the block sums (sums t,
 t + 32, t + 64, ... added in turn to the identity) and a last halving
 tree give the total.  :func:`fold_points` is that pairing in torch, so
-the plain version's encodings equal the kernel's.  The reference's
-double-and-add sibling ``_ladder_kernel`` (K3'') is not ported yet.
+the plain version's encodings equal the kernel's.
 
-:func:`window_verify` and :func:`window_mult` run the plain version on a
-CPU tensor and launch the kernel on a CUDA one, or raise; each keeps a
-plain integer ``launches`` count.
+K3'' (``csrc/scalar_mult.cu``) replaces ``_ladder_kernel`` (``:53``,
+through ``scalar_mult`` ``:205``, exported as
+``ba_tpu.ops.ladder_scalar_mult``): [k]P by double-and-add-always, two
+complete additions a bit and a select, LSB first, with the reference's
+projective coordinates (q + q by the unified addition), so the canonical
+X, Y, Z and T equal ``ed25519.scalar_mult``'s:
+
+    point uint8 [S, 4, 32], bits [S, nbits] 0/1 (nbits a multiple of 32)
+        ->  uint8 [S, 4, 32]
+
+:func:`window_verify`, :func:`window_mult` and :func:`scalar_mult` run
+the plain version on a CPU tensor and launch the kernel on a CUDA one, or
+raise; each keeps a plain integer ``launches`` count.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ba_tpu_torch.ops.treeadd import digits
 
 SOURCE = "window_verify.cu"
 MULT_SOURCE = "window_mult.cu"
+LADDER_SOURCE = "scalar_mult.cu"
 FOLD = 32  # lanes a block of K3' sums (one warp)
 K3P_LENGTHS = (1, 16, 32)  # the k widths in bytes K3' is built for (window_mult.cu)
 GE_INT32 = 40  # a point in the kernels' radix: 4 x 10 int32 limbs
@@ -114,6 +124,23 @@ def plain_window_verify(a: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
     return F.eq(F.mul(xl, zr), F.mul(xr, zl)) & F.eq(F.mul(yl, zr), F.mul(yr, zl))
 
 
+def plain_scalar_mult(point: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3'': ``ed25519.ladder`` (the reference's
+    double-and-add loop) on the decoded points, encoded."""
+    return E.encode_point(E.ladder(E.decode_point(point), bits))
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[S, nbits] 0/1 -> int32 [nbits / 32, S]: bit t of lane i at bit
+    t % 32 of word [t / 32, i] (``ba_tpu/ops/ladder.py:173 _pack_bits``'s
+    layout, untiled), made on the bits' device without a host sync."""
+    S, nbits = bits.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = ((bits == 1).to(torch.int64).reshape(S, nbits // 32, 32) << shifts).sum(dim=-1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)  # as int32
+    return words.to(torch.int32).t().contiguous()
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.ba_window_verify
@@ -130,6 +157,14 @@ def _mult_lib() -> ctypes.CDLL:
         lib.ba_window_mult.restype = ctypes.c_int
         lib.ba_window_mult_fold.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         lib.ba_window_mult_fold.restype = ctypes.c_int
+    return lib
+
+
+def _ladder_lib() -> ctypes.CDLL:
+    lib = _build.load(LADDER_SOURCE)
+    if lib.ba_scalar_mult.argtypes is None:
+        lib.ba_scalar_mult.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        lib.ba_scalar_mult.restype = ctypes.c_int
     return lib
 
 
@@ -200,10 +235,41 @@ def window_mult(point: torch.Tensor, k: torch.Tensor, fold: bool = False) -> tor
     return out
 
 
+def scalar_mult(point: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """[k]P per lane by double-and-add-always: point uint8 [S, 4, 32], bits
+    [S, nbits] 0/1, least significant first, nbits a multiple of 32 ->
+    uint8 [S, 4, 32]."""
+    dev = point.device
+    if point.dim() != 3 or tuple(point.shape[1:]) != (4, 32):
+        raise ValueError(f"point must be [S, 4, 32], got {tuple(point.shape)}")
+    if bits.dim() != 2 or bits.shape[0] != point.shape[0] or bits.shape[1] % 32:
+        raise ValueError(f"bits must be [{point.shape[0]}, a multiple of 32], "
+                         f"got {tuple(bits.shape)}")
+    if dev.type == "cpu":
+        return plain_scalar_mult(point, bits)
+    if dev.type != "cuda":
+        raise ValueError(f"the scalar-mult kernel runs on a CUDA device, not {dev}")
+    n, nbits = bits.shape
+    _build.check_tensor(point, "point", torch.uint8, (n, 4, 32), dev)
+    if bits.device != dev:
+        raise ValueError(f"bits: expected on {dev}, got {bits.device}")
+    words = pack_bits(bits)
+    out = torch.empty((n, 4, 32), dtype=torch.uint8, device=dev)
+    err = _ladder_lib().ba_scalar_mult(n, nbits // 32, point.data_ptr(), words.data_ptr(),
+                                       out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scalar-mult launch failed: CUDA error {err}")
+    if n:
+        scalar_mult.launches += 1
+    return out
+
+
 window_verify.launches = 0
 window_mult.launches = 0
+scalar_mult.launches = 0
 
 
 def reset_launches() -> None:
     window_verify.launches = 0
     window_mult.launches = 0
+    scalar_mult.launches = 0

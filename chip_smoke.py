@@ -33,11 +33,16 @@ Three paths, each through its hand-written kernels:
 - OM(m) by the EIG tree (``core/eig.py``), through K9, the masked
   majority (``ba_tpu_torch/ops/csrc/majority.cu``), at every resolve
   level: BASELINE config #2 (``bench_om3_n10``), ``bench_eig_n1024`` and
-  the sweeps at m = 2 (the composed torch engine: K1 is OM(1) only).
+  the sweeps at m = 2 (the composed torch engine: K1 is OM(1) only);
+- the double-and-add scalar multiply and the field exponentiations, which
+  have no production caller here or in the reference:
+  ``ed25519.scalar_mult`` through K3'' (``scalar_mult.cu``) at 65 536
+  lanes, and ``powchain.pow_planes`` through K8', the p - 2 chain and K8''
+  (``powchain.cu``) at 131 072.
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
-   together: one nvcc a CUDA source (eleven) and the native Ed25519
+   together: one nvcc a CUDA source (twelve) and the native Ed25519
    signer (g++);
 2. threefry and Philox4x32-10 known answers on the card, the latter
    through the very Philox rounds K2 draws from (its source's
@@ -152,8 +157,8 @@ Phases, one JSON line each:
    of 3 reps with the spread — every decision ATTACK, needed 3 of 4;
 20. BASELINE config #4 (``bench_n1024_m32``): the collapsed
    ``sm_agreement`` at B = 1, n = 1024, m = 32, the first 32 generals
-   faulty, 100 rounds a call, 5 calls a rep, best of 3 with the spread —
-   every round's honest lieutenants agree (IC1);
+   faulty, 100 rounds a call, 2 calls a rep (bench.py: 5), best of 3
+   with the spread — every round's honest lieutenants agree (IC1);
 21. K9 against its plain version (``majority_middle``): R in {1, 255,
    257, 70 001}, K in {1, 7, 10, 33, 128, 1024, 1025}, dense and with the
    mask shared by 3 receivers, rows with no valid responder and exact
@@ -176,6 +181,23 @@ Phases, one JSON line each:
    faulty, 5 calls a rep — every decision ATTACK; bench's stage split
    (the fused level alone, its float32 product alone) and K9 alone, by
    CUDA events on device-resident inputs;
+25. ``ladder_pow_known_answers``: K3'' (``ladder.scalar_mult``,
+   ``ed25519.scalar_mult`` and ``scalar_mult_base``) against the oracle's
+   Python arithmetic for k in {0, 1, L - 1, L, 2^256 - 1} (and 2^512 - 1)
+   on the identity, B and a small-order point at 256 and 512 bits;
+   ``pow_planes`` against pow(a, e, p) for a in {0, 1, p - 1, random} and
+   e in {0, 1, 2, 37, (p - 5)/8, p - 2, p - 1}, every route;
+26. ``ladder_pow_vs_plain_middle``: K3'' at 3 000 lanes (256-bit k), K8',
+   the p - 2 chain and K8'' (a random 255-bit e and (p - 5)/8) at 4 096
+   field elements against their plain versions, bit-equal;
+27. ``ladder_pow_full_width``: ``ed25519.scalar_mult`` at 65 536 lanes,
+   256-bit k, and ``pow_planes`` at 131 072 limbs in [-8000, 8000) with e
+   = (p - 5)/8, p - 2 and (p - 1)/2, then K8'' launched directly at (p -
+   5)/8 — launches counted; K3'' against K3' on the same points and k
+   (one group element, compared compressed), the roots, inverses and
+   Legendre symbols checked by field identities, K8'' at (p - 5)/8 equal
+   to K8'; each kernel alone by CUDA events: scalar-mults/s of K3'' and
+   K3', their ratio, and the generic exponent against the chain;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
@@ -183,7 +205,8 @@ what the main paths recorded (phases 17 and 18 each run once more with
 their dispatches recorded, inputs copied before each dispatch): each
 setup route run once more with its dispatches recorded (the wrappers'
 arguments and outputs, taken at their modules), and one call of each of
-config #3's legs on its first inputs; K9 likewise, from one more call of
+config #3's legs on its first inputs, and one more run of phase 27's
+path; K9 likewise, from one more call of
 config #2 and of eig_n1024 and one more m = 2 sweep; every recorded dispatch is held
 against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
@@ -216,6 +239,7 @@ from ba_tpu_torch.core.om import om1_agreement, round1_broadcast
 from ba_tpu_torch.core.state import SimState, make_state
 from ba_tpu_torch.core.types import ATTACK
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
+from ba_tpu_torch.crypto import field as F
 from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, majority, modl,
                               powchain, scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline, sweep
@@ -242,7 +266,7 @@ RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
                 "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu", "window_mult.cu",
-                "fieldmul_probe.cu", "majority.cu")
+                "fieldmul_probe.cu", "majority.cu", "scalar_mult.cu")
 # The Ed25519 kernels and the field-multiply probe: (name, wrapper, its plain
 # version, source, the TPU kernel it replaces).
 ED_KERNELS = {
@@ -265,17 +289,35 @@ ED_KERNELS = {
             "ba_tpu_torch/ops/csrc/window_mult.cu", "ba_tpu/ops/ladder.py:113"),
     "P": ("fieldmul_probe", fieldmul_probe.fieldmul_probe, fieldmul_probe.plain_fieldmul_probe,
           "ba_tpu_torch/ops/csrc/fieldmul_probe.cu", "bench.py:3404"),
+    "K3''": ("scalar_mult_ladder", ladder.scalar_mult, ladder.plain_scalar_mult,
+             "ba_tpu_torch/ops/csrc/scalar_mult.cu", "ba_tpu/ops/ladder.py:53"),
+    "K8'": ("sqrt_chain", powchain.sqrt_chain, powchain.plain_sqrt_chain,
+            "ba_tpu_torch/ops/csrc/powchain.cu", "ba_tpu/ops/powchain.py:94"),
+    "K8 p-2": ("inv_chain", powchain.inv_chain, powchain.plain_inv_chain,
+               "ba_tpu_torch/ops/csrc/powchain.cu", "ba_tpu/ops/powchain.py:101"),
+    "K8''": ("pow_generic", powchain.pow_exp, powchain.plain_pow_exp,
+             "ba_tpu_torch/ops/csrc/powchain.cu", "ba_tpu/ops/powchain.py:108"),
 }
 ED_WRAPPERS = {key: fn for key, (_, fn, *_) in ED_KERNELS.items()}
 # Launches of each on the device-sign setup: sign (K5', K5 twice, K4, K8, K6),
 # then verify (K7, K5, K4, K3); on the "rlc" route the verify is one batch check
-# (K7, K5, K6 four times, K3' four times, K4, K8).
+# (K7, K5, K6 four times, K3' four times, K4, K8).  No setup runs the
+# double-and-add ladder or pow_planes' kernels.
+NO_LADDER_POW = {"K3''": 0, "K8'": 0, "K8 p-2": 0, "K8''": 0}
 DEVICE_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 1, "K6": 1, "K7": 1, "K3": 1,
-                         "K3'": 0, "P": 0}
+                         "K3'": 0, "P": 0, **NO_LADDER_POW}
 HOST_SETUP_LAUNCHES = {"K5'": 0, "K5": 2, "K4": 2, "K8": 0, "K6": 0, "K7": 2, "K3": 2,
-                       "K3'": 0, "P": 0}
+                       "K3'": 0, "P": 0, **NO_LADDER_POW}
 RLC_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 2, "K6": 5, "K7": 1, "K3": 0,
-                      "K3'": 4, "P": 0}
+                      "K3'": 4, "P": 0, **NO_LADDER_POW}
+# The ladder / pow path: ed25519.scalar_mult (K3'') at 65 536 lanes with 256-bit
+# scalars (the reference's reported width, ba_tpu/ops/__init__.py:7-15), and
+# pow_planes' three routes at config #3's 2B = 131 072 decompression lanes, plus
+# K8'' launched directly with e = (p - 5)/8 (the chain-against-generic ratio).
+S_LADDER, N_POW = 65_536, 131_072
+LEGENDRE_EXP = (oracle.P - 1) // 2  # pow_planes' generic route: Euler's criterion
+LADDER_POW_LAUNCHES = {**{key: 0 for key in DEVICE_SETUP_LAUNCHES},
+                       "K3''": 1, "K8'": 1, "K8 p-2": 1, "K8''": 2}
 # BASELINE config #3 as bench.py:194-394 (bench_sm1_n64_signed) runs it: 64
 # commanders, n = 64, m = 1; 65 536 verify lanes (the signed broadcasts tiled);
 # 3 reps of 3 timed calls a leg; the SM(1) round 20 calls a rep.
@@ -285,11 +327,13 @@ FMULS_PER_VERIFY = 3.66e3  # bench.py:351's estimate of one verify's field multi
 LADDER_FMULS_PER_LANE = 64 * 38 + 14 * 9  # bench.py:299: 38 a window, 126 a lane
 FM_VARIANTS = 12  # the probe's input variants (bench.py's BA_TPU_FMUL_PROBE_VARIANTS)
 # int32 operations of one field multiply in the kernels' radix (ed25519_field.cuh
-# fe_mul): 100 32x32->64 multiply-adds (2 each), the 9 wrapped columns times 19
-# (4 each), the 11-step carry chain in int64 (10 each), 5 doublings; of one
-# squaring (fe_sq): 55 multiply-adds, the same columns and chain, 13 doublings.
-FE_MUL_OPS = 100 * 2 + 9 * 4 + 11 * 10 + 5
-FE_SQ_OPS = 55 * 2 + 9 * 4 + 11 * 10 + 13
+# fe_mul) and of one squaring (fe_sq): the instructions each compiles to on the
+# integer pipes for sm_90a, counted in the SASS by scripts/fe_sass_counts.py
+# (290.5 and 173.25; a multiply of two operands that both change, as in the
+# kernels; one by a loop-invariant operand compiles to 524 as 64-bit products).
+# That script's loops reach 56-63 of them a clock an SM, under the 64 of
+# INT32_LANES_PER_SM, which the bounds divide them by.
+FE_MUL_OPS, FE_SQ_OPS = 290, 173
 # (multiplies, squarings) a lane: K7 the (p-5)/8 chain (11, 251) and (9, 4)
 # around it; K4 63 additions, 31 of 9 and 32 of two affine table entries at 8;
 # K3 14 additions of 9 for the table, 64 windows of 4 doublings (4 multiplies and
@@ -297,6 +341,7 @@ FE_SQ_OPS = 55 * 2 + 9 * 4 + 11 * 10 + 13
 # 9 + 4; K8 the p - 2 chain (13, 257) and x / Z, y / Z.
 K7_WORK, K4_WORK, K3_WORK = (20, 255), (31 * 9 + 32 * 8, 0), (14 * 9 + 64 * 26 + 13, 64 * 12)
 K8_WORK = (15, 257)
+K8P_WORK, INV_WORK = (11, 251), (13, 257)  # the (p - 5)/8 and p - 2 chains alone
 
 
 def k3p_work(nbytes):
@@ -520,6 +565,7 @@ def phase_env(dev):
                    powchain, fieldmul_probe, majority):
         module._lib()
     ladder._mult_lib()
+    ladder._ladder_lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
     ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
                     if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -1390,6 +1436,18 @@ def dispatch_work(key, args, kw):
                 f"{S} lanes, {8 * nbytes}-bit k" + (", summed" if fold else ""))
     if key == "P":
         return (S, S * fieldmul_probe.MULTIPLIES * FE_MUL_OPS, S * 96, f"{S} lanes")
+    if key == "K3''":  # 2 nbits complete additions of 9 multiplies
+        bits = args[1]
+        return (S, S * 2 * bits.shape[1] * 9 * FE_MUL_OPS,
+                S * (128 + bits.shape[1] * bits.element_size() + 128),
+                f"{S} lanes, {bits.shape[1]}-bit k")
+    if key == "K8''":  # nbits - 1 squarings, a multiply a one bit
+        e = args[1]
+        work = (bin(e).count("1"), max(e.bit_length() - 1, 0))
+        return (S, S * field_ops(work), S * 64,
+                f"{S} lanes, e of {e.bit_length()} bits, {work[0]} ones")
+    if key in ("K8'", "K8 p-2"):
+        return S, S * field_ops(K8P_WORK if key == "K8'" else INV_WORK), S * 64, f"{S} lanes"
     if key == "K4":  # the scalars and the window table in, the points out
         return S, S * field_ops(K4_WORK), (32 + 128) * S + args[1].numel(), f"{S} lanes"
     ops, lane_bytes = {"K8": (field_ops(K8_WORK), 128 + 32), "K6": (MODL_OPS, 64 + 32),
@@ -2012,9 +2070,11 @@ def kernel_line_slot(paths, int_ops_per_s):
 
 # bench.py:130 (bench_om1_n4): om1_agreement at B = 4 194 304, n = 4, general 2
 # faulty, 30 calls a rep; bench.py:628 (bench_n1024_m32): the collapsed SM(32) at
-# B = 1, n = 1024, the first 32 generals faulty, 100 rounds a call, 5 calls a rep.
+# B = 1, n = 1024, the first 32 generals faulty, 100 rounds a call, 5 calls a rep
+# there; 2 here: a call takes ~16 s of host-bound plain torch on the card's
+# machine, and 3 reps of 5 were 40 % of this script's run.
 B_C1, N_C1, ITERS_C1 = 4_194_304, 4, 30
-N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 100, 5
+N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 100, 2
 
 
 def bench_timed(fn, args_of, iters, reps=3):
@@ -2407,6 +2467,169 @@ def kernel_line_k9(paths, int_ops_per_s):
 
 
 
+# -- K3'', K8', the p - 2 chain and K8'': scalar_mult and pow_planes ---------
+
+
+def affine_limbs(points, dev):
+    """Affine oracle points [(x, y), ...] -> extended limbs (X, Y, 1, XY)."""
+    P = oracle.P
+    cols = [[x for x, _ in points], [y for _, y in points], [1] * len(points),
+            [x * y % P for x, y in points]]
+    return tuple(torch.stack([F.constant(v, dev) for v in col]) for col in cols)
+
+
+def affine_of(enc):
+    """A point uint8 [4, 32] (canonical X, Y, Z, T) -> its affine (x, y) by
+    Python integers, after checking Z != 0 and X Y = Z T."""
+    P = oracle.P
+    x, y, z, t = (int.from_bytes(enc[c].tobytes(), "little") for c in range(4))
+    check(z % P != 0 and x * y % P == z * t % P, "a product is off the extended curve form")
+    zi = pow(z, P - 2, P)
+    return x * zi % P, y * zi % P
+
+
+def int_bits(values, nbits, dev):
+    """Python ints -> 0/1 int32 [len, nbits], least significant first."""
+    return torch.tensor([[(v >> t) & 1 for t in range(nbits)] for v in values],
+                        dtype=torch.int32, device=dev)
+
+
+def phase_ladder_pow_known_answers(dev, rs):
+    """K3'' against the oracle's Python arithmetic: scalars 0, 1, L - 1, L
+    and 2^256 - 1 (and 2^512 - 1 at 512 bits) on the identity, B and a
+    small-order point, nbits 256 and 512, through ladder.scalar_mult and
+    ed25519.scalar_mult / scalar_mult_base; pow_planes' every route
+    against pow(a, e, p) for a in {0, 1, p - 1, random} and e in {0, 1, 2,
+    37, (p - 5)/8, p - 2, p - 1}."""
+    P, L = oracle.P, oracle.L
+    points = [(0, 1), oracle.BASE, torsion_point()]
+    lanes = 0
+    for nbits in (256, 512):
+        ks = [0, 1, L - 1, L, 2**256 - 1] + ([2**512 - 1] if nbits == 512 else [])
+        pairs = [(pt, k) for pt in points for k in ks]
+        limbs = affine_limbs([pt for pt, _ in pairs], dev)
+        bits = int_bits([k for _, k in pairs], nbits, dev)
+        out = ladder.scalar_mult(ed25519.encode_point(limbs), bits).cpu().numpy()
+        via_limbs = ed25519.encode_point(ed25519.scalar_mult(limbs, bits)).cpu().numpy()
+        check(np.array_equal(out, via_limbs), "ed25519.scalar_mult differs from K3''")
+        for (pt, k), enc in zip(pairs, out):
+            check(affine_of(enc) == oracle.scalarmult(pt, k),
+                  f"K3'' differs from the oracle: k = {k}, {nbits} bits")
+        base = ed25519.encode_point(ed25519.scalar_mult_base(int_bits(ks, nbits, dev)))
+        for k, enc in zip(ks, base.cpu().numpy()):
+            check(affine_of(enc) == oracle.scalarmult(oracle.BASE, k),
+                  f"scalar_mult_base differs from the oracle: k = {k}, {nbits} bits")
+        lanes += len(pairs)
+    a_vals = [0, 1, P - 1, int.from_bytes(rs.bytes(32), "little") % P]
+    exps = [0, 1, 2, 37, powchain.SQRT_EXP, powchain.INV_EXP, P - 1]
+    a = torch.stack([F.constant(v, dev) for v in a_vals])
+    for e in exps:
+        got = F.to_bytes(powchain.pow_planes(a, e)).cpu().numpy()
+        check([int.from_bytes(g.tobytes(), "little") for g in got] ==
+              [pow(v, e, P) for v in a_vals], f"pow_planes differs from pow(a, e, p) at e = {e}")
+    emit({"phase": "ladder_pow_known_answers", "k3pp_lanes": lanes, "pow_values": len(a_vals),
+          "pow_exponents": len(exps), "oracle_agrees": True, "ok": True})
+
+
+def phase_ladder_pow_middle(dev, rs):
+    """K3'', K8', the p - 2 chain and K8'' against their plain versions at a
+    few thousand lanes: K3'' at 3 000 lanes with 256-bit k (points from
+    k3p_inputs: the identity, B, [s]B, keys; edge and random scalars),
+    the chains at 4 096 field elements (edges, bit 255 set, random) with
+    K8'' at a random 255-bit e and at (p - 5)/8 - bit-equal."""
+    S = 3000
+    pts, k = k3p_inputs(rs, S, 32, dev)
+    bits = F.bytes_to_bits(k)
+    errs = {"K3''": max_abs_err([(ladder.scalar_mult(pts, bits),
+                                  ladder.plain_scalar_mult(pts, bits))])}
+    P = oracle.P
+    edges = np.stack([np.frombuffer(le32(v), np.uint8)
+                      for v in (0, 1, P - 1, P, 2**255 - 1, 5 | 1 << 255)])
+    enc = torch.tensor(np.concatenate([edges, rs.integers(0, 256, (4090, 32), dtype=np.uint8)]),
+                       device=dev)
+    e = int.from_bytes(rs.bytes(32), "little") >> 1
+    errs["K8'"] = max_abs_err([(powchain.sqrt_chain(enc), powchain.plain_sqrt_chain(enc))])
+    errs["K8 p-2"] = max_abs_err([(powchain.inv_chain(enc), powchain.plain_inv_chain(enc))])
+    errs["K8''"] = max_abs_err([(powchain.pow_exp(enc, e), powchain.plain_pow_exp(enc, e)),
+                                (powchain.pow_exp(enc, powchain.SQRT_EXP),
+                                 powchain.plain_pow_exp(enc, powchain.SQRT_EXP))])
+    sync()
+    check(all(v == 0 for v in errs.values()), f"a ladder / pow kernel differs from plain: {errs}")
+    emit({"phase": "ladder_pow_vs_plain_middle", "k3pp_lanes": S, "pow_lanes": len(enc),
+          "max_abs_err": errs})
+
+
+def phase_ladder_pow_full_width(dev, rs, card):
+    """The ladder / pow path at full width, through the entry points:
+    ed25519.scalar_mult at S_LADDER lanes (points [s]B from K4, Z != 1;
+    random 256-bit k) and pow_planes at N_POW limbs in [-8000, 8000) with
+    e = (p - 5)/8, p - 2 and (p - 1)/2, and K8'' launched directly with
+    e = (p - 5)/8; its launches counted.  Checks: K3'' and K3' (window_mult,
+    the same 32-byte k) give the same group element (both compressed by
+    K8); r = a^((p - 5)/8) has r^8 a^4 = 1, a / a = 1 and a^((p - 1)/2) is
+    0, 1 or -1 (0 only for a = 0) on every lane; K8'' at (p - 5)/8 equals
+    K8'.  Then each kernel alone by CUDA events: scalar-mults/s of K3'' and
+    K3' and their ratio, the chains' ms and the generic-against-chain
+    ratio.  Returns the recorded path for the kernels line."""
+    P = oracle.P
+    k = torch.tensor(rs.integers(0, 256, (S_LADDER, 32), dtype=np.uint8), device=dev)
+    bits = F.bytes_to_bits(k)
+    pts = ed25519.fixed_base_mult(
+        torch.tensor(rs.integers(0, 256, (S_LADDER, 32), dtype=np.uint8), device=dev))
+    limbs = ed25519.decode_point(pts)
+    a = torch.tensor(rs.integers(-8000, 8000, (N_POW, F.LIMBS), dtype=np.int32), device=dev)
+    a[0] = 0  # a zero lane: its inverse, root candidate and symbol are 0
+    enc_a = F.to_bytes(a)
+
+    def ladder_pow_path():
+        return (ed25519.scalar_mult(limbs, bits), powchain.pow_planes(a, powchain.SQRT_EXP),
+                powchain.pow_planes(a, powchain.INV_EXP), powchain.pow_planes(a, LEGENDRE_EXP),
+                powchain.pow_exp(enc_a, powchain.SQRT_EXP))
+
+    sync()
+    reset_ed_launches()
+    prod, root, inv, symbol, root_generic = ladder_pow_path()
+    sync()
+    launches = ed_launches()
+    check(launches == LADDER_POW_LAUNCHES, f"ladder / pow path launches {launches}")
+    windowed = ladder.window_mult(pts, k)
+    check(torch.equal(ed25519.compress(ed25519.encode_point(prod).contiguous()),
+                      ed25519.compress(windowed)), "K3'' and K3' give different points")
+    one = F.constant(1, dev)
+    nonzero = ~F.is_zero(a)
+    check(not bool(nonzero[0]) and bool(nonzero[1:].all()), "the test limbs' zero lanes moved")
+    sq = lambda x, n: F.sq_n(x, n)  # noqa: E731
+    check(bool((F.eq(F.mul(sq(root, 3), sq(a, 2)), one) == nonzero).all()),
+          "a^((p - 5)/8) fails r^8 a^4 = 1")
+    check(bool((F.eq(F.mul(inv, a), one) == nonzero).all()) and bool(F.is_zero(inv[0])),
+          "the p - 2 route is no inverse")
+    canon = F.canonical(symbol)
+    legal = (F.eq(symbol, one) | F.eq(symbol, F.constant(P - 1, dev))) == nonzero
+    check(bool(legal.all()) and bool(F.is_zero(canon[:1]).all()),
+          "a^((p - 1)/2) is not a Legendre symbol")
+    check(torch.equal(F.to_bytes(root), root_generic), "K8'' at (p - 5)/8 differs from K8'")
+    ms = {"K3''": time_cuda(lambda: ladder.scalar_mult(pts, bits), reps=3),
+          "K3'": time_cuda(lambda: ladder.window_mult(pts, k), reps=3),
+          "K8'": time_cuda(lambda: powchain.sqrt_chain(enc_a), reps=5),
+          "K8 p-2": time_cuda(lambda: powchain.inv_chain(enc_a), reps=5),
+          "K8'' (p-5)/8": time_cuda(lambda: powchain.pow_exp(enc_a, powchain.SQRT_EXP), reps=5),
+          "K8'' (p-1)/2": time_cuda(lambda: powchain.pow_exp(enc_a, LEGENDRE_EXP), reps=5)}
+    with recording(ED_WRAPPERS) as calls:
+        again = ladder_pow_path()
+    check(all(torch.equal(x, y) for x, y in zip((*again[0], *again[1:]), (*prod, root, inv,
+                                                                       symbol, root_generic))),
+          "the recorded ladder / pow run differs from the counted one")
+    emit({"phase": "ladder_pow_full_width", "ladder_lanes": S_LADDER, "ladder_bits": 256,
+          "pow_lanes": N_POW, "kernel_ms": ms,
+          "k3pp_scalar_mults_per_sec": S_LADDER / ms["K3''"] * 1e3,
+          "k3p_scalar_mults_per_sec": S_LADDER / ms["K3'"] * 1e3,
+          "k3pp_over_k3p_time": ms["K3''"] / ms["K3'"],
+          "generic_over_chain_time": ms["K8'' (p-5)/8"] / ms["K8'"],
+          "k3pp_k3p_same_points": True, "roots_inverses_symbols_checked": True,
+          "kernel_launches": launches, "card": card})
+    return "ladder / pow", calls, launches, 1
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2443,13 +2666,16 @@ def main(argv=None) -> int:
     phase_config4(dev, card)
     phase_majority_middle(dev, rs)
     k9_paths = [phase_eig_middle(dev, rs), phase_config2(dev, card), phase_eig_n1024(dev, card)]
+    phase_ladder_pow_known_answers(dev, rs)
+    phase_ladder_pow_middle(dev, rs)
+    ladder_pow = phase_ladder_pow_full_width(dev, rs, card)
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s),
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
-        *kernel_lines_crypto([*setup_paths, c3], int_ops_per_s),
+        *kernel_lines_crypto([*setup_paths, c3, ladder_pow], int_ops_per_s),
         kernel_line_k9(k9_paths, int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")

@@ -1,9 +1,10 @@
 """The Ed25519 kernels' per-lane arithmetic (``ba_tpu_torch/ops/csrc``),
 compiled for the host with g++ through ``tests/torch_csrc_host.cpp``,
 against their plain torch versions: K7, K5, K5', K6, K4, K8, K3, K3'
-(the window accumulator K3 shares, and its fold), the field-multiply
-probe P and K9's row tallies (byte and four-byte lanes, one lane a row or
-32), bit-equal.
+(the window accumulator K3 shares, and its fold), K3'' (the
+double-and-add ladder), pow_planes' K8', p - 2 chain and K8'', the
+field-multiply probe P and K9's row tallies (byte and four-byte lanes,
+one lane a row or 32), bit-equal.
 
 The card runs the same functions inside the kernels; this catches an
 arithmetic fault in a CUDA source on the CPU.  Launch code, warp shuffles
@@ -44,10 +45,12 @@ def host(tmp_path_factory):
         getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
     for name in ("host_sha512_modl", "host_sha512"):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-    for name in ("host_modl", "host_compress"):
+    for name in ("host_modl", "host_compress", "host_sqrt_chain", "host_inv_chain"):
         getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
     for name in ("host_window_mult", "host_window_mult_fold"):
         getattr(lib, name).argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_scalar_mult.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_pow.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_majority.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -240,6 +243,56 @@ def test_window_mult_fold_matches_plain(host, S):
     host.host_window_mult_fold(S, 16, _ptr(pts), _ptr(k), _ptr(out))
     want = ladder.plain_window_mult(torch.tensor(pts), torch.tensor(k), fold=True)
     assert np.array_equal(out, want.numpy())
+
+
+@pytest.mark.parametrize("nbytes", [4, 32])
+def test_scalar_mult_lane_matches_plain(host, nbytes):
+    """K3'''s lane on the window tests' points and scalars, the bits packed
+    as the wrapper packs them: canonical X, Y, Z, T equal to the plain
+    ladder's, and the affine point the oracle's."""
+    pts, k = _window_inputs(nbytes, 10)
+    bits = torch.tensor(np.unpackbits(k, axis=1, bitorder="little").astype(np.int32))
+    words = np.ascontiguousarray(ladder.pack_bits(bits).numpy())
+    out = np.zeros_like(pts)
+    host.host_scalar_mult(len(pts), words.shape[0], _ptr(pts), _ptr(words), _ptr(out))
+    assert np.array_equal(out, ladder.plain_scalar_mult(torch.tensor(pts), bits).numpy())
+    for pt, kk, got in zip(pts, k, out):
+        x, y, z = (int.from_bytes(got[c].tobytes(), "little") for c in range(3))
+        px, py, pz = (int.from_bytes(pt[c].tobytes(), "little") for c in range(3))
+        zi, pzi = pow(z, P - 2, P), pow(pz, P - 2, P)
+        k_int = int.from_bytes(kk.tobytes(), "little")
+        assert (x * zi % P, y * zi % P) == oracle.scalarmult((px * pzi % P, py * pzi % P), k_int)
+
+
+def test_pow_chain_lanes_match_plain(host):
+    """K8' and the p - 2 chain on edge encodings (bit 255 set among them),
+    keys and random bytes, against their plain versions and Python's pow."""
+    a = _encodings(np.random.default_rng(13), 6)
+    for name, plain, e in (("host_sqrt_chain", powchain.plain_sqrt_chain, (P - 5) // 8),
+                           ("host_inv_chain", powchain.plain_inv_chain, P - 2)):
+        out = np.zeros_like(a)
+        getattr(host, name)(len(a), _ptr(a), _ptr(out))
+        assert np.array_equal(out, plain(torch.tensor(a)).numpy()), name
+        for row, got in zip(a, out):
+            v = int.from_bytes(row.tobytes(), "little") & ((1 << 255) - 1)
+            assert int.from_bytes(got.tobytes(), "little") == pow(v, e, P), name
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 37, (P - 5) // 8, P - 1, 2**255 - 1, 2**1023 + 5],
+                         ids=["0", "1", "2", "37", "sqrt", "p-1", "2^255-1", "2^1023+5"])
+def test_pow_lane_matches_plain(host, e):
+    """K8'' over the exponent's words as the launcher passes them, up to
+    the kernel's 1 024 bits."""
+    a = _encodings(np.random.default_rng(14), 3)
+    nbits = e.bit_length()
+    words = np.array([(e >> (32 * i)) & 0xFFFFFFFF for i in range(max(-(-nbits // 32), 1))],
+                     np.uint32)
+    out = np.zeros_like(a)
+    host.host_pow(len(a), nbits, _ptr(words), _ptr(a), _ptr(out))
+    assert np.array_equal(out, powchain.plain_pow_exp(torch.tensor(a), e).numpy())
+    for row, got in zip(a, out):
+        v = int.from_bytes(row.tobytes(), "little") & ((1 << 255) - 1)
+        assert int.from_bytes(got.tobytes(), "little") == pow(v, e, P)
 
 
 def test_fieldmul_probe_lane_matches_plain_and_integers(host):

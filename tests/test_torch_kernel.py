@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card: K1
 (``ba_tpu_torch/ops/csrc/megastep.cu``, plain, scenario and slot modes), K2 (``sweep_step.cu``), the
-Ed25519 kernels K7, K5, K5', K6, K4, K8, K3 and K3' (``decompress.cu``,
+Ed25519 kernels K7, K5, K5', K6, K4, K8, K3, K3' and K3'' (``decompress.cu``,
 ``sha512_modl.cu``, ``modl.cu``, ``treeadd.cu``, ``powchain.cu``,
-``window_verify.cu``, ``window_mult.cu``), the field-multiply probe P
+``window_verify.cu``, ``window_mult.cu``, ``scalar_mult.cu``), pow_planes'
+K8', p - 2 chain and K8'' (``powchain.cu``), the field-multiply probe P
 (``fieldmul_probe.cu``) and K9 (``majority.cu``); and the signer, the
 batch verify, the setup and OM(m) by the EIG tree on the card.
 
@@ -23,6 +24,7 @@ from ba_tpu_torch import convert, native
 from ba_tpu_torch.core import eig, rng
 from ba_tpu_torch.core.state import make_state
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
+from ba_tpu_torch.crypto import field as F
 from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, majority, modl, powchain,
                               scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline
@@ -778,3 +780,131 @@ def test_eig_agreement_on_card_matches_cpu(cuda_device, fused):
     assert all(torch.equal(a, b) for a, b in zip(outs[0][:3], outs[1][:3]))
     assert outs[0][3] == 0 and outs[1][3] == (2 if fused else 3) + (1 if fused else 2)
     assert (outs[1][1] == 1).all()
+
+
+# -- K3'', K8', the p - 2 chain, K8'': scalar_mult and pow_planes -----------------
+
+
+def _ladder_bits(S: int, nbits: int, dev) -> torch.Tensor:
+    """0/1 int32 [S, nbits]: all zeros, all ones, a lone 1, then random."""
+    bits = np.random.default_rng(S + nbits).integers(0, 2, (S, nbits)).astype(np.int32)
+    bits[0], bits[1 % S] = 0, 1
+    bits[2 % S] = 0
+    bits[2 % S, 0] = 1
+    return torch.tensor(bits, device=dev)
+
+
+@pytest.mark.parametrize("nbits", [32, 256])
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_scalar_mult_kernel_bit_equal(cuda_device, S, nbits):
+    pts = _window_points(S, cuda_device)
+    bits = _ladder_bits(S, nbits, cuda_device)
+    before = ladder.scalar_mult.launches
+    got = ladder.scalar_mult(pts, bits)
+    assert ladder.scalar_mult.launches == before + 1
+    want = ladder.plain_scalar_mult(pts, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_scalar_mult_on_card_matches_cpu_at_512_bits(cuda_device):
+    """ed25519.scalar_mult and scalar_mult_base through K3'' (bool bits,
+    a batch of shape [5, 13]) against the CPU ladder: canonical X, Y, Z
+    and T equal; the products are those of K3' (window_mult) as points."""
+    S = 65
+    pts = _window_points(S, cuda_device)
+    bits = _ladder_bits(S, 512, cuda_device).bool()
+    limbs = ed25519.decode_point(pts)
+    before = ladder.scalar_mult.launches
+    got = ed25519.scalar_mult(limbs, bits)
+    base = ed25519.scalar_mult_base(bits[:, :64].reshape(5, 13, 64))
+    assert ladder.scalar_mult.launches == before + 2
+    want = ed25519.scalar_mult(tuple(c.cpu() for c in limbs), bits.cpu())
+    want_base = ed25519.scalar_mult_base(bits[:, :64].reshape(5, 13, 64).cpu())
+    for g, w in zip((*got, *base), (*want, *want_base)):
+        assert torch.equal(F.canonical(g).cpu(), F.canonical(w))
+    k = bits[:, :256].reshape(S, 32, 8).to(torch.int32)
+    k = (k << torch.arange(8, device=cuda_device, dtype=torch.int32)).sum(-1).to(torch.uint8)
+    windowed = ladder.window_mult(pts, k.contiguous())
+    short = ladder.scalar_mult(pts, bits[:, :256])
+    assert torch.equal(powchain.compress(windowed), powchain.compress(short))
+
+
+def _field_encodings(S: int, dev) -> torch.Tensor:
+    """0, 1, p - 1, p, 2^255 - 1, a value with bit 255 set, then random."""
+    P = oracle.P
+    rows = [np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+            for v in (0, 1, P - 1, P, 2**255 - 1, 5 | 1 << 255)]
+    rows += list(np.random.default_rng(S).integers(0, 256, (S, 32), dtype=np.uint8))
+    return torch.tensor(np.ascontiguousarray(np.stack(rows[:S])), device=dev)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_pow_chain_kernels_bit_equal(cuda_device, S):
+    """K8', the p - 2 chain and K8'' (exponents 0, 1, 37, (p - 5)/8, p - 1
+    and one of 1 024 bits) against their plain versions."""
+    a = _field_encodings(S, cuda_device)
+    P = oracle.P
+    for fn, plain in ((powchain.sqrt_chain, powchain.plain_sqrt_chain),
+                      (powchain.inv_chain, powchain.plain_inv_chain)):
+        before = fn.launches
+        got = fn(a)
+        assert fn.launches == before + 1
+        assert torch.equal(got, plain(a))
+    for e in (0, 1, 37, (P - 5) // 8, P - 1, 2**1023 + 5):
+        before = powchain.pow_exp.launches
+        got = powchain.pow_exp(a, e)
+        assert powchain.pow_exp.launches == before + 1
+        assert torch.equal(got, powchain.plain_pow_exp(a, e)), e
+
+
+def test_pow_planes_on_card_matches_cpu(cuda_device):
+    """pow_planes on limbs in [-8000, 8000): each route launches its own
+    kernel, and the canonical output equals the CPU route's."""
+    P = oracle.P
+    a = np.random.default_rng(8).integers(-8000, 8000, (300, F.LIMBS)).astype(np.int32)
+    for e, fn in (((P - 5) // 8, powchain.sqrt_chain), (P - 2, powchain.inv_chain),
+                  (0, powchain.pow_exp), (2, powchain.pow_exp), (P - 3, powchain.pow_exp)):
+        before = fn.launches
+        got = powchain.pow_planes(torch.tensor(a, device=cuda_device), e)
+        assert fn.launches == before + 1
+        want = powchain.pow_planes(torch.tensor(a), e)
+        assert torch.equal(F.canonical(got).cpu(), F.canonical(want)), e
+
+
+def test_ladder_and_pow_queue_without_waiting(cuda_device):
+    """K3'''s bit packing, K8'''s exponent words and pow_planes' canonical
+    form need no host sync."""
+    pts = _window_points(8, cuda_device)
+    bits = _ladder_bits(8, 64, cuda_device)
+    a = _field_encodings(8, cuda_device)
+    ladder.scalar_mult(pts, bits)
+    powchain.pow_exp(a, 2**200 + 3)
+    powchain.pow_planes(F.from_bytes(a), oracle.P - 2)  # canonical's constants, once a device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ladder.scalar_mult(pts, bits)
+        powchain.pow_exp(a, 2**200 + 3)
+        powchain.pow_planes(F.from_bytes(a), oracle.P - 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_ladder_and_pow_kernels_reject_bad_inputs(cuda_device):
+    pts = torch.zeros((4, 4, 32), dtype=torch.uint8, device=cuda_device)
+    bits = torch.zeros((4, 32), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        ladder.scalar_mult(pts, bits[:, :31])
+    with pytest.raises(ValueError):
+        ladder.scalar_mult(pts, bits.cpu())
+    with pytest.raises(ValueError):
+        ladder.scalar_mult(pts.int(), bits)
+    a = torch.zeros((4, 32), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        powchain.pow_exp(a, 2**1024)
+    with pytest.raises(ValueError):
+        powchain.sqrt_chain(a.int())
+    with pytest.raises(ValueError):
+        powchain.inv_chain(a.t().contiguous().t())

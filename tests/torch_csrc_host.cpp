@@ -1,4 +1,5 @@
-// The per-lane bodies of the Ed25519 kernels (ba_tpu_torch/ops/csrc/*.cu),
+// The per-lane bodies of the Ed25519 kernels (ba_tpu_torch/ops/csrc/*.cu)
+// and of pow_planes' field exponentiations (powchain.cu),
 // of the field-multiply probe (fieldmul_probe.cu) and of K9 (majority.cu), compiled as host
 // C++ and looped over lanes, so the CPU tests can hold the kernels'
 // arithmetic against the plain versions without a card.  The CUDA launch
@@ -15,6 +16,7 @@
 #include "majority.cu"
 #include "modl.cu"
 #include "powchain.cu"
+#include "scalar_mult.cu"
 #include "sha512_modl.cu"
 #include "treeadd.cu"
 #include "window_mult.cu"
@@ -133,6 +135,28 @@ void host_window_mult_fold(int n, int nbytes, const uint8_t* pt, const uint8_t* 
     halving_sum(total);
     ge_tobytes4(out, total[0]);
     delete[] partials;
+}
+
+// K3'': words int32 [nwords, n], word w of lane i at w * n + i.
+void host_scalar_mult(int n, int nwords, const uint8_t* pt, const uint32_t* words,
+                      uint8_t* out) {
+    for (int i = 0; i < n; i++)
+        scalar_mult_lane(pt + 128 * i, words + i, nwords, (size_t)n, out + 128 * i);
+}
+
+void host_sqrt_chain(int n, const uint8_t* a, uint8_t* out) {
+    for (int i = 0; i < n; i++) sqrt_chain_lane(a + 32 * i, out + 32 * i);
+}
+
+void host_inv_chain(int n, const uint8_t* a, uint8_t* out) {
+    for (int i = 0; i < n; i++) inv_chain_lane(a + 32 * i, out + 32 * i);
+}
+
+// K8'': the exponent's words as the launcher copies them into PowExp.
+void host_pow(int n, int nbits, const uint32_t* words, const uint8_t* a, uint8_t* out) {
+    PowExp e = {};
+    for (int i = 0; i < (nbits + 31) / 32; i++) e.w[i] = words[i];
+    for (int i = 0; i < n; i++) pow_lane(a + 32 * i, nbits, e.w, out + 32 * i);
 }
 
 void host_fieldmul_probe(int n, const uint8_t* a, const uint8_t* b, uint8_t* out) {
