@@ -3,7 +3,8 @@ plain C interface, loaded with ``ctypes``; and check the tensors a
 wrapper hands a kernel (``check_tensor``).
 
 The library is keyed by a hash of its source, the shared headers
-(``csrc/*.cuh``) and the flags, built at first use into
+(``csrc/*.cuh``) and the flags (NVCC_FLAGS and any a caller adds, such
+as a ``-D`` for an instrumented build), built at first use into
 ``ba_tpu_torch/ops/_build/`` (listed in ``.gitignore``) and reused while
 the source is unchanged.  No PyTorch headers are compiled
 in, which keeps a cold build to seconds.  A failed build raises; there
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_log: dict = {}  # source name -> the compiler's output of the last build
+build_log: dict = {}  # source name (and added flags) -> the compiler's output of its last build
 
 
 def _nvcc() -> str:
@@ -40,11 +41,16 @@ def _nvcc() -> str:
     return found
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library for this exact source,
-    headers and flags exists; returns the library's path."""
+def _name(source: str, flags: tuple) -> str:
+    return " ".join((source, *flags))
+
+
+def build(source: str, flags: tuple = ()) -> Path:
+    """Compile ``csrc/<source>`` with NVCC_FLAGS and ``flags`` unless a
+    library for this exact source, headers and flags exists; returns the
+    library's path."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + tuple(flags)).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     out = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
@@ -53,12 +59,13 @@ def build(source: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
-    build_log[source] = proc.stdout + proc.stderr
+    name = _name(source, flags)
+    build_log[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{build_log[source]}")
+        raise RuntimeError(f"nvcc failed on {name}:\n{build_log[name]}")
     os.replace(tmp, out)
     return out
 
@@ -75,10 +82,12 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<source>``, built on first use."""
+def load(source: str, flags: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<source>`` (built with ``flags``
+    added), built on first use."""
     with _lock:
-        lib = _libs.get(source)
+        name = _name(source, flags)
+        lib = _libs.get(name)
         if lib is None:
-            lib = _libs[source] = ctypes.CDLL(str(build(source)))
+            lib = _libs[name] = ctypes.CDLL(str(build(source, flags)))
         return lib

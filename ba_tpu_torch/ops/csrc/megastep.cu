@@ -22,12 +22,33 @@
 // What the design does about it:
 // - one thread block per instance, the R-round loop inside the block, the
 //   instance's planes (alive, faulty, strategy, received) in shared memory;
-// - only the coins that decide a vote are drawn: a word is a pure function
-//   of (key, index), so the kernel evaluates threefry only for pairs
-//   (alive asker, alive faulty non-leader responder with a coin strategy),
-//   never for the n * n cube; honest answers and lie-table answers are
-//   counted once per instance and shared by every asker;
-// - one warp per asker counts its coins with ballots, so no atomics;
+// - only the words that hold a coin that decides a vote are drawn, each
+//   at most once an instance and round, and every bit of a word is used
+//   (coins.cuh): a needed coin is one where a counted asker meets an
+//   alive faulty non-leader responder with a coin strategy other than
+//   itself; honest answers and lie-table answers are counted once per
+//   instance and shared by every asker;
+// - where n is a multiple of 32 (every full-width cell: capacity 1024,
+//   buckets padded to multiples of 128) a responder's coins to all n
+//   askers lie in n / 32 words, one a column q; a warp takes a column, a
+//   lane a responder, and a 32 x 32 bit transpose by shuffles hands lane k
+//   the coins of asker k * n / 32 + q, which it pops: no atomics and no
+//   division.  At n = 1024 a round draws ~32 u words (u coin responders)
+//   instead of one word a coin (~520 u);
+// - any other n: a warp takes 32 cube words at a time; lane k builds the
+//   need of their bit k, a run of 32 coins of the row-major cube, from a
+//   bitmap of the coin responders (a few operations a row it meets, not
+//   one a coin), a transpose hands each lane its word's need, the lane
+//   draws the word once, a second transpose hands lane k its run of coins
+//   back, and the ATTACK coins of each row it meets go to that asker by a
+//   shared-memory atomic; 32 words none of which holds a needed coin cost
+//   their warp the need windows and one vote, no draw and no transpose.
+//   The draws use a lane only where its word holds a needed coin, and
+//   every group of 32 words is visited, so this path costs about the n²/32
+//   words of the cube a round, not the words needed (at capacity 1000 it
+//   runs near the time of one word a coin; PERF.md);
+// - round-1 coins of a coin drawing faulty leader come 32 to a word;
+// - the round keys are made once a block (thread 0, the round before);
 // - per-round histogram and counter verdicts go through integer atomics
 //   (exact, so the result does not depend on block order); a second
 //   one-thread kernel folds them into cumulative counter rows;
@@ -37,11 +58,23 @@
 //   majorities it returns for all n generals are the reference's (a dead
 //   general's majority is defined: it hears every alive responder); the
 //   earlier rounds pay nothing for that.
-// Each coin still costs one whole threefry word (32 coin bits are drawn,
-// one is used): batching the coins of one word is the next step.
+// Every round is computed: nothing but the round-invariant keys is
+// hoisted, and no decision is copied from round to round.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#if defined(BA_COUNT_DRAWS)
+// The counting build (chip_smoke.py builds it beside the kernel): every
+// threefry word the kernel evaluates adds one here, read and cleared by
+// ba_megastep_words_drawn.  The kernel's own build defines nothing.
+__device__ unsigned long long ba_words_drawn;
+#if defined(__CUDA_ARCH__)
+#define COIN_DRAWN(k) atomicAdd(&ba_words_drawn, static_cast<unsigned long long>(k))
+#endif
+#endif
+
+#include "coins.cuh"
 
 namespace {
 
@@ -55,7 +88,7 @@ constexpr int UNDEFINED = 2;
 
 // Per-round block scalars (shared memory).
 enum Scalar {
-  U_CNT, A_CNT, H_ATT, H_RET, KE_ATT, KE_RET, KO_ATT, KO_RET,
+  U_CNT, H_ATT, H_RET, KE_ATT, KE_RET, KO_ATT, KO_RET,
   TRAITOR, C_ATT, C_RET, C_UND, SEEN_LT, SEEN_HLT, DISOBEY, N_SCALARS
 };
 
@@ -84,39 +117,6 @@ struct Params {
   signed char* majorities;    // slot mode: [B, n], the last round's
 };
 
-__device__ __forceinline__ void tf2x32(uint32_t k0, uint32_t k1, uint32_t x0,
-                                       uint32_t x1, uint32_t& y0,
-                                       uint32_t& y1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-#define TF_MIX(r)                       \
-  x0 += x1;                             \
-  x1 = __funnelshift_l(x1, x1, r);      \
-  x1 ^= x0;
-  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  x0 += k2; x1 += k0 + 5u;
-#undef TF_MIX
-  y0 = x0;
-  y1 = x1;
-}
-
-// Coin e of a coin_bits draw with nw words under key (k0, k1).
-__device__ __forceinline__ int coin(uint32_t k0, uint32_t k1, uint32_t e,
-                                    uint32_t nw) {
-  uint32_t y0, y1;
-  tf2x32(k0, k1, 0u, e % nw, y0, y1);
-  return ((y0 ^ y1) >> (e / nw)) & 1u;
-}
-
 // The strategy lie table: what a faulty sender with strategy s says to
 // receiver index recv, or -1 where the strategy draws a coin (RANDOM and
 // unknown ids).
@@ -141,14 +141,22 @@ __device__ __forceinline__ void bit_or(int* slot, int bits, int lane) {
   if (lane == 0 && v) atomicOr(slot, (int)v);
 }
 
-// Append value to list where pred holds (order across warps is free).
-__device__ __forceinline__ void append(int* list, int* cnt, bool pred,
-                                       int value, int lane) {
+// The slot in a list of a value appended where pred holds (order across
+// warps is free); -1 where it does not.
+__device__ __forceinline__ int append(int* cnt, bool pred, int lane) {
   const unsigned m = __ballot_sync(kFull, pred);
   int base = 0;
   if (lane == 0 && m) base = atomicAdd(cnt, __popc(m));
   base = __shfl_sync(kFull, base, 0);
-  if (pred) list[base + __popc(m & ((1u << lane) - 1u))] = value;
+  return pred ? base + __popc(m & ((1u << lane) - 1u)) : -1;
+}
+
+// The 32 x 32 bit transpose of a warp's words (coins.cuh's stages).
+__device__ __forceinline__ uint32_t warp_transpose(uint32_t x, int lane) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    x = transpose_stage(x, __shfl_xor_sync(kFull, x, s), lane, s);
+  return x;
 }
 
 __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
@@ -162,8 +170,12 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
 
   int* ones = smem;         // [n] attack coins each asker drew
   int* ulist = ones + n;    // [n] coin responders
-  int* alist = ulist + n;   // [n] askers
-  unsigned char* s_alive = reinterpret_cast<unsigned char*>(alist + n);
+  // [n] n a multiple of 32: each coin responder's column and bit as an
+  // asker, (j mod Q) << 5 | j / Q; other n: the first nw1 words hold the
+  // coin responders' bitmap (s_resp)
+  int* ucol = ulist + n;
+  uint32_t* s_resp = reinterpret_cast<uint32_t*>(ucol);
+  unsigned char* s_alive = reinterpret_cast<unsigned char*>(ucol + n);
   unsigned char* s_faulty = s_alive + n;
   signed char* s_strat = reinterpret_cast<signed char*>(s_faulty + n);
   signed char* s_recv = s_strat + n;
@@ -172,6 +184,7 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
   unsigned char* s_kind = reinterpret_cast<unsigned char*>(s_recv + n);
   __shared__ int sc[N_SCALARS];
   __shared__ unsigned long long s_min;
+  __shared__ uint32_t s_key[4];  // the round's ka, kb (thread 0's, a round ahead)
 
   const size_t row = static_cast<size_t>(b) * n;
   for (int j = tid; j < n; j += kThreads) {
@@ -192,9 +205,21 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
   if (p.slot && tid == 0)
     for (int c = 0; c < p.C; ++c) cum[c] = p.counters_in[b * p.C + c];
   const uint32_t ctr0 = static_cast<uint32_t>(*p.counter);
-  const uint32_t nw1 = (static_cast<uint32_t>(n) + 31u) / 32u;
-  const uint32_t nw2 = static_cast<uint32_t>(
-      (static_cast<unsigned long long>(n) * n + 31ull) / 32ull);
+  const int nw1 = (n + 31) / 32;
+  const int nw2 = static_cast<int>((static_cast<long long>(n) * n + 31) / 32);
+  const bool columns = n % 32 == 0;
+  const int Q = n / 32;  // columns (n a multiple of 32)
+  // ka, kb of round r: kr = tf(base, (0, ctr + r)), ki = tf(kr, (0, b))
+  // (slot mode: (0, 0)), ka = tf(ki, (0, 0)), kb = tf(ki, (0, 1)).
+  auto round_keys = [&](int r) {
+    COIN_DRAWN(4);
+    uint32_t kr0, kr1, ki0, ki1;
+    tf2x32(base0, base1, 0u, ctr0 + static_cast<uint32_t>(r), kr0, kr1);
+    tf2x32(kr0, kr1, 0u, p.slot ? 0u : static_cast<uint32_t>(b), ki0, ki1);
+    tf2x32(ki0, ki1, 0u, 0u, s_key[0], s_key[1]);
+    tf2x32(ki0, ki1, 0u, 1u, s_key[2], s_key[3]);
+  };
+  if (tid == 0) round_keys(0);
   __syncthreads();
 
   for (int r = 0; r < p.R; ++r) {
@@ -227,15 +252,25 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
       if (!s_alive[leader]) leader = static_cast<int>(s_min & 0xffffffffull);
     }
 
-    uint32_t kr0, kr1, ki0, ki1, ka0, ka1, kb0, kb1;
-    tf2x32(base0, base1, 0u, ctr0 + static_cast<uint32_t>(r), kr0, kr1);
-    tf2x32(kr0, kr1, 0u, p.slot ? 0u : static_cast<uint32_t>(b), ki0, ki1);
-    tf2x32(ki0, ki1, 0u, 0u, ka0, ka1);
-    tf2x32(ki0, ki1, 0u, 1u, kb0, kb1);
+    const uint32_t ka0 = s_key[0], ka1 = s_key[1], kb0 = s_key[2], kb1 = s_key[3];
     const bool lf = s_faulty[leader];
     const int ls = s_strat[leader];
     // Slot mode's last round: every general but the leader asks.
     const bool all_ask = p.slot && r == p.R - 1;
+
+    // A faulty leader drawing coins: its round-1 coins, 32 to a word, into
+    // s_recv (read back by the classification below).
+    if (lf && lie_value(ls, 0) < 0) {
+      auto recipient = [&](int j) { return s_alive[j] && j != leader; };
+      for (int w = tid; w < nw1; w += kThreads) {
+        const uint32_t need = round1_need(w, n, nw1, recipient);
+        if (!need) continue;
+        const uint32_t y = coin_word(ka0, ka1, static_cast<uint32_t>(w));
+        for (int k = 0, j = w; k < 32 && j < n; ++k, j += nw1)
+          if ((need >> k) & 1u) s_recv[j] = static_cast<signed char>((y >> k) & 1u);
+      }
+      __syncthreads();
+    }
 
     // Round 1 and the per-instance classification of responders.
     for (int base = 0; base < n; base += kThreads) {
@@ -250,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
         if (alive_j && j != leader) {
           if (lf) {
             const int v = lie_value(ls, j);
-            recv = v >= 0 ? v : coin(ka0, ka1, static_cast<uint32_t>(j), nw1);
+            recv = v >= 0 ? v : s_recv[j];
           }
           kind = 1;
           if (faulty_j) {
@@ -270,32 +305,53 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
       count(&sc[KO_ATT], kind == 2 && ov == ATTACK, lane);
       count(&sc[KO_RET], kind == 2 && ov == RETREAT, lane);
       count(&sc[TRAITOR], traitor, lane);
-      append(ulist, &sc[U_CNT], kind == 3, j, lane);
-      append(alist, &sc[A_CNT], kind != 0 || (all_ask && valid && j != leader), j, lane);
+      const int slot = append(&sc[U_CNT], kind == 3, lane);
+      if (columns && slot >= 0) {
+        ulist[slot] = j;
+        ucol[slot] = ((j % Q) << 5) | (j / Q);
+      }
+      if (!columns) {  // word (base + 32 warp) / 32 of the bitmap
+        const unsigned bits = __ballot_sync(kFull, kind == 3);
+        if (lane == 0 && base + 32 * warp < n) s_resp[(base >> 5) + warp] = bits;
+      }
     }
     __syncthreads();
 
-    // The coins: one warp per asker, lanes over the coin responders.
+    // The coins, each word drawn once (coins.cuh).
     const int u = sc[U_CNT];
-    const int a = sc[A_CNT];
-    if (u > 0) {
-      for (int ai = warp; ai < a; ai += kWarps) {
-        const int i = alist[ai];
+    auto asker = [&](int i) { return s_kind[i] != 0 || (all_ask && i != leader); };
+    if (u > 0 && columns) {
+      // A warp a column q, a lane a responder; after the transpose lane k
+      // holds the coins of asker k * Q + q from 32 responders.
+      for (int q = warp; q < Q; q += kWarps) {
+        const int i = lane * Q + q;
+        const uint32_t askers = __ballot_sync(kFull, asker(i));
+        if (!askers) continue;
         int drawn = 0;
-        for (int k0 = 0; k0 < u; k0 += 32) {
-          const int k = k0 + lane;
-          bool bit = false;
-          if (k < u) {
-            const int j = ulist[k];
-            if (j != i)
-              bit = coin(kb0, kb1,
-                         static_cast<uint32_t>(i) * static_cast<uint32_t>(n) +
-                             static_cast<uint32_t>(j),
-                         nw2);
+        for (int c0 = 0; c0 < u; c0 += 32) {
+          uint32_t x = 0u;
+          if (c0 + lane < u) {
+            const int c = ucol[c0 + lane];
+            x = column_word(kb0, kb1, n, q, ulist[c0 + lane], c >> 5, c & 31, askers);
           }
-          drawn += __popc(__ballot_sync(kFull, bit));
+          drawn += __popc(warp_transpose(x, lane));
         }
-        if (lane == 0) ones[i] = drawn;
+        ones[i] = drawn;
+      }
+    } else if (u > 0) {
+      // A warp 32 words w0 .. w0 + 31; lane k the window at their bit k,
+      // starting at the warp's first 32 words, kWarps * 32 words a step.
+      CubePos pos = cube_pos(static_cast<long long>(lane) * nw2 + warp * 32, n);
+      const CubePos stride = cube_step(n, 32 * kWarps);
+      for (int w0 = warp * 32; w0 < nw2; w0 += 32 * kWarps, cube_advance(pos, stride, n)) {
+        const int len = nw2 - w0 < 32 ? nw2 - w0 : 32;
+        const uint32_t win = need_window(pos, n, len, s_resp, asker);
+        if (!__any_sync(kFull, win)) continue;
+        const uint32_t need = warp_transpose(win, lane);  // word w0 + lane's
+        const uint32_t y =
+            need ? coin_word(kb0, kb1, static_cast<uint32_t>(w0 + lane)) & need : 0u;
+        count_window(pos, n, warp_transpose(y, lane),
+                     [&](int i, int c) { atomicAdd(&ones[i], c); });
       }
     }
     __syncthreads();
@@ -370,6 +426,7 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Params p) {
       }
       for (int s = 0; s < N_SCALARS; ++s) sc[s] = 0;
       s_min = ~0ull;
+      if (r + 1 < p.R) round_keys(r + 1);
     }
     __syncthreads();  // the next round counts into the zeroed scalars
   }
@@ -405,6 +462,18 @@ __global__ void counter_rows_kernel(int R, int B, int C, const int* hist,
 }
 
 }  // namespace
+
+#if defined(BA_COUNT_DRAWS)
+// The threefry words counted since the last call, then cleared (the
+// counting build only; waits for the card).
+extern "C" unsigned long long ba_megastep_words_drawn() {
+  unsigned long long v = 0, zero = 0;
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(&v, ba_words_drawn, sizeof v);
+  cudaMemcpyToSymbol(ba_words_drawn, &zero, sizeof zero);
+  return v;
+}
+#endif
 
 extern "C" size_t ba_megastep_smem_bytes(int n) {
   return static_cast<size_t>(n) * (3 * sizeof(int) + 5);

@@ -42,12 +42,12 @@ Three paths, each through its hand-written kernels:
 
 Phases, one JSON line each:
 1. environment and the builds from the checkout's sources, started
-   together: one nvcc a CUDA source (twelve) and the native Ed25519
-   signer (g++);
+   together: one nvcc a CUDA source (twelve), K1's counting build and
+   the native Ed25519 signer (g++);
 2. threefry and Philox4x32-10 known answers on the card, the latter
    through the very Philox rounds K2 draws from (its source's
    ``philox4x32_10``) as well as through the plain version;
-3. K1 against its plain engine at B = 256, n in {1, 37, 128}, R = 8,
+3. K1 against its plain engine at B = 256, n in {1, 37, 128, 300}, R = 8,
    plain and scenario modes, random strategies / events / faulty
    leaders — every output bit-equal;
 4. K1 at full width (B = 10 000, capacity 1024, n uniform in [16, 1024],
@@ -212,7 +212,15 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths, the time, bound and plain time per path and
-per dispatch, and the largest difference from the plain version; then
+per dispatch, and the largest difference from the plain version; K1's
+and K2's lines also name their design and give each kernel instance's
+ptxas registers and spill (phase 1's record), and K1's the threefry
+words it drew on the card beside those the inputs need: each K1
+dispatch runs once more on K1's counting build (``megastep.cu`` with
+``-DBA_COUNT_DRAWS``, built in phase 1 beside the kernel; outputs
+bit-equal to the kernel's), whose device counter adds one a threefry
+word evaluated (the plain full-width dispatch must draw at least the
+words needed and at most twice as many); then
 the card's name and power limit, and ``{"ok": true, ...}`` last.  Any
 failure exits non-zero before that.
 """
@@ -222,9 +230,11 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -264,6 +274,8 @@ B_SIGNED, M_SIGNED, ROUNDS_SIGNED = 10_240, 3, 480
 STEPS_SIGNED, WINDOWS_SIGNED = 50, 3  # bench.py's iters and reps
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
+PTXAS: dict = {}  # source -> ptxas_records of its build in phase_env
+COUNTING_FLAGS = ("-DBA_COUNT_DRAWS",)  # K1's counting build (words_drawn)
 CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
                 "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu", "window_mult.cu",
                 "fieldmul_probe.cu", "majority.cu", "scalar_mult.cu")
@@ -481,7 +493,7 @@ def plain_chunked(state, sched, rounds, counters, strategy=None, events=None):
 
 
 def work_counts(state, rounds, strategy=None, events=None, slot=False):
-    """(threefry words, tally steps) that these inputs need at least.
+    """(threefry words, tally steps): what these inputs need at least.
 
     Per instance-round: the coins that decide a vote — one per recipient
     of a faulty coin-drawing leader, one per (counted asker, counted
@@ -510,11 +522,62 @@ def work_counts(state, rounds, strategy=None, events=None, slot=False):
         lead = leader.long()[:, None]
         lcoin = (faulty.gather(1, lead) & coin_type.gather(1, lead))[:, 0]
         coins1 = torch.where(lcoin, a, torch.zeros_like(a))
-        askers = (idx != leader[:, None]).sum(1) if slot and r == rounds - 1 else a
+        asking = (idx != leader[:, None]) if slot and r == rounds - 1 else counted
+        askers = asking.sum(1)
         coins2 = u * (askers - 1).clamp(min=0)
         words += int(((coins1 + 31) // 32 + (coins2 + 31) // 32 + 4).sum())
         steps += int((coins2 + askers).sum())
     return words, steps
+
+
+K1_DESIGN = ("each threefry word that holds a needed coin drawn once an instance and round, "
+             "every bit used; n a multiple of 32: a warp a column, a lane a responder, "
+             "a 32 x 32 bit transpose by shuffles, lane k pops asker k's coins (no atomics); "
+             "other n: a warp 32 words, lane k the need window of their bit k from the "
+             "responders' bitmap, two transposes, a row's coins by one shared atomic; "
+             "round-1 coins 32 a word; round keys once a block")
+K2_DESIGN = ("one packed segment sum a relay round (capped traitor counts and honest "
+             "flags of both values), thresholds by selects, two 32-general mask words a "
+             "lane, 32 / S instances a warp (S lanes an instance, 64 S >= n), segment "
+             "sums by xor shuffles, four rounds a pass, the draws out of line")
+
+
+def ptxas_records(log):
+    """Each kernel instance's registers and spill from an ``nvcc
+    -Xptxas=-v`` log: [{"kernel" (its mangled name), "registers",
+    "spill_stores", "spill_loads"}]."""
+    out, props = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append({"kernel": m.group(1)})
+        elif m := re.search(r"Function properties for (\w+)", ln):
+            props = m.group(1)  # an entry's, or a device function's kept out of line
+        elif out and props == out[-1]["kernel"] and "spill stores" in ln:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = (
+                int(x) for x in re.findall(r"(\d+) bytes spill", ln))
+        elif out and (m := re.search(r"Used (\d+) registers", ln)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def words_drawn(run):
+    """(run(), the threefry words K1 evaluated on the card during it): run
+    with the wrappers' library swapped for K1's counting build
+    (``megastep.cu`` with COUNTING_FLAGS: the same kernel, whose
+    ``COIN_DRAWN`` in ``coins.cuh`` adds one to a device counter a
+    threefry word; ``ba_megastep_words_drawn`` reads and clears it)."""
+    lib, own = _build.load("megastep.cu", COUNTING_FLAGS), scenario_step._lib
+    lib.ba_megastep.argtypes = own().ba_megastep.argtypes
+    lib.ba_megastep.restype = ctypes.c_int
+    lib.ba_megastep_words_drawn.restype = ctypes.c_ulonglong
+    lib.ba_megastep_words_drawn()  # clears the count
+    scenario_step._lib = lambda: lib
+    try:
+        out = run()
+    finally:
+        scenario_step._lib = own
+    return out, int(lib.ba_megastep_words_drawn())
 
 
 def bound(words, steps, nbytes, int_ops_per_s):
@@ -560,6 +623,8 @@ def phase_env(dev):
     with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES) + 1) as pool:
         jobs = {name: pool.submit(timed, _build.build, name) for name in CUDA_SOURCES}
         jobs["native"] = pool.submit(timed, native.build)
+        jobs["megastep.cu (counting)"] = pool.submit(timed, _build.build, "megastep.cu",
+                                                     COUNTING_FLAGS)
         build_s = {name: job.result() for name, job in jobs.items()}
     for module in (scenario_step, sweep_step, decompress, sha512_kernel, treeadd, ladder, modl,
                    powchain, fieldmul_probe, majority):
@@ -567,13 +632,12 @@ def phase_env(dev):
     ladder._mult_lib()
     ladder._ladder_lib()
     native.publickey_batch(np.zeros((1, 32), np.uint8))  # loads the signer
-    ptxas = {name: [ln.strip() for ln in _build.build_log.get(name, "").splitlines()
-                    if "entry function" in ln or "registers" in ln or "spill" in ln]
-             for name in CUDA_SOURCES}
+    PTXAS.update({name: ptxas_records(_build.build_log.get(name, ""))
+                  for name in CUDA_SOURCES})
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(dev), "gpu": smi("name,power.limit"),
           "build_wall_s": time.perf_counter() - t0, "build_s": build_s,
-          "ptxas": ptxas, "native_build": {k: native.build_log.get(k)
+          "ptxas": PTXAS, "native_build": {k: native.build_log.get(k)
                                            for k in ("cmd", "seconds", "output")}})
 
 
@@ -604,7 +668,7 @@ def phase_known_answers(dev):
 
 def phase_middle(dev, rs):
     B, R = 256, 8
-    for n in (1, 37, 128):
+    for n in (1, 37, 128, 300):
         arrays, events, strategy = random_arrays(rs, B, n, R)
         ev = convert.events_from_numpy(events, dev)
         outs = {}
@@ -693,7 +757,14 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s):
     sc = pipeline.fresh_copy(sched)
     ms = time_cuda(lambda: scenario_step.cuda_pipeline_megastep(
         state, sc, rounds=RPD_FULL, collect_decisions=True, counters=counters), reps=3)
+    c_out, drawn = words_drawn(lambda: scenario_step.cuda_pipeline_megastep(
+        pipeline.fresh_copy(state), pipeline.fresh_copy(sched), rounds=RPD_FULL,
+        collect_decisions=True, counters=counters))
+    check(max_abs_err(zip(c_out[2:5], k_out[2:5])) == 0,
+          "K1's counting build differs from the kernel on the plain dispatch")
     words, steps = work_counts(state, RPD_FULL)
+    check(words <= drawn <= 2 * words,
+          f"K1 drew {drawn} threefry words on the card; the inputs need {words}")
     B, n = state.faulty.shape
     # inputs: order, leader, faulty, alive, ids, key, counter, counters;
     # outputs: histograms, decisions, counter rows (the state is unchanged)
@@ -704,7 +775,9 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s):
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": RPD_FULL},
-            "threefry_words_needed": words, "tally_steps": steps}
+            "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
+            "threefry_words_needed": words, "threefry_words_drawn": drawn,
+            "tally_steps": steps}
 
 
 def phase_scenario(dev, seed, card):
@@ -799,6 +872,11 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
     copies = iter([pipeline.fresh_copy((st0, sc0, strat0)) for _ in range(4)])
     ms = time_cuda(lambda: scenario_step.cuda_scenario_megastep(
         *next(copies), counters, ev0, rounds=RPD_SCEN, collect_decisions=True), reps=3)
+    c_out, drawn = words_drawn(lambda: scenario_step.cuda_scenario_megastep(
+        *pipeline.fresh_copy((st0, sc0, strat0)), counters, ev0, rounds=RPD_SCEN,
+        collect_decisions=True))
+    check(max_abs_err(zip(c_out[3:], outs[0])) == 0,
+          "K1's counting build differs from the kernel on the first scenario dispatch")
     R = RPD_SCEN
     words, steps = work_counts(st0, R, strategy=strat0, events=ev0)
     B, n = st0.faulty.shape
@@ -815,7 +893,9 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": R},
             "dispatches_checked": len(outs), "plain_ms_per_dispatch": plain_ms,
-            "threefry_words_needed": words, "tally_steps": steps}
+            "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
+            "threefry_words_needed": words, "threefry_words_drawn": drawn,
+            "tally_steps": steps}
 
 
 # -- K2: the fused signed sweep ---------------------------------------------
@@ -1372,7 +1452,7 @@ def kernel_line_k2(states, oks, seeds, main_decisions, launches, int_ops_per_s):
             "bound_ms": sum(b["bound_ms"] for b in buckets),
             "bound_by": "operations" if ops_bound else "bytes", "library_ms": None,
             "checked_against_plain": True, "per": "step (one dispatch per bucket)",
-            "buckets": buckets}
+            "design": K2_DESIGN, "ptxas": PTXAS["sweep_step.cu"], "buckets": buckets}
 
 
 # -- the crypto kernels' lines: the main paths' own dispatches again ----------
@@ -2022,19 +2102,23 @@ def replay_slot(calls, int_ops_per_s):
         reps = 10 if B * n <= 1 << 16 else 3
         copies = iter([pipeline.fresh_copy(args) for _ in range(reps + 1)])
         ms = time_cuda(lambda: kernel(*next(copies), **kw), reps=reps)
+        c_got, drawn = words_drawn(lambda: slot_flat(kernel(*pipeline.fresh_copy(args), **kw)))
+        check(max_abs_err(zip(c_got, got)) == 0,
+              "K1's counting build differs from the kernel on a slot-mode dispatch")
         words, steps = work_counts(state, R, strategy=args[2], events=args[4], slot=True)
         bound_ms, bound_by = bound(words, steps, slot_nbytes(B, n, R, scen), int_ops_per_s)
         what = f"B {B}, n {n}, R {R}, {'scenario' if scen else 'plain'}"
         g = groups.setdefault(what, {"what": what, "dispatches": 0, "max_abs_err": 0,
                                      "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                      "bound_by": bound_by, "threefry_words_needed": 0,
-                                     "tally_steps": 0})
+                                     "threefry_words_drawn": 0, "tally_steps": 0})
         g["dispatches"] += 1
         g["max_abs_err"] = max(g["max_abs_err"], max_abs_err(zip(got, want)))
         g["ms"] += ms
         g["plain_ms"] += plain_ms
         g["bound_ms"] += bound_ms
         g["threefry_words_needed"] += words
+        g["threefry_words_drawn"] += drawn
         g["tally_steps"] += steps
         if bound_by != g["bound_by"]:
             g["bound_by"] = "bytes"
@@ -2063,7 +2147,8 @@ def kernel_line_slot(paths, int_ops_per_s):
             "ba_tpu/ops/scenario_step.py:745)",
             "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_coalesced_megastep",
             "launches": sum(e["launches"] for e in entries), **line, "library_ms": None,
-            "checked_against_plain": True, "per": "one run of each path", "paths": entries}
+            "checked_against_plain": True, "per": "one run of each path",
+            "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"], "paths": entries}
 
 
 # -- BASELINE configs #1 and #4 ------------------------------------------------
@@ -2628,6 +2713,57 @@ def phase_ladder_pow_full_width(dev, rs, card):
           "k3pp_k3p_same_points": True, "roots_inverses_symbols_checked": True,
           "kernel_launches": launches, "card": card})
     return "ladder / pow", calls, launches, 1
+
+
+# -- the A/B of K1 and K2 (scripts/torch_checkout_ab.py --phase sweeps) ------
+
+N_GENERAL = 1000  # a full-width capacity that is not a multiple of 32
+
+
+def ab_sweeps(dev, card):
+    """The sweeps' readings for an A/B of two checkouts of the package:
+    builds K1 and K2 alone, runs the plain sweep, the coalition campaign,
+    the full-width coalesced cohort and the signed sweep (on all-valid
+    table verdicts, as the setup gives them), then times by CUDA events
+    one full-width dispatch of K1 in each mode (the plain sweep's first
+    inputs, the campaign's first, the cohort's first), one plain dispatch
+    at capacity N_GENERAL (K1's path for n not a multiple of 32) and K2's
+    warm-up dispatch of each bucket.  Emits them as one line."""
+    for source in ("megastep.cu", "sweep_step.cu"):
+        _build.load(source)
+    ctr = convert.counters_from_numpy([0, 0, 0], dev)
+
+    def k1_plain_ms(arrays):
+        state = to_state(arrays, dev)
+        sched = pipeline.make_key_schedule(rng.key(0, device=dev))
+        return time_cuda(lambda: scenario_step.cuda_pipeline_megastep(
+            state, sched, rounds=RPD_FULL, collect_decisions=True, counters=ctr), reps=5)
+
+    arrays, _, _ = phase_full_width(dev, 0, card)
+    k1_plain = k1_plain_ms(arrays)
+    k1_general = k1_plain_ms(sweep_arrays(rng.fold_in(rng.key(0, device=dev), 1000), B_FULL,
+                                          N_GENERAL, order=1))
+    s_arrays, planes, _, _ = phase_scenario(dev, 0, card)
+    carry = (to_state(s_arrays, dev), pipeline.make_key_schedule(rng.key(1, device=dev)),
+             torch.zeros(s_arrays["faulty"].shape, dtype=torch.int8, device=dev))
+    ev0 = convert.events_from_numpy({k: v[:RPD_SCEN] for k, v in planes.items()}, dev)
+    ctr5 = convert.counters_from_numpy([0] * 5, dev)
+    copies = iter([pipeline.fresh_copy(carry) for _ in range(6)])
+    k1_scen = time_cuda(lambda: scenario_step.cuda_scenario_megastep(
+        *next(copies), ctr5, ev0, rounds=RPD_SCEN, collect_decisions=True), reps=5)
+    _, calls, _, _ = phase_coalesced_full_width(dev, 0, card)
+    _, args, kw, _, _ = calls[0]
+    slots = iter([pipeline.fresh_copy(args) for _ in range(4)])
+    k1_slot = time_cuda(lambda: scenario_step.cuda_coalesced_megastep(*next(slots), **kw),
+                        reps=3)
+    ok = torch.ones((B_SIGNED, 2), dtype=torch.bool, device=dev)
+    states, oks, seeds, _, _, _ = phase_signed_sweep(dev, ok, card)
+    k2 = [time_cuda(lambda: sweep_step.fused_signed_sweep_step(
+        *k2_args(seeds[0, i:i + 1], st, ok_b, ROUNDS_SIGNED)), reps=10)
+          for i, (st, ok_b) in enumerate(zip(states, oks))]
+    emit({"phase": "ab_kernels", "k1_plain_ms": k1_plain, "k1_scenario_ms": k1_scen,
+          "k1_slot_ms": k1_slot, "k1_plain_n1000_ms": k1_general, "k2_step_ms": sum(k2),
+          "k2_bucket_ms": k2, "card": card})
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,10 @@ against their plain torch versions: K7, K5, K5', K6, K4, K8, K3, K3'
 (the window accumulator K3 shares, and its fold), K3'' (the
 double-and-add ladder), pow_planes' K8', p - 2 chain and K8'', the
 field-multiply probe P and K9's row tallies (byte and four-byte lanes,
-one lane a row or 32), bit-equal.
+one lane a row or 32), bit-equal; K1's word-batched coin counts and
+round-1 coins (``coins.cuh``) against ``rng.coin_bits`` of the same key,
+and K2's packed relay word (``sweep_relay.cuh``) against the plain
+version's separate counts.
 
 The card runs the same functions inside the kernels; this catches an
 arithmetic fault in a CUDA source on the CPU.  Launch code, warp shuffles
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from ba_tpu_torch.core import rng
 from ba_tpu_torch.crypto import ed25519 as E
 from ba_tpu_torch.crypto import oracle, scalar, sha512
 from ba_tpu_torch.ops import (decompress, fieldmul_probe, ladder, majority, modl, powchain,
@@ -53,6 +57,12 @@ def host(tmp_path_factory):
     lib.host_pow.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.host_coin_counts.argtypes = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32] + \
+        [ctypes.c_void_p] * 3
+    lib.host_round1_coins.argtypes = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32] + \
+        [ctypes.c_void_p] * 2
+    lib.host_relay.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                                             ctypes.c_void_p]
     lib.host_majority.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                                   + [ctypes.c_void_p] * 4)
@@ -338,3 +348,104 @@ def test_majority_rows_match_plain(host, K, shared):
             host.host_majority(G * S * P, K, S, P, lanes, words, _ptr(a), _ptr(v), _ptr(f),
                                _ptr(out))
             assert np.array_equal(out, want.numpy().reshape(-1)), (lanes, words)
+
+
+COIN_NS = [1, 4, 5, 31, 32, 33, 96, 300, 1024]
+
+
+@pytest.mark.parametrize("n", COIN_NS)
+def test_coin_counts_match_coin_bits(host, n):
+    """K1's word-batched ATTACK-coin counts of each asker against
+    ``rng.coin_bits(kb, (n, n))`` (coin [i, j] of asker i and responder j)
+    of the same key: random asker masks and responder lists that overlap
+    (self pairs), each a dense and a sparse draw.  The words drawn are the
+    distinct words that hold a needed coin: each once."""
+    rs = np.random.default_rng(n)
+    for density in (0.9, 0.1):
+        k0, k1 = (int(x) for x in rs.integers(0, 2**32, 2))
+        ask = (rs.random(n) < density).astype(np.uint8)
+        resp = (rs.random(n) < density / 2).astype(np.uint8)
+        resp[rs.integers(0, n)] = ask[rs.integers(0, n)] = 1
+        ones = np.zeros(n, np.int32)
+        drawn = host.host_coin_counts(n, k0, k1, _ptr(ask), _ptr(resp), _ptr(ones))
+        coins = rng.coin_bits(torch.tensor([k0, k1]), (n, n)).numpy().astype(np.int64)
+        need = ask.astype(bool)[:, None] & resp.astype(bool)[None, :] & ~np.eye(n, dtype=bool)
+        assert np.array_equal(ones, (coins * need).sum(1)), density
+        nw2 = -(-n * n // 32)
+        i, j = np.nonzero(need)
+        assert drawn == len(np.unique((i * n + j) % nw2)), density
+
+
+@pytest.mark.parametrize("n", COIN_NS)
+def test_round1_coins_match_coin_bits(host, n):
+    """A faulty leader's round-1 coins, 32 to a word: each needed
+    recipient's coin is ``rng.coin_bits(ka, (n,))``'s, each word that holds
+    one drawn once."""
+    rs = np.random.default_rng(n + 1)
+    k0, k1 = (int(x) for x in rs.integers(0, 2**32, 2))
+    need = (rs.random(n) < 0.6).astype(np.uint8)
+    coin = np.zeros(n, np.int8)
+    drawn = host.host_round1_coins(n, k0, k1, _ptr(need), _ptr(coin))
+    want = rng.coin_bits(torch.tensor([k0, k1]), (n,)).numpy()
+    assert np.array_equal(coin, np.where(need.astype(bool), want, -1))
+    assert drawn == len(np.unique(np.nonzero(need)[0] % -(-n // 32)))
+
+
+def _masks_with(rs, cap, k, taken=None):
+    """``cap`` bits with k set at random positions (not in ``taken``)."""
+    free = np.ones(cap, bool) if taken is None else ~taken
+    bits = np.zeros(cap, bool)
+    bits[rs.choice(np.nonzero(free)[0], k, replace=False)] = True
+    return bits
+
+
+def _pack(bits):
+    return np.packbits(bits.reshape(-1, 32)[:, ::-1], axis=1).view(">u4")[:, 0].astype(np.uint32)
+
+
+@pytest.mark.parametrize("lanes,words", [(1, 1), (2, 1), (16, 1), (32, 1), (1, 2), (8, 2),
+                                         (16, 2)])
+def test_relay_word_matches_plain_counts(host, lanes, words):
+    """K2's packed relay word: a lane's capped traitor counts and honest
+    flags of both values over its mask words packed, summed over the
+    instance's lanes,
+    unpacked and thresholded, against the plain version's separate counts
+    and its threshold rule (``plain_fused_signed_sweep_step``) at traitor
+    holder counts 0, 8, 9, 10, 32 and up to 1 024, honest holders or none,
+    the chain bound open or closed."""
+    rs = np.random.default_rng(lanes * 10 + words)
+    cap = lanes * words * 32
+    ks = sorted({k for k in (0, 1, 8, 9, 10, 32, 100, 511, 1024) if k <= cap})
+    for k_r in ks:
+        for k_a in (ks[0], ks[-1], ks[len(ks) // 2]):
+            for held_r, held_a in ((0, 0), (1, 0), (0, 3)):
+                traitor = np.zeros(cap, bool)
+                seen_r = _masks_with(rs, cap, k_r)
+                seen_a = _masks_with(rs, cap, k_a)
+                traitor |= seen_r | seen_a
+                free = ~traitor
+                honest = np.zeros(cap, bool)
+                for seen, h in ((seen_r, held_r), (seen_a, held_a)):
+                    if h and free.sum() >= h:
+                        extra = _masks_with(rs, cap, h, ~free)
+                        seen |= extra
+                        honest |= extra
+                        free &= ~extra
+                for chain_ok in (0, 1):
+                    out = np.zeros(3, np.int32)
+                    masks = [np.ascontiguousarray(_pack(m))
+                             for m in (seen_r, seen_a, honest, traitor)]
+                    host.host_relay(lanes, words, *(_ptr(w) for w in masks), chain_ok,
+                                    _ptr(out))
+                    total = int(out[0]) & 0xFFFFFFFF
+                    for v, seen in ((0, seen_r), (1, seen_a)):
+                        k = int((seen & traitor).sum())
+                        held = bool((seen & honest).any())
+                        field = (total >> (9 * v)) & 0x1FF
+                        assert (field >= 9) == (k >= 9) and (k >= 9 or field == k)
+                        lanes_held = int((seen & honest).reshape(lanes, -1).any(1).sum())
+                        assert (total >> (18 + 6 * v)) & 0x3F == lanes_held
+                        kt = torch.tensor(k)
+                        t8 = torch.where(kt > 8, 256, 256 - (256 >> kt.clamp(max=8)))
+                        want = 256 if held else (int(t8) if chain_ok else 0)
+                        assert out[1 + v] == want, (k_r, k_a, held_r, held_a, chain_ok, v)

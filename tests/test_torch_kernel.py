@@ -247,6 +247,44 @@ def test_coalesced_kernel_rejects_bad_inputs(cuda_device):
             rounds=2)
 
 
+@pytest.mark.parametrize("mode", ["plain", "scenario", "slot"])
+@pytest.mark.parametrize("n", [32, 128, 1024, 300, 1000])
+def test_megastep_coin_layouts_bit_equal(cuda_device, n, mode):
+    """K1's two layouts of the coin words against the torch engine in each
+    mode: n a multiple of 32 (a warp a column, one bit transpose) and n
+    not one (a warp 32 words, need windows and two transposes; at 300 and
+    1000 each warp takes several groups of words, so its step from group
+    to group is exercised); random leaders (faulty ones drawing round-1
+    coins), strategies, events and an all-dead row; slot mode with every
+    dead asker's last majority."""
+    B, R, seed = 6, 3, n + 5
+    arrays, events, strategy = _arrays(seed, B, n, R)
+    if mode == "slot":
+        before = scenario_step.cuda_coalesced_megastep.launches
+        plain = _coalesced(pipeline.coalesced_megastep, arrays, events, strategy, seed,
+                           cuda_device, R, True)
+        kernel = _coalesced(scenario_step.cuda_coalesced_megastep, arrays, events, strategy,
+                            seed, cuda_device, R, True)
+        assert scenario_step.cuda_coalesced_megastep.launches == before + 1
+        _same(plain, kernel)
+        return
+    outs = []
+    for fn in ((pipeline.pipeline_megastep, scenario_step.cuda_pipeline_megastep)
+               if mode == "plain" else
+               (pipeline.scenario_megastep, scenario_step.cuda_scenario_megastep)):
+        state, sched = _carry(arrays, seed, cuda_device, counter=2**31 - 2)
+        if mode == "plain":
+            out = fn(state, sched, rounds=R, collect_decisions=True,
+                     counters=convert.counters_from_numpy([1, 0, 2], cuda_device))
+        else:
+            out = fn(state, sched, convert.strategy_from_numpy(strategy, cuda_device),
+                     convert.counters_from_numpy(np.arange(5), cuda_device),
+                     convert.events_from_numpy(events, cuda_device),
+                     rounds=R, collect_decisions=True)
+        outs.append((*out[0].tensors(), out[1].counter, *out[2:]))
+    _same(*outs)
+
+
 def test_kernel_rejects_a_bad_carry(cuda_device):
     arrays, _, _ = _arrays(1, 4, 8, 1)
     state, sched = _carry(arrays, 0, cuda_device, 0)
@@ -319,6 +357,36 @@ def test_sweep_step_kernel_bit_equal_where_draws_decide(cuda_device, n, m, round
     B = 37
     seed, st, ok = _draw_inputs(n * 100 + m * 10 + rounds, B, n, cuda_device)
     args = (seed, st.order, st.leader, st.faulty, st.alive, ok, m, rounds)
+    got = sweep_step.fused_signed_sweep_step(*args)
+    want = sweep_step.plain_fused_signed_sweep_step(*args)
+    other = sweep_step.plain_fused_signed_sweep_step(seed ^ 1, *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert (other != want).any()  # the draws decided what was compared
+
+
+@pytest.mark.parametrize("rounds", [1, 35])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [512, 513])
+def test_sweep_step_kernel_bit_equal_at_bucket_edges(cuda_device, n, m, rounds):
+    """K2 at n = 512 (16 lanes an instance, two instances a warp) and 513
+    (a whole warp), B = 37 (not a multiple of the instances a warp or a
+    block), faulty leaders in every third instance and in every fourth
+    only 4 to 8 generals alive with a traitor lieutenant, so draws decide
+    some rounds."""
+    B = 37
+    seed, st, ok = _sweep_inputs(n * 10 + m + rounds, B, n, cuda_device)
+    rs = np.random.default_rng(n + m)
+    alive, faulty, leader = st.alive.clone(), st.faulty.clone(), st.leader.clone()
+    for b in range(2, B, 4):
+        slots = torch.tensor(rs.choice(n, int(rs.integers(4, 9)), replace=False),
+                             device=cuda_device)
+        alive[b] = False
+        alive[b, slots] = True
+        faulty[b, slots[:2]] = True
+        leader[b] = slots[0]
+    ok[2::4] = True
+    args = (seed, st.order, leader, faulty, alive, ok, m, rounds)
     got = sweep_step.fused_signed_sweep_step(*args)
     want = sweep_step.plain_fused_signed_sweep_step(*args)
     other = sweep_step.plain_fused_signed_sweep_step(seed ^ 1, *args[1:])

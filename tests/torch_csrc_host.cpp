@@ -1,7 +1,9 @@
 // The per-lane bodies of the Ed25519 kernels (ba_tpu_torch/ops/csrc/*.cu)
 // and of pow_planes' field exponentiations (powchain.cu),
 // of the field-multiply probe (fieldmul_probe.cu) and of K9 (majority.cu), compiled as host
-// C++ and looped over lanes, so the CPU tests can hold the kernels'
+// C++ and looped over lanes, and K1's word-batched coin counts (coins.cuh)
+// and K2's packed relay word (sweep_relay.cuh) with the warps' shuffles
+// replayed, so the CPU tests can hold the kernels'
 // arithmetic against the plain versions without a card.  The CUDA launch
 // code in each source sits behind __CUDACC__ and is not compiled here;
 // K4's warp-shuffle levels and K3''s fold are replayed in the same
@@ -10,6 +12,13 @@
 //   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
 
 #include <cstdlib>
+#include <vector>
+
+// Every threefry word coins.cuh evaluates is counted here: the words drawn.
+static long long coin_words_drawn = 0;
+#define COIN_DRAWN(k) (coin_words_drawn += (k))
+#include "coins.cuh"
+#include "sweep_relay.cuh"
 
 #include "decompress.cu"
 #include "fieldmul_probe.cu"
@@ -178,6 +187,122 @@ void host_majority(long long R, int K, long long S, long long P, int lanes, int 
         }
         out[r] = majority_of(t, f[r]);
     }
+}
+
+// The warp's 32 x 32 bit transpose (coins.cuh's five stages), lane by lane.
+static void host_transpose(uint32_t* x) {
+    uint32_t other[32];
+    for (int st = 16; st > 0; st >>= 1) {
+        for (int lane = 0; lane < 32; lane++) other[lane] = x[lane ^ st];
+        for (int lane = 0; lane < 32; lane++) x[lane] = transpose_stage(x[lane], other[lane], lane, st);
+    }
+}
+
+// K1's coin counts of one instance-round as megastep.cu makes them:
+// ones[i] = the ATTACK coins asker i (ask[i] != 0) draws from the coin
+// responders (resp[j] != 0, j != i) under the cube key (k0, k1), 0 for
+// any other general.  The block's warps are replayed: n a multiple of 32
+// a column q a warp, 32 responders a step, the transpose, lane k's
+// popcount; any other n the eight warps' windows of 32 words, their
+// stride, both transposes and the row counts.  Returns the words drawn
+// (coin_word's calls).
+int host_coin_counts(int n, uint32_t k0, uint32_t k1, const uint8_t* ask, const uint8_t* resp,
+                     int32_t* ones) {
+    const long long drawn0 = coin_words_drawn;
+    for (int i = 0; i < n; i++) ones[i] = 0;
+    if (n % 32 == 0) {
+        const int Q = n / 32;
+        std::vector<int> ulist;
+        for (int j = 0; j < n; j++)
+            if (resp[j]) ulist.push_back(j);
+        const int u = (int)ulist.size();
+        for (int q = 0; q < Q; q++) {
+            uint32_t askers = 0u;
+            for (int k = 0; k < 32; k++)
+                if (ask[k * Q + q]) askers |= 1u << k;
+            if (!askers) continue;
+            int cnt[32] = {0};
+            for (int c0 = 0; c0 < u; c0 += 32) {
+                uint32_t x[32];
+                for (int lane = 0; lane < 32; lane++) {
+                    const int j = c0 + lane < u ? ulist[c0 + lane] : -1;
+                    x[lane] = j < 0 ? 0u : column_word(k0, k1, n, q, j, j % Q, j / Q, askers);
+                }
+                host_transpose(x);
+                for (int lane = 0; lane < 32; lane++) cnt[lane] += popc_u32(x[lane]);
+            }
+            for (int lane = 0; lane < 32; lane++) ones[lane * Q + q] = cnt[lane];
+        }
+        return (int)(coin_words_drawn - drawn0);
+    }
+    const int warps = 8;
+    const int nw2 = (int)(((long long)n * n + 31) / 32);
+    std::vector<uint32_t> resp_bits((n + 31) / 32, 0u);
+    for (int j = 0; j < n; j++)
+        if (resp[j]) resp_bits[j >> 5] |= 1u << (j & 31);
+    auto asker = [&](int i) { return ask[i] != 0; };
+    const CubePos stride = cube_step(n, 32 * warps);
+    for (int warp = 0; warp < warps; warp++) {
+        CubePos pos[32];
+        for (int lane = 0; lane < 32; lane++)
+            pos[lane] = cube_pos((long long)lane * nw2 + warp * 32, n);
+        for (int w0 = warp * 32; w0 < nw2; w0 += 32 * warps) {
+            const int len = nw2 - w0 < 32 ? nw2 - w0 : 32;
+            uint32_t x[32], any = 0u;
+            for (int lane = 0; lane < 32; lane++)
+                any |= x[lane] = need_window(pos[lane], n, len, resp_bits.data(), asker);
+            if (any) {
+                host_transpose(x);
+                for (int lane = 0; lane < 32; lane++)
+                    x[lane] = x[lane] ? coin_word(k0, k1, (uint32_t)(w0 + lane)) & x[lane] : 0u;
+                host_transpose(x);
+                for (int lane = 0; lane < 32; lane++)
+                    count_window(pos[lane], n, x[lane], [&](int i, int c) { ones[i] += c; });
+            }
+            for (int lane = 0; lane < 32; lane++) cube_advance(pos[lane], stride, n);
+        }
+    }
+    return (int)(coin_words_drawn - drawn0);
+}
+
+// K1's round-1 coins: coin[j] for every recipient with need[j] != 0, -1
+// elsewhere, under the round-1 key (k0, k1).  Returns the words drawn.
+int host_round1_coins(int n, uint32_t k0, uint32_t k1, const uint8_t* need, int8_t* coin) {
+    const long long drawn0 = coin_words_drawn;
+    const int nw1 = (n + 31) / 32;
+    for (int j = 0; j < n; j++) coin[j] = -1;
+    for (int w = 0; w < nw1; w++) {
+        const uint32_t mask = round1_need(w, n, nw1, [&](int j) { return need[j] != 0; });
+        if (!mask) continue;
+        const uint32_t y = coin_word(k0, k1, (uint32_t)w);
+        for (int k = 0, j = w; k < 32 && j < n; ++k, j += nw1)
+            if ((mask >> k) & 1u) coin[j] = (int8_t)((y >> k) & 1u);
+    }
+    return (int)(coin_words_drawn - drawn0);
+}
+
+// K2's relay round of one instance over `lanes` lanes of `words` mask
+// words each (lane l's words at l * words): each lane's counts and flags
+// over its words packed, the words summed as a segment sums them, and both
+// thresholds.  out[0] = the sum, out[1], out[2] = the RETREAT and ATTACK
+// thresholds.
+void host_relay(int lanes, int words, const uint32_t* seen_r, const uint32_t* seen_a,
+                const uint32_t* honest, const uint32_t* traitor, int chain_ok, int32_t* out) {
+    uint32_t sum = 0u;
+    for (int l = 0; l < lanes; l++) {
+        int k_r = 0, k_a = 0;
+        uint32_t held_r = 0u, held_a = 0u;
+        for (int w = l * words; w < (l + 1) * words; w++) {
+            k_r += relay_popc(seen_r[w] & traitor[w]);
+            k_a += relay_popc(seen_a[w] & traitor[w]);
+            held_r |= seen_r[w] & honest[w];
+            held_a |= seen_a[w] & honest[w];
+        }
+        sum += relay_word(k_r, k_a, held_r != 0u, held_a != 0u);
+    }
+    out[0] = (int32_t)sum;
+    out[1] = relay_threshold(sum, 0, chain_ok != 0);
+    out[2] = relay_threshold(sum, 1, chain_ok != 0);
 }
 
 }  // extern "C"
