@@ -15,7 +15,7 @@ kernel on a CUDA one:
 - K4 ``ops/treeadd.fixed_base_fold``: [S]B from the window table of
   [j * 16^w]B, 64 points folded by complete additions;
 - K5 ``ops/sha512_kernel.sha512_blocks_mod_l``: h;
-- K3 ``ops/ladder.window_verify``: [h]A by 4-bit windows, R + [h]A, and
+- K3 ``ops/ladder.window_verify``: [h]A by signed 3-bit windows, R + [h]A, and
   the projective equality with [S]B, one verdict a lane.
 
 Between kernels a point is uint8 [N, 4, 32]: the canonical little-endian
@@ -34,9 +34,9 @@ the nonce r and the challenge k, K4 for R = [r]B, K8
 :func:`verify_rlc` is the random-linear-combination batch check
 (``ba_tpu/crypto/ed25519.py:314``): one cofactored equation for a whole
 batch, through K7, K5, K6 (the mod-L reductions of ``scalar.mul_bytes``
-and ``scalar.sum_bytes``), K3' ``ops/ladder.window_mult`` ([z]R and
-[W]A summed in the kernel, then the two sides times 8), K4 for [c]B and
-K8 for the comparison.
+and ``scalar.sum_bytes``), K3' ``ops/ladder.window_mult_sum8`` (the
+right side, [8](sum [z]R + sum [W]A), in one launch), K4 for the left
+side [8c]B and K8 for the comparison.
 
 :func:`scalar_mult` and :func:`scalar_mult_base`
 (``ba_tpu/crypto/ed25519.py:100-120``) are [k]P by double-and-add-always
@@ -326,16 +326,16 @@ def verify_rlc(pk: torch.Tensor, msg: torch.Tensor, sig: torch.Tensor, z: torch.
     rejects, is accepted (both sides are multiplied by the cofactor).
 
     The reference doubles each side three times and compares
-    projectively; here each side is multiplied by 8 through K3' and the
-    two compressed encodings (K8) are compared, which is the same test:
-    an encoding names one point.  The sums of [z_i]R_i and [W_j]A_j are
-    taken inside K3' (``window_mult(..., fold=True)``).  Nothing here
-    waits for the card.  On an H100 this is slower than :func:`verify` on
-    the same lanes (0.66-0.73x its rate at 65 536 lanes, measured by
-    ``chip_smoke.py``'s config #3 phase)."""
+    projectively.  Here the right side, [8](sum [z_i]R_i + sum [W_j]A_j),
+    is one K3' launch (``window_mult_sum8``: both products, both sums and
+    the three doublings); the left side is [8c]B from K4, the same point
+    as [8]([c]B) since B has order L (8c < 2^256, its 32 bytes c shifted
+    by three bits); the two compressed encodings (K8) are compared, which
+    is the same test: an encoding names one point.  Nothing here waits
+    for the card."""
     from ba_tpu_torch.crypto.scalar import mul_bytes, sum_bytes
     from ba_tpu_torch.crypto.sha512 import sha512_mod_l
-    from ba_tpu_torch.ops.ladder import window_mult
+    from ba_tpu_torch.ops.ladder import window_mult_sum8
     from ba_tpu_torch.ops.modl import reduce_mod_l_planes as reduce
 
     B = pk.shape[0]
@@ -351,11 +351,10 @@ def verify_rlc(pk: torch.Tensor, msg: torch.Tensor, sig: torch.Tensor, z: torch.
     h = sha512_mod_l(torch.cat([r_enc, pk, msg], dim=-1))
     w = reduce(sum_bytes(reduce(mul_bytes(h, z)).reshape(K, pk_group, 32)))
     c = reduce(sum_bytes(reduce(mul_bytes(s_enc, z))[None]))
-    zr = window_mult(pts[K:], z, fold=True)
-    wa = window_mult(pts[:K], w, fold=True)
-    eight = torch.full((2, 1), 8, dtype=torch.uint8, device=pk.device)
-    right = window_mult(torch.cat([zr, wa]), eight, fold=True)
-    left = window_mult(fixed_base_mult(c), eight[:1])
+    right = window_mult_sum8(pts[K:], z, pts[:K], w)
+    c = c.to(torch.int32)
+    c8 = ((c << 3) & 0xFF) | torch.nn.functional.pad(c[:, :-1] >> 5, (1, 0))
+    left = fixed_base_mult(c8.to(torch.uint8))
     enc = compress(torch.cat([left, right]))
     return (enc[0] == enc[1]).all() & enc_ok.all(), enc_ok
 

@@ -22,7 +22,7 @@ Three paths, each through its hand-written kernels:
   sweep-step kernel (``ba_tpu_torch/ops/csrc/sweep_step.cu``);
 - BASELINE config #3 (``bench.py``'s ``bench_sm1_n64_signed``): the
   per-signature verify, the batch verify ``verify_rlc`` (K7, K5, K6,
-  K3' ``window_mult.cu``, K4, K8), K3' alone (the ladder leg) and the
+  K3''s sum ``window_mult.cu``, K4, K8), K3' alone (the ladder leg) and the
   field-multiply probe P (``fieldmul_probe.cu``), interleaved, then the
   exact SM(1) round;
 - the coalesced serving batch, ``coalesced_sweep``, through K1's slot
@@ -88,7 +88,7 @@ Phases, one JSON line each:
    signing chunk c + 1 while the card verifies chunk c, warmed alike);
    then the "rlc" route (device signing, one batch check as the table
    verify, its verdict in the one fetch; sync-checked alike; launches
-   K5' 1, K5 3, K4 2, K8 2, K6 5, K7 1, K3' 4); then a copy with every
+   K5' 1, K5 3, K4 2, K8 2, K6 5, K7 1, K3''s sum 1); then a copy with every
    7th signature corrupted (R, S or message in turn), its card verdicts,
    by the exact route and by the "rlc" route's exact fallback, equal to
    the native host verifier's on all 20 480; each route's keys, sign,
@@ -119,10 +119,11 @@ Phases, one JSON line each:
    flagged and rejects, a torsion-malleated signature (tests/
    test_crypto.py:489) is rejected by ``verify`` and accepted by the
    cofactored batch check, and rejected with S + 1;
-14. K3' (per lane and summed) and P against their plain versions at S in
-   {1, 37, 1024, 4096}, k of 128 and 256 bits (0, 1, 15, 16, L - 1, all
-   ones, random; the identity, B, [s]B with Z != 1, keys) — encodings
-   bit-equal;
+14. K3' (per lane, 256-bit k) and its sum (the R set's 128-bit k, the
+   A set's 256-bit k, either empty) and P against their plain versions
+   at S in {1, 37, 1024, 4096} (k 0, 1, 8, 15, 16, L - 1, all ones, top
+   nibbles 8 and 15, random; the identity, B, [s]B with Z != 1, keys) —
+   encodings bit-equal;
 15. config #3 at full width: ``commander_keys(64)``, n = 64, m = 1,
    65 536 verify lanes (4096 signed broadcasts tiled 16 times), 10
    variants from ``default_rng(2)``; 3 reps, each interleaving 3 timed
@@ -193,8 +194,9 @@ Phases, one JSON line each:
 27. ``ladder_pow_full_width``: ``ed25519.scalar_mult`` at 65 536 lanes,
    256-bit k, and ``pow_planes`` at 131 072 limbs in [-8000, 8000) with e
    = (p - 5)/8, p - 2 and (p - 1)/2, then K8'' launched directly at (p -
-   5)/8 — launches counted; K3'' against K3' on the same points and k
-   (one group element, compared compressed), the roots, inverses and
+   5)/8, and K3' on the same points and k — launches counted; K3''
+   against K3' (one group element, compared compressed), the roots,
+   inverses and
    Legendre symbols checked by field identities, K8'' at (p - 5)/8 equal
    to K8'; each kernel alone by CUDA events: scalar-mults/s of K3'' and
    K3', their ratio, and the generic exponent against the chain;
@@ -212,9 +214,10 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths, the time, bound and plain time per path and
-per dispatch, and the largest difference from the plain version; K1's
-and K2's lines also name their design and give each kernel instance's
-ptxas registers and spill (phase 1's record), and K1's the threefry
+per dispatch, and the largest difference from the plain version; K1's,
+K2's, K3's and K3''s lines also name their design and give each kernel
+instance's ptxas registers, spill, stack frame and shared memory (phase
+1's record), and K1's the threefry
 words it drew on the card beside those the inputs need: each K1
 dispatch runs once more on K1's counting build (``megastep.cu`` with
 ``-DBA_COUNT_DRAWS``, built in phase 1 beside the kernel; outputs
@@ -299,6 +302,8 @@ ED_KERNELS = {
            "ba_tpu_torch/ops/csrc/window_verify.cu", "ba_tpu/ops/ladder.py:121"),
     "K3'": ("window_mult", ladder.window_mult, ladder.plain_window_mult,
             "ba_tpu_torch/ops/csrc/window_mult.cu", "ba_tpu/ops/ladder.py:113"),
+    "K3' sum": ("window_mult_sum8", ladder.window_mult_sum8, ladder.plain_window_mult_sum8,
+                "ba_tpu_torch/ops/csrc/window_mult.cu", "ba_tpu/ops/ladder.py:113"),
     "P": ("fieldmul_probe", fieldmul_probe.fieldmul_probe, fieldmul_probe.plain_fieldmul_probe,
           "ba_tpu_torch/ops/csrc/fieldmul_probe.cu", "bench.py:3404"),
     "K3''": ("scalar_mult_ladder", ladder.scalar_mult, ladder.plain_scalar_mult,
@@ -311,25 +316,36 @@ ED_KERNELS = {
              "ba_tpu_torch/ops/csrc/powchain.cu", "ba_tpu/ops/powchain.py:108"),
 }
 ED_WRAPPERS = {key: fn for key, (_, fn, *_) in ED_KERNELS.items()}
+K3_DESIGN = ("signed 3-bit windows (k plus 4 in every window once a lane, the carry digit "
+             "first), [1..4]P in the cached form (Y - X, Y + X, 2d T, 2 Z) in shared memory, "
+             "lane-major, 20 kB a 32-lane block; additions of 8 multiplies")
+WARP_DESIGN = ("; a warp whose lanes hold one point runs signed 4-bit windows on one table "
+               "of [1..8]P for the warp")
+# The kernels whose lines name their design and carry their source's ptxas records.
+ED_DESIGNS = {"K3": K3_DESIGN + WARP_DESIGN, "K3'": K3_DESIGN + WARP_DESIGN,
+              "K3' sum": K3_DESIGN + "; both sets in one launch, the 256-bit set's blocks "
+              "first; warp halving sums, then a tree over the block sums climbed by the "
+              "second block of each pair; times 8 by three doublings"}
 # Launches of each on the device-sign setup: sign (K5', K5 twice, K4, K8, K6),
 # then verify (K7, K5, K4, K3); on the "rlc" route the verify is one batch check
-# (K7, K5, K6 four times, K3' four times, K4, K8).  No setup runs the
+# (K7, K5, K6 four times, K3''s sum, K4, K8).  No setup runs the
 # double-and-add ladder or pow_planes' kernels.
 NO_LADDER_POW = {"K3''": 0, "K8'": 0, "K8 p-2": 0, "K8''": 0}
 DEVICE_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 1, "K6": 1, "K7": 1, "K3": 1,
-                         "K3'": 0, "P": 0, **NO_LADDER_POW}
+                         "K3'": 0, "K3' sum": 0, "P": 0, **NO_LADDER_POW}
 HOST_SETUP_LAUNCHES = {"K5'": 0, "K5": 2, "K4": 2, "K8": 0, "K6": 0, "K7": 2, "K3": 2,
-                       "K3'": 0, "P": 0, **NO_LADDER_POW}
+                       "K3'": 0, "K3' sum": 0, "P": 0, **NO_LADDER_POW}
 RLC_SETUP_LAUNCHES = {"K5'": 1, "K5": 3, "K4": 2, "K8": 2, "K6": 5, "K7": 1, "K3": 0,
-                      "K3'": 4, "P": 0, **NO_LADDER_POW}
+                      "K3'": 0, "K3' sum": 1, "P": 0, **NO_LADDER_POW}
 # The ladder / pow path: ed25519.scalar_mult (K3'') at 65 536 lanes with 256-bit
 # scalars (the reference's reported width, ba_tpu/ops/__init__.py:7-15), and
 # pow_planes' three routes at config #3's 2B = 131 072 decompression lanes, plus
-# K8'' launched directly with e = (p - 5)/8 (the chain-against-generic ratio).
+# K8'' launched directly with e = (p - 5)/8 (the chain-against-generic ratio), and
+# K3' on the same points and k (the random 256-bit k beside config #3's h).
 S_LADDER, N_POW = 65_536, 131_072
 LEGENDRE_EXP = (oracle.P - 1) // 2  # pow_planes' generic route: Euler's criterion
 LADDER_POW_LAUNCHES = {**{key: 0 for key in DEVICE_SETUP_LAUNCHES},
-                       "K3''": 1, "K8'": 1, "K8 p-2": 1, "K8''": 2}
+                       "K3''": 1, "K8'": 1, "K8 p-2": 1, "K8''": 2, "K3'": 1}
 # BASELINE config #3 as bench.py:194-394 (bench_sm1_n64_signed) runs it: 64
 # commanders, n = 64, m = 1; 65 536 verify lanes (the signed broadcasts tiled);
 # 3 reps of 3 timed calls a leg; the SM(1) round 20 calls a rep.
@@ -348,18 +364,11 @@ FM_VARIANTS = 12  # the probe's input variants (bench.py's BA_TPU_FMUL_PROBE_VAR
 FE_MUL_OPS, FE_SQ_OPS = 290, 173
 # (multiplies, squarings) a lane: K7 the (p-5)/8 chain (11, 251) and (9, 4)
 # around it; K4 63 additions, 31 of 9 and 32 of two affine table entries at 8;
-# K3 14 additions of 9 for the table, 64 windows of 4 doublings (4 multiplies and
-# 3 squarings each, one more multiply for T on the fourth) and an addition, then
-# 9 + 4; K8 the p - 2 chain (13, 257) and x / Z, y / Z.
-K7_WORK, K4_WORK, K3_WORK = (20, 255), (31 * 9 + 32 * 8, 0), (14 * 9 + 64 * 26 + 13, 64 * 12)
+# K8 the p - 2 chain (13, 257) and x / Z, y / Z.  K3 is K3''s 32-byte chain
+# and 9 + 4 to finish.
+K7_WORK, K4_WORK = (20, 255), (31 * 9 + 32 * 8, 0)
 K8_WORK = (15, 257)
 K8P_WORK, INV_WORK = (11, 251), (13, 257)  # the (p - 5)/8 and p - 2 chains alone
-
-
-def k3p_work(nbytes):
-    """K3''s (multiplies, squarings) a lane for a k of nbytes: 14 additions
-    of 9 for the table, 2 nbytes windows of 26 multiplies and 12 squarings."""
-    return (14 * 9 + 26 * 2 * nbytes, 12 * 2 * nbytes)
 
 
 def field_ops(work):
@@ -367,9 +376,38 @@ def field_ops(work):
     return work[0] * FE_MUL_OPS + work[1] * FE_SQ_OPS
 
 
-# int32 operations of one per-signature verify in the port's kernels: K3, K4 ([S]B)
-# and K7 for A and for R (3 656 multiplies and squarings, bench.py's 3 660)
-VERIFY_OPS = field_ops(K3_WORK) + field_ops(K4_WORK) + 2 * field_ops(K7_WORK)
+def k3p_chains(nbytes):
+    """(multiplies, squarings) a lane of [k]P for a k of nbytes by each
+    window chain the port has run: unsigned 4-bit windows (14 additions of
+    9 for the table, 2 nbytes windows of 26 multiplies and 12 squarings),
+    and window.cuh's signed ones at W = 4 and W = 3 (2^(W-1) - 1 additions
+    of 8 and 2^(W-1) multiplies by 2d for the table, ceil(8 nbytes / W)
+    windows of W - 1 doublings of 4 and 3, one of 5 and 3, an addition of
+    8; the carry digit costs a select)."""
+    def signed(w):
+        half, nwin = 1 << (w - 1), -(-8 * nbytes // w)
+        return (9 * half - 8 + nwin * (4 * w + 1 + 8), nwin * 3 * w)
+    return {"unsigned4": (14 * 9 + 26 * 2 * nbytes, 12 * 2 * nbytes),
+            "signed4": signed(4), "signed3": signed(3)}
+
+
+def k3p_work(nbytes):
+    """The least of k3p_chains: a bound counts the least work of the
+    product, so a chain that does more cannot flatter its share."""
+    return min(k3p_chains(nbytes).values(), key=field_ops)
+
+
+# The chain config #3's K3 and ladder leg run: each warp's lanes hold one key, so
+# the warp's one table (window.cuh, WARP_WINDOW_BITS = 4)
+K3P_CHAIN = "signed4"
+K3_WORK = (k3p_work(32)[0] + 9 + 4, k3p_work(32)[1])
+
+
+# int32 operations of one per-signature verify as the port's kernels run it: K3's
+# chain (K3P_CHAIN), K4 ([S]B) and K7 for A and for R
+K3P_RUN = k3p_chains(32)[K3P_CHAIN]
+VERIFY_OPS = (field_ops((K3P_RUN[0] + 13, K3P_RUN[1])) + field_ops(K4_WORK)
+              + 2 * field_ops(K7_WORK))
 # int32 operations of one SHA-512 block (80 rounds of ~48, 64 schedule steps of
 # ~26, the final adds) and of modl_core's folds (~900 int64 multiply-adds).
 SHA_BLOCK_OPS, MODL_OPS = 80 * 48 + 64 * 26 + 16, 1800
@@ -543,21 +581,25 @@ K2_DESIGN = ("one packed segment sum a relay round (capped traitor counts and ho
 
 
 def ptxas_records(log):
-    """Each kernel instance's registers and spill from an ``nvcc
-    -Xptxas=-v`` log: [{"kernel" (its mangled name), "registers",
-    "spill_stores", "spill_loads"}]."""
+    """Each kernel instance's registers, spill, stack frame and static
+    shared memory from an ``nvcc -Xptxas=-v`` log: [{"kernel" (its
+    mangled name), "registers", "spill_stores", "spill_loads",
+    "stack_frame", "smem"}] (bytes)."""
     out, props = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            out.append({"kernel": m.group(1)})
+            out.append({"kernel": m.group(1), "smem": 0})
         elif m := re.search(r"Function properties for (\w+)", ln):
             props = m.group(1)  # an entry's, or a device function's kept out of line
         elif out and props == out[-1]["kernel"] and "spill stores" in ln:
             out[-1]["spill_stores"], out[-1]["spill_loads"] = (
                 int(x) for x in re.findall(r"(\d+) bytes spill", ln))
+            out[-1]["stack_frame"] = int(re.search(r"(\d+) bytes stack frame", ln).group(1))
         elif out and (m := re.search(r"Used (\d+) registers", ln)):
             out[-1]["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", ln):
+                out[-1]["smem"] = int(m.group(1))
     return out
 
 
@@ -1510,10 +1552,14 @@ def dispatch_work(key, args, kw):
                 f"{S} lanes, {nb} blocks")
     if key == "K3'":
         nbytes = args[1].shape[1]
-        fold = kw.get("fold", args[2] if len(args) > 2 else False)
-        ops = S * field_ops(k3p_work(nbytes)) + (9 * (S - 1) * FE_MUL_OPS if fold else 0)
-        return (S, ops, S * (128 + nbytes) + 128 * (1 if fold else S),
-                f"{S} lanes, {8 * nbytes}-bit k" + (", summed" if fold else ""))
+        return (S, S * field_ops(k3p_work(nbytes)), S * (128 + nbytes + 128),
+                f"{S} lanes, {8 * nbytes}-bit k")
+    if key == "K3' sum":  # the products, S - 1 additions of 9, three doublings
+        nz, na = S, args[2].shape[0]
+        ops = (nz * field_ops(k3p_work(16)) + na * field_ops(k3p_work(32))
+               + 9 * (nz + na - 1) * FE_MUL_OPS + field_ops((13, 9)))
+        return (nz + na, ops, nz * (128 + 16) + na * (128 + 32) + 128,
+                f"{nz} lanes of 128-bit k + {na} of 256-bit k, summed, times 8")
     if key == "P":
         return (S, S * fieldmul_probe.MULTIPLIES * FE_MUL_OPS, S * 96, f"{S} lanes")
     if key == "K3''":  # 2 nbits complete additions of 9 multiplies
@@ -1596,6 +1642,8 @@ def kernel_lines_crypto(paths, int_ops_per_s):
         line = totals([p for e in entries for p in e["dispatches"]])
         check(line["max_abs_err"] == 0,
               f"{key} differs from its plain version on its paths' inputs: {line['max_abs_err']}")
+        if key in ED_DESIGNS:
+            line.update(design=ED_DESIGNS[key], ptxas=PTXAS[os.path.basename(source)])
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "wrapper": f"ba_tpu_torch/ops/{fn.__module__.rsplit('.', 1)[1]}.py:{fn.__name__}",
@@ -1676,8 +1724,9 @@ def phase_rlc_known_answers(dev):
 
 def k3p_inputs(rs, S, nbytes, dev):
     """K3''s lanes at S: the identity, B, [s]B from K4 (Z != 1), then
-    decompressed keys; scalars 0, 1, 15, 16, L - 1 (cut to nbytes) and
-    all ones, then random bytes."""
+    decompressed keys; scalars 0, 1, 8, 15, 16, L - 1 (cut to nbytes), all
+    ones, top nibbles of 8 and 15 (the recoding carries out of the top),
+    then random bytes."""
     ends = torch.cat([ed25519.encode_point(ed25519.identity((1,), dev)),
                       ed25519.encode_point(ed25519.base_point((1,), dev))])
     sb = treeadd.fixed_base_fold(
@@ -1687,24 +1736,25 @@ def k3p_inputs(rs, S, nbytes, dev):
     pts = torch.cat([ends, sb, decompress.decompress(keys)[0]])[:S].contiguous()
     top = 2 ** (8 * nbytes) - 1
     edges = np.stack([np.frombuffer(v.to_bytes(nbytes, "little"), np.uint8)
-                      for v in (0, 1, 15, 16, (oracle.L - 1) & top, top)])
+                      for v in (0, 1, 8, 15, 16, (oracle.L - 1) & top, top,
+                                8 << (8 * nbytes - 4), 15 << (8 * nbytes - 4))])
     k = np.concatenate([edges, rs.integers(0, 256, (S, nbytes), dtype=np.uint8)])[:S]
     return pts, torch.tensor(np.ascontiguousarray(k), device=dev)
 
 
 def phase_k3p_middle(dev, rs):
-    """K3' (per lane and fold) and P against their plain versions at S in
-    {1, 37, 1024, 4096}, k of 16 and 32 bytes: encodings bit-equal."""
+    """K3' (per lane, 32-byte k) and its sum (16-byte R set and 32-byte A
+    set, each alone and both) and P against their plain versions at S in
+    {1, 37, 1024, 4096}: encodings bit-equal."""
     for S in (1, 37, 1024, 4096):
-        errs = {}
-        for nbytes in (16, 32):
-            pts, k = k3p_inputs(rs, S, nbytes, dev)
-            acc = ladder.plain_window_acc(ed25519.decode_point(pts), k)
-            errs[f"K3'_{8 * nbytes}bit"] = max_abs_err(
-                [(ladder.window_mult(pts, k), ed25519.encode_point(acc))])
-            errs[f"K3'_{8 * nbytes}bit_fold"] = max_abs_err(
-                [(ladder.window_mult(pts, k, fold=True),
-                  ed25519.encode_point(ladder.fold_points(acc)))])
+        r, z = k3p_inputs(rs, S, 16, dev)
+        a, w = k3p_inputs(rs, S, 32, dev)
+        errs = {"K3'_256bit": max_abs_err([(ladder.window_mult(a, w),
+                                            ladder.plain_window_mult(a, w))])}
+        for label, sets in (("R", (r, z, a[:0], w[:0])), ("A", (r[:0], z[:0], a, w)),
+                            ("both", (r, z, a[: S // 3 + 1], w[: S // 3 + 1]))):
+            errs[f"K3'_sum8_{label}"] = max_abs_err(
+                [(ladder.window_mult_sum8(*sets), ladder.plain_window_mult_sum8(*sets))])
         a, b = (torch.tensor(rs.integers(0, 256, (S, 32), dtype=np.uint8), device=dev)
                 for _ in range(2))
         errs["P"] = max_abs_err([(fieldmul_probe.fieldmul_probe(a, b),
@@ -1850,7 +1900,7 @@ def phase_config3(dev, card):
           "achieved_fieldmuls_per_sec": verifies * FMULS_PER_VERIFY,
           "pct_of_ladder_rate": 100 * verifies * FMULS_PER_VERIFY / ladder_rate,
           "pct_of_ladder_rate_port_ops": 100 * verifies * VERIFY_OPS * best["ladder"]
-          / (NV_C3 * ITERS_C3 * field_ops(k3p_work(32))),
+          / (NV_C3 * ITERS_C3 * field_ops(K3P_RUN)),
           "one_call": one_call,
           "sm1_rounds_per_sec": B_C3 * SM1_ITERS / min(sm1_walls), "sm1_walls_s": sm1_walls,
           "sm1_spread": spread(sm1_walls), "sm1_iters": SM1_ITERS,
@@ -2669,15 +2719,14 @@ def phase_ladder_pow_full_width(dev, rs, card):
     def ladder_pow_path():
         return (ed25519.scalar_mult(limbs, bits), powchain.pow_planes(a, powchain.SQRT_EXP),
                 powchain.pow_planes(a, powchain.INV_EXP), powchain.pow_planes(a, LEGENDRE_EXP),
-                powchain.pow_exp(enc_a, powchain.SQRT_EXP))
+                powchain.pow_exp(enc_a, powchain.SQRT_EXP), ladder.window_mult(pts, k))
 
     sync()
     reset_ed_launches()
-    prod, root, inv, symbol, root_generic = ladder_pow_path()
+    prod, root, inv, symbol, root_generic, windowed = ladder_pow_path()
     sync()
     launches = ed_launches()
     check(launches == LADDER_POW_LAUNCHES, f"ladder / pow path launches {launches}")
-    windowed = ladder.window_mult(pts, k)
     check(torch.equal(ed25519.compress(ed25519.encode_point(prod).contiguous()),
                       ed25519.compress(windowed)), "K3'' and K3' give different points")
     one = F.constant(1, dev)
@@ -2701,8 +2750,9 @@ def phase_ladder_pow_full_width(dev, rs, card):
           "K8'' (p-1)/2": time_cuda(lambda: powchain.pow_exp(enc_a, LEGENDRE_EXP), reps=5)}
     with recording(ED_WRAPPERS) as calls:
         again = ladder_pow_path()
-    check(all(torch.equal(x, y) for x, y in zip((*again[0], *again[1:]), (*prod, root, inv,
-                                                                       symbol, root_generic))),
+    check(all(torch.equal(x, y) for x, y in zip((*again[0], *again[1:]),
+                                                (*prod, root, inv, symbol, root_generic,
+                                                 windowed))),
           "the recorded ladder / pow run differs from the counted one")
     emit({"phase": "ladder_pow_full_width", "ladder_lanes": S_LADDER, "ladder_bits": 256,
           "pow_lanes": N_POW, "kernel_ms": ms,
@@ -2764,6 +2814,34 @@ def ab_sweeps(dev, card):
     emit({"phase": "ab_kernels", "k1_plain_ms": k1_plain, "k1_scenario_ms": k1_scen,
           "k1_slot_ms": k1_slot, "k1_plain_n1000_ms": k1_general, "k2_step_ms": sum(k2),
           "k2_bucket_ms": k2, "card": card})
+
+
+# -- the A/B of K3' and K3 on random scalars (torch_checkout_ab.py --phase k3p_random)
+
+
+def ab_k3p_random(dev, card):
+    """K3' and K3 on the ladder / pow phase's kind of input, for an A/B of
+    two checkouts of the package: builds window_mult.cu, window_verify.cu
+    and treeadd.cu alone (in parallel), makes S_LADDER random 256-bit k
+    and points [s]B (K4, Z != 1) from default_rng(0) as phase 27 makes
+    them, and times by CUDA events K3' (window_mult) on them and K3
+    (window_verify, the same points, k and left) at S_LADDER lanes and at
+    the device-sign setup's 2 B_SIGNED.  Emits them as one line."""
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(_build.build, source)
+                    for source in ("window_mult.cu", "window_verify.cu", "treeadd.cu")]:
+            job.result()
+    rs = np.random.default_rng(0)
+    k = torch.tensor(rs.integers(0, 256, (S_LADDER, 32), dtype=np.uint8), device=dev)
+    pts = ed25519.fixed_base_mult(
+        torch.tensor(rs.integers(0, 256, (S_LADDER, 32), dtype=np.uint8), device=dev))
+    n = 2 * B_SIGNED
+    emit({"phase": "ab_k3p_random", "lanes": S_LADDER,
+          "k3p_random_ms": time_cuda(lambda: ladder.window_mult(pts, k), reps=10),
+          "k3_random_ms": time_cuda(lambda: ladder.window_verify(pts, k, pts, pts), reps=10),
+          f"k3_random_{n}_ms": time_cuda(
+              lambda: ladder.window_verify(pts[:n], k[:n], pts[:n], pts[:n]), reps=10),
+          "card": card})
 
 
 def main(argv=None) -> int:

@@ -19,7 +19,12 @@ imports that checkout's package, and runs one of:
   sweep, the coalition campaign, the full-width coalesced cohort and the
   signed sweep, and by CUDA events one full-width dispatch of K1 in each
   mode, one plain dispatch at capacity 1000 (n not a multiple of 32) and
-  K2's warm-up dispatch of each bucket.
+  K2's warm-up dispatch of each bucket;
+- ``k3p_random``: ``ab_k3p_random`` of the same ``chip_smoke.py``, loaded
+  alike: window_mult.cu, window_verify.cu and treeadd.cu built alone, then
+  by CUDA events K3' on the ladder / pow phase's kind of input (65 536
+  points [s]B, random 256-bit k) and K3 on the same lanes, and on 20 480
+  of them.
 
 Pair i runs A then B when i is even, B then A when it is odd (N = 2 is
 A B B A).  Prints one JSON line a run (the phase's readings, with the
@@ -39,6 +44,18 @@ import sys
 
 CHIP_SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "chip_smoke.py")
+LOAD_BESIDE = (
+    "import importlib.util, torch\n"
+    f"spec = importlib.util.spec_from_file_location('chip_smoke', {CHIP_SMOKE!r})\n"
+    "cs = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(cs)\n"
+)
+# A checkout from before K3''s sum lacks the wrappers chip_smoke names at import.
+BEFORE_SUM = (
+    "from ba_tpu_torch.ops import ladder\n"
+    "for name in ('window_mult_sum8', 'plain_window_mult_sum8'):\n"
+    "    setattr(ladder, name, getattr(ladder, name, None))\n"
+)
 RUNS = {
     "config3": (
         "import torch, chip_smoke as cs\n"
@@ -46,13 +63,9 @@ RUNS = {
         "cs.phase_env(dev)\n"
         "cs.phase_config3(dev, cs.smi('name,power.limit'))\n"
     ),
-    "sweeps": (
-        "import importlib.util, torch\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', {CHIP_SMOKE!r})\n"
-        "cs = importlib.util.module_from_spec(spec)\n"
-        "spec.loader.exec_module(cs)\n"
-        "cs.ab_sweeps(torch.device('cuda'), cs.smi('name,power.limit'))\n"
-    ),
+    "sweeps": LOAD_BESIDE + "cs.ab_sweeps(torch.device('cuda'), cs.smi('name,power.limit'))\n",
+    "k3p_random": BEFORE_SUM + LOAD_BESIDE
+    + "cs.ab_k3p_random(torch.device('cuda'), cs.smi('name,power.limit'))\n",
 }
 # (reading, True where higher wins)
 READINGS = {
@@ -64,6 +77,8 @@ READINGS = {
                ("coalesced_slot_rounds_per_s", True), ("signed_sweep_rounds_per_s", True),
                ("k1_plain_ms", False), ("k1_scenario_ms", False), ("k1_slot_ms", False),
                ("k1_plain_n1000_ms", False), ("k2_step_ms", False)],
+    "k3p_random": [("k3p_random_ms", False), ("k3_random_ms", False),
+                   ("k3_random_20480_ms", False)],
 }
 
 
@@ -86,6 +101,9 @@ def reading(lines: list[dict], phase: str) -> dict:
             row[f"{leg}_card_ms"] = ph["one_call"][leg]["card_ms"]
         row["card"] = ph["card"]
         return row
+    if phase == "k3p_random":
+        return {key: by["ab_k3p_random"][key] for key, _ in READINGS[phase]} | \
+            {"card": by["ab_k3p_random"]["card"]}
     k = by["ab_kernels"]
     return {"plain_sweep_rounds_per_s": by["full_width_validity"]["agreement_rounds_per_s"],
             "scenario_rounds_per_s": by["scenario_full_width"]["agreement_rounds_per_s"],

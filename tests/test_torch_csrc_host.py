@@ -51,8 +51,10 @@ def host(tmp_path_factory):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
     for name in ("host_modl", "host_compress", "host_sqrt_chain", "host_inv_chain"):
         getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
-    for name in ("host_window_mult", "host_window_mult_fold"):
-        getattr(lib, name).argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_window_mult.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_recode.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.host_window_mult_sum8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2) * 2 + \
+        [ctypes.c_void_p]
     lib.host_scalar_mult.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_pow.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -220,14 +222,16 @@ def test_window_verify_lane_matches_plain(host):
 
 def _window_inputs(nbytes: int, S: int):
     """K3''s lanes: the identity, B, [s]B from the plain K4 fold (Z != 1),
-    decompressed keys and one invalid encoding's point, beside the edge
-    scalars 0, 1, 15, 16, L - 1 and all ones, then random scalars."""
+    decompressed keys (16 at most, then repeated) and one invalid
+    encoding's point, beside the edge scalars 0, 1, 15, 16, L - 1 and all
+    ones, then random scalars."""
     rs = np.random.default_rng(nbytes + S)
     ends = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,)))])
     sb = treeadd.plain_fixed_base_fold(torch.tensor(_scalars(rs, 2)), E.base_table("cpu"))
     keys = torch.tensor(np.stack([np.frombuffer(oracle.keypair(bytes([90 + i]))[1], np.uint8)
-                                  for i in range(S)] + [_le(2)]))
-    pts = torch.cat([ends, sb, decompress.plain_decompress(keys)[0]])[:S].contiguous()
+                                  for i in range(min(S, 16))] + [_le(2)]))
+    pts = torch.cat([ends, sb, decompress.plain_decompress(keys)[0]])
+    pts = pts.repeat(-(-S // len(pts)), 1, 1)[:S].contiguous()
     top = 2 ** (8 * nbytes) - 1
     edges = [v.to_bytes(32, "little")[:nbytes] for v in (0, 1, 15, 16, L - 1)]
     edges.append(top.to_bytes(nbytes, "little"))
@@ -236,7 +240,7 @@ def _window_inputs(nbytes: int, S: int):
     return np.ascontiguousarray(pts.numpy()), np.ascontiguousarray(k)
 
 
-@pytest.mark.parametrize("nbytes", [1, 16, 32])
+@pytest.mark.parametrize("nbytes", [16, 32])
 def test_window_mult_lane_matches_plain(host, nbytes):
     pts, k = _window_inputs(nbytes, 12)
     out = np.zeros_like(pts)
@@ -245,14 +249,115 @@ def test_window_mult_lane_matches_plain(host, nbytes):
     assert np.array_equal(out, want.numpy())
 
 
-@pytest.mark.parametrize("S", [1, 5, 33, 70])
-def test_window_mult_fold_matches_plain(host, S):
-    """One block, a ragged one, two and three blocks of 32 lanes."""
-    pts, k = _window_inputs(16, S)
-    out = np.zeros((1, 4, 32), np.uint8)
-    host.host_window_mult_fold(S, 16, _ptr(pts), _ptr(k), _ptr(out))
-    want = ladder.plain_window_mult(torch.tensor(pts), torch.tensor(k), fold=True)
+def _recode_scalars(nbytes: int) -> list:
+    """0, 1, 4, 8, 15, 16, L - 1 (cut to nbytes), all ones, top nibbles of
+    8 and of 15, a digit of 4 in every window (0b100 repeated: each
+    carries), then random values."""
+    top = 2 ** (8 * nbytes) - 1
+    fours = sum(4 << (3 * i) for i in range(-(-8 * nbytes // 3))) & top
+    vals = [0, 1, 4, 8, 15, 16, (L - 1) & top, top, 8 << (8 * nbytes - 4),
+            15 << (8 * nbytes - 4), int("8" * 2 * nbytes, 16), fours]
+    rs = np.random.default_rng(nbytes)
+    return vals + [int.from_bytes(rs.bytes(nbytes), "little") for _ in range(6)]
+
+
+@pytest.mark.parametrize("W", [ladder.WINDOW_BITS, ladder.WARP_WINDOW_BITS])
+@pytest.mark.parametrize("nbytes", [16, 32])
+def test_recoding_matches_plain_and_integers(host, nbytes, W):
+    """window.cuh's recoding in windows of W bits (a lane's, and a warp's
+    with one point): the carry digit and nwin = ceil(8 nbytes / W)
+    digits in [-2^(W-1), 2^(W-1)), most significant first, equal to
+    ``ladder.signed_digits``'s, with sum d_i 2^(W i) + carry 2^(W nwin) =
+    k."""
+    nwin = -(-8 * nbytes // W)
+    vals = _recode_scalars(nbytes)
+    k = np.ascontiguousarray(np.stack([_le(v)[:nbytes] for v in vals]))
+    digits = np.zeros((len(vals), 1 + nwin), np.int32)
+    host.host_recode(len(vals), nbytes, W, _ptr(k), _ptr(digits))
+    top, dig = ladder.signed_digits(torch.tensor(k), W)
+    assert np.array_equal(digits[:, 0], top.numpy())
+    assert np.array_equal(digits[:, 1:], dig.numpy()[:, ::-1])
+    half = 1 << (W - 1)
+    assert digits[:, 1:].min() >= -half and digits[:, 1:].max() < half
+    assert set(digits[:, 0]) <= {0, 1}
+    for v, row in zip(vals, digits):
+        assert sum(int(d) << (W * i) for i, d in enumerate(row[:0:-1])) + \
+            (int(row[0]) << (W * nwin)) == v
+
+
+def _one_point_warps(nbytes: int, S: int):
+    """K3''s lanes where warps hold one point: lanes 0-31 the point [s]B
+    (Z != 1), 32-63 the window inputs' distinct points, 64 on a key."""
+    pts, k = _window_inputs(nbytes, S)
+    pts[:32] = pts[4]
+    pts[64:] = pts[40]
+    return np.ascontiguousarray(pts), k
+
+
+@pytest.mark.parametrize("nbytes", [16, 32])
+def test_window_mult_lane_warp_point_matches_plain(host, nbytes):
+    """Warps with one point take the warp's one table (signed 4-bit
+    windows), others their lanes' own (3-bit); each lane bit-equal to the
+    plain version, which picks the same chain (``warp_point_lanes``)."""
+    pts, k = _one_point_warps(nbytes, 70)
+    out = np.zeros_like(pts)
+    host.host_window_mult(len(pts), nbytes, _ptr(pts), _ptr(k), _ptr(out))
+    lanes = ladder.warp_point_lanes(torch.tensor(pts))
+    assert lanes.tolist() == [True] * 32 + [False] * 32 + [True] * 6
+    want = ladder.plain_window_mult(torch.tensor(pts), torch.tensor(k))
     assert np.array_equal(out, want.numpy())
+
+
+def test_window_verify_lane_one_key_matches_plain(host):
+    """K3 on 40 signatures by one key (a warp with one point, then a
+    ragged one), one in four corrupted: verdicts equal the plain
+    version's and the oracle's."""
+    sk, pk1 = oracle.keypair(bytes([77]))
+    n = 40
+    msgs = [bytes([i]) * 8 for i in range(n)]
+    sigs = [bytearray(oracle.sign(sk, pk1, m)) for m in msgs]
+    for i in range(0, n, 4):
+        sigs[i][40 + i % 24] ^= 2
+    pk = torch.tensor(np.frombuffer(pk1, np.uint8)).repeat(n, 1)
+    sig = torch.tensor(np.stack([np.frombuffer(bytes(s), np.uint8) for s in sigs]))
+    msg = torch.tensor(np.stack([np.frombuffer(m, np.uint8) for m in msgs]))
+    pts, _ = E.decompress(torch.cat([pk, sig[:, :32]]))
+    left = E.fixed_base_mult(sig[:, 32:].contiguous())
+    h = sha512.sha512_mod_l(torch.cat([sig[:, :32], pk, msg], dim=1))
+    a, r = pts[:n].contiguous().numpy(), pts[n:].contiguous().numpy()
+    ok = np.zeros(n, np.uint8)
+    host.host_window_verify(n, _ptr(a), _ptr(h.numpy()), _ptr(r), _ptr(left.numpy()), _ptr(ok))
+    want = ladder.plain_window_verify(pts[:n], h, pts[n:], left)
+    assert np.array_equal(ok.astype(bool), want.numpy())
+    assert ok.tolist() == [oracle.verify(pk1, m, bytes(s)) for m, s in zip(msgs, sigs)]
+
+
+def _sum8(host, nz: int, na: int):
+    """K3''s sum on the host and by the plain version: nz 16-byte lanes
+    (the R set) and na 32-byte ones (the A set)."""
+    r, z = _window_inputs(16, nz) if nz else (np.zeros((0, 4, 32), np.uint8),
+                                              np.zeros((0, 16), np.uint8))
+    a, w = _window_inputs(32, na) if na else (np.zeros((0, 4, 32), np.uint8),
+                                              np.zeros((0, 32), np.uint8))
+    out = np.zeros((1, 4, 32), np.uint8)
+    host.host_window_mult_sum8(na, _ptr(a), _ptr(w), nz, _ptr(r), _ptr(z), _ptr(out))
+    want = ladder.plain_window_mult_sum8(*(torch.tensor(x) for x in (r, z, a, w)))
+    return out, want.numpy()
+
+
+@pytest.mark.parametrize("S", [1, 5, 31, 33, 70, 1024 + 32])
+def test_window_mult_fold_matches_plain(host, S):
+    """The sum's pairing over one set: one block, ragged ones, two and
+    three blocks, and 33 blocks (an odd node passed up at each level)."""
+    out, want = _sum8(host, S, 0)
+    assert np.array_equal(out, want)
+
+
+@pytest.mark.parametrize("nz,na", [(1, 1), (70, 33), (64, 1), (0, 40)])
+def test_window_mult_sum8_matches_plain(host, nz, na):
+    """Both sets in one sum, the A set's blocks first, then [8]."""
+    out, want = _sum8(host, nz, na)
+    assert np.array_equal(out, want)
 
 
 @pytest.mark.parametrize("nbytes", [4, 32])

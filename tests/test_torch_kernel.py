@@ -655,26 +655,60 @@ def _window_points(S: int, dev) -> torch.Tensor:
 
 
 def _window_scalars(S: int, nbytes: int) -> np.ndarray:
-    """0, 1, 15, 16, L - 1 (cut to nbytes) and all ones, then random."""
+    """0, 1, 8, 15, 16, L - 1 (cut to nbytes), all ones, top nibbles of 8
+    and 15 (the signed recoding carries out of the top), then random."""
     top = 2 ** (8 * nbytes) - 1
-    edges = [0, 1, 15, 16, (oracle.L - 1) & top, top]
+    edges = [0, 1, 8, 15, 16, (oracle.L - 1) & top, top, 8 << (8 * nbytes - 4),
+             15 << (8 * nbytes - 4)]
     rows = [np.frombuffer(v.to_bytes(nbytes, "little"), np.uint8) for v in edges]
     rows += list(np.random.default_rng(S + nbytes).integers(0, 256, (S, nbytes), dtype=np.uint8))
     return np.ascontiguousarray(np.stack(rows[:S]))
 
 
-@pytest.mark.parametrize("fold", [False, True])
-@pytest.mark.parametrize("nbytes", [1, 16, 32])
 @pytest.mark.parametrize("S", [1, 37, 300])
-def test_window_mult_kernel_bit_equal(cuda_device, S, nbytes, fold):
+def test_window_mult_kernel_bit_equal(cuda_device, S):
     pts = _window_points(S, cuda_device)
-    k = torch.tensor(_window_scalars(S, nbytes), device=cuda_device)
+    k = torch.tensor(_window_scalars(S, 32), device=cuda_device)
     before = ladder.window_mult.launches
-    got = ladder.window_mult(pts, k, fold=fold)
+    got = ladder.window_mult(pts, k)
     assert ladder.window_mult.launches == before + 1
-    want = ladder.plain_window_mult(pts, k, fold=fold)
+    want = ladder.plain_window_mult(pts, k)
     torch.cuda.synchronize()
-    assert got.shape == (1 if fold else S, 4, 32) and torch.equal(got, want)
+    assert got.shape == (S, 4, 32) and torch.equal(got, want)
+
+
+def test_window_lanes_warp_point_kernel_bit_equal(cuda_device):
+    """K3' and K3 where warps hold one point (lanes 0-31 and 64-69: the
+    warp's one table, signed 4-bit windows) and where they do not (lanes
+    32-63): bit-equal to the plain versions, which pick the same chain."""
+    S = 70
+    pts = _window_points(S, cuda_device).clone()
+    pts[:32] = pts[3]
+    pts[64:] = pts[40]
+    assert ladder.warp_point_lanes(pts).tolist() == [True] * 32 + [False] * 32 + [True] * 6
+    k = torch.tensor(_window_scalars(S, 32), device=cuda_device)
+    got = ladder.window_mult(pts, k)
+    assert torch.equal(got, ladder.plain_window_mult(pts, k))
+    r = _window_points(S, cuda_device)
+    ok = ladder.window_verify(pts, k, r, got)
+    assert torch.equal(ok, ladder.plain_window_verify(pts, k, r, got))
+
+
+@pytest.mark.parametrize("nz,na", [(1, 0), (0, 1), (37, 5), (300, 64), (2048, 33), (65, 1)])
+def test_window_mult_sum8_kernel_bit_equal(cuda_device, nz, na):
+    """K3''s sum: the R set (16-byte z) and the A set (32-byte w), either
+    empty, ragged blocks, and 65 + 2 blocks (an odd node at most levels
+    of the tree)."""
+    r = _window_points(max(nz, 1), cuda_device)[:nz]
+    z = torch.tensor(_window_scalars(max(nz, 1), 16), device=cuda_device)[:nz]
+    a = _window_points(max(na, 1), cuda_device)[:na]
+    w = torch.tensor(_window_scalars(max(na, 1), 32), device=cuda_device)[:na]
+    before = ladder.window_mult_sum8.launches
+    got = ladder.window_mult_sum8(r, z, a, w)
+    assert ladder.window_mult_sum8.launches == before + 1
+    want = ladder.plain_window_mult_sum8(r, z, a, w)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 4, 32) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("S", [1, 37, 300])
@@ -692,16 +726,18 @@ def test_fieldmul_probe_kernel_bit_equal(cuda_device, S):
 
 @pytest.mark.parametrize("nbytes", [16, 32])
 def test_window_mult_instance_bit_equal(cuda_device, nbytes):
-    """K3''s compile-time instances for 16- and 32-byte k at a full warp
-    and a ragged one, per lane and summed, against the plain version; a
-    length K3' is not built for raises on the card (the plain version
-    takes it on the CPU)."""
+    """K3''s instances at a full warp and a ragged one: a 32-byte k per
+    lane, the sum's 16-byte (R set) and 32-byte (A set) lanes, against
+    the plain version; a length K3' is not built for raises on the card
+    (the plain version takes it on the CPU)."""
     S = 65
     pts = _window_points(S, cuda_device)
     k = torch.tensor(_window_scalars(S, nbytes), device=cuda_device)
-    for fold in (False, True):
-        got = ladder.window_mult(pts, k, fold=fold)
-        assert torch.equal(got, ladder.plain_window_mult(pts, k, fold=fold))
+    none = (pts[:0], torch.zeros((0, 48 - nbytes), dtype=torch.uint8, device=cuda_device))
+    sets = (pts, k, *none) if nbytes == 16 else (*none, pts, k)
+    assert torch.equal(ladder.window_mult_sum8(*sets), ladder.plain_window_mult_sum8(*sets))
+    if nbytes == 32:
+        assert torch.equal(ladder.window_mult(pts, k), ladder.plain_window_mult(pts, k))
     with pytest.raises(ValueError):
         ladder.window_mult(pts, k[:, :nbytes - 1])
     assert ladder.window_mult(pts.cpu(), k[:, :nbytes - 1].cpu()).shape == (S, 4, 32)
@@ -709,7 +745,7 @@ def test_window_mult_instance_bit_equal(cuda_device, nbytes):
 
 def test_window_mult_kernel_rejects_bad_inputs(cuda_device):
     pts = torch.zeros((4, 4, 32), dtype=torch.uint8, device=cuda_device)
-    k = torch.zeros((4, 16), dtype=torch.uint8, device=cuda_device)
+    k = torch.zeros((4, 32), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         ladder.window_mult(pts, k[:3])
     with pytest.raises(ValueError):
@@ -717,9 +753,13 @@ def test_window_mult_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         ladder.window_mult(pts, k.int())
     with pytest.raises(ValueError):
-        ladder.window_mult(pts[:0], k[:0], fold=True)
+        ladder.window_mult_sum8(pts[:0], k[:0, :16], pts[:0], k[:0])
     with pytest.raises(ValueError):
-        fieldmul_probe.fieldmul_probe(k, k)
+        ladder.window_mult_sum8(pts, k, pts, k)  # z of 32 bytes
+    with pytest.raises(ValueError):
+        ladder.window_mult_sum8(pts, k[:, :16], pts, k.t().contiguous().t())
+    with pytest.raises(ValueError):
+        fieldmul_probe.fieldmul_probe(k[:, :16], k[:, :16])
 
 
 def _rlc_batch(dev, B=8, n=8, seed=31):
@@ -743,11 +783,12 @@ def test_verify_rlc_on_card_known_answers(cuda_device):
         assert bool(got[0]) == bool(want[0]) and torch.equal(got[1].cpu(), want[1])
         return bool(got[0]), got[1].cpu()
 
-    counts = [ladder.window_mult.launches, powchain.compress.launches]
+    counts = [ladder.window_mult.launches, ladder.window_mult_sum8.launches,
+              powchain.compress.launches]
     ok, enc = both(sig, 8)
     assert ok and bool(enc.all())
-    assert [ladder.window_mult.launches - counts[0], powchain.compress.launches - counts[1]] \
-        == [4, 1]
+    assert [ladder.window_mult.launches - counts[0], ladder.window_mult_sum8.launches - counts[1],
+            powchain.compress.launches - counts[2]] == [0, 1, 1]
     assert both(sig, 1)[0]
     bad = sig.clone()
     bad[9, 40] ^= 1

@@ -132,12 +132,25 @@ def _window_points(S: int) -> torch.Tensor:
     return torch.cat([ends, sb, E.decompress(keys)[0]])[:S].contiguous()
 
 
+def _affine(enc: np.ndarray) -> tuple:
+    """A point uint8 [4, 32] -> affine (x, y) by Python integers."""
+    x, y, z = (_int(enc[c]) for c in range(3))
+    zi = pow(z, P - 2, P)
+    return x * zi % P, y * zi % P
+
+
 @pytest.mark.parametrize("nbytes", [16, 32])
 def test_plain_window_mult_matches_reference_scalar_mult(ref, nbytes):
+    """K3''s plain version, the signed-window chain, against the
+    reference's jitted scalar_mult and the oracle's integer arithmetic
+    (compressed), on scalars whose recoding carries out of the top (a top
+    nibble of 8 or 15, 0x88...8, all ones); its sum times 8 against the
+    reference's products summed and doubled by the oracle."""
     S = 12
     pts = _window_points(S)
     top = 2 ** (8 * nbytes) - 1
-    edges = [0, 1, 15, 16, (L - 1) % (top + 1), top]
+    edges = [0, 1, 8, 15, 16, (L - 1) % (top + 1), top, 8 << (8 * nbytes - 4),
+             int("8" * 2 * nbytes, 16), 15 << (8 * nbytes - 4)]
     rs = np.random.default_rng(nbytes)
     k = np.concatenate([np.stack([_le(v, nbytes) for v in edges]),
                         rs.integers(0, 256, (S - len(edges), nbytes), dtype=np.uint8)])
@@ -147,9 +160,40 @@ def test_plain_window_mult_matches_reference_scalar_mult(ref, nbytes):
     want = ref["scalar_mult"](tuple(jnp.asarray(c) for c in limbs), jnp.asarray(bits))
     want = convert.point_from_limbs22(tuple(np.asarray(c) for c in want), "cpu").numpy()
     assert [_affine_enc(g) for g in got] == [_affine_enc(w) for w in want]
-    fold = ladder.plain_window_mult(pts, torch.tensor(k), fold=True)[0].numpy()
-    total = E.batch_point_sum(E.decode_point(torch.tensor(want)))
-    assert _affine_enc(fold) == _affine_enc(E.encode_point(total)[0].numpy())
+    assert [_affine_enc(g) for g in got] == [
+        oracle.encode_point(oracle.scalarmult(_affine(p), _int(kk)))
+        for p, kk in zip(pts.numpy(), k)]
+    empty = (torch.zeros((0, 4, 32), dtype=torch.uint8), torch.zeros((0, 32), dtype=torch.uint8))
+    sets = ((pts, torch.tensor(k), *empty) if nbytes == 16 else
+            (empty[0], empty[1][:, :16], pts, torch.tensor(k)))
+    summed = ladder.plain_window_mult_sum8(*sets)[0].numpy()
+    total = (0, 1)
+    for w in want:
+        total = oracle.edwards_add(total, _affine(w))
+    assert _affine_enc(summed) == oracle.encode_point(oracle.scalarmult(total, 8))
+
+
+def test_plain_window_mult_one_point_matches_reference_scalar_mult(ref):
+    """Lanes that share one point (a warp's one table: signed 4-bit
+    windows) against the reference's jitted scalar_mult and the oracle,
+    compressed, on the edge scalars of the test above."""
+    S = 12
+    pts = _window_points(5)[4:5].repeat(S, 1, 1).contiguous()
+    assert bool(ladder.warp_point_lanes(pts).all())
+    top = 2**256 - 1
+    edges = [0, 1, 8, 15, 16, L - 1, top, 8 << 252, int("8" * 64, 16), 15 << 252]
+    rs = np.random.default_rng(5)
+    k = np.concatenate([np.stack([_le(v) for v in edges]),
+                        rs.integers(0, 256, (S - len(edges), 32), dtype=np.uint8)])
+    got = ladder.plain_window_mult(pts, torch.tensor(k)).numpy()
+    limbs = [np.asarray(c) for c in E.decode_point(pts)]
+    bits = np.unpackbits(k, axis=1, bitorder="little").astype(np.int32)
+    want = ref["scalar_mult"](tuple(jnp.asarray(c) for c in limbs), jnp.asarray(bits))
+    want = convert.point_from_limbs22(tuple(np.asarray(c) for c in want), "cpu").numpy()
+    assert [_affine_enc(g) for g in got] == [_affine_enc(w) for w in want]
+    p = _affine(pts[0].numpy())
+    assert [_affine_enc(g) for g in got] == [oracle.encode_point(oracle.scalarmult(p, _int(kk)))
+                                             for kk in k]
 
 
 def test_window_mult_zero_scalar_is_the_identity_on_any_point():

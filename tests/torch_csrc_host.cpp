@@ -6,12 +6,15 @@
 // replayed, so the CPU tests can hold the kernels'
 // arithmetic against the plain versions without a card.  The CUDA launch
 // code in each source sits behind __CUDACC__ and is not compiled here;
-// K4's warp-shuffle levels and K3''s fold are replayed in the same
-// pairing by fixed_base and window_mult_fold below.
+// K4's warp-shuffle levels and K3''s sum (its warps' halving trees and
+// the tree over the blocks) are replayed in the same pairing by
+// fixed_base and window_mult_sum8 below; the window table, shared memory
+// on the card, is an array a lane here (STRIDE 1).
 //
 //   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
 
 #include <cstdlib>
+#include <cstring>
 #include <vector>
 
 // Every threefry word coins.cuh evaluates is counted here: the words drawn.
@@ -86,64 +89,122 @@ void host_fe_sq(int n, const int32_t* f, uint8_t* sq, uint8_t* mul) {
     }
 }
 
+// The kernels' warp test (window.cuh warp_one_point): whether lanes
+// [32 (i / 32), n) of lane i's warp all hold its first lane's point.
+static bool warp_one_point_host(const uint8_t* pts, int n, int i) {
+    const int first = i - i % 32, end = first + 32 < n ? first + 32 : n;
+    for (int j = first + 1; j < end; j++)
+        if (memcmp(pts + 128 * j, pts + 128 * first, 128) != 0) return false;
+    return true;
+}
+
+// A table big enough for either chain, as the card's block holds.
+static int32_t host_tab[K3P_TABLE_WORDS > WARP_TABLE_WORDS ? K3P_TABLE_WORDS : WARP_TABLE_WORDS];
+
 void host_window_verify(int n, const uint8_t* a, const uint8_t* h, const uint8_t* r,
                         const uint8_t* left, uint8_t* ok) {
     for (int i = 0; i < n; i++)
-        ok[i] = window_verify_lane(a + 128 * i, h + 32 * i, r + 128 * i, left + 128 * i) ? 1 : 0;
+        ok[i] = window_verify_lane<1>(a + 128 * i, h + 32 * i, r + 128 * i, left + 128 * i,
+                                      host_tab, 0, warp_one_point_host(a, n, i)) ? 1 : 0;
 }
 
-// K3''s lane for a k of nbytes, through the instance the kernel launches.
-static void mult_lane(int nbytes, const uint8_t* pt, const uint8_t* k, ge& acc) {
-    if (!with_k3p_length(nbytes, [&](auto nb) { window_mult_lane<decltype(nb)::value>(pt, k, acc); }))
+// K3''s lane for a k of nbytes, through the instance a kernel launches
+// (32 bytes, or 16 in the sum's [z]R blocks, which never take the warp's
+// one table).
+static void mult_lane(int nbytes, const uint8_t* pt, const uint8_t* k, bool warp_point,
+                      ge& acc) {
+    if (nbytes == 32)
+        window_mult_lane<32, 1>(pt, k, host_tab, 0, warp_point, acc);
+    else if (nbytes == 16)
+        window_mult_lane<16, 1>(pt, k, host_tab, 0, warp_point, acc);
+    else
         abort();  // a length K3' is not built for
 }
 
 void host_window_mult(int n, int nbytes, const uint8_t* pt, const uint8_t* k, uint8_t* out) {
     for (int i = 0; i < n; i++) {
         ge acc;
-        mult_lane(nbytes, pt + 128 * i, k + nbytes * i, acc);
+        mult_lane(nbytes, pt + 128 * i, k + nbytes * i, warp_one_point_host(pt, n, i), acc);
         ge_tobytes4(out + 128 * i, acc);
     }
 }
 
-// The fold kernel's halving tree over one warp: lane t adds lane t + o for
+// The recoded digits of k (window.cuh) in windows of wbits (the lanes'
+// WINDOW_BITS or the warp's WARP_WINDOW_BITS), as the accumulator reads
+// them: digits[0] the carry digit, then the NWIN windows' digits, most
+// significant first (1 + NWIN a lane).
+extern "C++" {
+template <int NBYTES, int WBITS>
+static void recode_lanes(int n, const uint8_t* k, int32_t* digits) {
+    using R = Recoding<NBYTES, WBITS>;
+    for (int i = 0; i < n; i++) {
+        uint32_t u[R::WORDS + 1];
+        int32_t* d = digits + (1 + R::NWIN) * i;
+        d[0] = recode_start<NBYTES, WBITS>(u, k + NBYTES * i);
+        for (int w = 1; w <= R::NWIN; w++) d[w] = recode_next<NBYTES, WBITS>(u);
+    }
+}
+}  // extern "C++"
+
+void host_recode(int n, int nbytes, int wbits, const uint8_t* k, int32_t* digits) {
+    const bool lane_bits = wbits == WINDOW_BITS;
+    if (!lane_bits && wbits != WARP_WINDOW_BITS) abort();
+    if (nbytes == 32 && lane_bits)
+        recode_lanes<32, WINDOW_BITS>(n, k, digits);
+    else if (nbytes == 32)
+        recode_lanes<32, WARP_WINDOW_BITS>(n, k, digits);
+    else if (nbytes == 16 && lane_bits)
+        recode_lanes<16, WINDOW_BITS>(n, k, digits);
+    else if (nbytes == 16)
+        recode_lanes<16, WARP_WINDOW_BITS>(n, k, digits);
+    else
+        abort();
+}
+
+// The sum kernel's halving tree over one warp: lane t adds lane t + o for
 // o = 16, 8, 4, 2, 1; lane 0 ends with the sum.
 static void halving_sum(ge v[32]) {
     for (int o = 16; o > 0; o >>= 1)
         for (int t = 0; t < o; t++) ge_add(v[t], v[t], v[t + o]);
 }
 
-void host_window_mult_fold(int n, int nbytes, const uint8_t* pt, const uint8_t* k,
-                           uint8_t* out) {
-    const int blocks = (n + 31) / 32;
-    ge* partials = new ge[blocks];
-    for (int g = 0; g < blocks; g++) {
+// [8](sum of [ka_j]A_j (32-byte k) + sum of [kz_i]R_i (16-byte k)): the
+// blocks of 32 lanes of the A set, then of the R set, each summed by the
+// warp's halving tree; the block sums paired level by level (node 2i + 1
+// added to node 2i, an odd last node passed up) as the blocks' climb
+// pairs them; the root doubled three times.
+void host_window_mult_sum8(int na, const uint8_t* pa, const uint8_t* ka, int nz,
+                           const uint8_t* pz, const uint8_t* kz, uint8_t* out) {
+    const int ga = (na + 31) / 32, gz = (nz + 31) / 32;
+    if (ga + gz == 0) abort();
+    std::vector<ge> nodes(ga + gz);
+    for (int g = 0; g < ga + gz; g++) {
+        const bool in_a = g < ga;
         ge v[32];
         for (int t = 0; t < 32; t++) {
-            const int lane = 32 * g + t;
-            if (lane < n)
-                mult_lane(nbytes, pt + 128 * lane, k + nbytes * lane, v[t]);
+            const int lane = 32 * (in_a ? g : g - ga) + t;
+            if (in_a && lane < na)
+                mult_lane(32, pa + 128 * lane, ka + 32 * lane, false, v[t]);
+            else if (!in_a && lane < nz)
+                mult_lane(16, pz + 128 * lane, kz + 16 * lane, false, v[t]);
             else
                 ge_identity(v[t]);
         }
         halving_sum(v);
-        partials[g] = v[0];
+        nodes[g] = v[0];
     }
-    ge total[32];
-    for (int t = 0; t < 32; t++) {
-        ge_identity(total[t]);
-        for (int row = 0; row * 32 < blocks; row++) {
-            ge part;
-            if (32 * row + t < blocks)
-                part = partials[32 * row + t];
+    while (nodes.size() > 1) {
+        std::vector<ge> up((nodes.size() + 1) / 2);
+        for (size_t i = 0; i < up.size(); i++) {
+            if (2 * i + 1 < nodes.size())
+                ge_add(up[i], nodes[2 * i], nodes[2 * i + 1]);
             else
-                ge_identity(part);
-            ge_add(total[t], total[t], part);
+                up[i] = nodes[2 * i];
         }
+        nodes.swap(up);
     }
-    halving_sum(total);
-    ge_tobytes4(out, total[0]);
-    delete[] partials;
+    ge_times8(nodes[0]);
+    ge_tobytes4(out, nodes[0]);
 }
 
 // K3'': words int32 [nwords, n], word w of lane i at w * n + i.
