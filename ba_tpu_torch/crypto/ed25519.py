@@ -13,7 +13,8 @@ kernel on a CUDA one:
 
 - K7 ``ops/decompress.decompress``: A and R in one 2B-lane call;
 - K4 ``ops/treeadd.fixed_base_fold``: [S]B from the window table of
-  [j * 16^w]B, 64 points folded by complete additions;
+  [j 16^w]B in signed 4-bit digits, 65 entries folded by mixed and
+  complete additions;
 - K5 ``ops/sha512_kernel.sha512_blocks_mod_l``: h;
 - K3 ``ops/ladder.window_verify``: [h]A by signed 3-bit windows, R + [h]A, and
   the projective equality with [S]B, one verdict a lane.
@@ -84,6 +85,24 @@ def point_add(p: Point, q: Point) -> Point:
     b = F.mul(F.add(y1, x1), F.add(y2, x2))
     c = F.mul(F.mul(t1, t2), F.constant(2 * D % P, dev))
     d = F.mul_small(F.mul(z1, z2), 2)
+    e = F.sub(b, a)
+    f = F.sub(d, c)
+    g = F.add(d, c)
+    h = F.add(b, a)
+    return (F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
+
+
+def point_add_cached(p: Point, q: tuple) -> Point:
+    """p + q for q a fixed-base table entry in the cached form (Y - X,
+    Y + X, 2d T) at Z = 1: add-2008-hwcd-3 with Z2 = 1, 7 multiplies, the
+    values of :func:`point_add` on (x, y, 1, x y), term for term as K4's
+    ``ge_add_affine`` (``ops/csrc/treeadd.cu``)."""
+    x1, y1, z1, t1 = p
+    ymx, ypx, t2d = q
+    a = F.mul(F.sub(y1, x1), ymx)
+    b = F.mul(F.add(y1, x1), ypx)
+    c = F.mul(t1, t2d)
+    d = F.mul_small(z1, 2)
     e = F.sub(b, a)
     f = F.sub(d, c)
     g = F.add(d, c)
@@ -200,28 +219,52 @@ def _base_table() -> np.ndarray:
     return table
 
 
+FB_ROWS, FB_ENTRIES, FB_ENTRY_WORDS = 65, 8, 32  # K4's table (ops/csrc/treeadd.cu)
+
+
+def _radix25_limbs(v: int) -> list:
+    """The kernels' 10 limbs of 0 <= v < 2^255 (radix 2^25.5: limb i of
+    26 bits for even i, 25 for odd, at bit ceil(25.5 i))."""
+    return [(v >> ((51 * i + 1) // 2)) & ((1 << (26 - (i & 1))) - 1) for i in range(10)]
+
+
 @functools.lru_cache(maxsize=None)
-def _base_table_bytes() -> np.ndarray:
-    """The window table as the kernels read it: uint8 [64, 16, 4, 32],
-    the canonical encodings of the same coordinates."""
-    t = _base_table()
+def _fixed_base_table() -> np.ndarray:
+    """K4's window table: int32 [65, 8, 32].  Entry j - 1 of row w < 64 is
+    [j 16^w]B (:func:`_base_table`'s T[w, j], j = 1..8), of row 64
+    [j 2^256]B, the recoding's carry out of the top window; each in the
+    cached form at Z = 1, (y - x, y + x, 2d x y), as 10 canonical limbs of
+    the kernels' radix (:func:`_radix25_limbs`) a coordinate, then two zero
+    words."""
+    from ba_tpu_torch.crypto import oracle
+
     weights = 1 << (12 * np.arange(F.LIMBS, dtype=object))
-    out = np.zeros((64, 16, 4, 32), np.uint8)
-    for idx in np.ndindex(64, 16, 4):
-        v = int((t[idx].astype(object) * weights).sum())
-        out[idx] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
-    return out
+    base = _base_table()
+    pts = [[tuple(int((base[w, j, c].astype(object) * weights).sum()) for c in (0, 1))
+            for j in range(1, FB_ENTRIES + 1)] for w in range(64)]
+    top = oracle.scalarmult(oracle.BASE, 1 << 256)
+    row, pt = [], top
+    for _ in range(FB_ENTRIES):
+        row.append(pt)
+        pt = oracle.edwards_add(pt, top)
+    pts.append(row)
+    table = np.zeros((FB_ROWS, FB_ENTRIES, FB_ENTRY_WORDS), np.int32)
+    for w in range(FB_ROWS):
+        for j, (x, y) in enumerate(pts[w]):
+            coords = ((y - x) % P, (y + x) % P, 2 * D * x * y % P)
+            table[w, j, :30] = sum((_radix25_limbs(v) for v in coords), [])
+    return table
 
 
-def base_table(device) -> torch.Tensor:
-    """The window table (uint8 [64, 16, 4, 32]) on ``device``, made once
-    per device."""
-    return _base_table_on(torch.device(device))
+def fixed_base_table(device) -> torch.Tensor:
+    """K4's window table (int32 [65, 8, 32]) on ``device``, made once per
+    device."""
+    return _fixed_base_table_on(torch.device(device))
 
 
 @functools.lru_cache(maxsize=None)
-def _base_table_on(device: torch.device) -> torch.Tensor:
-    return torch.tensor(_base_table_bytes(), device=device)
+def _fixed_base_table_on(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_fixed_base_table(), device=device)
 
 
 def decompress(by: torch.Tensor):
@@ -235,11 +278,12 @@ def decompress(by: torch.Tensor):
 
 def fixed_base_mult(s_enc: torch.Tensor) -> torch.Tensor:
     """[S]B from 32-byte little-endian scalars [N, 32] -> uint8 [N, 4, 32],
-    through K4: S = sum_w digit_w 16^w, so [S]B folds 64 table points."""
+    through K4: S = sum_w d_w 16^w + c 2^256 in signed digits, so [S]B
+    folds 65 table entries."""
     from ba_tpu_torch.ops.treeadd import fixed_base_fold
 
     s_enc = s_enc.contiguous()
-    return fixed_base_fold(s_enc, base_table(s_enc.device))
+    return fixed_base_fold(s_enc, fixed_base_table(s_enc.device))
 
 
 def compress_point(p: Point) -> torch.Tensor:

@@ -19,11 +19,11 @@ mode; either way the table verify runs on the card, by default through
 signature.  ``verify="rlc"`` takes the reference's ``BA_TPU_VERIFY_RLC=1``
 route instead: ``crypto/ed25519.verify_rlc``, one batch equation a chunk
 (K7, K5, K6, K3', K4, K8), with the exact verify only for a chunk it
-rejects.  On an H100 that route is no faster: ``chip_smoke.py``'s
-config #3 phase measures the batch check at 0.66-0.73x the
-per-signature rate at 65 536 lanes, and its setup phase the "rlc"
-setup within a few milliseconds of the exact one; it is kept for parity
-with the reference, whose accelerator it did speed up.  On a CPU device
+rejects.  On an H100 ``chip_smoke.py``'s config #3 phase measures the
+batch check at 0.91x the per-signature rate at 65 536 lanes (7.43e6
+against 8.17e6 verifies/s), and its setup phase the "rlc" setup within
+a few milliseconds of the exact one; it is kept for parity with the
+reference, whose accelerator it did speed up.  On a CPU device
 the same functions run the kernels' plain versions.
 ``verify_host_exact`` is the native host verifier, the oracle the tests
 hold the device verdicts against.
@@ -182,7 +182,7 @@ def verify_received(pks, msgs, sigs, device=None, verify: str = "exact") -> torc
     last at its own size: the kernels take any lane count) and reshapes
     back.  Nothing here waits for the card.  ``verify="rlc"``: the batch
     check first, :func:`verify_received_rlc`, which fetches its verdict;
-    on an H100 it is slower than the exact route (module docstring)."""
+    on an H100 it runs 0.91x the exact route's rate (module docstring)."""
     _check_route(verify)
     if verify == "rlc":
         return verify_received_rlc(pks, msgs, sigs, device)

@@ -14,10 +14,18 @@
 //
 // Bound: operations.  275 field products a lane, 255 of them squarings
 // (251 squarings and 11 multiplies in the chain, 4 and 9 around it), ~5
-// canonical forms, and
-// 32 bytes in and 129 out.  The design keeps the whole chain in registers
-// (the TPU kernel's point too: one HBM read of y, one write of the point),
-// one lane a thread, 64 threads a block.
+// canonical forms, and 32 bytes in and 129 out.  The chain is one lane's
+// serial line of products: at the setups' lane counts (20 480 to 30 720,
+// a few warps a SM) its latency is the kernel's time, and above them the
+// warps a SM are.  One thread a lane, 64-thread blocks.  Below
+// CAP_FROM_LANES lanes the instance that may take 255 registers (no
+// spill) runs; from it the one whose __launch_bounds__ asks for 8 blocks
+// a SM (128 registers, some spill, twice the warps): 0.80 against 0.90 ms
+// at 131 072 lanes on an H100, 0.21 either way at 20 480.  Ref10's two
+// interleaved carry chains a product ran 2-5 % slower than the serial one
+// at every lane count, two lanes a thread with their chains interleaved
+// 5-60 % slower, 32- or 128-thread blocks within 1 %
+// (scripts/k4k7_variants.py, which carries those variants' sources).
 //
 // Interface: enc uint8 [n, 32] -> pts uint8 [n, 4, 32], ok uint8 [n].
 
@@ -92,9 +100,13 @@ ED_FN void decompress_lane(const uint8_t* enc, uint8_t* pt, uint8_t* ok_out) {
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(64) decompress_kernel(int n, const uint8_t* __restrict__ enc,
-                                                        uint8_t* __restrict__ pts,
-                                                        uint8_t* __restrict__ ok) {
+// From this many lanes the instance bounded to 8 blocks a SM runs.
+constexpr int CAP_FROM_LANES = 32768;
+
+template <int MIN_BLOCKS>
+__global__ void __launch_bounds__(64, MIN_BLOCKS)
+    decompress_kernel(int n, const uint8_t* __restrict__ enc, uint8_t* __restrict__ pts,
+                      uint8_t* __restrict__ ok) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
     decompress_lane(enc + 32 * (size_t)lane, pts + 128 * (size_t)lane, ok + lane);
@@ -102,8 +114,14 @@ __global__ void __launch_bounds__(64) decompress_kernel(int n, const uint8_t* __
 
 extern "C" int ba_decompress(int n, const void* enc, void* pts, void* ok, void* stream) {
     if (n <= 0) return 0;
-    decompress_kernel<<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        n, (const uint8_t*)enc, (uint8_t*)pts, (uint8_t*)ok);
+    const int grid = (n + 63) / 64;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (n >= CAP_FROM_LANES)
+        decompress_kernel<8><<<grid, 64, 0, st>>>(n, (const uint8_t*)enc, (uint8_t*)pts,
+                                                  (uint8_t*)ok);
+    else
+        decompress_kernel<1><<<grid, 64, 0, st>>>(n, (const uint8_t*)enc, (uint8_t*)pts,
+                                                  (uint8_t*)ok);
     return (int)cudaGetLastError();
 }
 

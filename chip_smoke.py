@@ -74,7 +74,7 @@ Phases, one JSON line each:
 8. K7, K5, K5', K6, K4, K8 and K3 against their plain versions at S in
    {1, 37, 1024, 4096}: half real signatures, half edge values (y at
    p - 1, p and 2p - 2, the identity, x = 0 with sign 1; scalars 0, 1,
-   15, 16, L - 1, 2^256 - 1; 512-bit values 0, 2^512 - 1, L - 1, L, 2L
+   8, 15, 16, L - 1, L, 2^256 - 1, every nibble 8, a top nibble of 8; 512-bit values 0, 2^512 - 1, L - 1, L, 2L
    and muladd_bytes' largest; the identity, B and [s]B with Z != 1) and
    random bytes — verdicts, scalars, digests, encodings and canonical
    point encodings bit-equal;
@@ -234,6 +234,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import gc
 import hashlib
 import json
 import os
@@ -321,8 +322,21 @@ K3_DESIGN = ("signed 3-bit windows (k plus 4 in every window once a lane, the ca
              "lane-major, 20 kB a 32-lane block; additions of 8 multiplies")
 WARP_DESIGN = ("; a warp whose lanes hold one point runs signed 4-bit windows on one table "
                "of [1..8]P for the warp")
+K4_DESIGN = ("signed 4-bit digits recoded on the fly (S plus 8 in every window, the carry "
+             "out of the top a 65th digit of weight 2^256); a table of [1..8] 16^w B in the "
+             "cached form (Y - X, Y + X, 2d T) at Z = 1 as int32 limbs, 65 rows, read "
+             "through the read-only path, no byte decoded, the identity for digit 0 by "
+             "selects; 8 groups of 8 windows summed in window order by mixed additions of 7 "
+             "multiplies, then a balanced tree of 7 complete additions; 8 / T groups a "
+             "thread (a loop with a counter of pending partials) and log2 T shuffle levels, "
+             "T from S (8 below 4 096 lanes, 2 below 16 384, 4 below 32 768, else 1), the "
+             "same bits for every T")
+K7_DESIGN = ("one lane a thread, 64-thread blocks, the (p - 5)/8 chain in one serial carry "
+             "chain a product; from 32 768 lanes the instance bounded to 8 blocks a SM (128 "
+             "registers), below it the unbounded one (no spill)")
 # The kernels whose lines name their design and carry their source's ptxas records.
-ED_DESIGNS = {"K3": K3_DESIGN + WARP_DESIGN, "K3'": K3_DESIGN + WARP_DESIGN,
+ED_DESIGNS = {"K4": K4_DESIGN, "K7": K7_DESIGN,
+              "K3": K3_DESIGN + WARP_DESIGN, "K3'": K3_DESIGN + WARP_DESIGN,
               "K3' sum": K3_DESIGN + "; both sets in one launch, the 256-bit set's blocks "
               "first; warp halving sums, then a tree over the block sums climbed by the "
               "second block of each pair; times 8 by three doublings"}
@@ -363,10 +377,16 @@ FM_VARIANTS = 12  # the probe's input variants (bench.py's BA_TPU_FMUL_PROBE_VAR
 # INT32_LANES_PER_SM, which the bounds divide them by.
 FE_MUL_OPS, FE_SQ_OPS = 290, 173
 # (multiplies, squarings) a lane: K7 the (p-5)/8 chain (11, 251) and (9, 4)
-# around it; K4 63 additions, 31 of 9 and 32 of two affine table entries at 8;
-# K8 the p - 2 chain (13, 257) and x / Z, y / Z.  K3 is K3''s 32-byte chain
-# and 9 + 4 to finish.
-K7_WORK, K4_WORK = (20, 255), (31 * 9 + 32 * 8, 0)
+# around it; K8 the p - 2 chain (13, 257) and x / Z, y / Z.  K3 is K3''s
+# 32-byte chain and 9 + 4 to finish.  K4 the least work on its table of
+# signed 4-bit windows: one chain of mixed additions over the 65 entries a
+# lane reads, the first from the identity at 1 multiply, each next at 7
+# (the shipped fold does 470, its tree of complete additions keeping the
+# bits the same for every thread count; the first port's tree of 64
+# unsigned window points 535).
+K7_WORK = (20, 255)
+K4_WORK = (1 + 64 * 7, 0)
+K4_ENTRY_BYTES = 128  # a table entry: 30 limbs and 2 zero words
 K8_WORK = (15, 257)
 K8P_WORK, INV_WORK = (11, 251), (13, 257)  # the (p - 5)/8 and p - 2 chains alone
 
@@ -1106,8 +1126,9 @@ def phase_ed25519_known_answers(dev, rs):
 def ed_middle_inputs(rs, S, dev):
     """Inputs for the four kernels at S lanes: the first half real
     signatures of the native signer, then edge values (y at p - 1, p and
-    2p - 2, the identity's y = 1, x = 0 with sign 1; scalars 0, 1, 15,
-    16, L - 1 and 2^256 - 1) and random bytes."""
+    2p - 2, the identity's y = 1, x = 0 with sign 1; scalars 0, 1, 8, 15,
+    16, L - 1, L, 2^256 - 1, every nibble 8 and a top nibble of 8, the
+    last two carrying out of K4's top window) and random bytes."""
     P, L = oracle.P, oracle.L
     n_sig = max(S // 2, 1)
     sks, pks = signed.commander_keys(n_sig, seed=S)
@@ -1117,7 +1138,8 @@ def ed_middle_inputs(rs, S, dev):
     edge_y = np.stack([np.frombuffer(le32(v), np.uint8)
                        for v in (P - 1, P, 2 * P - 2, 1, 1 | 1 << 255)])
     edge_s = np.stack([np.frombuffer(le32(v), np.uint8)
-                       for v in (0, 1, 15, 16, L - 1, 2**256 - 1)])
+                       for v in (0, 1, 8, 15, 16, L - 1, L, 2**256 - 1, int("8" * 64, 16),
+                                 (8 << 252) | 5)])
     a_enc = np.concatenate([pks, edge_y, rand(S, 32)])[:S]
     r_enc = np.concatenate([sig[:, :32], edge_y[::-1], rand(S, 32)])[:S]
     m = np.concatenate([msg, rand(S, msg.shape[1])])[:S]
@@ -1146,7 +1168,7 @@ def phase_ed25519_middle(dev, rs):
     lanes: every output bit-equal (points as canonical encodings).  K8
     compresses the identity, B and K4's [s]B (Z != 1); K5' hashes
     messages of one, two and three blocks in turn."""
-    table = ed25519.base_table(dev)
+    table = ed25519.fixed_base_table(dev)
     ends = torch.cat([ed25519.encode_point(ed25519.identity((1,), dev)),
                       ed25519.encode_point(ed25519.base_point((1,), dev))])
     for i, S in enumerate((1, 37, 1024, 4096)):
@@ -1574,8 +1596,11 @@ def dispatch_work(key, args, kw):
                 f"{S} lanes, e of {e.bit_length()} bits, {work[0]} ones")
     if key in ("K8'", "K8 p-2"):
         return S, S * field_ops(K8P_WORK if key == "K8'" else INV_WORK), S * 64, f"{S} lanes"
-    if key == "K4":  # the scalars and the window table in, the points out
-        return S, S * field_ops(K4_WORK), (32 + 128) * S + args[1].numel(), f"{S} lanes"
+    if key == "K4":  # the scalars in, the points out, 65 table entries a lane
+        threads = kw.get("threads") or treeadd.threads_per_lane(S)
+        table_bytes = min(S * 65 * K4_ENTRY_BYTES, args[1].numel() * args[1].element_size())
+        return (S, S * field_ops(K4_WORK), (32 + 128) * S + table_bytes,
+                f"{S} lanes, {threads} threads a lane")
     ops, lane_bytes = {"K8": (field_ops(K8_WORK), 128 + 32), "K6": (MODL_OPS, 64 + 32),
                        "K7": (field_ops(K7_WORK), 32 + 128 + 1),
                        "K3": (field_ops(K3_WORK), 3 * 128 + 32 + 1)}[key]
@@ -1731,7 +1756,7 @@ def k3p_inputs(rs, S, nbytes, dev):
                       ed25519.encode_point(ed25519.base_point((1,), dev))])
     sb = treeadd.fixed_base_fold(
         torch.tensor(rs.integers(0, 256, (4, 32), dtype=np.uint8), device=dev),
-        ed25519.base_table(dev))
+        ed25519.fixed_base_table(dev))
     keys = torch.tensor(signed.commander_keys(S, seed=S + nbytes)[1], device=dev)
     pts = torch.cat([ends, sb, decompress.decompress(keys)[0]])[:S].contiguous()
     top = 2 ** (8 * nbytes) - 1
@@ -1778,6 +1803,34 @@ def leg_seconds(fn, args_of, iters):
 
 def spread(times):
     return (max(times) - min(times)) / min(times)
+
+
+class HostPauses:
+    """What held the host while a call was queued: the garbage
+    collector's pauses (ms, and how many were full collections) and the
+    cudaMalloc calls the caching allocator made."""
+
+    def __init__(self, dev):
+        self.dev, self.gc_ms, self.gc_full, self._t0 = dev, 0.0, 0, 0.0
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.gc_ms += (time.perf_counter() - self._t0) * 1e3
+            self.gc_full += info["generation"] == 2
+
+    def _mallocs(self):
+        return torch.cuda.memory_stats(self.dev).get("num_device_alloc", 0)
+
+    def __enter__(self):
+        self.cuda_mallocs = -self._mallocs()
+        gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._gc)
+        self.cuda_mallocs += self._mallocs()
 
 
 def phase_config3(dev, card):
@@ -1856,19 +1909,23 @@ def phase_config3(dev, card):
           "the per-signature mask differs from the native host verifier's")
 
     # one call of each verify again: the host's time to queue it, and the
-    # card's from its first launch to its last (CUDA events)
+    # card's from its first launch to its last (CUDA events); beside them
+    # the collector's pauses and the cudaMallocs while it was queued
     one_call = {}
     for name, fn in (("verify", lambda: ed25519.verify(*variants[0])),
                      ("rlc", lambda: ed25519.verify_rlc(*variants[0], zs[0], pk_group=n))):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         sync()
-        t0 = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
-        queue_ms = (time.perf_counter() - t0) * 1e3
+        with HostPauses(dev) as pauses:
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            queue_ms = (time.perf_counter() - t0) * 1e3
         sync()
-        one_call[name] = {"host_queue_ms": queue_ms, "card_ms": start.elapsed_time(end)}
+        one_call[name] = {"host_queue_ms": queue_ms, "card_ms": start.elapsed_time(end),
+                          "gc_ms": pauses.gc_ms, "gc_full": pauses.gc_full,
+                          "cuda_mallocs": pauses.cuda_mallocs}
 
     faulty = torch.zeros((B_C3, n), dtype=torch.bool, device=dev)
     faulty[:, 1] = True
@@ -2842,6 +2899,36 @@ def ab_k3p_random(dev, card):
           f"k3_random_{n}_ms": time_cuda(
               lambda: ladder.window_verify(pts[:n], k[:n], pts[:n], pts[:n]), reps=10),
           "card": card})
+
+
+# -- the A/B of K4 and K7 (torch_checkout_ab.py --phase k4k7) ----------------
+
+K4_AB_LANES = (1, 10_240, 20_480, 65_536)  # [c]B; the setups; config #3's [S]B
+K7_AB_LANES = (20_480, 40_960, 66_560, 131_072)
+
+
+def ab_k4k7(dev, card, seed=0):
+    """K4 and K7 through their entry points (``ed25519.fixed_base_mult``,
+    ``ed25519.decompress``), for an A/B of two checkouts of the package:
+    builds treeadd.cu and decompress.cu alone (in parallel), then times by
+    CUDA events K4 on random 32-byte scalars at K4_AB_LANES and K7 on
+    random encodings at K7_AB_LANES, from default_rng(seed).  Emits them
+    as one line."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(_build.build, source)
+                    for source in ("treeadd.cu", "decompress.cu")]:
+            job.result()
+    rs = np.random.default_rng(seed)
+    s = torch.tensor(rs.integers(0, 256, (max(K4_AB_LANES), 32), dtype=np.uint8), device=dev)
+    enc = torch.tensor(rs.integers(0, 256, (max(K7_AB_LANES), 32), dtype=np.uint8), device=dev)
+    line = {"phase": "ab_k4k7"}
+    for S in K4_AB_LANES:
+        s_n = s[:S].contiguous()
+        line[f"k4_{S}_ms"] = time_cuda(lambda: ed25519.fixed_base_mult(s_n), reps=10)
+    for N in K7_AB_LANES:
+        enc_n = enc[:N].contiguous()
+        line[f"k7_{N}_ms"] = time_cuda(lambda: ed25519.decompress(enc_n), reps=10)
+    emit({**line, "card": card})
 
 
 def main(argv=None) -> int:

@@ -26,6 +26,12 @@ imports that checkout's package, and runs one of:
   points [s]B, random 256-bit k) and K3 on the same lanes, and on 20 480
   of them.
 
+- ``k4k7``: ``ab_k4k7`` of the same ``chip_smoke.py``, loaded alike:
+  treeadd.cu and decompress.cu built alone, then by CUDA events K4
+  (``ed25519.fixed_base_mult``) on random scalars at 1, 10 240, 20 480
+  and 65 536 lanes and K7 (``ed25519.decompress``) on random encodings at
+  20 480, 40 960, 66 560 and 131 072.
+
 Pair i runs A then B when i is even, B then A when it is odd (N = 2 is
 A B B A).  Prints one JSON line a run (the phase's readings, with the
 checkout's label), then a summary line: for each reading, both medians,
@@ -66,19 +72,22 @@ RUNS = {
     "sweeps": LOAD_BESIDE + "cs.ab_sweeps(torch.device('cuda'), cs.smi('name,power.limit'))\n",
     "k3p_random": BEFORE_SUM + LOAD_BESIDE
     + "cs.ab_k3p_random(torch.device('cuda'), cs.smi('name,power.limit'))\n",
+    "k4k7": LOAD_BESIDE + "cs.ab_k4k7(torch.device('cuda'), cs.smi('name,power.limit'))\n",
 }
 # (reading, True where higher wins)
 READINGS = {
     "config3": [("ed25519_verifies_per_sec", True), ("rlc_batch_verifies_per_sec", True),
                 ("sm1_rounds_per_sec", True), ("verify_host_queue_ms", False),
                 ("verify_card_ms", False), ("rlc_host_queue_ms", False),
-                ("rlc_card_ms", False)],
+                ("rlc_card_ms", False), ("rlc_gc_ms", False), ("rlc_cuda_mallocs", False)],
     "sweeps": [("plain_sweep_rounds_per_s", True), ("scenario_rounds_per_s", True),
                ("coalesced_slot_rounds_per_s", True), ("signed_sweep_rounds_per_s", True),
                ("k1_plain_ms", False), ("k1_scenario_ms", False), ("k1_slot_ms", False),
                ("k1_plain_n1000_ms", False), ("k2_step_ms", False)],
     "k3p_random": [("k3p_random_ms", False), ("k3_random_ms", False),
                    ("k3_random_20480_ms", False)],
+    "k4k7": [(f"k4_{n}_ms", False) for n in (1, 10_240, 20_480, 65_536)]
+    + [(f"k7_{n}_ms", False) for n in (20_480, 40_960, 66_560, 131_072)],
 }
 
 
@@ -99,11 +108,13 @@ def reading(lines: list[dict], phase: str) -> dict:
         for leg in ("verify", "rlc"):
             row[f"{leg}_host_queue_ms"] = ph["one_call"][leg]["host_queue_ms"]
             row[f"{leg}_card_ms"] = ph["one_call"][leg]["card_ms"]
+        row["rlc_gc_ms"] = ph["one_call"]["rlc"].get("gc_ms", 0.0)
+        row["rlc_cuda_mallocs"] = ph["one_call"]["rlc"].get("cuda_mallocs", 0)
         row["card"] = ph["card"]
         return row
-    if phase == "k3p_random":
-        return {key: by["ab_k3p_random"][key] for key, _ in READINGS[phase]} | \
-            {"card": by["ab_k3p_random"]["card"]}
+    if phase in ("k3p_random", "k4k7"):
+        line = by[f"ab_{phase}"]
+        return {key: line[key] for key, _ in READINGS[phase]} | {"card": line["card"]}
     k = by["ab_kernels"]
     return {"plain_sweep_rounds_per_s": by["full_width_validity"]["agreement_rounds_per_s"],
             "scenario_rounds_per_s": by["scenario_full_width"]["agreement_rounds_per_s"],

@@ -44,8 +44,7 @@ def host(tmp_path_factory):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out))
-    for name, n_ptr in (("host_decompress", 3), ("host_fixed_base", 3),
-                        ("host_window_verify", 5)):
+    for name, n_ptr in (("host_decompress", 3), ("host_window_verify", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
     for name in ("host_sha512_modl", "host_sha512"):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -59,6 +58,7 @@ def host(tmp_path_factory):
     lib.host_pow.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.host_fixed_base.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_coin_counts.argtypes = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32] + \
         [ctypes.c_void_p] * 3
     lib.host_round1_coins.argtypes = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32] + \
@@ -149,7 +149,7 @@ def test_modl_lane_matches_plain_and_integers(host):
 def test_compress_lane_matches_plain_and_oracle(host):
     """The identity, B, and [s]B from the plain K4 fold (Z != 1)."""
     s = _scalars(np.random.default_rng(6), 6)
-    pts = treeadd.plain_fixed_base_fold(torch.tensor(s), E.base_table("cpu"))
+    pts = treeadd.plain_fixed_base_fold(torch.tensor(s), E.fixed_base_table("cpu"))
     pts = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,))), pts])
     pts = np.ascontiguousarray(pts.numpy())
     out = np.zeros((len(pts), 32), np.uint8)
@@ -189,13 +189,38 @@ def _scalars(rs, n_random: int) -> np.ndarray:
     return np.ascontiguousarray(np.stack([_le(v) for v in vals]))
 
 
-def test_fixed_base_lane_matches_plain(host):
-    s = _scalars(np.random.default_rng(2), 5)
-    table = E._base_table_bytes()
+def _fixed_base_lanes(host, s: np.ndarray, threads: int) -> np.ndarray:
+    table = np.ascontiguousarray(E._fixed_base_table())
     out = np.zeros((len(s), 4, 32), np.uint8)
-    host.host_fixed_base(len(s), _ptr(s), _ptr(np.ascontiguousarray(table)), _ptr(out))
-    want = treeadd.plain_fixed_base_fold(torch.tensor(s), torch.tensor(table))
-    assert np.array_equal(out, want.numpy())
+    host.host_fixed_base(len(s), threads, _ptr(s), _ptr(table), _ptr(out))
+    return out
+
+
+def test_fixed_base_lane_matches_plain(host):
+    """K4's lane code at every thread count a lane, the shuffle levels
+    replayed, against the plain fold: the same bits for every count."""
+    s = _scalars(np.random.default_rng(2), 5)
+    want = treeadd.plain_fixed_base_fold(torch.tensor(s), E.fixed_base_table("cpu")).numpy()
+    for threads in treeadd.THREADS:
+        assert np.array_equal(_fixed_base_lanes(host, s, threads), want), threads
+
+
+FIXED_BASE_EDGES = (0, 1, 8, 15, 16, L - 1, L, 2**256 - 1, int("8" * 64, 16),
+                    (8 << 252) | 5, (15 << 252) | (L - 1))  # the top nibble >= 8: a 65th term
+
+
+@pytest.mark.parametrize("threads", [1, 2, 4, 8])
+def test_fixed_base_lane_edge_scalars(host, threads):
+    """The recoding's edges (every nibble 8, the carry out of the top
+    window) at each thread count: bit-equal to the plain fold, and the
+    oracle's [s]B."""
+    s = np.ascontiguousarray(np.stack([_le(v) for v in FIXED_BASE_EDGES]))
+    got = _fixed_base_lanes(host, s, threads)
+    want = treeadd.plain_fixed_base_fold(torch.tensor(s), E.fixed_base_table("cpu")).numpy()
+    assert np.array_equal(got, want)
+    enc = powchain.plain_compress(torch.tensor(got)).numpy()
+    assert [e.tobytes() for e in enc] == [
+        oracle.encode_point(oracle.scalarmult(oracle.BASE, v)) for v in FIXED_BASE_EDGES]
 
 
 def test_window_verify_lane_matches_plain(host):
@@ -227,7 +252,7 @@ def _window_inputs(nbytes: int, S: int):
     ones, then random scalars."""
     rs = np.random.default_rng(nbytes + S)
     ends = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,)))])
-    sb = treeadd.plain_fixed_base_fold(torch.tensor(_scalars(rs, 2)), E.base_table("cpu"))
+    sb = treeadd.plain_fixed_base_fold(torch.tensor(_scalars(rs, 2)), E.fixed_base_table("cpu"))
     keys = torch.tensor(np.stack([np.frombuffer(oracle.keypair(bytes([90 + i]))[1], np.uint8)
                                   for i in range(min(S, 16))] + [_le(2)]))
     pts = torch.cat([ends, sb, decompress.plain_decompress(keys)[0]])

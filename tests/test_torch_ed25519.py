@@ -137,15 +137,18 @@ def _scalars(n_random: int) -> np.ndarray:
     return _rows(_le(v) for v in vals)
 
 
+FIXED_BASE_EDGES = (8, L, 2**256 - 1, int("8" * 64, 16), (8 << 252) | 5)  # top nibble >= 8
+
+
 def test_fixed_base_plain_matches_reference_and_oracle():
-    s = _scalars(5)
+    s = np.concatenate([_scalars(5), _rows(_le(v) for v in FIXED_BASE_EDGES)])
     got = E.fixed_base_mult(torch.tensor(s))
     ref = convert.point_from_limbs22(
         tuple(np.asarray(c) for c in jax.jit(JE.fixed_base_mult)(jnp.asarray(s))), "cpu")
     assert E.point_eq(E.decode_point(got), E.decode_point(ref)).all()
     for i in range(len(s)):
         assert _affine(got[i].numpy()) == oracle.scalarmult(oracle.BASE, _int(s[i]))
-    assert torch.equal(got, treeadd.plain_fixed_base_fold(torch.tensor(s), E.base_table("cpu")))
+    assert torch.equal(got, treeadd.plain_fixed_base_fold(torch.tensor(s), E.fixed_base_table("cpu")))
 
 
 def test_window_verify_plain_matches_reference_composition(cases):
@@ -172,11 +175,25 @@ def test_window_verify_plain_matches_reference_composition(cases):
 
 
 def test_base_table_matches_reference():
+    """The window table is the reference's; K4's table holds its entries
+    j = 1..8 (and [j 2^256]B in row 64) in the cached form, as the
+    kernels' canonical limbs."""
     table = E._base_table()
     assert np.array_equal(table, JE._base_table())
-    decoded = F.from_bytes(torch.tensor(E._base_table_bytes())).numpy()
-    assert np.array_equal(decoded, table)
-    assert torch.equal(E.base_table("cpu"), torch.tensor(E._base_table_bytes()))
+    fixed = E._fixed_base_table()
+    assert fixed.shape == (65, 8, 32) and not fixed[..., 30:].any()
+    weights = [1 << ((51 * i + 1) // 2) for i in range(10)]
+    rs = np.random.default_rng(9)
+    for w, j in [(0, 0), (63, 7), (64, 0), (64, 7)] + [tuple(rs.integers(0, (64, 8)))
+                                                        for _ in range(8)]:
+        w, j = int(w), int(j)
+        x, y = oracle.scalarmult(oracle.BASE, (j + 1) << (4 * w))
+        got = [sum(int(v) * c for v, c in zip(fixed[w, j, 10 * k:10 * k + 10], weights))
+               for k in range(3)]
+        assert got == [(y - x) % P, (y + x) % P, 2 * oracle.D * x * y % P]
+        limbs = fixed[w, j, :30].reshape(3, 10)
+        assert (limbs >= 0).all() and (limbs < [1 << (26 - (i & 1)) for i in range(10)]).all()
+    assert torch.equal(E.fixed_base_table("cpu"), torch.tensor(fixed))
 
 
 def _points(n: int):
@@ -224,6 +241,22 @@ def _cuh_value(name: str) -> int:
     return sum(v << ((51 * i + 1) // 2) for i, v in enumerate(limbs)) % P
 
 
+def test_point_add_cached_matches_point_add():
+    """The cached-form addition of K4's entries: the values of point_add on
+    the extended entry, for each sign of the digit."""
+    (p_l, _), (q_l, q_aff) = _points(6), _points(6)
+    tp = E.point_dbl(tuple(torch.tensor(c) for c in p_l))  # Z != 1
+    x, y = (torch.tensor(q_l[k]) for k in (0, 1))
+    txy = F.mul(x, y)
+    two_d = F.constant(2 * oracle.D, "cpu")
+    cached = (F.sub(y, x), F.add(y, x), F.mul(txy, two_d))
+    want = E.point_add(tp, tuple(torch.tensor(c) for c in q_l))
+    assert E.point_eq(E.point_add_cached(tp, cached), want).all()
+    neg = (cached[1], cached[0], F.sub(F.zeros((6,)), cached[2]))
+    back = E.point_add_cached(E.point_add_cached(tp, cached), neg)
+    assert E.point_eq(back, tp).all()
+
+
 def test_kernel_header_constants():
     assert _cuh_value("FE_D_LIMBS") == oracle.D
     assert _cuh_value("FE_D2_LIMBS") == 2 * oracle.D % P
@@ -236,7 +269,7 @@ def test_wrappers_refuse_devices_they_do_not_run_on():
     with pytest.raises(ValueError):
         decompress.decompress(meta)
     with pytest.raises(ValueError):
-        treeadd.fixed_base_fold(meta, E.base_table("cpu").to("meta"))
+        treeadd.fixed_base_fold(meta, E.fixed_base_table("cpu").to("meta"))
     with pytest.raises(ValueError):
         ladder.window_verify(pts, meta, pts, pts)
     with pytest.raises(ValueError):

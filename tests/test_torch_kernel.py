@@ -439,6 +439,17 @@ def _scalar_bytes(seed: int, S: int) -> np.ndarray:
     return np.ascontiguousarray(np.stack([_le(v) for v in vals[:S]]))
 
 
+def _fixed_base_scalars(seed: int, S: int) -> np.ndarray:
+    """K4's edge scalars (the recoding's: every nibble 8, the top nibble at
+    8 and 15, which carry a 65th digit; L and 2^256 - 1), then random
+    32-byte values, cut to S."""
+    L = oracle.L
+    edges = [0, 1, 8, 15, 16, L - 1, L, 2**256 - 1, int("8" * 64, 16), (8 << 252) | 5,
+             (15 << 252) | (L - 1)]
+    rand = np.random.default_rng(seed).integers(0, 256, (S, 32), dtype=np.uint8)
+    return np.ascontiguousarray(np.concatenate([np.stack([_le(v) for v in edges]), rand])[:S])
+
+
 @pytest.mark.parametrize("S", [1, 37, 300])
 def test_decompress_kernel_bit_equal(cuda_device, S):
     enc = torch.tensor(_encodings(S, S), device=cuda_device)
@@ -465,14 +476,17 @@ def test_sha512_modl_kernel_bit_equal(cuda_device, S, nbytes):
 
 @pytest.mark.parametrize("S", [1, 37, 300])
 def test_fixed_base_kernel_bit_equal(cuda_device, S):
-    s_enc = torch.tensor(_scalar_bytes(S, S), device=cuda_device)
-    table = ed25519.base_table(cuda_device)
-    before = treeadd.fixed_base_fold.launches
-    got = treeadd.fixed_base_fold(s_enc, table)
-    assert treeadd.fixed_base_fold.launches == before + 1
+    """K4 at every thread count a lane, and at the wrapper's own, on the
+    edge scalars and random ones: bit-equal to the plain fold."""
+    s_enc = torch.tensor(_fixed_base_scalars(S, S), device=cuda_device)
+    table = ed25519.fixed_base_table(cuda_device)
     want = treeadd.plain_fixed_base_fold(s_enc, table)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    for threads in (None, *treeadd.THREADS):
+        before = treeadd.fixed_base_fold.launches
+        got = treeadd.fixed_base_fold(s_enc, table, threads=threads)
+        assert treeadd.fixed_base_fold.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), threads
 
 
 @pytest.mark.parametrize("S", [1, 37, 300])
@@ -533,7 +547,7 @@ def test_ed25519_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         decompress.decompress(enc.int())
     with pytest.raises(ValueError):
-        treeadd.fixed_base_fold(enc, ed25519.base_table(cuda_device)[:32])
+        treeadd.fixed_base_fold(enc, ed25519.fixed_base_table(cuda_device)[:32])
     pts = torch.zeros((4, 4, 32), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         ladder.window_verify(pts, enc[:3], pts, pts)

@@ -43,7 +43,7 @@ def _points(S: int) -> tuple:
     rs = np.random.default_rng(S)
     s = torch.tensor(rs.integers(0, 256, (S, 32), dtype=np.uint8))
     pts = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,))),
-                     treeadd.plain_fixed_base_fold(s, E.base_table("cpu"))])[:S]
+                     treeadd.plain_fixed_base_fold(s, E.fixed_base_table("cpu"))])[:S]
     return E.decode_point(pts)
 
 

@@ -126,7 +126,7 @@ def _window_points(S: int) -> torch.Tensor:
     decompressed keys: uint8 [S, 4, 32]."""
     ends = torch.cat([E.encode_point(E.identity((1,))), E.encode_point(E.base_point((1,)))])
     s = torch.tensor(np.stack([_le(v) for v in (5, L - 2, 2**200 + 11)]))
-    sb = treeadd.plain_fixed_base_fold(s, E.base_table("cpu"))
+    sb = treeadd.plain_fixed_base_fold(s, E.fixed_base_table("cpu"))
     keys = torch.tensor(np.stack([np.frombuffer(oracle.keypair(bytes([i]))[1], np.uint8)
                                   for i in range(S)]))
     return torch.cat([ends, sb, E.decompress(keys)[0]])[:S].contiguous()

@@ -6,10 +6,10 @@
 // replayed, so the CPU tests can hold the kernels'
 // arithmetic against the plain versions without a card.  The CUDA launch
 // code in each source sits behind __CUDACC__ and is not compiled here;
-// K4's warp-shuffle levels and K3''s sum (its warps' halving trees and
-// the tree over the blocks) are replayed in the same pairing by
-// fixed_base and window_mult_sum8 below; the window table, shared memory
-// on the card, is an array a lane here (STRIDE 1).
+// K4's warp-shuffle levels (at each thread count a lane) and K3''s sum
+// (its warps' halving trees and the tree over the blocks) are replayed in
+// the same pairing by fixed_base and window_mult_sum8 below; the window
+// table, shared memory on the card, is an array a lane here (STRIDE 1).
 //
 //   g++ -O1 -shared -fPIC -I ba_tpu_torch/ops/csrc tests/torch_csrc_host.cpp -o host.so
 
@@ -58,22 +58,28 @@ void host_compress(int n, const uint8_t* pts, uint8_t* enc) {
     for (int i = 0; i < n; i++) compress_lane(pts + 128 * i, enc + 32 * i);
 }
 
-void host_fixed_base(int n, const uint8_t* s, const uint8_t* table, uint8_t* out) {
+// K4 at T threads a lane: each thread's subtree, then the kernel's shuffle
+// levels, the lower partner of each pair adding the upper one's sum.
+extern "C++" {
+template <int T>
+static void fixed_base_lanes(int n, const uint8_t* s, const int32_t* table, uint8_t* out) {
     for (int i = 0; i < n; i++) {
-        ge part[8];
-        for (int p = 0; p < 8; p++) tree8_part(part[p], table, s + 32 * i, p);
-        for (int m = 1; m < 8; m <<= 1) {  // the kernel's shuffle levels
-            ge next[8];
-            for (int p = 0; p < 8; p++) {
-                const bool upper = (p & m) != 0;
-                ge lo, hi;
-                ge_select(lo, part[p ^ m], part[p], upper);
-                ge_select(hi, part[p], part[p ^ m], upper);
-                ge_add(next[p], lo, hi);
-            }
-            for (int p = 0; p < 8; p++) part[p] = next[p];
-        }
+        ge part[T];
+        for (int p = 0; p < T; p++) fb_part<T>(part[p], table, s + 32 * i, p);
+        for (int m = 1; m < T; m <<= 1)
+            for (int p = 0; p < T; p += 2 * m) ge_add(part[p], part[p], part[p + m]);
         ge_tobytes4(out + 128 * i, part[0]);
+    }
+}
+}  // extern "C++"
+
+void host_fixed_base(int n, int threads, const uint8_t* s, const int32_t* table, uint8_t* out) {
+    switch (threads) {
+        case 1: fixed_base_lanes<1>(n, s, table, out); break;
+        case 2: fixed_base_lanes<2>(n, s, table, out); break;
+        case 4: fixed_base_lanes<4>(n, s, table, out); break;
+        case 8: fixed_base_lanes<8>(n, s, table, out); break;
+        default: abort();
     }
 }
 
