@@ -1,21 +1,24 @@
-// K8: Ed25519 point compression through the p - 2 inversion chain, and
-// the field exponentiations of pow_planes: K8' (the (p - 5)/8 chain), the
-// p - 2 chain alone and K8'' (a generic exponent).  One thread a lane.
+// K8: Ed25519 point compression, and the field exponentiations of
+// pow_planes: K8' (the (p - 5)/8 chain), the p - 2 chain alone and K8''
+// (a generic exponent).  One thread a lane.
 //
 // Replaces ba_tpu/ops/powchain.py::_inv_chain_kernel (the Pallas TPU
 // kernel, reached through pow_planes(z, P - 2) from
 // ba_tpu/crypto/ed25519.py::compress) and takes in the rest of compress
 // that the reference leaves to XLA (ed25519.py:227-232): from a point
-// (X : Y : Z : T) to its 32-byte encoding.  Per lane: 1/Z by the 2^k - 1
-// tower (fe_inv_chain: t_250^32 * Z^11), x = X / Z and y = Y / Z, then
-// the canonical y with the low bit of the canonical x in bit 255.  Z = 0
-// (no point of the curve) gives 1/Z = 0 and the encoding of (0, 0), as
-// the plain version does.
+// (X : Y : Z : T) to its 32-byte encoding.  Per lane: 1/Z, x = X / Z and
+// y = Y / Z, then the canonical y with the low bit of the canonical x in
+// bit 255.  Z = 0 mod p (no point of the curve) gives 1/Z = 0 and the
+// encoding of (0, 0), as the plain version does.
 //
-// Bound: operations.  257 squarings and 15 multiplies a lane, and three
-// canonical forms, against 160 bytes moved (128 in, 32 out).  The design
-// keeps the chain in registers; its squaring runs are loops
-// (fe_sq_n, #pragma unroll 1), so the code stays small.
+// Bound: operations, against 160 bytes moved (128 in, 32 out).  The
+// inverse is unique, so any route gives the plain version's bits; K8 takes
+// Bernstein and Yang's constant-time divsteps (safegcd.cuh:
+// fe_inv_safegcd), ~2.3x fewer instructions than the 2^k - 1 chain
+// (fe_inv_chain: 257 squarings and 15 multiplies in one dependent chain)
+// and shorter dependent runs, which is what one lane at a few warps a SM
+// waits on (2 lanes in verify_rlc's comparison, 20 480 in the setups).
+// 32-thread blocks spread the setups' 640 warps evenly over the SMs.
 //
 // Interface: pts uint8 [n, 4, 32] (canonical X, Y, Z, T; T is not read)
 // -> enc uint8 [n, 32].
@@ -38,13 +41,14 @@
 // Bound: operations; 64 bytes a lane.
 
 #include "ed25519_field.cuh"
+#include "safegcd.cuh"
 
 ED_FN void compress_lane(const uint8_t* pt, uint8_t* enc) {
     fe x, y, z, zi;
     fe_frombytes(x, pt);
     fe_frombytes(y, pt + 32);
     fe_frombytes(z, pt + 64);
-    fe_inv_chain(zi, z);
+    fe_inv_safegcd(zi, z);
     fe_mul(x, x, zi);
     fe_mul(y, y, zi);
     uint8_t xb[32];
@@ -87,8 +91,10 @@ ED_FN void pow_lane(const uint8_t* a, int nbits, const uint32_t* w, uint8_t* out
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(64) compress_kernel(int n, const uint8_t* __restrict__ pts,
-                                                      uint8_t* __restrict__ enc) {
+constexpr int COMPRESS_BLOCK = 32;
+
+__global__ void __launch_bounds__(COMPRESS_BLOCK) compress_kernel(
+    int n, const uint8_t* __restrict__ pts, uint8_t* __restrict__ enc) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
     compress_lane(pts + 128 * (size_t)lane, enc + 32 * (size_t)lane);
@@ -96,8 +102,8 @@ __global__ void __launch_bounds__(64) compress_kernel(int n, const uint8_t* __re
 
 extern "C" int ba_compress(int n, const void* pts, void* enc, void* stream) {
     if (n <= 0) return 0;
-    compress_kernel<<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        n, (const uint8_t*)pts, (uint8_t*)enc);
+    compress_kernel<<<(n + COMPRESS_BLOCK - 1) / COMPRESS_BLOCK, COMPRESS_BLOCK, 0,
+                      (cudaStream_t)stream>>>(n, (const uint8_t*)pts, (uint8_t*)enc);
     return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,12 @@ forms:
 
 :func:`masked_majority_rows` runs the plain version on a CPU tensor and
 launches K9 on a CUDA one, or raises; it keeps a plain integer
-``launches`` count.
+``launches`` count.  Rows of K <= 32 go by tiles of 512 consecutive rows
+staged in shared memory, longer rows a warp each (``csrc/majority.cu``).
+The kernel finds a row's position by 32-bit division, so it takes S and
+P below 2^30 and fewer than 2^31 rows (every resolve level of the paths
+is far below); ``maj_args`` in the source sets that limit, and the
+wrapper raises ValueError for a shape beyond it.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT
 from ba_tpu_torch.ops import _build
 
 SOURCE = "majority.cu"
+UNSUPPORTED = -1  # ba_majority's code for a shape its maj_args refuses
 
 
 def plain_masked_majority_rows(answers: torch.Tensor, valid: torch.Tensor,
@@ -88,11 +94,14 @@ def masked_majority_rows(answers: torch.Tensor, valid: torch.Tensor,
     _build.check_tensor(answers, "answers", COMMAND_DTYPE, answers.shape, dev)
     _build.check_tensor(valid, "valid", torch.bool, valid.shape, dev)
     _build.check_tensor(fallback, "fallback", COMMAND_DTYPE, fallback.shape, dev)
-    out = torch.empty(fallback.shape, dtype=COMMAND_DTYPE, device=dev)
     R = G * S * P
+    out = torch.empty(fallback.shape, dtype=COMMAND_DTYPE, device=dev)
     err = _lib().ba_majority(R, K, S, P, answers.data_ptr(), valid.data_ptr(),
                              fallback.data_ptr(), out.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream)
+    if err == UNSUPPORTED:
+        raise ValueError(f"the majority kernel does not take S {S}, P {P}, {R} rows "
+                         "(csrc/majority.cu maj_args)")
     if err != 0:
         raise RuntimeError(f"majority launch failed: CUDA error {err}")
     if R:

@@ -1,14 +1,16 @@
-"""K8, point compression through the p - 2 inversion chain, and the field
-exponentiations of :func:`pow_planes`: K8' (the (p - 5)/8 chain), the
-p - 2 chain alone and K8'' (a generic exponent), all in
-``csrc/powchain.cu``, with their plain torch versions.
+"""K8, point compression, and the field exponentiations of
+:func:`pow_planes`: K8' (the (p - 5)/8 chain), the p - 2 chain alone and
+K8'' (a generic exponent), all in ``csrc/powchain.cu``, with their plain
+torch versions.
 
 K8 replaces ``ba_tpu/ops/powchain.py::_inv_chain_kernel`` (the Pallas TPU
 kernel, reached through ``pow_planes(z, P - 2)`` from
 ``ba_tpu/crypto/ed25519.py::compress``) and takes in the rest of
 ``compress`` that the reference leaves to XLA: x = X / Z, y = Y / Z and
-the encoding, the canonical y with the low bit of x in bit 255.  Its
-interface:
+the encoding, the canonical y with the low bit of x in bit 255.  On the
+card 1/Z comes from Bernstein and Yang's constant-time divsteps
+(``csrc/safegcd.cuh``) rather than the chain: the inverse is unique, so
+the bits are the plain version's.  Its interface:
 
     points uint8 [N, 4, 32]  ->  encodings uint8 [N, 32]
 
@@ -54,7 +56,9 @@ POW_MAX_BITS = 1024  # the kernel's POW_MAX_WORDS words of exponent
 
 def plain_compress(pts: torch.Tensor) -> torch.Tensor:
     """The plain version of K8: ``ed25519.compress_point`` on the limbs of
-    the points, 1/Z through ``field.inv`` (the addition chain)."""
+    the points, 1/Z through ``field.inv`` (the addition chain).  The
+    kernel reads each coordinate's low 255 bits, this version all 256:
+    they agree on canonical coordinates, the kernel's inputs."""
     return E.compress_point(E.decode_point(pts))
 
 

@@ -214,10 +214,13 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths, the time, bound and plain time per path and
-per dispatch, and the largest difference from the plain version; K1's,
-K2's, K3's and K3''s lines also name their design and give each kernel
-instance's ptxas registers, spill, stack frame and shared memory (phase
-1's record), and K1's the threefry
+per dispatch, and the largest difference from the plain version (K9's
+dispatch groups sum a shape's dispatches and give each one's time,
+plain time and bound beside; K8's line groups its dispatches by lane
+count, each with the 2^k - 1 chain's bound beside its own); K1's, K2's,
+K3's, K3''s, K4's, K7's, K8's and K9's lines also name their design and
+give each kernel instance's ptxas registers, spill, stack frame and
+shared memory (phase 1's record), and K1's the threefry
 words it drew on the card beside those the inputs need: each K1
 dispatch runs once more on K1's counting build (``megastep.cu`` with
 ``-DBA_COUNT_DRAWS``, built in phase 1 beside the kernel; outputs
@@ -331,11 +334,16 @@ K4_DESIGN = ("signed 4-bit digits recoded on the fly (S plus 8 in every window, 
              "thread (a loop with a counter of pending partials) and log2 T shuffle levels, "
              "T from S (8 below 4 096 lanes, 2 below 16 384, 4 below 32 768, else 1), the "
              "same bits for every T")
+K8_DESIGN = ("1/Z by Bernstein and Yang's constant-time divsteps (safegcd.cuh: 20 batches of "
+             "30 branch-free divsteps on the low words, each batch's 2x2 matrix applied to "
+             "(f, g) and to (d, e) mod p in 9 signed 30-bit limbs), one thread a lane, "
+             "32-thread blocks; x = X / Z, y = Y / Z by two multiplies, the canonical y with "
+             "x's low bit")
 K7_DESIGN = ("one lane a thread, 64-thread blocks, the (p - 5)/8 chain in one serial carry "
              "chain a product; from 32 768 lanes the instance bounded to 8 blocks a SM (128 "
              "registers), below it the unbounded one (no spill)")
 # The kernels whose lines name their design and carry their source's ptxas records.
-ED_DESIGNS = {"K4": K4_DESIGN, "K7": K7_DESIGN,
+ED_DESIGNS = {"K4": K4_DESIGN, "K7": K7_DESIGN, "K8": K8_DESIGN,
               "K3": K3_DESIGN + WARP_DESIGN, "K3'": K3_DESIGN + WARP_DESIGN,
               "K3' sum": K3_DESIGN + "; both sets in one launch, the 256-bit set's blocks "
               "first; warp halving sums, then a tree over the block sums climbed by the "
@@ -387,7 +395,26 @@ FE_MUL_OPS, FE_SQ_OPS = 290, 173
 K7_WORK = (20, 255)
 K4_WORK = (1 + 64 * 7, 0)
 K4_ENTRY_BYTES = 128  # a table entry: 30 limbs and 2 zero words
-K8_WORK = (15, 257)
+K8_WORK = (15, 257)  # the p - 2 chain's compress (the previous design): its bound stays beside
+# K8's compress by divsteps: integer-pipe instructions a lane in the SASS of
+# powchain.cu's compress_kernel (its instructions plus 19 more passes of its one
+# loop, the batch of 30 divsteps), counted by scripts/k9k8_variants.py: the
+# shipped algorithm's work, kept beside the bound.
+K8_SAFEGCD_OPS = 23_950
+# K8's bound, the least work of the function: 1/Z over the launch's lanes by
+# Montgomery's batch inversion, one inversion a launch (K8_SAFEGCD_OPS, a
+# whole lane's compress) and a lane's three multiplies of the batch, Z = 0
+# masked, x / Z, y / Z and the canonical encoding: the integer-pipe
+# instructions of compress_variants.cu's batch_lane_probe, counted by
+# scripts/k9k8_variants.py --sass-only.
+K8_BATCH_LANE_OPS = 2_748
+
+
+def k8_least_ops(lanes):
+    """The least int32 operations of K8's function over ``lanes`` lanes:
+    a divsteps inversion a lane, or one for the launch and the batch's
+    work a lane, whichever is less."""
+    return min(lanes * K8_SAFEGCD_OPS, K8_SAFEGCD_OPS + lanes * K8_BATCH_LANE_OPS)
 K8P_WORK, INV_WORK = (11, 251), (13, 257)  # the (p - 5)/8 and p - 2 chains alone
 
 
@@ -1601,7 +1628,9 @@ def dispatch_work(key, args, kw):
         table_bytes = min(S * 65 * K4_ENTRY_BYTES, args[1].numel() * args[1].element_size())
         return (S, S * field_ops(K4_WORK), (32 + 128) * S + table_bytes,
                 f"{S} lanes, {threads} threads a lane")
-    ops, lane_bytes = {"K8": (field_ops(K8_WORK), 128 + 32), "K6": (MODL_OPS, 64 + 32),
+    if key == "K8":  # 128 bytes in and 32 out a lane
+        return S, k8_least_ops(S), S * (128 + 32), f"{S} lanes"
+    ops, lane_bytes = {"K6": (MODL_OPS, 64 + 32),
                        "K7": (field_ops(K7_WORK), 32 + 128 + 1),
                        "K3": (field_ops(K3_WORK), 3 * 128 + 32 + 1)}[key]
     return S, S * ops, S * lane_bytes, f"{S} lanes"
@@ -1626,11 +1655,14 @@ def replay(calls, int_ops_per_s):
         ms = time_cuda(lambda: fn(*args, **kw), reps=10)
         lanes, ops, nbytes, shape = dispatch_work(key, args, kw)
         ops_s, bytes_s = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
-        out.setdefault(key, []).append({
-            "what": f"{entry}: {shape}", "lanes": lanes, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-            "int32_ops": ops, "bytes": nbytes})
+        part = {"what": f"{entry}: {shape}", "lanes": lanes, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+                "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+                "int32_ops": ops, "bytes": nbytes}
+        if key == "K8":  # the shipped divsteps' work and the previous design's chain
+            part["divsteps_ms_at_rate"] = lanes * K8_SAFEGCD_OPS / int_ops_per_s * 1e3
+            part["chain_ms_at_rate"] = lanes * field_ops(K8_WORK) / int_ops_per_s * 1e3
+        out.setdefault(key, []).append(part)
     return out
 
 
@@ -1640,6 +1672,26 @@ def totals(parts):
             "bound_ms": sum(p["bound_ms"] for p in parts),
             "bound_by": ("operations" if all(p["bound_by"] == "operations" for p in parts)
                          else "bytes")}
+
+
+def by_lanes(parts):
+    """Dispatches grouped by lane count: each group's count and, per
+    dispatch, its mean time, plain time and bound (and the other *_ms
+    readings the parts carry)."""
+    groups = {}
+    for p in parts:
+        groups.setdefault(p["lanes"], []).append(p)
+    out = {}
+    for lanes, ps in sorted(groups.items()):
+        n = len(ps)
+        out[str(lanes)] = {"dispatches": n, "ms_each": sum(p["ms"] for p in ps) / n,
+                           "plain_ms_each": sum(p["plain_ms"] for p in ps) / n,
+                           "bound_ms_each": sum(p["bound_ms"] for p in ps) / n,
+                           "bound_by": ps[0]["bound_by"]}
+        for k in ("divsteps_ms_at_rate", "chain_ms_at_rate"):
+            if k in ps[0]:
+                out[str(lanes)][f"{k}_each"] = sum(p[k] for p in ps) / n
+    return out
 
 
 def kernel_lines_crypto(paths, int_ops_per_s):
@@ -1669,6 +1721,8 @@ def kernel_lines_crypto(paths, int_ops_per_s):
               f"{key} differs from its plain version on its paths' inputs: {line['max_abs_err']}")
         if key in ED_DESIGNS:
             line.update(design=ED_DESIGNS[key], ptxas=PTXAS[os.path.basename(source)])
+        if key == "K8":
+            line["by_lanes"] = by_lanes([p for e in entries for p in e["dispatches"]])
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "wrapper": f"ba_tpu_torch/ops/{fn.__module__.rsplit('.', 1)[1]}.py:{fn.__name__}",
@@ -2346,6 +2400,12 @@ def phase_config4(dev, card):
 K9_SOURCE = "ba_tpu_torch/ops/csrc/majority.cu"
 K9_REPLACES = "ba_tpu/ops/majority.py:37"
 K9_WRAPPERS = {"K9": majority.masked_majority_rows}
+K9_DESIGN = ("K <= 32: a block of 128 threads owns 512 consecutive rows; their answer, "
+             "fallback and mask-row bytes staged into shared memory by 16-byte cp.async "
+             "copies, each thread 4 consecutive rows tallied as realigned 32-bit words "
+             "(SWAR, the words' flags packed before two popcounts), row positions by a "
+             "multiply-shift division once a thread, the outputs written in 16-byte stores; "
+             "K >= 33: a warp a row, 16-byte chunks a lane, the counts summed by shuffles")
 MAJ_R, MAJ_K = (1, 255, 257, 70_001), (1, 7, 10, 33, 128, 1024, 1025)
 # bench.py:161 (bench_om3_n10): eig_agreement at B = 131 072, n = 10, m = 3, order
 # ATTACK, generals 2, 5, 7 faulty, 20 calls a rep; bench.py:523 (bench_eig_n1024):
@@ -2643,6 +2703,9 @@ def kernel_line_k9(paths, int_ops_per_s):
             if ops_s > bytes_s:
                 g["bound_by"] = "operations"
         parts = list(groups.values())
+        for g in parts:  # the group sums its dispatches; *_each is one dispatch
+            for k in ("ms", "plain_ms", "bound_ms"):
+                g[f"{k}_each"] = g[k] / g["dispatches"]
         replayed = sum(p["dispatches"] for p in parts)
         check(replayed * runs == launches,
               f"K9 on {path}: {replayed} dispatches replayed x {runs} calls, "
@@ -2655,7 +2718,11 @@ def kernel_line_k9(paths, int_ops_per_s):
             "replaces": K9_REPLACES,
             "wrapper": "ba_tpu_torch/ops/majority.py:masked_majority_rows",
             "launches": sum(e["launches"] for e in entries), **line, "library_ms": None,
-            "checked_against_plain": True, "per": "one call of each path", "paths": entries}
+            "design": K9_DESIGN, "ptxas": PTXAS["majority.cu"],
+            "checked_against_plain": True,
+            "per": ("one call of each path; a dispatch group's ms, plain_ms and bound_ms sum "
+                    "its dispatches, its *_each fields are one dispatch's"),
+            "paths": entries}
 
 
 
@@ -2868,67 +2935,106 @@ def ab_sweeps(dev, card):
     k2 = [time_cuda(lambda: sweep_step.fused_signed_sweep_step(
         *k2_args(seeds[0, i:i + 1], st, ok_b, ROUNDS_SIGNED)), reps=10)
           for i, (st, ok_b) in enumerate(zip(states, oks))]
-    emit({"phase": "ab_kernels", "k1_plain_ms": k1_plain, "k1_scenario_ms": k1_scen,
+    emit({"phase": "ab_sweeps", "k1_plain_ms": k1_plain, "k1_scenario_ms": k1_scen,
           "k1_slot_ms": k1_slot, "k1_plain_n1000_ms": k1_general, "k2_step_ms": sum(k2),
           "k2_bucket_ms": k2, "card": card})
 
 
-# -- the A/B of K3' and K3 on random scalars (torch_checkout_ab.py --phase k3p_random)
-
-
-def ab_k3p_random(dev, card):
-    """K3' and K3 on the ladder / pow phase's kind of input, for an A/B of
-    two checkouts of the package: builds window_mult.cu, window_verify.cu
-    and treeadd.cu alone (in parallel), makes S_LADDER random 256-bit k
-    and points [s]B (K4, Z != 1) from default_rng(0) as phase 27 makes
-    them, and times by CUDA events K3' (window_mult) on them and K3
-    (window_verify, the same points, k and left) at S_LADDER lanes and at
-    the device-sign setup's 2 B_SIGNED.  Emits them as one line."""
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(_build.build, source)
-                    for source in ("window_mult.cu", "window_verify.cu", "treeadd.cu")]:
-            job.result()
-    rs = np.random.default_rng(0)
-    k = torch.tensor(rs.integers(0, 256, (S_LADDER, 32), dtype=np.uint8), device=dev)
-    pts = ed25519.fixed_base_mult(
-        torch.tensor(rs.integers(0, 256, (S_LADDER, 32), dtype=np.uint8), device=dev))
-    n = 2 * B_SIGNED
-    emit({"phase": "ab_k3p_random", "lanes": S_LADDER,
-          "k3p_random_ms": time_cuda(lambda: ladder.window_mult(pts, k), reps=10),
-          "k3_random_ms": time_cuda(lambda: ladder.window_verify(pts, k, pts, pts), reps=10),
-          f"k3_random_{n}_ms": time_cuda(
-              lambda: ladder.window_verify(pts[:n], k[:n], pts[:n], pts[:n]), reps=10),
-          "card": card})
-
-
-# -- the A/B of K4 and K7 (torch_checkout_ab.py --phase k4k7) ----------------
+# -- the A/Bs of kernels through their wrappers (torch_checkout_ab.py --phase GROUP)
 
 K4_AB_LANES = (1, 10_240, 20_480, 65_536)  # [c]B; the setups; config #3's [S]B
 K7_AB_LANES = (20_480, 40_960, 66_560, 131_072)
+# K9's resolve levels (G, S, P, K): config #2's two (bench_om3_n10), eig_n1024's
+# one and the m = 2 sweep's; K8's lane counts: verify_rlc's comparison and the
+# setups'.
+K9_AB_SHAPES = {"config2_level1": (B_C2, N_C2, N_C2, N_C2),
+                "config2_level0": (B_C2, N_C2, 1, N_C2), "eig_n1024": (B_E, N_E, 1, N_E),
+                "sweep_m2": (64, 16, 1, 16)}
+K8_AB_LANES = (2, 2 * B_SIGNED)
 
 
-def ab_k4k7(dev, card, seed=0):
-    """K4 and K7 through their entry points (``ed25519.fixed_base_mult``,
-    ``ed25519.decompress``), for an A/B of two checkouts of the package:
-    builds treeadd.cu and decompress.cu alone (in parallel), then times by
-    CUDA events K4 on random 32-byte scalars at K4_AB_LANES and K7 on
-    random encodings at K7_AB_LANES, from default_rng(seed).  Emits them
-    as one line."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(_build.build, source)
-                    for source in ("treeadd.cu", "decompress.cu")]:
+def _ab_bytes(dev, rs, shape):
+    return torch.tensor(rs.integers(0, 256, shape, dtype=np.uint8), device=dev)
+
+
+def _ab_window(dev, rs, n):
+    """n points [s]B (K4, Z != 1) and n random 256-bit k."""
+    k = _ab_bytes(dev, rs, (n, 32))
+    return ed25519.fixed_base_mult(_ab_bytes(dev, rs, (n, 32))), k
+
+
+def _ab_majority(dev, rs, G, S, P, K):
+    """Answers 0 or 1, nine mask bytes in ten valid, fallbacks 0-2."""
+    return (torch.tensor(rs.integers(0, 2, (G, S, P, K), dtype=np.int8), device=dev),
+            torch.tensor(rs.random((G, 1, P, K)) < 0.9, device=dev),
+            torch.tensor(rs.integers(0, 3, (G, S, P), dtype=np.int8), device=dev))
+
+
+def _ab_points(dev, rs, n):
+    """n random points' coordinates, each below 2^255."""
+    pts = _ab_bytes(dev, rs, (n, 4, 32))
+    pts[:, :, 31] &= 0x7F
+    return (pts,)
+
+
+# reading -> (sources it builds, the call timed, its inputs(dev, rs)); each
+# reading's inputs come from its own default_rng(seed).
+AB_ROWS = {
+    "k3p_random_ms": (("window_mult.cu", "treeadd.cu"),
+                      lambda p, k: ladder.window_mult(p, k),
+                      lambda dev, rs: _ab_window(dev, rs, S_LADDER)),
+    "k3_random_ms": (("window_verify.cu", "treeadd.cu"),
+                     lambda p, k: ladder.window_verify(p, k, p, p),
+                     lambda dev, rs: _ab_window(dev, rs, S_LADDER)),
+    f"k3_random_{2 * B_SIGNED}_ms": (("window_verify.cu", "treeadd.cu"),
+                                     lambda p, k: ladder.window_verify(p, k, p, p),
+                                     lambda dev, rs: _ab_window(dev, rs, 2 * B_SIGNED)),
+    **{f"k4_{n}_ms": (("treeadd.cu",), lambda s: ed25519.fixed_base_mult(s),
+                      lambda dev, rs, n=n: (_ab_bytes(dev, rs, (n, 32)),))
+       for n in K4_AB_LANES},
+    **{f"k7_{n}_ms": (("decompress.cu",), lambda e: ed25519.decompress(e),
+                      lambda dev, rs, n=n: (_ab_bytes(dev, rs, (n, 32)),))
+       for n in K7_AB_LANES},
+    **{f"k9_{label}_ms": (("majority.cu",), lambda a, v, f: majority.masked_majority_rows(a, v, f),
+                          lambda dev, rs, shape=shape: _ab_majority(dev, rs, *shape))
+       for label, shape in K9_AB_SHAPES.items()},
+    **{f"k8_{n}_ms": (("powchain.cu",), lambda p: powchain.compress(p),
+                      lambda dev, rs, n=n: _ab_points(dev, rs, n))
+       for n in K8_AB_LANES},
+}
+# group -> (its readings, the phases run after them, each with the line it
+# emits and that line's reading of rounds/s: higher wins)
+AB_GROUPS = {
+    "k3p_random": ([k for k in AB_ROWS if k.startswith(("k3p_", "k3_"))], ()),
+    "k4k7": ([k for k in AB_ROWS if k.startswith(("k4_", "k7_"))], ()),
+    "k9k8": ([k for k in AB_ROWS if k.startswith(("k9_", "k8_"))],
+             ((phase_config2, "config2_om3_n10"), (phase_eig_n1024, "eig_n1024"))),
+}
+
+
+def ab_kernels(dev, card, group, seed=0):
+    """One group of AB_GROUPS, for an A/B of two checkouts of the package:
+    builds the group's sources alone (in parallel), times by CUDA events
+    each reading's call on its inputs (mean of 10 after a warm one), runs
+    the group's phases, and emits one line: the readings, the phases'
+    rounds/s readings by (line, key), and which readings win higher."""
+    names, phases = AB_GROUPS[group]
+    sources = sorted({src for name in names for src in AB_ROWS[name][0]})
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        for job in [pool.submit(_build.build, source) for source in sources]:
             job.result()
-    rs = np.random.default_rng(seed)
-    s = torch.tensor(rs.integers(0, 256, (max(K4_AB_LANES), 32), dtype=np.uint8), device=dev)
-    enc = torch.tensor(rs.integers(0, 256, (max(K7_AB_LANES), 32), dtype=np.uint8), device=dev)
-    line = {"phase": "ab_k4k7"}
-    for S in K4_AB_LANES:
-        s_n = s[:S].contiguous()
-        line[f"k4_{S}_ms"] = time_cuda(lambda: ed25519.fixed_base_mult(s_n), reps=10)
-    for N in K7_AB_LANES:
-        enc_n = enc[:N].contiguous()
-        line[f"k7_{N}_ms"] = time_cuda(lambda: ed25519.decompress(enc_n), reps=10)
-    emit({**line, "card": card})
+    readings = {}
+    for name in names:
+        _, call, inputs = AB_ROWS[name]
+        args = inputs(dev, np.random.default_rng(seed))
+        readings[name] = time_cuda(lambda: call(*args), reps=10)
+        del args
+    for phase, _ in phases:
+        phase(dev, card)
+    emit({"phase": f"ab_{group}", "readings": readings,
+          "from_lines": {f"{line}_rounds_per_sec": [line, "rounds_per_sec"]
+                         for _, line in phases},
+          "higher_wins": [f"{line}_rounds_per_sec" for _, line in phases], "card": card})
 
 
 def main(argv=None) -> int:

@@ -20,17 +20,15 @@ imports that checkout's package, and runs one of:
   signed sweep, and by CUDA events one full-width dispatch of K1 in each
   mode, one plain dispatch at capacity 1000 (n not a multiple of 32) and
   K2's warm-up dispatch of each bucket;
-- ``k3p_random``: ``ab_k3p_random`` of the same ``chip_smoke.py``, loaded
-  alike: window_mult.cu, window_verify.cu and treeadd.cu built alone, then
-  by CUDA events K3' on the ladder / pow phase's kind of input (65 536
-  points [s]B, random 256-bit k) and K3 on the same lanes, and on 20 480
-  of them.
-
-- ``k4k7``: ``ab_k4k7`` of the same ``chip_smoke.py``, loaded alike:
-  treeadd.cu and decompress.cu built alone, then by CUDA events K4
-  (``ed25519.fixed_base_mult``) on random scalars at 1, 10 240, 20 480
-  and 65 536 lanes and K7 (``ed25519.decompress``) on random encodings at
-  20 480, 40 960, 66 560 and 131 072.
+- any other PHASE names a group of ``chip_smoke.AB_GROUPS``, run by
+  ``ab_kernels`` of the same ``chip_smoke.py``, loaded alike: the group's
+  sources built alone, then by CUDA events each of its readings in
+  ``AB_ROWS`` (a wrapper on inputs made from a seed), then the group's
+  phases (``k9k8``: config #2's and eig_n1024's rounds/s).  The groups:
+  ``k3p_random`` (K3' and K3 on random 256-bit k), ``k4k7`` (K4 and K7
+  at the paths' lane counts), ``k9k8`` (K9 at config #2's two resolve
+  levels, eig_n1024's and the m = 2 sweep's; K8 at 2 and 20 480 lanes).
+  A new pair of kernels adds rows there, not code here.
 
 Pair i runs A then B when i is even, B then A when it is odd (N = 2 is
 A B B A).  Prints one JSON line a run (the phase's readings, with the
@@ -56,12 +54,6 @@ LOAD_BESIDE = (
     "cs = importlib.util.module_from_spec(spec)\n"
     "spec.loader.exec_module(cs)\n"
 )
-# A checkout from before K3''s sum lacks the wrappers chip_smoke names at import.
-BEFORE_SUM = (
-    "from ba_tpu_torch.ops import ladder\n"
-    "for name in ('window_mult_sum8', 'plain_window_mult_sum8'):\n"
-    "    setattr(ladder, name, getattr(ladder, name, None))\n"
-)
 RUNS = {
     "config3": (
         "import torch, chip_smoke as cs\n"
@@ -70,11 +62,8 @@ RUNS = {
         "cs.phase_config3(dev, cs.smi('name,power.limit'))\n"
     ),
     "sweeps": LOAD_BESIDE + "cs.ab_sweeps(torch.device('cuda'), cs.smi('name,power.limit'))\n",
-    "k3p_random": BEFORE_SUM + LOAD_BESIDE
-    + "cs.ab_k3p_random(torch.device('cuda'), cs.smi('name,power.limit'))\n",
-    "k4k7": LOAD_BESIDE + "cs.ab_k4k7(torch.device('cuda'), cs.smi('name,power.limit'))\n",
 }
-# (reading, True where higher wins)
+# (reading, True where higher wins); a group's come with its line
 READINGS = {
     "config3": [("ed25519_verifies_per_sec", True), ("rlc_batch_verifies_per_sec", True),
                 ("sm1_rounds_per_sec", True), ("verify_host_queue_ms", False),
@@ -84,15 +73,18 @@ READINGS = {
                ("coalesced_slot_rounds_per_s", True), ("signed_sweep_rounds_per_s", True),
                ("k1_plain_ms", False), ("k1_scenario_ms", False), ("k1_slot_ms", False),
                ("k1_plain_n1000_ms", False), ("k2_step_ms", False)],
-    "k3p_random": [("k3p_random_ms", False), ("k3_random_ms", False),
-                   ("k3_random_20480_ms", False)],
-    "k4k7": [(f"k4_{n}_ms", False) for n in (1, 10_240, 20_480, 65_536)]
-    + [(f"k7_{n}_ms", False) for n in (20_480, 40_960, 66_560, 131_072)],
 }
 
 
+def command(phase: str) -> str:
+    if phase in RUNS:
+        return RUNS[phase]
+    return (LOAD_BESIDE + "cs.ab_kernels(torch.device('cuda'), cs.smi('name,power.limit'), "
+            f"{phase!r})\n")
+
+
 def run_once(directory: str, phase: str) -> list[dict]:
-    proc = subprocess.run([sys.executable, "-c", RUNS[phase]], cwd=directory,
+    proc = subprocess.run([sys.executable, "-c", command(phase)], cwd=directory,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise SystemExit(f"{directory}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
@@ -112,10 +104,14 @@ def reading(lines: list[dict], phase: str) -> dict:
         row["rlc_cuda_mallocs"] = ph["one_call"]["rlc"].get("cuda_mallocs", 0)
         row["card"] = ph["card"]
         return row
-    if phase in ("k3p_random", "k4k7"):
+    if phase not in RUNS:  # a group of chip_smoke.AB_GROUPS
         line = by[f"ab_{phase}"]
-        return {key: line[key] for key, _ in READINGS[phase]} | {"card": line["card"]}
-    k = by["ab_kernels"]
+        row = dict(line["readings"])
+        for key, (name, field) in line["from_lines"].items():
+            row[key] = by[name][field]
+        READINGS.setdefault(phase, [(key, key in line["higher_wins"]) for key in row])
+        return row | {"card": line["card"]}
+    k = by["ab_sweeps"]
     return {"plain_sweep_rounds_per_s": by["full_width_validity"]["agreement_rounds_per_s"],
             "scenario_rounds_per_s": by["scenario_full_width"]["agreement_rounds_per_s"],
             "coalesced_slot_rounds_per_s": by["coalesced_full_width"]["slot_rounds_per_s"],
@@ -143,7 +139,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("a")
     parser.add_argument("b")
-    parser.add_argument("--phase", choices=sorted(RUNS), default="config3")
+    parser.add_argument("--phase", default="config3",
+                        help="config3, sweeps, or a group of chip_smoke.AB_GROUPS")
     parser.add_argument("--pairs", type=int, default=2)
     parser.add_argument("--out")
     args = parser.parse_args(argv)

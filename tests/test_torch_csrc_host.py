@@ -3,8 +3,8 @@ compiled for the host with g++ through ``tests/torch_csrc_host.cpp``,
 against their plain torch versions: K7, K5, K5', K6, K4, K8, K3, K3'
 (the window accumulator K3 shares, and its fold), K3'' (the
 double-and-add ladder), pow_planes' K8', p - 2 chain and K8'', the
-field-multiply probe P and K9's row tallies (byte and four-byte lanes,
-one lane a row or 32), bit-equal; K1's word-batched coin counts and
+field-multiply probe P and K9 (its tile kernel and its warp kernel,
+replayed tile by tile and lane by lane), bit-equal; K1's word-batched coin counts and
 round-1 coins (``coins.cuh``) against ``rng.coin_bits`` of the same key,
 and K2's packed relay word (``sweep_relay.cuh``) against the plain
 version's separate counts.
@@ -66,8 +66,7 @@ def host(tmp_path_factory):
     lib.host_relay.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                                              ctypes.c_void_p]
     lib.host_majority.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                                  + [ctypes.c_void_p] * 4)
+                                   ctypes.c_longlong] + [ctypes.c_void_p] * 4)
     return lib
 
 
@@ -159,6 +158,42 @@ def test_compress_lane_matches_plain_and_oracle(host):
     want += [oracle.encode_point(oracle.scalarmult(oracle.BASE, int.from_bytes(v, "little")))
              for v in (row.tobytes() for row in s)]
     assert [o.tobytes() for o in out] == want
+
+
+COMPRESS_Z = [0, 1, 2, 19, P - 1, P, P + 1, 2**255 - 1, 2**255, 2**256 - 1]
+
+
+def _affine_encoding(row: np.ndarray) -> bytes:
+    """Python's encoding of (X / Z, Y / Z) from the low 255 bits of each
+    coordinate, as the kernels read them (1/0 = 0)."""
+    low = (1 << 255) - 1
+    x, y, z = (int.from_bytes(row[c].tobytes(), "little") & low for c in range(3))
+    zi = pow(z % P, P - 2, P)
+    xa, ya = x * zi % P, y * zi % P
+    return (ya | (xa & 1) << 255).to_bytes(32, "little")
+
+
+@pytest.mark.parametrize("z", COMPRESS_Z + ["random"])
+def test_compress_lane_z_edges(host, z):
+    """K8's lane (1/Z by Bernstein-Yang divsteps) on random X, Y with Z = 0,
+    1, 2, 19, p - 1, p, p + 1, 2^255 - 1 (each against the plain version
+    and Python's integers) and with bit 255 set (2^255, 2^256 - 1: the
+    lane reads the low 255 bits, as the p - 2 chain did; against Python),
+    or random Z."""
+    rs = np.random.default_rng(len(str(z)))
+    pts = rs.integers(0, 256, (6, 4, 32), dtype=np.uint8)
+    pts[:, :2, 31] &= 0x7F
+    pts[0, :2] = 0  # X = Y = 0
+    if z == "random":
+        pts[:, 2, 31] &= 0x7F
+    else:
+        pts[:, 2] = _le(z % 2**256)
+    pts = np.ascontiguousarray(pts)
+    out = np.zeros((len(pts), 32), np.uint8)
+    host.host_compress(len(pts), _ptr(pts), _ptr(out))
+    assert [o.tobytes() for o in out] == [_affine_encoding(row) for row in pts]
+    if z == "random" or z < 2**255:
+        assert np.array_equal(out, powchain.plain_compress(torch.tensor(pts)).numpy())
 
 
 @pytest.mark.parametrize("case", ["top", "bottom", "random"])
@@ -453,17 +488,11 @@ def test_fieldmul_probe_lane_matches_plain_and_integers(host):
         assert int.from_bytes(got.tobytes(), "little") == want
 
 
-@pytest.mark.parametrize("shared", [False, True])
-@pytest.mark.parametrize("K", [1, 7, 10, 33, 128, 1024, 1025])
-def test_majority_rows_match_plain(host, K, shared):
-    """K9's tally on every code an int8 can hold, rows with no valid
-    responder and exact ties, in the lanes each kernel runs: one thread a
-    row and 32 lanes a row, byte loads always and four-byte ones where K
-    allows; dense and shared-mask forms."""
-    rs = np.random.default_rng(K)
-    G, S, P = (3, 5, 4) if shared else (1, 1, 60)
+def _majority_case(rs, G, S, P, K, shared):
+    """K9 inputs: every code an int8 can hold (real codes in the first half
+    of a row), a row with no valid responder and an exact tie."""
     a = rs.integers(-128, 128, (G, S, P, K)).astype(np.int8)
-    a[..., : K // 2] = rs.integers(0, 3, (G, S, P, K // 2))  # mostly real codes
+    a[..., : K // 2] = rs.integers(0, 3, (G, S, P, K // 2))
     v = rs.random((G, 1 if shared else S, P, K)) < 0.5
     v[0, 0, 0] = False  # no valid responder: the fallback
     tie = np.zeros(K, np.int8)
@@ -471,13 +500,67 @@ def test_majority_rows_match_plain(host, K, shared):
     a[0, 0, -1], v[0, 0, -1] = tie, True
     f = rs.integers(0, 3, (G, S, P)).astype(np.int8)
     want = majority.plain_masked_majority_rows(torch.tensor(a), torch.tensor(v), torch.tensor(f))
-    a, v, f = np.ascontiguousarray(a), np.ascontiguousarray(v).view(np.uint8), f.copy()
-    for lanes in (1, 32):
-        for words in ((0, 1) if K % 4 == 0 else (0,)):
-            out = np.zeros(G * S * P, np.int8)
-            host.host_majority(G * S * P, K, S, P, lanes, words, _ptr(a), _ptr(v), _ptr(f),
-                               _ptr(out))
-            assert np.array_equal(out, want.numpy().reshape(-1)), (lanes, words)
+    return a, v, f, want.numpy().reshape(-1)
+
+
+def _placed(x: np.ndarray, offset: int) -> np.ndarray:
+    """A copy of x starting ``offset`` bytes past a 64-byte boundary, with
+    slack either side: the kernels read the 16-byte aligned chunks that
+    overlap a tensor, which a card allocation always holds."""
+    raw = np.zeros(x.nbytes + 160, np.uint8)
+    start = (-raw.ctypes.data) % 64 + 64 + offset
+    out = raw[start:start + x.nbytes].view(x.dtype).reshape(x.shape)
+    out[...] = x
+    return out
+
+
+def _host_majority(host, a, v, f, S, P, offsets):
+    """K9 replayed with answers, mask and fallback at the given offsets."""
+    (oa, ov, of) = offsets
+    G, _, _, K = a.shape
+    a, v, f = _placed(a, oa), _placed(v.view(np.uint8), ov), _placed(f, of)
+    out = np.zeros(G * S * P, np.int8)
+    assert host.host_majority(G * S * P, K, S, P, _ptr(a), _ptr(v), _ptr(f), _ptr(out)) == 0
+    return out
+
+
+MAJ_OFFSETS = [(0, 0, 0), (1, 0, 3), (3, 7, 1), (6, 6, 15)]
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("K", [1, 7, 10, 33, 128, 1024, 1025])
+def test_majority_rows_match_plain(host, K, shared):
+    """K9 as launched, replayed: tiles of 512 rows for K <= 32 (staged,
+    realigned words), a warp a row above (16-byte chunks, the mask
+    realigned where its row sits elsewhere mod 16); every code an int8 can
+    hold, rows with no valid responder and exact ties; dense (R = 700, not
+    a multiple of the tile) and shared-mask ([14, 5, 10, K]: tiles that
+    cross g boundaries); answers, mask and fallback at offsets that are
+    not 4-byte aligned."""
+    G, S, P = (14, 5, 10) if shared else (1, 1, 700)
+    a, v, f, want = _majority_case(np.random.default_rng(K), G, S, P, K, shared)
+    for offsets in MAJ_OFFSETS:
+        assert np.array_equal(_host_majority(host, a, v, f, S, P, offsets), want), offsets
+
+
+@pytest.mark.parametrize("G,S,P,K", [(2, 3, 300, 10), (3, 4, 150, 7), (1, 2, 1100, 5),
+                                     (60, 10, 10, 10), (40, 16, 1, 16), (3, 5, 129, 32)])
+def test_majority_tile_layouts_match_plain(host, G, S, P, K):
+    """K9's tile kernel on each tiling: tiles inside one (g, s) run of P
+    rows (P > 128: a partial tile a run, two and three tiles a run), runs
+    of consecutive rows over the mask rows of the g they touch (config
+    #2's level-1 shape at G = 60, the m = 2 sweep's level at P = 1)."""
+    a, v, f, want = _majority_case(np.random.default_rng(G * P + K), G, S, P, K, True)
+    for offsets in MAJ_OFFSETS:
+        assert np.array_equal(_host_majority(host, a, v, f, S, P, offsets), want), offsets
+
+
+def test_majority_rejects_unsupported_shapes(host):
+    """S or P of 2^30 or more, and 2^31 rows or more, are refused before
+    anything is read."""
+    for R, K, S, P in ((2**30, 4, 2**30, 1), (2**30, 4, 1, 2**30), (2**31, 33, 2, 2**29),
+                       (2**31, 4, 4, 2**29)):
+        assert host.host_majority(R, K, S, P, 0, 0, 0, 0) == 1
 
 
 COIN_NS = [1, 4, 5, 31, 32, 33, 96, 300, 1024]

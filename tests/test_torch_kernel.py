@@ -588,7 +588,7 @@ def test_modl_kernel_bit_equal(cuda_device, S):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("S", [1, 2, 37, 300, 20_480])
 def test_compress_inv_chain_kernel_bit_equal(cuda_device, S):
     """The identity, B, then [s]B from K4 (Z != 1)."""
     dev = cuda_device
@@ -602,6 +602,30 @@ def test_compress_inv_chain_kernel_bit_equal(cuda_device, S):
     want = powchain.plain_compress(pts)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+COMPRESS_Z = [0, 1, 2, 19, oracle.P - 1, oracle.P, oracle.P + 1, 2**255 - 1, 2**255,
+              2**256 - 1]
+
+
+@pytest.mark.parametrize("S", [2, 20_480])
+def test_compress_kernel_z_edges_bit_equal(cuda_device, S):
+    """K8 launched at the paths' lane counts (2 lanes a launch over the edge
+    rows, or all of them in one launch of 20 480) on random X, Y and Z in
+    0, 1, 2, 19, p - 1, p, p + 1, 2^255 - 1, 2^255, 2^256 - 1 and random:
+    bit-equal to the plain version on the coordinates' low 255 bits (what
+    the kernel reads)."""
+    rs = np.random.default_rng(S)
+    pts = rs.integers(0, 256, (max(S, len(COMPRESS_Z)), 4, 32), dtype=np.uint8)
+    pts[: len(COMPRESS_Z), 2] = np.stack([_le(z % 2**256) for z in COMPRESS_Z])
+    pts = torch.tensor(pts)
+    low = pts.clone()
+    low[:, :3, 31] &= 0x7F
+    want = powchain.plain_compress(low)
+    card = pts.to(cuda_device)
+    got = torch.cat([powchain.compress(card[i:i + S]) for i in range(0, len(card), S)])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def _sign_inputs(seed: int, S: int):
@@ -874,6 +898,33 @@ def test_majority_kernel_bit_equal(cuda_device, R, K):
     assert torch.equal(got4.cpu(), majority.plain_masked_majority_rows(a4, v4, f4))
 
 
+# (G, S, P, K): config #2's two resolve levels (bench_om3_n10, B = 131 072,
+# n = 10), eig_n1024's (B = 128, n = 1024), the m = 2 sweep's (B = 64,
+# capacity 16), and tiles that stay inside one (g, s) run of P rows.
+MAJ_PATH_SHAPES = [(131_072, 10, 10, 10), (131_072, 10, 1, 10), (128, 1024, 1, 1024),
+                   (64, 16, 1, 16), (3, 4, 1100, 7), (5, 3, 129, 32)]
+
+
+@pytest.mark.parametrize("G,S,P,K", MAJ_PATH_SHAPES)
+def test_majority_kernel_path_shapes_bit_equal(cuda_device, G, S, P, K):
+    """K9 at the paths' shapes in the shared-mask form, bit-equal to its
+    plain version on the card, with the answers at a base that is not
+    4-byte aligned too."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(G + S + P + K)
+    a = torch.randint(-2, 4, (G, S, P, K), dtype=torch.int8, device=dev, generator=gen)
+    v = torch.rand((G, 1, P, K), device=dev, generator=gen) < 0.5
+    v[0, 0, 0] = False
+    f = torch.randint(0, 3, (G, S, P), dtype=torch.int8, device=dev, generator=gen)
+    want = majority.plain_masked_majority_rows(a, v, f)
+    got = majority.masked_majority_rows(a, v, f)
+    buf = torch.empty(a.numel() + 3, dtype=torch.int8, device=dev)
+    buf[3:] = a.reshape(-1)
+    off = majority.masked_majority_rows(buf[3:].view(a.shape), v, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(off, want)
+
+
 def test_majority_kernel_rejects_bad_inputs(cuda_device):
     a = torch.zeros(4, 6, dtype=torch.int8, device=cuda_device)
     v = torch.ones(4, 6, dtype=torch.bool, device=cuda_device)
@@ -882,6 +933,9 @@ def test_majority_kernel_rejects_bad_inputs(cuda_device):
                 (a.t().contiguous().t(), v, f), (a, v, f.cpu())):
         with pytest.raises(ValueError):
             majority.masked_majority_rows(*bad)
+    big = torch.zeros(1, 1, 2**30, 1, dtype=torch.int8, device=cuda_device)  # P = 2^30
+    with pytest.raises(ValueError):
+        majority.masked_majority_rows(big, big.bool(), big[..., 0])
 
 
 @pytest.mark.parametrize("fused", [True, False])

@@ -239,21 +239,55 @@ void host_fieldmul_probe(int n, const uint8_t* a, const uint8_t* b, uint8_t* out
     for (int i = 0; i < n; i++) fieldmul_probe_lane(a + 32 * i, b + 32 * i, out + 32 * i);
 }
 
-// K9's rows: `lanes` lanes of a row tallied apart, then summed as the warp
-// kernel's shuffles sum them (lanes = 1 is the thread-a-row kernel).
-void host_majority(long long R, int K, long long S, long long P, int lanes, int words,
-                   const uint8_t* a, const uint8_t* v, const int8_t* f, int8_t* out) {
-    for (long long r = 0; r < R; r++) {
-        Tally t = {0, 0, 0};
-        for (int l = 0; l < lanes; l++) {
-            const Tally u = tally_lane(a + r * K, v + mask_row(r, S, P) * K, K, words != 0, l,
-                                       lanes);
-            t.att += u.att;
-            t.ret += u.ret;
-            t.elig += u.elig;
-        }
-        out[r] = majority_of(t, f[r]);
+// K9 as ba_majority launches it: K <= 32 tile by tile (the tile staged,
+// each of its threads' rows, the store), longer rows a warp's 32 lanes
+// summed.  Returns 1 for a shape the kernels do not take.
+extern "C++" {
+template <int NW>
+static void host_tiles(const MajArgs& x, long long tiles) {
+    std::vector<uint4> sm(tile_smem_bytes(x.K) / 16);
+    uint8_t* s = (uint8_t*)sm.data();
+    for (long long b = 0; b < tiles; b++) {
+        const TileGeom t = tile_geom(x, b);
+        tile_stage(x, t, s, 0, 1);
+        for (int tid = 0; tid < TILE_THREADS; tid++) tile_rows<NW>(x, t, s, tid);
+        tile_store(x, t, s, 0, 1);
     }
+}
+}  // extern "C++"
+
+int host_majority(long long R, int K, long long S, long long P, const uint8_t* a,
+                  const uint8_t* v, const int8_t* f, int8_t* out) {
+    MajArgs x;
+    long long blocks;
+    if (!maj_args(R, K, S, P, a, v, f, out, x, blocks)) return 1;
+    if (K > TILE_MAX_K) {
+        for (long long r = 0; r < R; r++) {
+            int att = 0, ret = 0;
+            bool any = false;
+            for (int l = 0; l < 32; l++) {
+                int la, lr;
+                bool ly;
+                warp_lane(x, r, l, 32, la, lr, ly);
+                att += la;
+                ret += lr;
+                any = any || ly;
+            }
+            out[r] = majority_of(att, ret, any, f[r]);
+        }
+        return 0;
+    }
+    switch ((K + 3) / 4) {
+        case 1: host_tiles<1>(x, blocks); break;
+        case 2: host_tiles<2>(x, blocks); break;
+        case 3: host_tiles<3>(x, blocks); break;
+        case 4: host_tiles<4>(x, blocks); break;
+        case 5: host_tiles<5>(x, blocks); break;
+        case 6: host_tiles<6>(x, blocks); break;
+        case 7: host_tiles<7>(x, blocks); break;
+        default: host_tiles<8>(x, blocks); break;
+    }
+    return 0;
 }
 
 // The warp's 32 x 32 bit transpose (coins.cuh's five stages), lane by lane.
