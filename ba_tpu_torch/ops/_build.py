@@ -8,7 +8,8 @@ as a ``-D`` for an instrumented build), built at first use into
 ``ba_tpu_torch/ops/_build/`` (listed in ``.gitignore``) and reused while
 the source is unchanged.  No PyTorch headers are compiled
 in, which keeps a cold build to seconds.  A failed build raises; there
-is no fallback to the plain engine.
+is no fallback to the plain engine.  ``check_aligned`` guards the
+kernels that move a lane by 16-byte vectors.
 """
 
 from __future__ import annotations
@@ -80,6 +81,14 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(t, name: str, align: int = 16) -> None:
+    """Raise unless ``t``'s base address is a multiple of ``align`` bytes:
+    what a kernel that reads or writes it by vector loads needs."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary "
+                         f"(its base is {t.data_ptr() % align} bytes past one)")
 
 
 def load(source: str, flags: tuple = ()) -> ctypes.CDLL:

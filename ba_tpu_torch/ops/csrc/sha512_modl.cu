@@ -7,20 +7,26 @@
 // the same file, the raw compression (the signer's key expansion
 // SHA-512(sk)).  On the TPU a 64-bit word is an (hi, lo) pair of uint32
 // planes; here it is a native uint64_t, and the 80 rounds unroll with the
-// message schedule in a 16-word ring of registers.  K5's 64 digest bytes
-// go straight into modl_core's fold plan (modl.cuh).  The reference's
-// _sha_kernel writes the 16 state halves; K5' writes them as the digest's
-// bytes (big-endian words), which is what its caller hashes them into.
+// message schedule in a 16-word ring of registers.  The halves come in as
+// 16-byte vectors (two a load).  The digest's bytes are the big-endian
+// state words, so its 16 little-endian 32-bit words are the state's
+// halves byte-swapped (one byte permute each): K5 hands those words
+// straight to modl.cuh's word-form reduction, and K5' stores them as four
+// 16-byte vectors.  The reference's _sha_kernel writes the 16 state
+// halves; K5' writes the digest's bytes, which is what its caller hashes
+// them into.
 //
-// Bound: operations.  A block is 80 rounds of ~30 64-bit operations
-// (~60 int32 ones) plus the schedule; the fold is ~1.5k small ops.  The
+// Bound: operations.  A block is 80 rounds of 64-bit additions, rotations
+// and logic on 32-bit pipes (chip_smoke.SHA_BLOCK_OPS counts one block in
+// the SASS); the mod-L reduction after it is a few hundred more.  The
 // bytes (256 a block in, as (hi, lo) int64 halves, 32 or 64 out) are far
 // below.  The design keeps the block and the digest in registers.
 //
 // Interface: wh, wl int64 [n, n_blocks, 16] (big-endian 32-bit halves of
 // the padded message words, as ba_tpu/crypto/sha512.py::_message_words
-// lays them out) -> K5: out uint8 [n, 32] = SHA-512(message) mod L, little
-// endian; K5': out uint8 [n, 64] = SHA-512(message).
+// lays them out; each base 16-byte aligned, which the wrapper checks) ->
+// K5: out uint8 [n, 32] = SHA-512(message) mod L, little endian; K5': out
+// uint8 [n, 64] = SHA-512(message).
 
 #include "modl.cuh"
 
@@ -78,37 +84,68 @@ ED_FN void sha512_block(uint64_t st[8], uint64_t w[16]) {
     st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
+// Two int64 halves: one 16-byte vector load on the card.
+#if defined(__CUDACC__)
+typedef longlong2 sha512_halves;
+#else
+struct sha512_halves {
+    long long x, y;
+};
+#endif
+
 // The state after n_blocks blocks from the initial state.
 ED_FN void sha512_state(uint64_t st[8], const int64_t* wh, const int64_t* wl, int n_blocks) {
 #pragma unroll
     for (int i = 0; i < 8; i++) st[i] = SHA512_H0[i];
 #pragma unroll 1
     for (int blk = 0; blk < n_blocks; blk++) {
+        const sha512_halves* h = (const sha512_halves*)(wh + 16 * blk);
+        const sha512_halves* l = (const sha512_halves*)(wl + 16 * blk);
         uint64_t w[16];
 #pragma unroll
-        for (int i = 0; i < 16; i++)
-            w[i] = ((uint64_t)wh[16 * blk + i] << 32) | ((uint64_t)wl[16 * blk + i] & 0xffffffffULL);
+        for (int k = 0; k < 8; k++) {
+            const sha512_halves a = h[k], b = l[k];
+            w[2 * k] = ((uint64_t)a.x << 32) | ((uint64_t)b.x & 0xffffffffULL);
+            w[2 * k + 1] = ((uint64_t)a.y << 32) | ((uint64_t)b.y & 0xffffffffULL);
+        }
         sha512_block(st, w);
     }
 }
 
-// Byte k of the digest: big-endian state words.
-#define SHA512_DIGEST_BYTE(st, k) (((st)[(k) >> 3] >> (56 - 8 * ((k) & 7))) & 0xff)
-
-ED_FN void sha512_modl_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8_t* out) {
-    uint64_t st[8];
-    sha512_state(st, wh, wl, n_blocks);
-    int64_t v[64];
-#pragma unroll
-    for (int k = 0; k < 64; k++) v[k] = (int64_t)SHA512_DIGEST_BYTE(st, k);
-    modl_core(v, out);
+ED_FN uint32_t sha512_bswap32(uint32_t x) {
+#if defined(__CUDACC__)
+    return __byte_perm(x, 0, 0x0123);
+#else
+    return (x >> 24) | ((x >> 8) & 0xff00u) | ((x << 8) & 0xff0000u) | (x << 24);
+#endif
 }
 
-ED_FN void sha512_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8_t* out) {
+// The digest as four 16-byte vectors of little-endian words: state word
+// j is digest bytes 8j..8j+7, big endian.
+ED_FN void sha512_digest(const int64_t* wh, const int64_t* wl, int n_blocks, modl_vec d[4]) {
     uint64_t st[8];
     sha512_state(st, wh, wl, n_blocks);
 #pragma unroll
-    for (int k = 0; k < 64; k++) out[k] = (uint8_t)SHA512_DIGEST_BYTE(st, k);
+    for (int k = 0; k < 4; k++)
+        d[k] = modl_vec{sha512_bswap32((uint32_t)(st[2 * k] >> 32)),
+                        sha512_bswap32((uint32_t)st[2 * k]),
+                        sha512_bswap32((uint32_t)(st[2 * k + 1] >> 32)),
+                        sha512_bswap32((uint32_t)st[2 * k + 1])};
+}
+
+ED_FN void sha512_modl_lane(const int64_t* wh, const int64_t* wl, int n_blocks, modl_vec* out) {
+    modl_vec d[4], r[2];
+    sha512_digest(wh, wl, n_blocks, d);
+    modl_vecs(d, r);
+    out[0] = r[0];
+    out[1] = r[1];
+}
+
+ED_FN void sha512_lane(const int64_t* wh, const int64_t* wl, int n_blocks, modl_vec* out) {
+    modl_vec d[4];
+    sha512_digest(wh, wl, n_blocks, d);
+#pragma unroll
+    for (int k = 0; k < 4; k++) out[k] = d[k];
 }
 
 #if defined(__CUDACC__)
@@ -116,28 +153,28 @@ ED_FN void sha512_lane(const int64_t* wh, const int64_t* wl, int n_blocks, uint8
 __global__ void __launch_bounds__(128) sha512_modl_kernel(int n, int n_blocks,
                                                           const int64_t* __restrict__ wh,
                                                           const int64_t* __restrict__ wl,
-                                                          uint8_t* __restrict__ out) {
+                                                          modl_vec* __restrict__ out) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
     const size_t off = (size_t)lane * n_blocks * 16;
-    sha512_modl_lane(wh + off, wl + off, n_blocks, out + 32 * (size_t)lane);
+    sha512_modl_lane(wh + off, wl + off, n_blocks, out + 2 * (size_t)lane);
 }
 
 __global__ void __launch_bounds__(128) sha512_kernel(int n, int n_blocks,
                                                      const int64_t* __restrict__ wh,
                                                      const int64_t* __restrict__ wl,
-                                                     uint8_t* __restrict__ out) {
+                                                     modl_vec* __restrict__ out) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
     const size_t off = (size_t)lane * n_blocks * 16;
-    sha512_lane(wh + off, wl + off, n_blocks, out + 64 * (size_t)lane);
+    sha512_lane(wh + off, wl + off, n_blocks, out + 4 * (size_t)lane);
 }
 
 extern "C" int ba_sha512_modl(int n, int n_blocks, const void* wh, const void* wl, void* out,
                               void* stream) {
     if (n <= 0) return 0;
     sha512_modl_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (uint8_t*)out);
+        n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (modl_vec*)out);
     return (int)cudaGetLastError();
 }
 
@@ -145,7 +182,7 @@ extern "C" int ba_sha512(int n, int n_blocks, const void* wh, const void* wl, vo
                          void* stream) {
     if (n <= 0) return 0;
     sha512_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (uint8_t*)out);
+        n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (modl_vec*)out);
     return (int)cudaGetLastError();
 }
 

@@ -2,15 +2,17 @@
 version.
 
 K6 replaces ``ba_tpu/ops/modl.py::_modl_kernel`` (the Pallas TPU kernel,
-through ``reduce_mod_l_planes``): the fold plan of ``modl_core`` on each
-lane's 64 bytes, byte-identical to ``crypto/scalar.reduce_mod_l`` for
-every input.  The signer reduces its S = k * a + r with it.  Interface:
+through ``reduce_mod_l_planes``): each lane's 64 bytes read as sixteen
+32-bit words by four 16-byte loads and reduced by Barrett's method in
+words (``csrc/modl.cuh``), byte-identical to ``crypto/scalar.reduce_mod_l``
+for every input (a result in [0, L) is unique).  The signer reduces its
+S = k * a + r with it, ``verify_rlc`` its products and sums.  Interface:
 
-    h uint8 [S, 64] little-endian  ->  uint8 [S, 32]
+    h uint8 [S, 64] little-endian, base 16-byte aligned  ->  uint8 [S, 32]
 
 :func:`reduce_mod_l_planes` runs the plain version on a CPU tensor and
-launches K6 on a CUDA one, or raises; it keeps a plain integer
-``launches`` count.
+launches K6 on a CUDA one, or raises (also on a base that is not 16-byte
+aligned); it keeps a plain integer ``launches`` count.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ def reduce_mod_l_planes(h: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the mod-L kernel runs on a CUDA device, not {dev}")
     S = h.shape[0]
     _build.check_tensor(h, "h", torch.uint8, (S, 64), dev)
+    _build.check_aligned(h, "h")
     out = torch.empty((S, 32), dtype=torch.uint8, device=dev)
     err = _lib().ba_modl(S, h.data_ptr(), out.data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream)

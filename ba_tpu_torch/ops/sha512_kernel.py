@@ -2,8 +2,9 @@
 version.
 
 K5 replaces ``ba_tpu/ops/sha512_kernel.py::_sha_modl_kernel`` (the Pallas
-TPU kernel): the compression over ``n_blocks`` padded blocks, its digest
-fed straight into the mod-L fold of ``ba_tpu/ops/modl.py::modl_core``.
+TPU kernel): the compression over ``n_blocks`` padded blocks, its digest's
+16 little-endian words (the state's halves byte-swapped) fed straight into
+K6's word-form reduction mod L (``csrc/modl.cuh``).
 For verification the input is R || A || M (80 bytes: one block), and the
 output the challenge scalar h = SHA-512(R || A || M) mod L.  Interface, as
 the reference's:
@@ -67,6 +68,8 @@ def _launch(name: str, wh, wl, n_blocks: int, width: int, plain):
     S = wh.shape[0]
     _build.check_tensor(wh, "wh", torch.int64, (S, n_blocks, 16), dev)
     _build.check_tensor(wl, "wl", torch.int64, (S, n_blocks, 16), dev)
+    _build.check_aligned(wh, "wh")
+    _build.check_aligned(wl, "wl")
     out = torch.empty((S, width), dtype=torch.uint8, device=dev)
     err = getattr(_lib(), f"ba_{name}")(S, n_blocks, wh.data_ptr(), wl.data_ptr(),
                                         out.data_ptr(),

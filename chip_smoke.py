@@ -74,10 +74,12 @@ Phases, one JSON line each:
 8. K7, K5, K5', K6, K4, K8 and K3 against their plain versions at S in
    {1, 37, 1024, 4096}: half real signatures, half edge values (y at
    p - 1, p and 2p - 2, the identity, x = 0 with sign 1; scalars 0, 1,
-   8, 15, 16, L - 1, L, 2^256 - 1, every nibble 8, a top nibble of 8; 512-bit values 0, 2^512 - 1, L - 1, L, 2L
-   and muladd_bytes' largest; the identity, B and [s]B with Z != 1) and
-   random bytes — verdicts, scalars, digests, encodings and canonical
-   point encodings bit-equal;
+   8, 15, 16, L - 1, L, 2^256 - 1, every nibble 8, a top nibble of 8;
+   K6's 512-bit values ``modl_edges``: 0, 2^512 - 1, L - 1, L, 2L,
+   muladd_bytes' largest, 2^256 m for small m, kL and kL +- 1 up to the
+   largest k, all ones in one word; the identity, B and [s]B with
+   Z != 1) and random bytes — verdicts, scalars, digests, encodings and
+   canonical point encodings bit-equal;
 9. the setup at full width, ``setup_signed_tables(10 240)``, 20 480
    table signatures: first the default device-sign route (one chunk,
    warmed by a throwaway key-set; its queueing held under
@@ -214,11 +216,15 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths, the time, bound and plain time per path and
-per dispatch, and the largest difference from the plain version (K9's
-dispatch groups sum a shape's dispatches and give each one's time,
-plain time and bound beside; K8's line groups its dispatches by lane
-count, each with the 2^k - 1 chain's bound beside its own); K1's, K2's,
-K3's, K3''s, K4's, K7's, K8's and K9's lines also name their design and
+per dispatch, and the largest difference from the plain version; the
+Ed25519 kernels', P's and K9's time twice: as the path launches them
+(``ms``, which reads the wrapper's host cost where the kernel is
+shorter) and queued behind a spin (``device_ms``, the card's own time)
+(K9's dispatch groups sum a shape's dispatches and give each one's time,
+plain time and bound beside; K8's, K5's, K5''s and K6's lines group
+their dispatches by lane count, K8's with the 2^k - 1 chain's bound
+beside its own); K1's, K2's, K3's, K3''s, K4's, K5's, K5''s, K6's,
+K7's, K8's and K9's lines also name their design and
 give each kernel instance's ptxas registers, spill, stack frame and
 shared memory (phase 1's record), and K1's the threefry
 words it drew on the card beside those the inputs need: each K1
@@ -342,8 +348,17 @@ K8_DESIGN = ("1/Z by Bernstein and Yang's constant-time divsteps (safegcd.cuh: 2
 K7_DESIGN = ("one lane a thread, 64-thread blocks, the (p - 5)/8 chain in one serial carry "
              "chain a product; from 32 768 lanes the instance bounded to 8 blocks a SM (128 "
              "registers), below it the unbounded one (no spill)")
+MODL_DESIGN = ("each lane's 64 bytes as sixteen 32-bit words by four 16-byte loads, "
+               "Barrett's quotient from the products of q = x >> 252 and 2^260 - "
+               "floor(2^512 / L) at columns 7 and up (20 word products), x - qL mod 2^256 "
+               "(26 more), the exact fold at 2^252 and one conditional add of L; two 16-byte "
+               "stores; one thread a lane, 128-thread blocks")
+K5_DESIGN = ("the halves by 16-byte loads, the 80 rounds on native 64-bit words, the "
+             "digest's 16 little-endian words from the state's halves by byte permutes")
 # The kernels whose lines name their design and carry their source's ptxas records.
-ED_DESIGNS = {"K4": K4_DESIGN, "K7": K7_DESIGN, "K8": K8_DESIGN,
+ED_DESIGNS = {"K4": K4_DESIGN, "K7": K7_DESIGN, "K8": K8_DESIGN, "K6": MODL_DESIGN,
+              "K5": K5_DESIGN + ", then K6's reduction (modl.cuh) on them",
+              "K5'": K5_DESIGN + ", stored as four 16-byte vectors",
               "K3": K3_DESIGN + WARP_DESIGN, "K3'": K3_DESIGN + WARP_DESIGN,
               "K3' sum": K3_DESIGN + "; both sets in one launch, the 256-bit set's blocks "
               "first; warp halving sums, then a tree over the block sums climbed by the "
@@ -455,9 +470,14 @@ K3_WORK = (k3p_work(32)[0] + 9 + 4, k3p_work(32)[1])
 K3P_RUN = k3p_chains(32)[K3P_CHAIN]
 VERIFY_OPS = (field_ops((K3P_RUN[0] + 13, K3P_RUN[1])) + field_ops(K4_WORK)
               + 2 * field_ops(K7_WORK))
-# int32 operations of one SHA-512 block (80 rounds of ~48, 64 schedule steps of
-# ~26, the final adds) and of modl_core's folds (~900 int64 multiply-adds).
-SHA_BLOCK_OPS, MODL_OPS = 80 * 48 + 64 * 26 + 16, 1800
+# The least work of K5's and K6's functions, integer-pipe instructions counted
+# in the SASS of straight-line probe kernels by scripts/k6k5_variants.py
+# --sass-only: one SHA-512 compression block (sha512_variants.cu's
+# sha512_block_probe: the state and the block's words loaded, the 80 rounds,
+# the state stored), and a lane of the mod-L reduction by the lesser of its two
+# plans in words (modl_variants.cu's modl_probe_barrett, the shipped one, 267;
+# modl_probe_fold 325: four 16-byte loads, the reduction, two 16-byte stores).
+SHA_BLOCK_OPS, MODL_OPS = 3_566, 267
 
 
 class SmokeFailure(RuntimeError):
@@ -675,11 +695,20 @@ def bound(words, steps, nbytes, int_ops_per_s):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def time_cuda(fn, reps):
-    """Mean ms of ``reps`` calls of ``fn`` after one warm-up call."""
+QUEUE_SPIN_CYCLES = 2_000_000  # ~1 ms at the card's clock: longer than queueing 10 calls
+
+
+def time_cuda(fn, reps, queued=False):
+    """Mean ms of ``reps`` calls of ``fn`` after one warm-up call, as they
+    are launched; or ``queued``: the card spins (``torch.cuda._sleep``)
+    while the host queues the calls behind the start event, so they run
+    back to back and a kernel shorter than its launch's host cost is timed
+    at its own length, not at the host's launch rate."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
     sync()
+    if queued:
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -1176,13 +1205,25 @@ def ed_middle_inputs(rs, S, dev):
     return n_sig, t(a_enc), t(r_enc), t(m), t(s_enc), t(h_tail)
 
 
-def modl_inputs(rs, S, dev):
-    """K6's inputs at S lanes: 0, 2^512 - 1, L - 1, L, 2L, the largest
-    value of ``muladd_bytes`` (k = a = r = 2^256 - 1), then muladd_bytes
-    of random scalars and random bytes."""
+def modl_edges():
+    """K6's edge values: 0, 2^512 - 1, L - 1, L, 2L, the largest value of
+    ``muladd_bytes`` (k = a = r = 2^256 - 1, also the word form's first
+    fold at its most negative: low half 0, high half all ones); 2^256 m
+    for small m; kL and kL +- 1 up to the largest k below 2^512; all ones
+    in one word -> uint8 [E, 64]."""
     L = oracle.L
-    edges = np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8)
-                      for v in (0, 2**512 - 1, L - 1, L, 2 * L, (2**256 - 1) * 2**256)])
+    vals = [0, 2**512 - 1, L - 1, L, 2 * L, (2**256 - 1) * 2**256]
+    vals += [m << 256 for m in (1, 2, 15, 16, 17)]
+    vals += [k * L + e for k in (1, 2, 3, 2**256 // L, 2**512 // L) for e in (-1, 0, 1)]
+    vals += [0xFFFFFFFF << (32 * i) for i in range(16)]
+    return np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8)
+                     for v in vals if v < 2**512])
+
+
+def modl_inputs(rs, S, dev):
+    """K6's inputs at S lanes: ``modl_edges``, then muladd_bytes of random
+    scalars and random bytes."""
+    edges = modl_edges()
     kar = [torch.tensor(rs.integers(0, 256, (S, 32), dtype=np.uint8), device=dev)
            for _ in range(3)]
     mixed = torch.cat([scalar.muladd_bytes(*kar)[:S // 2],
@@ -1611,9 +1652,9 @@ def dispatch_work(key, args, kw):
                 f"{nz} lanes of 128-bit k + {na} of 256-bit k, summed, times 8")
     if key == "P":
         return (S, S * fieldmul_probe.MULTIPLIES * FE_MUL_OPS, S * 96, f"{S} lanes")
-    if key == "K3''":  # 2 nbits complete additions of 9 multiplies
+    if key == "K3''":  # the least work of [k]P (k3p_work), not the ladder's own
         bits = args[1]
-        return (S, S * 2 * bits.shape[1] * 9 * FE_MUL_OPS,
+        return (S, S * field_ops(k3p_work(bits.shape[1] // 8)),
                 S * (128 + bits.shape[1] * bits.element_size() + 128),
                 f"{S} lanes, {bits.shape[1]}-bit k")
     if key == "K8''":  # nbits - 1 squarings, a multiply a one bit
@@ -1640,7 +1681,9 @@ def replay(calls, int_ops_per_s):
     """Each recorded dispatch again on its own inputs: the kernel's output
     held against the recorded one (the path's own) and against its plain
     version's on the same inputs; its CUDA-event time (mean of 10 after a
-    warm-up), the plain version's (one call, host clock) and the bound
+    warm-up) as the path launches it (``ms``: the wrapper's host cost shows
+    where the kernel is shorter) and queued behind a spin (``device_ms``:
+    the card's own time), the plain version's (one call, host clock) and the bound
     (``dispatch_work``) at the card's int32 rate or memory rate.
     -> {key: [dispatch, ...]} in launch order."""
     out = {}
@@ -1653,10 +1696,12 @@ def replay(calls, int_ops_per_s):
               f"{key} replayed ({entry}) differs from its path's own output")
         err = max_abs_err(pair(got, want))
         ms = time_cuda(lambda: fn(*args, **kw), reps=10)
+        device_ms = time_cuda(lambda: fn(*args, **kw), reps=10, queued=True)
         lanes, ops, nbytes, shape = dispatch_work(key, args, kw)
         ops_s, bytes_s = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
         part = {"what": f"{entry}: {shape}", "lanes": lanes, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+                "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": max(ops_s, bytes_s) * 1e3,
                 "bound_by": "operations" if ops_s >= bytes_s else "bytes",
                 "int32_ops": ops, "bytes": nbytes}
         if key == "K8":  # the shipped divsteps' work and the previous design's chain
@@ -1667,8 +1712,11 @@ def replay(calls, int_ops_per_s):
 
 
 def totals(parts):
-    return {"max_abs_err": max(p["max_abs_err"] for p in parts),
-            "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
+    out = {"device_ms": sum(p["device_ms"] for p in parts)} if all(
+        "device_ms" in p for p in parts) else {}
+    return {**out, "max_abs_err": max(p["max_abs_err"] for p in parts),
+            "ms": sum(p["ms"] for p in parts),
+            "plain_ms": sum(p["plain_ms"] for p in parts),
             "bound_ms": sum(p["bound_ms"] for p in parts),
             "bound_by": ("operations" if all(p["bound_by"] == "operations" for p in parts)
                          else "bytes")}
@@ -1685,6 +1733,7 @@ def by_lanes(parts):
     for lanes, ps in sorted(groups.items()):
         n = len(ps)
         out[str(lanes)] = {"dispatches": n, "ms_each": sum(p["ms"] for p in ps) / n,
+                           "device_ms_each": sum(p["device_ms"] for p in ps) / n,
                            "plain_ms_each": sum(p["plain_ms"] for p in ps) / n,
                            "bound_ms_each": sum(p["bound_ms"] for p in ps) / n,
                            "bound_by": ps[0]["bound_by"]}
@@ -1721,7 +1770,7 @@ def kernel_lines_crypto(paths, int_ops_per_s):
               f"{key} differs from its plain version on its paths' inputs: {line['max_abs_err']}")
         if key in ED_DESIGNS:
             line.update(design=ED_DESIGNS[key], ptxas=PTXAS[os.path.basename(source)])
-        if key == "K8":
+        if key in ("K8", "K5", "K5'", "K6"):
             line["by_lanes"] = by_lanes([p for e in entries for p in e["dispatches"]])
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2674,7 +2723,8 @@ def kernel_line_k9(paths, int_ops_per_s):
     """K9's line.  ``paths``: (path, recorded calls, launches counted on the
     path's main run, calls in that run).  Every recorded dispatch is
     replayed on its own inputs: bit-equal to the path's own output and to
-    the plain version's; its CUDA-event mean of 10, the plain version's
+    the plain version's; its CUDA-event mean of 10 as launched and queued
+    (``time_cuda(..., queued=True)``), the plain version's
     time (one call, host clock), and the bound: each input byte read once
     and each output byte written once at the memory rate, against one
     int32 tally step a responder slot.  Dispatches of one shape are
@@ -2687,16 +2737,19 @@ def kernel_line_k9(paths, int_ops_per_s):
             check(torch.equal(got, recorded), f"K9 replayed ({path}) differs from its path")
             want, plain_ms = timed_plain(lambda: majority.plain_masked_majority_rows(a, v, f))
             ms = time_cuda(lambda: majority.masked_majority_rows(a, v, f), reps=10)
+            device_ms = time_cuda(lambda: majority.masked_majority_rows(a, v, f), reps=10,
+                                  queued=True)
             R, K = f.numel(), a.shape[-1]
             nbytes = a.numel() + v.numel() + f.numel() + R
             ops_s, bytes_s = R * K / int_ops_per_s, nbytes / HBM_BYTES_PER_S
             what = f"{entry}: R {R}, K {K}, mask rows {v.numel() // K}"
             g = groups.setdefault(what, {"what": what, "dispatches": 0, "max_abs_err": 0,
-                                         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                         "bound_by": "bytes", "bytes": 0})
+                                         "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                         "bound_ms": 0.0, "bound_by": "bytes", "bytes": 0})
             g["dispatches"] += 1
             g["max_abs_err"] = max(g["max_abs_err"], max_abs_err([(got, want)]))
             g["ms"] += ms
+            g["device_ms"] += device_ms
             g["plain_ms"] += plain_ms
             g["bound_ms"] += max(ops_s, bytes_s) * 1e3
             g["bytes"] += nbytes
@@ -2704,7 +2757,7 @@ def kernel_line_k9(paths, int_ops_per_s):
                 g["bound_by"] = "operations"
         parts = list(groups.values())
         for g in parts:  # the group sums its dispatches; *_each is one dispatch
-            for k in ("ms", "plain_ms", "bound_ms"):
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
                 g[f"{k}_each"] = g[k] / g["dispatches"]
         replayed = sum(p["dispatches"] for p in parts)
         check(replayed * runs == launches,
@@ -2951,6 +3004,11 @@ K9_AB_SHAPES = {"config2_level1": (B_C2, N_C2, N_C2, N_C2),
                 "config2_level0": (B_C2, N_C2, 1, N_C2), "eig_n1024": (B_E, N_E, 1, N_E),
                 "sweep_m2": (64, 16, 1, 16)}
 K8_AB_LANES = (2, 2 * B_SIGNED)
+# K6's lane counts: verify_rlc's c (one lane), its W sums (65 536 lanes in groups
+# of 64), the signing setup's S and config #3's products; K5's: the setup's and
+# config #3's hashes; K5''s the signer's SHA-512(sk) at the setup's width.
+K6_AB_LANES = (1, 1_024, 2 * B_SIGNED, NV_C3)
+K5_AB_LANES = (2 * B_SIGNED, NV_C3)
 
 
 def _ab_bytes(dev, rs, shape):
@@ -2968,6 +3026,26 @@ def _ab_majority(dev, rs, G, S, P, K):
     return (torch.tensor(rs.integers(0, 2, (G, S, P, K), dtype=np.int8), device=dev),
             torch.tensor(rs.random((G, 1, P, K)) < 0.9, device=dev),
             torch.tensor(rs.integers(0, 3, (G, S, P), dtype=np.int8), device=dev))
+
+
+def _ab_words(dev, rs, n, nbytes):
+    """(wh, wl, n_blocks): the padded message halves of n random messages
+    of nbytes."""
+    return sha512._message_words(_ab_bytes(dev, rs, (n, nbytes)))
+
+
+def _ab_raw_modl(h, out):
+    """K6's library launch alone, into an output allocated once."""
+    check(modl._lib().ba_modl(h.shape[0], h.data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream) == 0, "K6 launch failed")
+
+
+def _ab_raw_sha(entry, wh, wl, nb, out):
+    """K5's or K5''s library launch alone (``ba_<entry>``), into an output
+    allocated once."""
+    check(getattr(sha512_kernel._lib(), f"ba_{entry}")(
+        wh.shape[0], nb, wh.data_ptr(), wl.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream) == 0, f"{entry} launch failed")
 
 
 def _ab_points(dev, rs, n):
@@ -3001,25 +3079,78 @@ AB_ROWS = {
     **{f"k8_{n}_ms": (("powchain.cu",), lambda p: powchain.compress(p),
                       lambda dev, rs, n=n: _ab_points(dev, rs, n))
        for n in K8_AB_LANES},
+    **{f"k6_{n}_ms": (("modl.cu",), lambda h: modl.reduce_mod_l_planes(h),
+                      lambda dev, rs, n=n: (_ab_bytes(dev, rs, (n, 64)),))
+       for n in K6_AB_LANES},
+    **{f"k6_alone_{n}_ms": (("modl.cu",), _ab_raw_modl,
+                            lambda dev, rs, n=n: (_ab_bytes(dev, rs, (n, 64)),
+                                                  torch.empty((n, 32), dtype=torch.uint8,
+                                                              device=dev)))
+       for n in K6_AB_LANES},
+    **{f"k5_{n}_ms": (("sha512_modl.cu",), lambda wh, wl, nb: sha512_kernel.sha512_blocks_mod_l(
+        wh, wl, nb), lambda dev, rs, n=n: _ab_words(dev, rs, n, 80)) for n in K5_AB_LANES},
+    **{f"k5_alone_{n}_ms": (("sha512_modl.cu",),
+                            lambda *a: _ab_raw_sha("sha512_modl", *a),
+                            lambda dev, rs, n=n: (*_ab_words(dev, rs, n, 80),
+                                                  torch.empty((n, 32), dtype=torch.uint8,
+                                                              device=dev)))
+       for n in K5_AB_LANES},
+    f"k5p_{2 * B_SIGNED}_ms": (("sha512_modl.cu",),
+                               lambda wh, wl, nb: sha512_kernel.sha512_blocks(wh, wl, nb),
+                               lambda dev, rs: _ab_words(dev, rs, 2 * B_SIGNED, 32)),
+    f"k5p_alone_{2 * B_SIGNED}_ms": (("sha512_modl.cu",), lambda *a: _ab_raw_sha("sha512", *a),
+                                     lambda dev, rs: (*_ab_words(dev, rs, 2 * B_SIGNED, 32),
+                                                      torch.empty((2 * B_SIGNED, 64),
+                                                                  dtype=torch.uint8,
+                                                                  device=dev))),
 }
-# group -> (its readings, the phases run after them, each with the line it
-# emits and that line's reading of rounds/s: higher wins)
+# Readings of a kernel alone (its library's launch, the output allocated once):
+# timed queued behind a spin (time_cuda's queued), so a kernel shorter than its
+# launch's host cost reads its own length; the rest are timed as launched.
+AB_ALONE = {k for k in AB_ROWS if "_alone_" in k}
+
+
+def phase_device_setup(dev, card):
+    """The default setup route (signing on the card) at full width, timed
+    as phase_signed_setup times it after a warm key-set: its ``total_s``."""
+    (_, _, _, _, ok, timings), launches = timed_setup(dev, None)
+    check(bool(ok.all()) and launches == DEVICE_SETUP_LAUNCHES,
+          f"device-sign setup: launches {launches}")
+    emit({"phase": "device_sign_setup", "batch": B_SIGNED, "total_s": timings["total_s"],
+          "card": card})
+
+
+RATE = (("rounds_per_sec", True),)
+CONFIG3_SOURCES = ("decompress.cu", "sha512_modl.cu", "treeadd.cu", "window_verify.cu",
+                   "modl.cu", "powchain.cu", "window_mult.cu", "fieldmul_probe.cu")
+# group -> (its readings, the phases run after them: (phase, the line it emits,
+# that line's readings (field, higher wins), the sources it builds))
 AB_GROUPS = {
     "k3p_random": ([k for k in AB_ROWS if k.startswith(("k3p_", "k3_"))], ()),
     "k4k7": ([k for k in AB_ROWS if k.startswith(("k4_", "k7_"))], ()),
     "k9k8": ([k for k in AB_ROWS if k.startswith(("k9_", "k8_"))],
-             ((phase_config2, "config2_om3_n10"), (phase_eig_n1024, "eig_n1024"))),
+             ((phase_config2, "config2_om3_n10", RATE, ("majority.cu",)),
+              (phase_eig_n1024, "eig_n1024", RATE, ("majority.cu",)))),
+    "k6k5": ([k for k in AB_ROWS if k.startswith(("k6_", "k5_", "k5p_"))],
+             ((phase_config3, "config3_sm1_n64_signed",
+               (("ed25519_verifies_per_sec", True), ("rlc_batch_verifies_per_sec", True)),
+               CONFIG3_SOURCES),
+              (phase_device_setup, "device_sign_setup", (("total_s", False),),
+               ("sha512_modl.cu", "treeadd.cu", "powchain.cu", "modl.cu", "decompress.cu",
+                "window_verify.cu")))),
 }
 
 
 def ab_kernels(dev, card, group, seed=0):
     """One group of AB_GROUPS, for an A/B of two checkouts of the package:
-    builds the group's sources alone (in parallel), times by CUDA events
-    each reading's call on its inputs (mean of 10 after a warm one), runs
-    the group's phases, and emits one line: the readings, the phases'
-    rounds/s readings by (line, key), and which readings win higher."""
+    builds the group's sources and its phases' alone (in parallel), times
+    by CUDA events each reading's call on its inputs (mean of 10 after a
+    warm one; AB_ALONE's queued), runs the group's phases, and emits one
+    line: the readings, the phases' readings by (line, field), and which
+    readings win higher."""
     names, phases = AB_GROUPS[group]
-    sources = sorted({src for name in names for src in AB_ROWS[name][0]})
+    sources = sorted({src for name in names for src in AB_ROWS[name][0]}
+                     | {src for *_, srcs in phases for src in srcs})
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for job in [pool.submit(_build.build, source) for source in sources]:
             job.result()
@@ -3027,14 +3158,15 @@ def ab_kernels(dev, card, group, seed=0):
     for name in names:
         _, call, inputs = AB_ROWS[name]
         args = inputs(dev, np.random.default_rng(seed))
-        readings[name] = time_cuda(lambda: call(*args), reps=10)
+        readings[name] = time_cuda(lambda: call(*args), reps=10, queued=name in AB_ALONE)
         del args
-    for phase, _ in phases:
+    for phase, *_ in phases:
         phase(dev, card)
+    fields = [(line, field, up) for _, line, fs, _ in phases for field, up in fs]
     emit({"phase": f"ab_{group}", "readings": readings,
-          "from_lines": {f"{line}_rounds_per_sec": [line, "rounds_per_sec"]
-                         for _, line in phases},
-          "higher_wins": [f"{line}_rounds_per_sec" for _, line in phases], "card": card})
+          "from_lines": {f"{line}_{field}": [line, field] for line, field, _ in fields},
+          "higher_wins": [f"{line}_{field}" for line, field, up in fields if up],
+          "card": card})
 
 
 def main(argv=None) -> int:

@@ -24,11 +24,15 @@ imports that checkout's package, and runs one of:
   ``ab_kernels`` of the same ``chip_smoke.py``, loaded alike: the group's
   sources built alone, then by CUDA events each of its readings in
   ``AB_ROWS`` (a wrapper on inputs made from a seed), then the group's
-  phases (``k9k8``: config #2's and eig_n1024's rounds/s).  The groups:
-  ``k3p_random`` (K3' and K3 on random 256-bit k), ``k4k7`` (K4 and K7
-  at the paths' lane counts), ``k9k8`` (K9 at config #2's two resolve
-  levels, eig_n1024's and the m = 2 sweep's; K8 at 2 and 20 480 lanes).
-  A new pair of kernels adds rows there, not code here.
+  phases (``k9k8``: config #2's and eig_n1024's rounds/s; ``k6k5``:
+  config #3's two verify rates and the device-sign setup's ``total_s``).
+  The groups: ``k3p_random`` (K3' and K3 on random 256-bit k), ``k4k7``
+  (K4 and K7 at the paths' lane counts), ``k9k8`` (K9 at config #2's two
+  resolve levels, eig_n1024's and the m = 2 sweep's; K8 at 2 and 20 480
+  lanes), ``k6k5`` (K6 at 1, 1 024, 20 480 and 65 536 lanes, K5 at 20 480
+  and 65 536, K5' at 20 480, each through its wrapper and alone: the
+  library's launch, timed queued behind a spin).  A new pair of kernels
+  adds rows there, not code here.
 
 Pair i runs A then B when i is even, B then A when it is odd (N = 2 is
 A B B A).  Prints one JSON line a run (the phase's readings, with the

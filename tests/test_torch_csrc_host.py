@@ -100,7 +100,7 @@ def test_decompress_lane_matches_plain(host):
     assert ok[-16:-10].all() and ok[3] and not ok[4]
 
 
-@pytest.mark.parametrize("nbytes", [0, 80, 111, 112, 200])
+@pytest.mark.parametrize("nbytes", [0, 1, 80, 111, 112, 200, 239, 240, 300])
 def test_sha512_modl_lane_matches_plain_and_hashlib(host, nbytes):
     rs = np.random.default_rng(nbytes)
     msg = rs.integers(0, 256, (5, nbytes), dtype=np.uint8)
@@ -124,19 +124,64 @@ def test_sha512_lane_matches_plain_and_hashlib(host, nbytes):
     assert [o.tobytes() for o in out] == [hashlib.sha512(m.tobytes()).digest() for m in msg]
 
 
-def modl_inputs(rs, n_random: int) -> np.ndarray:
-    """K6's edge inputs: 0, all-0xFF, L - 1, L, 2L, the largest value of
-    ``muladd_bytes`` (k = a = r = 2^256 - 1), and random bytes."""
-    rows = [np.frombuffer(v.to_bytes(64, "little"), np.uint8)
-            for v in (0, 2**512 - 1, L - 1, L, 2 * L)]
-    ff = torch.full((1, 32), 255, dtype=torch.uint8)
-    rows.append(scalar.muladd_bytes(ff, ff, ff)[0].numpy())
-    rows += list(rs.integers(0, 256, (n_random, 64), dtype=np.uint8))
+def _rows(vals) -> list:
+    return [np.frombuffer(v.to_bytes(64, "little"), np.uint8) for v in vals]
+
+
+def _quotient_gap(x: int) -> int:
+    """floor(x / L) less K6's quotient estimate (``csrc/modl.cuh``): q =
+    x >> 252, less the products q_i M_j with i + j >= 7 over 2^260 (M =
+    2^260 - floor(2^512 / L)), less 2."""
+    M = 2**260 - 2**512 // L
+    q = x >> 252
+    qw = [(q >> (32 * i)) & 0xFFFFFFFF for i in range(9)]
+    mw = [(M >> (32 * j)) & 0xFFFFFFFF for j in range(5)]
+    kept = sum(qw[i] * mw[j] << (32 * (i + j)) for i in range(9) for j in range(5) if i + j >= 7)
+    return x // L - (q - (kept >> 260) - 2)
+
+
+def modl_inputs(rs, case: str) -> np.ndarray:
+    """K6's inputs by case: ``edges`` 0, all-0xFF, L - 1, L, 2L, the largest
+    value of ``muladd_bytes`` (k = a = r = 2^256 - 1: low half 0, high half
+    all ones, where the word form's quotient estimate is largest); for the
+    word form ``shifted`` 2^256 m for small m, ``multiples`` kL and kL +- 1
+    for k from 1 to floor(2^512 / L), ``word_ones`` all ones in one word
+    and in all but one; ``quotient_edges`` random values where the quotient
+    estimate is exact (gap 0, ~1 in 1 200: one less subtracted would
+    overshoot) or 3 below (r nearest 4L); ``random`` 200 rows from the
+    seed."""
+    if case == "edges":
+        ff = torch.full((1, 32), 255, dtype=torch.uint8)
+        rows = _rows((0, 2**512 - 1, L - 1, L, 2 * L))
+        rows.append(scalar.muladd_bytes(ff, ff, ff)[0].numpy())
+    elif case == "shifted":
+        rows = _rows(m << 256 for m in (1, 2, 3, 15, 16, 17, 255, 2**32 - 1, 2**64 + 1))
+    elif case == "multiples":
+        top = (2**512 - 1) // L
+        ks = [1, 2, 3, 4, 15, 16, 2**128, 2**256 // L, top - 1, top]
+        ks += [int(k) for k in rs.integers(1, 2**62, 8)] + [top // int(d) for d in range(2, 10)]
+        rows = _rows(k * L + e for k in ks for e in (-1, 0, 1) if k * L + e < 2**512)
+    elif case == "word_ones":
+        ones = [0xFFFFFFFF << (32 * i) for i in range(16)]
+        rows = _rows(ones + [(2**512 - 1) ^ v for v in ones])
+    elif case == "quotient_edges":
+        found = {0: [], 3: []}
+        while min(len(v) for v in found.values()) < 4:
+            x = int.from_bytes(rs.bytes(64), "little")
+            gap = _quotient_gap(x)
+            assert 0 <= gap <= 3
+            if gap in found:
+                found[gap].append(x)
+        rows = _rows(found[0][:4] + found[3][:4])
+    else:
+        rows = list(rs.integers(0, 256, (200, 64), dtype=np.uint8))
     return np.ascontiguousarray(np.stack(rows))
 
 
-def test_modl_lane_matches_plain_and_integers(host):
-    h = modl_inputs(np.random.default_rng(5), 10)
+@pytest.mark.parametrize("case", ["edges", "shifted", "multiples", "word_ones", "quotient_edges",
+                                  "random"])
+def test_modl_lane_matches_plain_and_integers(host, case):
+    h = modl_inputs(np.random.default_rng(5), case)
     out = np.zeros((len(h), 32), np.uint8)
     host.host_modl(len(h), _ptr(h), _ptr(out))
     assert np.array_equal(out, modl.plain_reduce_mod_l(torch.tensor(h)).numpy())

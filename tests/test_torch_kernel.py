@@ -461,8 +461,8 @@ def test_decompress_kernel_bit_equal(cuda_device, S):
     assert torch.equal(pts, want_pts) and torch.equal(ok, want_ok)
 
 
-@pytest.mark.parametrize("nbytes", [0, 80, 200])
-@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("nbytes", [0, 80, 200, 240])  # 1, 1, 2 and 3 blocks
+@pytest.mark.parametrize("S", [1, 37, 127, 128, 129, 300, 1024, 20_480])
 def test_sha512_modl_kernel_bit_equal(cuda_device, S, nbytes):
     msg = np.random.default_rng(S + nbytes).integers(0, 256, (S, nbytes), dtype=np.uint8)
     wh, wl, nb = sha512._message_words(torch.tensor(msg, device=cuda_device))
@@ -571,14 +571,25 @@ def test_sha512_kernel_bit_equal(cuda_device, S, nbytes):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("S", [1, 37, 300])
-def test_modl_kernel_bit_equal(cuda_device, S):
-    """0, all-0xFF, L - 1, L, 2L, muladd_bytes' largest value, random."""
+def _modl_edges() -> list:
+    """0, all-0xFF, L - 1, L, 2L, muladd_bytes' largest value; for the word
+    form: 2^256 m, kL and kL +- 1 up to the largest k, the first fold's
+    most negative value (low half 0, high half all ones), all ones in one
+    word."""
     L = oracle.L
-    rows = [np.frombuffer(v.to_bytes(64, "little"), np.uint8)
-            for v in (0, 2**512 - 1, L - 1, L, 2 * L, (2**256 - 1) * 2**256)]
+    vals = [0, 2**512 - 1, L - 1, L, 2 * L, (2**256 - 1) * 2**256]
+    vals += [m << 256 for m in (1, 2, 15, 16, 17)]
+    vals += [k * L + e for k in (1, 2, 3, 2**256 // L, 2**512 // L) for e in (-1, 0, 1)]
+    vals += [0xFFFFFFFF << (32 * i) for i in range(16)]
+    return [np.frombuffer(v.to_bytes(64, "little"), np.uint8) for v in vals if v < 2**512]
+
+
+@pytest.mark.parametrize("S", [1, 37, 127, 128, 129, 300, 1024, 20_480])
+def test_modl_kernel_bit_equal(cuda_device, S):
+    """The edge values of ``_modl_edges`` first, then random bytes."""
     rs = np.random.default_rng(S)
-    h = np.concatenate([np.stack(rows), rs.integers(0, 256, (S, 64), dtype=np.uint8)])[:S]
+    h = np.concatenate([np.stack(_modl_edges()),
+                        rs.integers(0, 256, (S, 64), dtype=np.uint8)])[:S]
     h = torch.tensor(np.ascontiguousarray(h), device=cuda_device)
     before = modl.reduce_mod_l_planes.launches
     got = modl.reduce_mod_l_planes(h)
@@ -586,6 +597,24 @@ def test_modl_kernel_bit_equal(cuda_device, S):
     want = modl.plain_reduce_mod_l(h)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_modl_and_sha512_reject_unaligned_bases(cuda_device):
+    """K6, K5 and K5' read a lane by 16-byte vectors: a base off a 16-byte
+    boundary raises rather than launching."""
+    S = 4
+    h = torch.zeros(S * 64 + 1, dtype=torch.uint8, device=cuda_device)[1:].view(S, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        modl.reduce_mod_l_planes(h)
+    wh, wl, nb = sha512._message_words(torch.zeros((S, 80), dtype=torch.uint8,
+                                                   device=cuda_device))
+    off = torch.zeros(S * nb * 16 + 1, dtype=torch.int64, device=cuda_device)[1:]
+    off = off.view(S, nb, 16).copy_(wh)
+    for fn in (sha512_kernel.sha512_blocks_mod_l, sha512_kernel.sha512_blocks):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(off, wl, nb)
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(wh, off, nb)
 
 
 @pytest.mark.parametrize("S", [1, 2, 37, 300, 20_480])

@@ -79,6 +79,14 @@ def _cu_array(name: str, source: str) -> list[int]:
 def test_kernel_source_constants():
     assert _cu_array("SHA512_K", "sha512_modl.cu") == sha512.K64
     assert _cu_array("SHA512_H0", "sha512_modl.cu") == sha512.H64
-    assert _cu_array("MODL_L", "modl.cuh") == list(scalar._L32)
-    assert _cu_array("MODL_C16", "modl.cuh") == list(scalar._C16)
-    assert list(scalar._L32[:16]) == list(scalar._DELTA)  # the fold reads delta from L
+    # the word-form mod-L core's constants against the oracle's L: delta =
+    # L - 2^252 in 4 words and M = 2^260 - floor(2^512 / L) in 5
+    L = oracle.L
+
+    def words(v, n):
+        assert v < 2 ** (32 * n)
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(n)]
+
+    assert _cu_array("MODL_DELTA", "modl.cuh") == words(L - 2**252, 4)
+    assert _cu_array("MODL_M", "modl.cuh") == words(2**260 - 2**512 // L, 5)
+    assert list(scalar._L32[:16]) == list(scalar._DELTA)  # the plain fold reads delta from L

@@ -42,16 +42,18 @@ void host_decompress(int n, const uint8_t* enc, uint8_t* pts, uint8_t* ok) {
 
 void host_sha512_modl(int n, int n_blocks, const int64_t* wh, const int64_t* wl, uint8_t* out) {
     for (int i = 0; i < n; i++)
-        sha512_modl_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks, out + 32 * i);
+        sha512_modl_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks,
+                         (modl_vec*)(out + 32 * i));
 }
 
 void host_sha512(int n, int n_blocks, const int64_t* wh, const int64_t* wl, uint8_t* out) {
     for (int i = 0; i < n; i++)
-        sha512_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks, out + 64 * i);
+        sha512_lane(wh + 16 * n_blocks * i, wl + 16 * n_blocks * i, n_blocks,
+                    (modl_vec*)(out + 64 * i));
 }
 
 void host_modl(int n, const uint8_t* in, uint8_t* out) {
-    for (int i = 0; i < n; i++) modl_lane(in + 64 * i, out + 32 * i);
+    for (int i = 0; i < n; i++) modl_lane((const modl_vec*)(in + 64 * i), (modl_vec*)(out + 32 * i));
 }
 
 void host_compress(int n, const uint8_t* pts, uint8_t* enc) {
