@@ -1,4 +1,4 @@
-// K3'': [k]P by double-and-add-always, one thread a lane.
+// K3'': [k]P by double-and-add-always, two threads a lane.
 //
 // Replaces ba_tpu/ops/ladder.py::_ladder_kernel (:53, through scalar_mult
 // at :205, exported as ba_tpu.ops.ladder_scalar_mult), the drop-in for
@@ -7,14 +7,29 @@
 // are the complete unified ge_add (9 multiplies), q + q included: the
 // contract is the reference's projective coordinates (the canonical X, Y,
 // Z and T of ed25519.scalar_mult), and the dedicated doubling ge_dbl gives
-// the same point in other coordinates.  ge_add reads all of its inputs
-// before it writes, so ge_add(q, q, q) is safe.  The select is a mask on
-// registers (ge_cmov), so no lane branches on its bit.
+// the same point in other coordinates.  The select is a mask on registers
+// (ge_cmov), so no thread branches on its bit.
 //
-// Bound: operations, 2 nbits additions of 9 multiplies a lane (4 608 at
-// 256 bits, 9 216 at 512), against 128 + nbits / 8 bytes in and 128 out.
-// acc, q and the sum (120 int32) and the field temporaries of one
-// addition take 255 registers, and ptxas spills ~200 bytes a lane.
+// Design.  The two chains are independent but for q_t, which acc's
+// addition reads once a bit.  So each lane runs on two adjacent threads of
+// a warp: the even one holds q, the odd one acc.  Each bit both take q_t
+// from the even thread by 40 __shfl_sync and run the same step,
+// k3pp_step: x + q_t, kept under a mask (always for q's thread, at a set
+// bit for acc's).  One instruction stream, no divergence: a bit costs one
+// addition's chain where one thread a lane ran two, and each thread keeps
+// two points and one addition's temporaries (204 registers, no spill,
+// where one thread a lane spilled ~180 bytes).  A warp with no live lane
+// returns; a partly live one keeps every thread for the shuffles.
+//
+// Bound: operations.  The least work that keeps the coordinates is, per
+// lane, q + q up to k's highest set bit by squarings (4 squarings and 5
+// multiplies, ge_add(q, q)'s field values) and acc + q at the set bits
+// only (ge_add, 9 multiplies): chip_smoke.k3pp_least_ops, each step at
+// the SASS counts of a multiply and a squaring that bound the other
+// Ed25519 kernels, with its lazy additions (K3PP_DBL_OPS, K3PP_ADD_OPS).
+// A lockstep ladder adds at every bit, so it stays above that (for random
+// k, 256 additions where the bits need ~128).  The bytes (128 + nbits / 8
+// in and 128 out a lane) are far below.
 //
 // Interface: point uint8 [n, 4, 32] (canonical X, Y, Z, T), words int32
 // [nbits / 32, n] -> out uint8 [n, 4, 32].  Bit t of lane i's k is bit
@@ -32,10 +47,19 @@ ED_FN void ge_cmov(ge& acc, const ge& sum, uint32_t take) {
     for (int i = 0; i < 40; i++) a[i] ^= mask & (a[i] ^ s[i]);
 }
 
-// One lane: words holds the lane's nwords words, `stride` apart.
+// One thread's step of a bit: x = take ? x + qt : x.  ge_add reads both
+// inputs before it writes the sum, so qt may be x (q + q).
+ED_FN void k3pp_step(ge& x, const ge& qt, uint32_t take) {
+    ge sum;
+    ge_add(sum, x, qt);
+    ge_cmov(x, sum, take);
+}
+
+// One lane on one thread, the kernel's two threads' steps in sequence:
+// words holds the lane's nwords words, `stride` apart.
 ED_FN void scalar_mult_lane(const uint8_t* pt, const uint32_t* words, int nwords, size_t stride,
                             uint8_t* out) {
-    ge q, acc, sum;
+    ge q, acc;
     ge_frombytes4(q, pt);
     ge_identity(acc);
 #pragma unroll 1
@@ -43,9 +67,8 @@ ED_FN void scalar_mult_lane(const uint8_t* pt, const uint32_t* words, int nwords
         const uint32_t word = words[w * stride];
 #pragma unroll 1
         for (int b = 0; b < 32; b++) {
-            ge_add(sum, acc, q);
-            ge_cmov(acc, sum, word >> b);
-            ge_add(q, q, q);
+            k3pp_step(acc, q, word >> b);
+            k3pp_step(q, q, 1u);
         }
     }
     ge_tobytes4(out, acc);
@@ -53,20 +76,42 @@ ED_FN void scalar_mult_lane(const uint8_t* pt, const uint32_t* words, int nwords
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(64) scalar_mult_kernel(int n, int nwords,
-                                                         const uint8_t* __restrict__ pt,
-                                                         const uint32_t* __restrict__ words,
-                                                         uint8_t* __restrict__ out) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    scalar_mult_lane(pt + 128 * (size_t)lane, words + lane, nwords, (size_t)n,
-                     out + 128 * (size_t)lane);
+constexpr int K3PP_THREADS = 128;  // 64 lanes a block
+
+// Thread 2i + r of the grid: lane i's q (r = 0) or acc (r = 1).
+__global__ void __launch_bounds__(K3PP_THREADS) scalar_mult_kernel(
+    int n, int nwords, const uint8_t* __restrict__ pt, const uint32_t* __restrict__ words,
+    uint8_t* __restrict__ out) {
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    if ((tid & ~31) >= 2 * n) return;  // a warp with no live lane
+    const int lane = tid >> 1, r = tid & 1;
+    const bool live = lane < n;
+    const int src = threadIdx.x & 30;  // the pair's q thread in the warp
+    ge x, qt;
+    if (r == 0 && live)
+        ge_frombytes4(x, pt + 128 * (size_t)lane);
+    else
+        ge_identity(x);
+#pragma unroll 1
+    for (int w = 0; w < nwords; w++) {
+        const uint32_t word = (r == 1 && live) ? words[w * (size_t)n + lane] : ~0u;
+#pragma unroll 1
+        for (int b = 0; b < 32; b++) {
+            const int32_t* xs = &x.x.v[0];
+            int32_t* qs = &qt.x.v[0];
+#pragma unroll
+            for (int i = 0; i < 40; i++) qs[i] = __shfl_sync(0xffffffffu, xs[i], src);
+            k3pp_step(x, qt, word >> b);
+        }
+    }
+    if (r == 1 && live) ge_tobytes4(out + 128 * (size_t)lane, x);
 }
 
 extern "C" int ba_scalar_mult(int n, int nwords, const void* pt, const void* words, void* out,
                               void* stream) {
     if (n <= 0) return 0;
-    scalar_mult_kernel<<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
+    const int blocks = (int)((2 * (long long)n + K3PP_THREADS - 1) / K3PP_THREADS);
+    scalar_mult_kernel<<<blocks, K3PP_THREADS, 0, (cudaStream_t)stream>>>(
         n, nwords, (const uint8_t*)pt, (const uint32_t*)words, (uint8_t*)out);
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // K5: SHA-512 of padded blocks, then the digest mod L; and K5': the same
-// compression with the 64-byte digest written out.  One thread a lane.
+// compression with the 64-byte digest written out.  One thread a lane; K5
+// in 128-thread blocks, K5' in 32-thread ones.
 //
 // K5 replaces ba_tpu/ops/sha512_kernel.py::_sha_modl_kernel (the Pallas
 // TPU kernel), which chains the compression into ba_tpu/ops/modl.py::
@@ -20,7 +21,14 @@
 // and logic on 32-bit pipes (chip_smoke.SHA_BLOCK_OPS counts one block in
 // the SASS); the mod-L reduction after it is a few hundred more.  The
 // bytes (256 a block in, as (hi, lo) int64 halves, 32 or 64 out) are far
-// below.  The design keeps the block and the digest in registers.
+// below.  The design keeps the block and the digest in registers.  The
+// rounds hold no waste to take out (a rotate is two funnel shifts, a
+// three-way XOR one LOP3 a half, K[t] an operand of the adds), and one
+// warp alone issues its ~3 600 instructions at about one every two
+// cycles: the integer pipe's rate for one scheduler, not a latency chain.
+// So the time at width is the most warps any scheduler holds: K5' runs
+// in 32-thread blocks, which spread the signer's 20 480 lanes over the
+// SMs in 640 blocks rather than 160 of 128 threads.
 //
 // Interface: wh, wl int64 [n, n_blocks, 16] (big-endian 32-bit halves of
 // the padded message words, as ba_tpu/crypto/sha512.py::_message_words
@@ -160,10 +168,10 @@ __global__ void __launch_bounds__(128) sha512_modl_kernel(int n, int n_blocks,
     sha512_modl_lane(wh + off, wl + off, n_blocks, out + 2 * (size_t)lane);
 }
 
-__global__ void __launch_bounds__(128) sha512_kernel(int n, int n_blocks,
-                                                     const int64_t* __restrict__ wh,
-                                                     const int64_t* __restrict__ wl,
-                                                     modl_vec* __restrict__ out) {
+__global__ void __launch_bounds__(32) sha512_kernel(int n, int n_blocks,
+                                                    const int64_t* __restrict__ wh,
+                                                    const int64_t* __restrict__ wl,
+                                                    modl_vec* __restrict__ out) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= n) return;
     const size_t off = (size_t)lane * n_blocks * 16;
@@ -181,7 +189,7 @@ extern "C" int ba_sha512_modl(int n, int n_blocks, const void* wh, const void* w
 extern "C" int ba_sha512(int n, int n_blocks, const void* wh, const void* wl, void* out,
                          void* stream) {
     if (n <= 0) return 0;
-    sha512_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+    sha512_kernel<<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
         n, n_blocks, (const int64_t*)wh, (const int64_t*)wl, (modl_vec*)out);
     return (int)cudaGetLastError();
 }

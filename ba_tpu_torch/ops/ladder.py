@@ -49,7 +49,8 @@ through ``scalar_mult`` ``:205``, exported as
 ``ba_tpu.ops.ladder_scalar_mult``): [k]P by double-and-add-always, two
 complete additions a bit and a select, LSB first, with the reference's
 projective coordinates (q + q by the unified addition), so the canonical
-X, Y, Z and T equal ``ed25519.scalar_mult``'s:
+X, Y, Z and T equal ``ed25519.scalar_mult``'s.  Two threads a lane run
+the two chains in step (q's and acc's, q_t passed across by shuffles):
 
     point uint8 [S, 4, 32], bits [S, nbits] 0/1 (nbits a multiple of 32)
         ->  uint8 [S, 4, 32]

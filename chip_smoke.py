@@ -355,10 +355,16 @@ MODL_DESIGN = ("each lane's 64 bytes as sixteen 32-bit words by four 16-byte loa
                "stores; one thread a lane, 128-thread blocks")
 K5_DESIGN = ("the halves by 16-byte loads, the 80 rounds on native 64-bit words, the "
              "digest's 16 little-endian words from the state's halves by byte permutes")
+K3PP_DESIGN = ("two threads a lane, adjacent in a warp, 128-thread blocks: the even one "
+               "holds q, the odd one acc; each bit both take q_t from the even one by 40 "
+               "__shfl_sync and run the same complete addition (9 multiplies) on (own "
+               "point, q_t), kept under a mask (always for q, at a set bit for acc): one "
+               "instruction stream, no divergence, one addition's chain a bit")
 # The kernels whose lines name their design and carry their source's ptxas records.
 ED_DESIGNS = {"K4": K4_DESIGN, "K7": K7_DESIGN, "K8": K8_DESIGN, "K6": MODL_DESIGN,
-              "K5": K5_DESIGN + ", then K6's reduction (modl.cuh) on them",
-              "K5'": K5_DESIGN + ", stored as four 16-byte vectors",
+              "K5'": K5_DESIGN + ", stored as four 16-byte vectors; 32-thread blocks",
+              "K5": K5_DESIGN + ", then K6's reduction (modl.cuh) on them; 128-thread blocks",
+              "K3''": K3PP_DESIGN,
               "K3": K3_DESIGN + WARP_DESIGN, "K3'": K3_DESIGN + WARP_DESIGN,
               "K3' sum": K3_DESIGN + "; both sets in one launch, the 256-bit set's blocks "
               "first; warp halving sums, then a tree over the block sums climbed by the "
@@ -436,6 +442,39 @@ K8P_WORK, INV_WORK = (11, 251), (13, 257)  # the (p - 5)/8 and p - 2 chains alon
 def field_ops(work):
     """int32 operations of (multiplies, squarings)."""
     return work[0] * FE_MUL_OPS + work[1] * FE_SQ_OPS
+
+
+# K3''s per-step costs, integer-pipe instructions on the basis of every
+# other Ed25519 bound here: a step's field operations at FE_MUL_OPS and
+# FE_SQ_OPS, and FE_LINEAR_OPS for each fe_add, fe_sub and fe_dbl (one int32
+# add or subtract a limb, ed25519_field.cuh).  q + q by squarings
+# (ge_add_self, scripts/k3ppk5p_variants/ge_add_self.cuh): 5 multiplies, 4
+# squarings and 7 of those; acc + q (ge_add): 9 multiplies and 9.  The
+# compiled steps read more in the SASS of straight-line probes, 2d's limbs
+# opaque and the probes' loads, stores and addresses taken off
+# (scripts/k3ppk5p_variants.py --sass-only, k3pp_step_ops): an addition
+# 2 925, a doubling by squarings 2 757, as if a multiply took ~315 and a
+# squaring ~278 there; the bound counts the lesser.
+FE_LINEAR_OPS = 10
+K3PP_DBL_OPS = field_ops((5, 4)) + 7 * FE_LINEAR_OPS
+K3PP_ADD_OPS = field_ops((9, 0)) + 9 * FE_LINEAR_OPS
+
+
+def k3pp_least_ops(bits):
+    """The least int32 operations of K3''s product, [k]P in the
+    reference's projective coordinates (which no windowed chain returns),
+    on these bits (a lane a row, least significant first): per lane q + q
+    up to k's highest set bit (its index in doublings) and acc + q at the
+    set bits only (popcount(k) additions); k = 0 needs none."""
+    b = bits != 0
+    top = torch.where(b, torch.arange(b.shape[1], device=b.device), 0).amax(dim=1)
+    return int(top.sum()) * K3PP_DBL_OPS + int(b.sum()) * K3PP_ADD_OPS
+
+
+def k3pp_always_add_ops(lanes, nbits):
+    """A lockstep ladder's work, a doubling by squarings and an addition at
+    every bit: the design note kept beside K3''s bound."""
+    return lanes * nbits * (K3PP_DBL_OPS + K3PP_ADD_OPS)
 
 
 def k3p_chains(nbytes):
@@ -1652,10 +1691,9 @@ def dispatch_work(key, args, kw):
                 f"{nz} lanes of 128-bit k + {na} of 256-bit k, summed, times 8")
     if key == "P":
         return (S, S * fieldmul_probe.MULTIPLIES * FE_MUL_OPS, S * 96, f"{S} lanes")
-    if key == "K3''":  # the least work of [k]P (k3p_work), not the ladder's own
+    if key == "K3''":  # the least work that keeps the coordinates, from these bits
         bits = args[1]
-        return (S, S * field_ops(k3p_work(bits.shape[1] // 8)),
-                S * (128 + bits.shape[1] * bits.element_size() + 128),
+        return (S, k3pp_least_ops(bits), S * (128 + bits.shape[1] * bits.element_size() + 128),
                 f"{S} lanes, {bits.shape[1]}-bit k")
     if key == "K8''":  # nbits - 1 squarings, a multiply a one bit
         e = args[1]
@@ -1707,6 +1745,9 @@ def replay(calls, int_ops_per_s):
         if key == "K8":  # the shipped divsteps' work and the previous design's chain
             part["divsteps_ms_at_rate"] = lanes * K8_SAFEGCD_OPS / int_ops_per_s * 1e3
             part["chain_ms_at_rate"] = lanes * field_ops(K8_WORK) / int_ops_per_s * 1e3
+        if key == "K3''":  # an addition at every bit, as a lockstep ladder runs
+            part["always_add_ms_at_rate"] = (k3pp_always_add_ops(lanes, args[1].shape[1])
+                                             / int_ops_per_s * 1e3)
         out.setdefault(key, []).append(part)
     return out
 
@@ -1737,7 +1778,7 @@ def by_lanes(parts):
                            "plain_ms_each": sum(p["plain_ms"] for p in ps) / n,
                            "bound_ms_each": sum(p["bound_ms"] for p in ps) / n,
                            "bound_by": ps[0]["bound_by"]}
-        for k in ("divsteps_ms_at_rate", "chain_ms_at_rate"):
+        for k in ("divsteps_ms_at_rate", "chain_ms_at_rate", "always_add_ms_at_rate"):
             if k in ps[0]:
                 out[str(lanes)][f"{k}_each"] = sum(p[k] for p in ps) / n
     return out
@@ -3048,6 +3089,21 @@ def _ab_raw_sha(entry, wh, wl, nb, out):
         torch.cuda.current_stream().cuda_stream) == 0, f"{entry} launch failed")
 
 
+def _ab_ladder(dev, rs, n, nbits):
+    """n points [s]B (K4, Z != 1), n random k of nbits as 0/1 int32 bits,
+    and their words as the wrapper packs them."""
+    pts = ed25519.fixed_base_mult(_ab_bytes(dev, rs, (n, 32)))
+    bits = torch.tensor(rs.integers(0, 2, (n, nbits), dtype=np.int32), device=dev)
+    return pts, bits, ladder.pack_bits(bits)
+
+
+def _ab_raw_ladder(pts, bits, words, out):
+    """K3''s library launch alone, into an output allocated once."""
+    check(ladder._ladder_lib().ba_scalar_mult(
+        pts.shape[0], bits.shape[1] // 32, pts.data_ptr(), words.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream) == 0, "K3'' launch failed")
+
+
 def _ab_points(dev, rs, n):
     """n random points' coordinates, each below 2^255."""
     pts = _ab_bytes(dev, rs, (n, 4, 32))
@@ -3055,6 +3111,9 @@ def _ab_points(dev, rs, n):
     return (pts,)
 
 
+# K3''s shapes: the ladder / pow path's (its reading through the wrapper is that
+# path's scalar-mults/s) and 3 000 lanes of the reference's 512-bit h.
+K3PP_AB_SHAPES = ((S_LADDER, 256), (3_000, 512))
 # reading -> (sources it builds, the call timed, its inputs(dev, rs)); each
 # reading's inputs come from its own default_rng(seed).
 AB_ROWS = {
@@ -3103,6 +3162,16 @@ AB_ROWS = {
                                                       torch.empty((2 * B_SIGNED, 64),
                                                                   dtype=torch.uint8,
                                                                   device=dev))),
+    f"k3pp_{S_LADDER}_ms": (("scalar_mult.cu", "treeadd.cu"),
+                            lambda p, b, w: ladder.scalar_mult(p, b),
+                            lambda dev, rs: _ab_ladder(dev, rs, S_LADDER, 256)),
+    **{f"k3pp_alone_{n}_{nbits}bit_ms": (("scalar_mult.cu", "treeadd.cu"),
+                                         _ab_raw_ladder,
+                                         lambda dev, rs, n=n, nbits=nbits: (
+                                             *_ab_ladder(dev, rs, n, nbits),
+                                             torch.empty((n, 4, 32), dtype=torch.uint8,
+                                                         device=dev)))
+       for n, nbits in K3PP_AB_SHAPES},
 }
 # Readings of a kernel alone (its library's launch, the output allocated once):
 # timed queued behind a spin (time_cuda's queued), so a kernel shorter than its
@@ -3123,6 +3192,12 @@ def phase_device_setup(dev, card):
 RATE = (("rounds_per_sec", True),)
 CONFIG3_SOURCES = ("decompress.cu", "sha512_modl.cu", "treeadd.cu", "window_verify.cu",
                    "modl.cu", "powchain.cu", "window_mult.cu", "fieldmul_probe.cu")
+CONFIG3_LINE = (phase_config3, "config3_sm1_n64_signed",
+                (("ed25519_verifies_per_sec", True), ("rlc_batch_verifies_per_sec", True)),
+                CONFIG3_SOURCES)
+DEVICE_SETUP_LINE = (phase_device_setup, "device_sign_setup", (("total_s", False),),
+                     ("sha512_modl.cu", "treeadd.cu", "powchain.cu", "modl.cu", "decompress.cu",
+                      "window_verify.cu"))
 # group -> (its readings, the phases run after them: (phase, the line it emits,
 # that line's readings (field, higher wins), the sources it builds))
 AB_GROUPS = {
@@ -3132,12 +3207,9 @@ AB_GROUPS = {
              ((phase_config2, "config2_om3_n10", RATE, ("majority.cu",)),
               (phase_eig_n1024, "eig_n1024", RATE, ("majority.cu",)))),
     "k6k5": ([k for k in AB_ROWS if k.startswith(("k6_", "k5_", "k5p_"))],
-             ((phase_config3, "config3_sm1_n64_signed",
-               (("ed25519_verifies_per_sec", True), ("rlc_batch_verifies_per_sec", True)),
-               CONFIG3_SOURCES),
-              (phase_device_setup, "device_sign_setup", (("total_s", False),),
-               ("sha512_modl.cu", "treeadd.cu", "powchain.cu", "modl.cu", "decompress.cu",
-                "window_verify.cu")))),
+             (CONFIG3_LINE, DEVICE_SETUP_LINE)),
+    "k3ppk5p": ([k for k in AB_ROWS if k.startswith(("k3pp_", "k5p_"))],
+                (CONFIG3_LINE, DEVICE_SETUP_LINE)),
 }
 
 

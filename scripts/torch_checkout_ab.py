@@ -31,7 +31,10 @@ imports that checkout's package, and runs one of:
   resolve levels, eig_n1024's and the m = 2 sweep's; K8 at 2 and 20 480
   lanes), ``k6k5`` (K6 at 1, 1 024, 20 480 and 65 536 lanes, K5 at 20 480
   and 65 536, K5' at 20 480, each through its wrapper and alone: the
-  library's launch, timed queued behind a spin).  A new pair of kernels
+  library's launch, timed queued behind a spin), ``k3ppk5p`` (K3'' at
+  65 536 lanes of 256-bit k through its wrapper, the ladder / pow path's
+  call, and alone there and at 3 000 lanes of 512-bit k; K5' at 20 480
+  through its wrapper and alone; then the phases of ``k6k5``).  A new pair of kernels
   adds rows there, not code here.
 
 Pair i runs A then B when i is even, B then A when it is odd (N = 2 is

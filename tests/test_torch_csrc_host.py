@@ -55,6 +55,7 @@ def host(tmp_path_factory):
     lib.host_window_mult_sum8.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2) * 2 + \
         [ctypes.c_void_p]
     lib.host_scalar_mult.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_ge_add_self.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_pow.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     lib.host_fieldmul_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.host_fe_sq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -114,7 +115,7 @@ def test_sha512_modl_lane_matches_plain_and_hashlib(host, nbytes):
         assert int.from_bytes(out[i].tobytes(), "little") == digest % L
 
 
-@pytest.mark.parametrize("nbytes", [0, 1, 32, 112, 300])
+@pytest.mark.parametrize("nbytes", [0, 1, 32, 111, 112, 127, 128, 300])
 def test_sha512_lane_matches_plain_and_hashlib(host, nbytes):
     msg = np.random.default_rng(nbytes + 7).integers(0, 256, (5, nbytes), dtype=np.uint8)
     wh, wl, nb = sha512._message_words(torch.tensor(msg))
@@ -338,7 +339,7 @@ def _window_inputs(nbytes: int, S: int):
     pts = torch.cat([ends, sb, decompress.plain_decompress(keys)[0]])
     pts = pts.repeat(-(-S // len(pts)), 1, 1)[:S].contiguous()
     top = 2 ** (8 * nbytes) - 1
-    edges = [v.to_bytes(32, "little")[:nbytes] for v in (0, 1, 15, 16, L - 1)]
+    edges = [v.to_bytes(max(nbytes, 32), "little")[:nbytes] for v in (0, 1, 15, 16, L - 1)]
     edges.append(top.to_bytes(nbytes, "little"))
     k = np.concatenate([np.stack([np.frombuffer(e, np.uint8) for e in edges]),
                         rs.integers(0, 256, (S, nbytes), dtype=np.uint8)])[:S]
@@ -465,7 +466,7 @@ def test_window_mult_sum8_matches_plain(host, nz, na):
     assert np.array_equal(out, want)
 
 
-@pytest.mark.parametrize("nbytes", [4, 32])
+@pytest.mark.parametrize("nbytes", [4, 32, 64])
 def test_scalar_mult_lane_matches_plain(host, nbytes):
     """K3'''s lane on the window tests' points and scalars, the bits packed
     as the wrapper packs them: canonical X, Y, Z, T equal to the plain
@@ -482,6 +483,71 @@ def test_scalar_mult_lane_matches_plain(host, nbytes):
         zi, pzi = pow(z, P - 2, P), pow(pz, P - 2, P)
         k_int = int.from_bytes(kk.tobytes(), "little")
         assert (x * zi % P, y * zi % P) == oracle.scalarmult((px * pzi % P, py * pzi % P), k_int)
+
+
+def _small_order_points() -> list:
+    """(0, -1) of order 2 and (sqrt(-1), 0) of order 4, as canonical
+    (X, Y, Z, T) with Z = 1."""
+    i = pow(2, (P - 1) // 4, P)
+    return [np.stack([_le(0), _le(P - 1), _le(1), _le(0)]),
+            np.stack([_le(i), _le(0), _le(1), _le(0)])]
+
+
+def _doubling_points(case: str) -> np.ndarray:
+    """uint8 [N, 4, 32] points for the doubling: the identity, B, [s]B from
+    the plain K4 fold (Z != 1), points of small order, or decompressed
+    keys with every coordinate times a random lambda (Z = lambda)."""
+    rs = np.random.default_rng(21)
+    if case == "identity":
+        return E.encode_point(E.identity((1,))).numpy()
+    if case == "base":
+        return E.encode_point(E.base_point((1,))).numpy()
+    if case == "sB":
+        return treeadd.plain_fixed_base_fold(torch.tensor(_scalars(rs, 4)),
+                                             E.fixed_base_table("cpu")).numpy()
+    if case == "small_order":
+        return np.ascontiguousarray(np.stack(_small_order_points()))
+    keys = torch.tensor(np.stack([np.frombuffer(oracle.keypair(bytes([40 + i]))[1], np.uint8)
+                                  for i in range(6)]))
+    rows = []
+    for pt in decompress.plain_decompress(keys)[0].numpy():
+        lam = int(rs.integers(2, 2**62)) * int(rs.integers(1, 2**62)) % P
+        rows.append(np.stack([_le(int.from_bytes(c.tobytes(), "little") * lam % P) for c in pt]))
+    return np.ascontiguousarray(np.stack(rows))
+
+
+@pytest.mark.parametrize("case", ["identity", "base", "sB", "small_order", "random"])
+def test_ge_add_self_matches_unified_addition(host, case):
+    """q + q by squarings (the doubling K3''s bound counts) returns
+    ge_add(q, q)'s coordinates: canonical X, Y, Z, T equal, and equal to
+    the plain version's unified addition."""
+    pts = _doubling_points(case)
+    by_self, by_add = np.zeros_like(pts), np.zeros_like(pts)
+    host.host_ge_add_self(len(pts), _ptr(pts), _ptr(by_self), _ptr(by_add))
+    assert np.array_equal(by_self, by_add)
+    q = E.decode_point(torch.tensor(pts))
+    assert np.array_equal(by_self, E.encode_point(E.point_add(q, q)).numpy())
+
+
+@pytest.mark.parametrize("k", ["zero", "ones256", "ones512", "top512"])
+def test_scalar_mult_lane_edge_scalars(host, k):
+    """K3'''s lane at k = 0, all ones (256 and 512 bits) and 2^511 on the
+    identity, B, [s]B and points of small order: canonical X, Y, Z, T equal
+    to the plain ladder's, the affine point the oracle's."""
+    pts = np.ascontiguousarray(np.concatenate(
+        [_window_inputs(32, 4)[0], np.stack(_small_order_points())]))
+    nbits = 512 if k.endswith("512") else 256
+    value = {"zero": 0, "ones256": 2**256 - 1, "ones512": 2**512 - 1, "top512": 2**511}[k]
+    bits = torch.tensor([[(value >> t) & 1 for t in range(nbits)]] * len(pts), dtype=torch.int32)
+    words = np.ascontiguousarray(ladder.pack_bits(bits).numpy())
+    out = np.zeros_like(pts)
+    host.host_scalar_mult(len(pts), words.shape[0], _ptr(pts), _ptr(words), _ptr(out))
+    assert np.array_equal(out, ladder.plain_scalar_mult(torch.tensor(pts), bits).numpy())
+    for pt, got in zip(pts, out):
+        x, y, z = (int.from_bytes(got[c].tobytes(), "little") for c in range(3))
+        px, py, pz = (int.from_bytes(pt[c].tobytes(), "little") for c in range(3))
+        zi, pzi = pow(z, P - 2, P), pow(pz, P - 2, P)
+        assert (x * zi % P, y * zi % P) == oracle.scalarmult((px * pzi % P, py * pzi % P), value)
 
 
 def test_pow_chain_lanes_match_plain(host):

@@ -571,6 +571,18 @@ def test_sha512_kernel_bit_equal(cuda_device, S, nbytes):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("S", [1, 33, 20_480])
+def test_sha512_kernel_bit_equal_signer_widths(cuda_device, S):
+    """K5' at the signer's 32-byte messages: one lane, a warp and one
+    more, the setup's width (32-thread blocks, the last one partial)."""
+    msg = np.random.default_rng(S).integers(0, 256, (S, 32), dtype=np.uint8)
+    wh, wl, nb = sha512._message_words(torch.tensor(msg, device=cuda_device))
+    got = sha512_kernel.sha512_blocks(wh, wl, nb)
+    want = sha512_kernel.plain_sha512_blocks(wh, wl, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _modl_edges() -> list:
     """0, all-0xFF, L - 1, L, 2L, muladd_bytes' largest value; for the word
     form: 2^256 m, kL and kL +- 1 up to the largest k, the first fold's
@@ -1001,7 +1013,7 @@ def _ladder_bits(S: int, nbits: int, dev) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("nbits", [32, 256])
-@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("S", [1, 37, 63, 65, 300])
 def test_scalar_mult_kernel_bit_equal(cuda_device, S, nbits):
     pts = _window_points(S, cuda_device)
     bits = _ladder_bits(S, nbits, cuda_device)

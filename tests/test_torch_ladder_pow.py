@@ -8,6 +8,9 @@ K8'') against the reference's ``pow_planes`` in interpret mode for small
 exponents and against its eager ``pow_const`` and chain algebra for the
 rest.  Tolerance zero: canonical limbs are equal."""
 
+import pathlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -181,3 +184,18 @@ def test_pow_wrappers_reject_bad_inputs():
         powchain.inv_chain(enc.to("meta"))
     with pytest.raises(ValueError):
         powchain.pow_planes(torch.zeros((3, 21), dtype=torch.int32), 3)
+
+
+@pytest.mark.parametrize("ks,doublings,additions", [
+    ([0], 0, 0), ([1], 0, 1), ([2**255], 255, 1), ([2**256 - 1], 255, 256),
+    ([0, 1, 2**255, 2**256 - 1], 510, 258)], ids=["0", "1", "2^255", "ones", "batch"])
+def test_k3pp_least_ops_hand_counts(ks, doublings, additions):
+    """K3''s bound counts, per lane, q + q up to k's highest set bit and acc
+    + q at its set bits (chip_smoke.k3pp_least_ops), on int and bool bits."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    want = doublings * chip_smoke.K3PP_DBL_OPS + additions * chip_smoke.K3PP_ADD_OPS
+    bits = torch.tensor([[(k >> t) & 1 for t in range(256)] for k in ks], dtype=torch.int32)
+    assert chip_smoke.k3pp_least_ops(bits) == want
+    assert chip_smoke.k3pp_least_ops(bits.bool()) == want

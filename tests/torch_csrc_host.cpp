@@ -33,6 +33,9 @@ static long long coin_words_drawn = 0;
 #include "treeadd.cu"
 #include "window_mult.cu"
 #include "window_verify.cu"
+// q + q by squarings, the doubling K3''s bound counts (no shipped kernel
+// runs it).
+#include "../scripts/k3ppk5p_variants/ge_add_self.cuh"
 
 extern "C" {
 
@@ -213,6 +216,19 @@ void host_window_mult_sum8(int na, const uint8_t* pa, const uint8_t* ka, int nz,
     }
     ge_times8(nodes[0]);
     ge_tobytes4(out, nodes[0]);
+}
+
+// q + q by squarings (ge_add_self, the doubling K3''s bound counts) and by
+// the unified addition (ge_add(q, q)), each as canonical encodings.
+void host_ge_add_self(int n, const uint8_t* pts, uint8_t* by_self, uint8_t* by_add) {
+    for (int i = 0; i < n; i++) {
+        ge p, r;
+        ge_frombytes4(p, pts + 128 * i);
+        ge_add_self(r, p);
+        ge_tobytes4(by_self + 128 * i, r);
+        ge_add(r, p, p);
+        ge_tobytes4(by_add + 128 * i, r);
+    }
 }
 
 // K3'': words int32 [nwords, n], word w of lane i at w * n + i.
