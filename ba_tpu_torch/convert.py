@@ -8,6 +8,12 @@ coalesced batch) and ``ScenarioBlock`` planes, and Ed25519 field elements
 and points.  The tests feed both packages the same carry through here.
 Numpy dtypes follow the reference: order int8, leader int32, faulty /
 alive bool, ids int32, key data uint32, counter int32, field limbs int32.
+
+Key data is the one place the two packages hold a value differently: the
+port keeps the two uint32 words as int64 (``KeySchedule``), the JAX
+package and the checkpoint file as uint32.  :func:`key_data_to_numpy` and
+:func:`key_from_numpy` are that rule, both ways; the checkpoint writer
+(:func:`carry_to_numpy`) and the run id's material use it.
 """
 
 from __future__ import annotations
@@ -66,6 +72,12 @@ def key_from_numpy(key_data, device=None) -> torch.Tensor:
     return _tensor(np.asarray(key_data, np.uint32).astype(np.int64), torch.int64, device)
 
 
+def key_data_to_numpy(key_data: torch.Tensor) -> np.ndarray:
+    """The port's key data (int64 words, any device) as the JAX package
+    and the checkpoint file hold it: uint32 ``[..., 2]``."""
+    return key_data.cpu().numpy().astype(np.uint32)
+
+
 def schedule_from_numpy(key_data, counter, device=None) -> KeySchedule:
     return KeySchedule(
         key_from_numpy(key_data, device),
@@ -75,10 +87,40 @@ def schedule_from_numpy(key_data, counter, device=None) -> KeySchedule:
 
 def schedule_to_numpy(sched: KeySchedule):
     """(key data uint32 [2], counter int32)."""
-    return (
-        sched.key_data.cpu().numpy().astype(np.uint32),
-        np.int32(sched.counter.cpu().numpy()),
-    )
+    return key_data_to_numpy(sched.key_data), np.int32(sched.counter.cpu().numpy())
+
+
+def carry_to_numpy(state: SimState, sched: KeySchedule, counters=None, strategy=None) -> dict:
+    """A carry (tensors on any device, pinned host copies included) as a
+    carry checkpoint's arrays, in the file's order and dtypes: the state
+    planes, ``key_data`` uint32 ``[2]``, ``counter`` a 0-d int32, then
+    ``counters`` int32 and ``strategy`` int8 where the carry has them.
+    Host tensors are viewed, not copied, where the dtype already fits."""
+    def host(t, dtype):
+        return t.cpu().numpy().astype(dtype, copy=False)
+
+    arrays = {name: host(getattr(state, name), np_t)
+              for name, (np_t, _) in _STATE_DTYPES.items()}
+    arrays["key_data"] = key_data_to_numpy(sched.key_data)
+    arrays["counter"] = np.asarray(host(sched.counter, np.int32)).reshape(())
+    if counters is not None:
+        arrays["counters"] = host(counters, np.int32)
+    if strategy is not None:
+        arrays["strategy"] = host(strategy, np.int8)
+    return arrays
+
+
+def carry_from_numpy(arrays: dict, device=None):
+    """A checkpoint's arrays as the port's carry on ``device``: ``(state,
+    schedule, counters or None, strategy or None)``, each tensor owned."""
+    state = SimState(**{name: _tensor(np.asarray(arrays[name]).astype(np_t), torch_t, device)
+                        for name, (np_t, torch_t) in _STATE_DTYPES.items()})
+    sched = schedule_from_numpy(arrays["key_data"], arrays["counter"], device)
+    counters = arrays.get("counters")
+    strategy = arrays.get("strategy")
+    return (state, sched,
+            None if counters is None else counters_from_numpy(counters, device),
+            None if strategy is None else strategy_from_numpy(strategy, device))
 
 
 def slot_schedule_from_numpy(key_data, counter, device=None) -> KeySchedule:

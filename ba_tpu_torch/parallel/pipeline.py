@@ -23,6 +23,12 @@
   the only synchronization is waiting on that event ``depth`` dispatches
   later.  Host work (``host_work``) and the next scenario chunk's upload
   overlap the dispatches in flight.
+- **Carry checkpoints**: with ``checkpoint_every`` the sweep queues a
+  pinned host copy of the live carry right after the dispatch on each
+  boundary and writes it in the JAX package's file format
+  (``utils/snapshot.py``) when that dispatch retires; ``resume=`` takes
+  such a file, from either package, and continues bit-exactly
+  (:class:`CarryCheckpoint`).
 - **Coalesced serving batch**: :func:`coalesced_sweep` runs B independent
   requests as one batch.  Its schedule holds one base key per slot and
   every slot folds instance index 0 (:func:`slot_round_keys`), and each
@@ -35,6 +41,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -43,10 +52,15 @@ from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import UNDEFINED
+from ba_tpu_torch.obs import flight
 from ba_tpu_torch.parallel.sweep import agreement_step
+from ba_tpu_torch.utils import snapshot
 
 COUNTER_NAMES = ("quorum_failures", "unanimous_rounds", "equivocation_observed")
 SCENARIO_COUNTER_NAMES = COUNTER_NAMES + ("ic1_violations", "ic2_violations")
+# The signed campaigns' block (the JAX package's signed engine): the port
+# reads it from a checkpoint's header to refuse a signed carry by name.
+SIGNED_COUNTER_NAMES = COUNTER_NAMES + ("sig_rejections", "commander_equivocations")
 
 ENGINES = ("torch", "cuda")
 EVENT_PLANES = ("kill", "revive", "set_faulty", "set_strategy")
@@ -61,21 +75,30 @@ class KeySchedule:
     counter: torch.Tensor
 
 
-def fresh_copy(tree):
-    """A live copy of a SimState, KeySchedule, tensor, or a tuple / list /
-    dict of them.  Megasteps update their carry in place, so a caller
-    that needs the pre-run state afterwards copies it first."""
+def _map_tensors(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor: a SimState,
+    KeySchedule, tensor, None, or a tuple / list / dict of them."""
     if tree is None:
         return None
     if isinstance(tree, torch.Tensor):
-        return tree.clone()
+        return fn(tree)
     if isinstance(tree, (SimState, KeySchedule)):
         return type(tree)(
-            *(fresh_copy(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+            *(_map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree))
         )
     if isinstance(tree, dict):
-        return {k: fresh_copy(v) for k, v in tree.items()}
-    return type(tree)(fresh_copy(v) for v in tree)
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return type(tree)(_map_tensors(fn, v) for v in tree)
+
+
+def fresh_copy(tree, device=None):
+    """A live copy of a SimState, KeySchedule, tensor, or a tuple / list /
+    dict of them, on ``device`` (default: where each tensor lies).
+    Megasteps update their carry in place, so a caller that needs the
+    pre-run state afterwards copies it first."""
+    if device is None:
+        return _map_tensors(torch.clone, tree)
+    return _map_tensors(lambda t: t.to(device, copy=True), tree)
 
 
 def make_key_schedule(key: torch.Tensor, counter: int = 0) -> KeySchedule:
@@ -428,27 +451,149 @@ def _engine_megasteps(engine: str):
             scenario_step.cuda_coalesced_megastep)
 
 
+@dataclasses.dataclass(frozen=True)
+class CarryCheckpoint:
+    """A resumable snapshot of the engine's carry
+    (``ba_tpu/parallel/pipeline.py``'s ``CarryCheckpoint``).
+
+    The :class:`SimState`, the :class:`KeySchedule` (its counter is the
+    campaign's round cursor; the threefry derivation is the same in both
+    packages and on every engine, so the resumed key stream matches the
+    uninterrupted one), the cumulative counter block, the live strategy
+    plane (scenario campaigns) and ``round``.  ``counters`` / ``strategy``
+    are ``None`` on carries that never had them.  A ``[d, C]`` counter
+    block (one a device) sums to the canonical block when written, and
+    ``shard_layout`` records the writer's layout (``{"data": 1}`` here).
+    ``signed`` marks a signed campaign's carry, which the port does not
+    resume yet; ``run_id`` is the run that wrote it.
+    """
+
+    state: SimState
+    schedule: KeySchedule
+    counters: torch.Tensor | None
+    strategy: torch.Tensor | None
+    round: int
+    shard_layout: dict | None = None
+    signed: bool = False
+    run_id: str | None = None
+
+
+# Header fields the writer stamps itself: one set for _carry_meta's clash
+# check and pipeline_sweep's eager checkpoint_meta check.
+RESERVED_CARRY_META_KEYS = frozenset(
+    {"format", "v", "round", "scenario", "signed", "counter_names",
+     "sha256", "rounds_total", "shard_layout", "run_id", "traceparent"}
+)
+
+_SIGNED_PENDING = ("signed campaigns wait for the signed megastep, which the port "
+                   "does not have yet")
+
+
+def _carry_meta(round_cursor: int, counters, strategy, shard_layout=None, run_id=None,
+                signed=False, **extra) -> dict:
+    """The carry header, key for key the JAX package's.  The port has no
+    tracing, so ``traceparent`` is ``None``, as an untraced run of the
+    JAX package writes it."""
+    clash = (RESERVED_CARRY_META_KEYS - {"rounds_total"}) & set(extra)
+    if clash:
+        raise ValueError(
+            f"checkpoint meta key(s) {sorted(clash)} are reserved for the carry header"
+        )
+    names = None
+    if counters is not None:  # the strategy plane, not the length, picks the table
+        names = list(SCENARIO_COUNTER_NAMES if strategy is not None
+                     else SIGNED_COUNTER_NAMES if signed else COUNTER_NAMES)
+    return {
+        "round": int(round_cursor),
+        "scenario": strategy is not None,
+        "signed": bool(signed),
+        "counter_names": names,
+        "shard_layout": shard_layout or {"data": 1},
+        "run_id": run_id,
+        "traceparent": None,
+        **extra,
+    }
+
+
+def save_carry_checkpoint(path: str, ckpt: CarryCheckpoint, **extra) -> int:
+    """Write a carry to ``path`` (atomic, versioned, the JAX package's
+    format and dtypes).  The carry's tensors may lie on any device; pass
+    a carry no dispatch is rewriting (the sweep's ``checkpoint_every``
+    does this for you).  ``extra`` keys ride the header.  A ``[d, C]``
+    counter block sums to the canonical block here (``shard_layout``
+    defaults to ``{"data": d}`` then).  Returns the array bytes written.
+    A signed carry raises: the port cannot resume one yet."""
+    from ba_tpu_torch import convert
+
+    if ckpt.signed:
+        raise ValueError(f"signed=True carries are not written: {_SIGNED_PENDING}")
+    arrays = convert.carry_to_numpy(ckpt.state, ckpt.schedule, ckpt.counters, ckpt.strategy)
+    layout = ckpt.shard_layout
+    counters = arrays.get("counters")
+    if counters is not None and counters.ndim == 2:
+        if layout is None:
+            layout = {"data": int(counters.shape[0])}
+        arrays["counters"] = counters.sum(axis=0, dtype=counters.dtype)
+    snapshot.write_carry_checkpoint(path, arrays, _carry_meta(
+        ckpt.round, arrays.get("counters"), arrays.get("strategy"), shard_layout=layout,
+        run_id=ckpt.run_id, signed=ckpt.signed, **extra))
+    return sum(v.nbytes for v in arrays.values())
+
+
+def load_carry_checkpoint(path: str, device=None) -> CarryCheckpoint:
+    """Read and schema-check a carry checkpoint, written by either
+    package, into owned tensors on ``device`` (default: the card).
+    Refuses a counter block whose stored names differ from the table
+    the header selects: the block is positional."""
+    from ba_tpu_torch import convert
+
+    meta, arrays = snapshot.read_carry_checkpoint(path)
+    if "counters" in arrays:
+        live = (SCENARIO_COUNTER_NAMES if meta.get("scenario")
+                else SIGNED_COUNTER_NAMES if meta.get("signed") else COUNTER_NAMES)
+        stored = meta.get("counter_names")
+        if stored is not None and tuple(stored) != tuple(live):
+            raise ValueError(
+                f"checkpoint counter table {list(stored)} does not match this "
+                f"build's {list(live)} — refusing to resume totals positionally"
+            )
+    state, sched, counters, strategy = convert.carry_from_numpy(arrays, resolve_device(device))
+    return CarryCheckpoint(
+        state=state, schedule=sched, counters=counters, strategy=strategy,
+        round=meta["round"], shard_layout=meta.get("shard_layout"),
+        signed=bool(meta.get("signed", False)), run_id=meta.get("run_id"),
+    )
+
+
 class _Inflight:
     """One dispatch's outputs on their way to the host: pinned copies
-    queued behind the dispatch, and the event that marks them done."""
+    queued behind the dispatch, and the event that marks them done.
 
-    def __init__(self, ys):
+    ``carry``, where given, is the live carry right after the dispatch,
+    to be checkpointed.  On the card its pinned copy is queued on the
+    compute stream behind the dispatch, before the next dispatch
+    rewrites the carry in place, and the same event marks it done: the
+    boundary's carry, with no device clone and no new wait.  On the CPU
+    the carry is cloned, since the engine reuses it in place there too."""
+
+    def __init__(self, ys, carry=None):
         if ys[0].is_cuda:
-            self.host = tuple(
-                torch.empty(y.shape, dtype=y.dtype, pin_memory=True).copy_(
-                    y, non_blocking=True
-                )
-                for y in ys
-            )
+            self.host = tuple(_pinned(y) for y in ys)
+            self.carry = _map_tensors(_pinned, carry)
             self.done = torch.cuda.Event()
             self.done.record()
         else:
             self.host, self.done = ys, None
+            self.carry = fresh_copy(carry)
 
     def fetch(self) -> tuple:
         if self.done is not None:
             self.done.synchronize()
         return tuple(h.numpy() for h in self.host)
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
 _PLANE_DTYPES = {"kill": torch.bool, "revive": torch.bool,
@@ -493,8 +638,8 @@ def _chunks(rounds: int, rounds_per_dispatch: int) -> list:
 
 
 def pipeline_sweep(
-    key: torch.Tensor,
-    state: SimState,
+    key: torch.Tensor | None,
+    state: SimState | None,
     rounds: int,
     *,
     m: int = 1,
@@ -507,6 +652,15 @@ def pipeline_sweep(
     initial_strategy=None,
     host_work=None,
     on_event=None,
+    signed: bool = False,
+    checkpoint_every: int | None = None,
+    checkpoint_path: str | None = None,
+    checkpoint_keep_last: int | None = None,
+    checkpoint_meta: dict | None = None,
+    on_checkpoint=None,
+    on_rows=None,
+    resume=None,
+    run_id: str | None = None,
     engine: str | None = None,
     device=None,
 ):
@@ -521,7 +675,8 @@ def pipeline_sweep(
     the state is consumed — use the returned ``final_state``.  At m != 1
     every round is OM(m) by the EIG tree on the composed torch engine
     (``max_liars`` caps its fused level's lying count; derive it from
-    the state).
+    the state).  ``signed=True`` raises: the signed megastep is not
+    ported yet.
 
     With ``scenario`` (a compiled ``ScenarioBlock`` or
     ``SparseScenarioBlock`` of matching shape) every dispatch runs the
@@ -530,11 +685,33 @@ def pipeline_sweep(
     and each chunk of event planes uploads on a side stream while the
     previous dispatches are in flight.
 
-    Returns a dict: ``histograms`` [rounds, 3]; ``decisions`` [rounds, B]
-    with ``collect_decisions``; with counters ``counters`` (name -> int),
-    ``counters_per_round`` and ``final_counters`` (the live block); in
-    scenario mode ``leaders`` [rounds, B] and ``final_strategy``;
-    ``final_state``, ``final_schedule``; and ``stats``.
+    Checkpoints: with ``checkpoint_every=k`` the carry is checkpointed
+    every k rounds, aligned up to the next dispatch boundary (and at the
+    campaign's end when that boundary falls there): its pinned host copy
+    is queued right after the dispatch and written to ``checkpoint_path``
+    (a literal ``{round}`` takes the round cursor) when that dispatch
+    retires, in the JAX package's format, so either package resumes it.
+    ``checkpoint_keep_last=N`` prunes a ``{round}`` family to its N
+    newest files after each write, ``checkpoint_meta`` rides every header
+    (reserved keys raise), ``on_checkpoint(round, path)`` fires after each
+    write, and ``on_rows(d, lo, hi, host_ys)`` receives each retired
+    window's host block before the same retire's checkpoint.
+
+    ``resume=`` (a :class:`CarryCheckpoint` or a path) continues a
+    campaign from its cursor: pass ``key=None, state=None`` and the same
+    ``rounds`` / ``scenario`` as the original run.  The resumed rounds
+    are bit-exact with the uninterrupted run's tail, whatever engine or
+    package wrote the checkpoint.  ``run_id`` names the run; without it
+    the run takes the checkpoint's id, else one derived from the round
+    count, the key data and the scenario (``obs/flight.py``).
+
+    Returns a dict: ``histograms`` [rounds - start, 3] (the rounds this
+    call ran); ``decisions`` with ``collect_decisions``; with counters
+    ``counters`` (name -> int), ``counters_per_round`` and
+    ``final_counters`` (the live block); in scenario mode ``leaders`` and
+    ``final_strategy``; ``final_state``, ``final_schedule``; and
+    ``stats`` (with ``start_round``, ``checkpoints``, each write's round,
+    bytes and host ms in ``checkpoint_writes``, and ``run_id``).
     """
     if rounds < 1:
         raise ValueError(f"rounds={rounds} must be >= 1")
@@ -542,12 +719,39 @@ def pipeline_sweep(
         raise ValueError(f"depth={depth} must be >= 1")
     if rounds_per_dispatch < 1:
         raise ValueError(f"rounds_per_dispatch={rounds_per_dispatch} must be >= 1")
+    _check_checkpointing(checkpoint_every, checkpoint_path, checkpoint_keep_last,
+                         checkpoint_meta, on_checkpoint)
+    if signed:
+        raise ValueError(f"signed=True: {_SIGNED_PENDING}")
     dev = resolve_device(device)
     engine = resolve_engine(engine, dev, m)
     plain_fn, scen_fn, _ = _engine_megasteps(engine)
-    state = state.to(dev)
+
+    if isinstance(resume, (str, os.PathLike)):
+        resume = load_carry_checkpoint(resume, dev)
+    if resume is not None:
+        if resume.signed:
+            raise ValueError(f"resume checkpoint signed=True but this sweep has "
+                             f"signed=False — a carry never crosses protocols "
+                             f"({_SIGNED_PENDING})")
+        if key is not None or state is not None:
+            raise ValueError("resume= supplies the carry: pass key=None, state=None")
+        if initial_strategy is not None:
+            raise ValueError("resume= supplies the strategy plane; initial_strategy "
+                             "must be None")
+        if not 0 <= resume.round < rounds:
+            done = (" — the checkpoint is from a COMPLETED campaign; pass a larger "
+                    "rounds=/scenario= to extend it" if resume.round == rounds else "")
+            raise ValueError(f"resume cursor {resume.round} outside campaign "
+                             f"[0, {rounds}){done}")
+        start = resume.round
+        state = fresh_copy(resume.state, dev)  # the checkpoint stays usable
+    elif key is None or state is None:
+        raise ValueError("pass key and state, or resume= with key=None, state=None")
+    else:
+        start = 0
+        state = state.to(dev)
     B, n = state.faulty.shape
-    sched = make_key_schedule(key.to(dev))
 
     strategy = None
     if scenario is not None:
@@ -561,7 +765,12 @@ def pipeline_sweep(
                 f"state is [{B}, {n}]"
             )
         with_counters = True
-        if initial_strategy is None:
+        if resume is not None:
+            if resume.strategy is None or resume.counters is None:
+                raise ValueError("resume checkpoint has no strategy/counter planes — it "
+                                 "was not taken from a scenario campaign")
+            strategy = fresh_copy(resume.strategy, dev)
+        elif initial_strategy is None:
             strategy = torch.zeros((B, n), dtype=torch.int8, device=dev)
         else:
             strategy = torch.as_tensor(initial_strategy).to(dev, torch.int8).clone()
@@ -569,13 +778,50 @@ def pipeline_sweep(
                 raise ValueError(
                     f"initial_strategy shape {tuple(strategy.shape)} != {(B, n)}"
                 )
-        counters = scenario_counters_init(dev)
     elif initial_strategy is not None:
         raise ValueError("initial_strategy needs a scenario block")
-    else:
-        counters = agreement_counters_init(dev) if with_counters else None
+    elif resume is not None and resume.strategy is not None:
+        raise ValueError("resume checkpoint carries a strategy plane but no scenario "
+                         "block was passed")
 
-    chunks = _chunks(rounds, rounds_per_dispatch)
+    if resume is not None:
+        sched = fresh_copy(resume.schedule, dev)
+        if scenario is None and with_counters and resume.counters is None:
+            raise ValueError("resume checkpoint has no counter block — the original "
+                             "run had with_counters=False")
+        if scenario is None and not with_counters and resume.counters is not None:
+            raise ValueError("resume checkpoint carries a counter block; pass "
+                             "with_counters=True so the totals keep accumulating")
+        counters = fresh_copy(resume.counters, dev) if with_counters else None
+        if counters is not None and counters.ndim == 2:  # one block a device: the sum
+            counters = counters.sum(dim=0, dtype=torch.int32)
+    else:
+        sched = make_key_schedule(key.to(dev))
+        if scenario is not None:
+            counters = scenario_counters_init(dev)
+        else:
+            counters = agreement_counters_init(dev) if with_counters else None
+
+    def identity_material():
+        from ba_tpu_torch import convert
+
+        material = [convert.key_data_to_numpy(
+            key if key is not None else resume.schedule.key_data).tobytes()]
+        if scenario is not None:
+            doc = getattr(scenario, "to_doc", None)
+            if doc is not None:
+                material.append(json.dumps(doc(), sort_keys=True))
+            else:  # a dense block: its planes' content
+                material += [np.asarray(getattr(scenario, name)).tobytes()
+                             for name in EVENT_PLANES]
+        return material
+
+    rid = flight.resolve_run_id(
+        rounds, run_id=run_id, inherited=resume.run_id if resume is not None else None,
+        material_fn=identity_material,
+    )
+
+    chunks = _chunks(rounds - start, rounds_per_dispatch)
     zero_staged: dict = {}
     upload = torch.cuda.Stream(dev) if scenario is not None and dev.type == "cuda" else None
 
@@ -592,15 +838,36 @@ def pipeline_sweep(
     retired = []
     max_in_flight = 0
     retires_before_drain = 0
+    writes = []
+    next_ckpt = start + checkpoint_every if checkpoint_every else None
+
+    def write_checkpoint(round_cursor, carry):
+        t0 = time.perf_counter()
+        written = checkpoint_path.replace("{round}", str(round_cursor))
+        nbytes = save_carry_checkpoint(
+            written, CarryCheckpoint(*carry, round=round_cursor, run_id=rid),
+            rounds_total=rounds, **(checkpoint_meta or {}),
+        )
+        writes.append({"round": round_cursor, "bytes": nbytes,
+                       "host_ms": (time.perf_counter() - t0) * 1e3})
+        if checkpoint_keep_last is not None:
+            snapshot.prune_checkpoints(checkpoint_path, checkpoint_keep_last)
+        if on_checkpoint is not None:
+            on_checkpoint(round_cursor, written)
 
     def retire():
-        d, box = inflight.popleft()
-        retired.append(box.fetch())
+        d, lo, hi, box = inflight.popleft()
+        host_ys = box.fetch()
+        retired.append(host_ys)
+        if on_rows is not None:  # before the checkpoint of the same retire
+            on_rows(d, lo, hi, host_ys)
+        if box.carry is not None:
+            write_checkpoint(hi, box.carry)
         if on_event is not None:
             on_event("retire", d)
 
-    lo = 0
-    staged = stage(0, chunks[0]) if scenario is not None else None
+    lo = start
+    staged = stage(start, start + chunks[0]) if scenario is not None else None
     for d, nr in enumerate(chunks):
         hi = lo + nr
         if scenario is not None:
@@ -623,7 +890,11 @@ def pipeline_sweep(
             ys = out[2:]
             if with_counters:
                 counters = ys[-1][-1]
-        inflight.append((d, _Inflight(ys)))
+        carry = None
+        if next_ckpt is not None and hi >= next_ckpt:
+            carry = (state, sched, counters, strategy)
+            next_ckpt = hi + checkpoint_every
+        inflight.append((d, lo, hi, _Inflight(ys, carry)))
         max_in_flight = max(max_in_flight, len(inflight))
         if on_event is not None:
             on_event("dispatch", d)
@@ -643,13 +914,17 @@ def pipeline_sweep(
         "final_state": state,
         "final_schedule": sched,
         "stats": {
-            "rounds": rounds,
+            "rounds": rounds - start,
+            "start_round": start,
             "dispatches": len(chunks),
             "depth": depth,
             "rounds_per_dispatch": rounds_per_dispatch,
             "max_in_flight": max_in_flight,
             "retires_before_drain": retires_before_drain,
+            "checkpoints": len(writes),
+            "checkpoint_writes": writes,
             "engine": engine,
+            "run_id": rid,
         },
     }
     if scenario is not None:
@@ -671,9 +946,39 @@ def pipeline_sweep(
     return result
 
 
-def scenario_sweep(key: torch.Tensor, state: SimState, scenario, **kwargs):
+def _check_checkpointing(every, path, keep_last, meta, on_checkpoint) -> None:
+    """The checkpoint options' eager checks, before any dispatch."""
+    if every is not None and every < 1:
+        raise ValueError(f"checkpoint_every={every} must be >= 1")
+    if (path or on_checkpoint) and every is None:
+        raise ValueError("checkpoint_path/on_checkpoint need checkpoint_every")
+    if every is not None and path is None:
+        # on_checkpoint alone is no sink: the hook gets (round, path), not the carry
+        raise ValueError("checkpoint_every needs checkpoint_path")
+    if keep_last is not None:
+        if keep_last < 1:
+            raise ValueError(f"checkpoint_keep_last={keep_last} must be >= 1")
+        if every is None:
+            raise ValueError("checkpoint_keep_last needs checkpoint_every")
+        if "{round}" in os.path.dirname(path):
+            raise ValueError("checkpoint_path cannot carry the {round} slot in its "
+                             "directory component (retention scans one directory)")
+        if "{round}" not in os.path.basename(path):
+            raise ValueError("checkpoint_keep_last needs a {round}-templated checkpoint "
+                             "FILENAME (the directory component cannot carry the slot)")
+    if meta is not None:
+        if every is None:
+            raise ValueError("checkpoint_meta needs checkpoint_every")
+        reserved = RESERVED_CARRY_META_KEYS & set(meta)
+        if reserved:
+            raise ValueError(f"checkpoint_meta key(s) {sorted(reserved)} are reserved "
+                             f"for the carry header")
+
+
+def scenario_sweep(key: torch.Tensor | None, state: SimState | None, scenario, **kwargs):
     """Run a compiled scenario campaign: ``pipeline_sweep(...,
-    scenario=block)`` with the round count read off the block."""
+    scenario=block)`` with the round count read off the block (resuming:
+    ``scenario_sweep(None, None, block, resume=ckpt)``)."""
     return pipeline_sweep(key, state, scenario.rounds, scenario=scenario, **kwargs)
 
 

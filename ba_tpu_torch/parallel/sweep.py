@@ -1,7 +1,8 @@
 """Sweep states and one agreement round per instance with per-instance
 keys (``ba_tpu/parallel/sweep.py``: ``make_sweep_state``,
-``bucketed_sweep_states``, ``decision_histogram``, and ``agreement_step``:
-OM(1) on its coin-injected path, OM(m) through ``core/eig.py``)."""
+``bucketed_sweep_states``, ``decision_histogram``, ``agreement_step``:
+OM(1) on its coin-injected path, OM(m) through ``core/eig.py``; and
+``failover_sweep``, a kill-only campaign in one megastep)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.eig import eig_round
 from ba_tpu_torch.core.om import om1_round_from_coins
 from ba_tpu_torch.core.quorum import majority_counts, quorum_decision
-from ba_tpu_torch.core.state import SimState
+from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
 
 
@@ -142,3 +143,53 @@ def agreement_step(keys: torch.Tensor, state: SimState, m: int = 1,
         "total": total,
         "histogram": decision_histogram(decision),
     }
+
+
+def failover_sweep(
+    key: torch.Tensor,
+    state: SimState,
+    kill_schedule,
+    m: int = 1,
+    max_liars: int | None = None,
+    *,
+    engine: str | None = None,
+    device=None,
+) -> dict:
+    """Multi-round sweep with leader failover: each round's kills, then
+    instances whose leader died re-elect the lowest alive id, then the
+    agreement round with every general's strategy RANDOM.
+
+    A thin wrapper of the engine's scenario megastep over a kill-only
+    campaign (``revive`` all False, ``set_faulty`` / ``set_strategy`` all
+    -1), in one dispatch of R rounds: at m = 1 on the card one launch of
+    K1's scenario mode; at other m the composed torch engine (OM(m) by
+    the EIG tree).  ``engine`` and ``device`` follow ``pipeline_sweep``'s
+    rule; the caller's state is left as it was.
+
+    ``kill_schedule`` [R, B, n] bool (numpy or a tensor): who dies before
+    each of the R rounds.  Returns ``leaders`` [R, B] int32 (after each
+    round's election), ``decisions`` [R, B] int8, ``histograms`` [R, 3]
+    int32 and ``final_state``, all on the device.
+    """
+    # pipeline.py imports this module for agreement_step: resolve it late
+    from ba_tpu_torch.parallel import pipeline as _pipeline
+
+    dev = resolve_device(device)
+    engine = _pipeline.resolve_engine(engine, dev, m)
+    kills = torch.as_tensor(kill_schedule).to(dev, torch.bool).contiguous()
+    R = kills.shape[0]
+    B, n = state.faulty.shape
+    if R < 1 or tuple(kills.shape) != (R, B, n):
+        raise ValueError(f"kill_schedule is {tuple(kills.shape)}, want [R >= 1, {B}, {n}]")
+    keep = torch.full((R, B, n), -1, dtype=torch.int8, device=dev)
+    events = {"kill": kills, "revive": torch.zeros_like(kills),
+              "set_faulty": keep, "set_strategy": keep.clone()}
+    scen_fn = _pipeline._engine_megasteps(engine)[1]
+    out = scen_fn(
+        _pipeline.fresh_copy(state, dev), _pipeline.make_key_schedule(key.to(dev)),
+        torch.zeros((B, n), dtype=torch.int8, device=dev),  # every general RANDOM
+        _pipeline.scenario_counters_init(dev), events,
+        rounds=R, m=m, max_liars=max_liars, collect_decisions=True,
+    )
+    return {"leaders": out[4], "decisions": out[6], "histograms": out[3],
+            "final_state": out[0]}

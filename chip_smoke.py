@@ -8,6 +8,10 @@ Three paths, each through its hand-written kernels:
 - the oral OM(1) pipelined engine: ``pipeline_sweep`` (plain sweeps) and
   ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
   kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
+- leader failover and carry checkpoints on that engine: ``failover_sweep``
+  (a kill-only campaign, one K1 scenario launch), and ``pipeline_sweep``
+  / ``scenario_sweep`` writing checkpoints in the JAX package's file
+  format and resuming from them, on the card and across to the CPU;
 - the setup of BASELINE config #5's signed sweep (``bench.py``'s
   ``bench_sweep10k_signed``), ``setup_signed_tables``: by default it signs
   on the card in one chunk, as the reference does on its accelerator,
@@ -202,6 +206,27 @@ Phases, one JSON line each:
    Legendre symbols checked by field identities, K8'' at (p - 5)/8 equal
    to K8'; each kernel alone by CUDA events: scalar-mults/s of K3'' and
    K3', their ratio, and the generic exponent against the chain;
+28. ``failover_full_width`` (run right after phase 5): ``failover_sweep``
+   at phase 4's width, R = 16, a seeded [16, 10 000, 1024] kill plane
+   (each general dies with probability 0.002 a round; every leader before
+   round 1): one K1 scenario launch, instances 0-63 bit-equal to the
+   torch engine on the card (leaders, decisions, final state), then 3
+   more calls timed (wall, CUDA events), agreement-rounds/s, the kill
+   plane's bytes and the launch's bound;
+29. ``checkpoint_resume_full_width``: phase 4's plain campaign with a
+   checkpoint every 16 rounds into a ``{round}`` family, the two newest
+   kept, resumed from round 32 with key=None, state=None; phase 5's
+   coalition campaign with one every 4 rounds, resumed from round 4 —
+   each tail bit-equal to the uninterrupted run, the files left on disk,
+   each header's round against its stored counter, the resumed run id
+   against the writer's; the bytes and host ms of each write, and the
+   wall without checkpoints, with them, and of the resume;
+30. ``checkpoint_cross_device``: a narrow campaign (B = 64, n = 128),
+   plain and scenario, written under engine="cuda" and resumed with
+   engine="torch" on the CPU, bit-equal to the card's run; then ``python
+   -m ba_tpu_torch.scenario`` validates every checkpoint written (exit
+   0) and refuses one with a byte of ``alive`` flipped (digest mismatch);
+   the checkpoints, in ``_smoke_checkpoints/``, are removed at the end;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
@@ -215,8 +240,9 @@ config #2 and of eig_n1024 and one more m = 2 sweep; every recorded dispatch is 
 against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
-launches on the main paths, the time, bound and plain time per path and
-per dispatch, and the largest difference from the plain version; the
+launches on the main paths (K1's plain and scenario lines add phases
+28-30's to phases 4's and 5's, by path in ``launches_by_path``), the
+time, bound and plain time per path and per dispatch, and the largest difference from the plain version; the
 Ed25519 kernels', P's and K9's time twice: as the path launches them
 (``ms``, which reads the wrapper's host cost where the kernel is
 shorter) and queued behind a spin (``device_ms``, the card's own time)
@@ -240,6 +266,7 @@ failure exits non-zero before that.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import ctypes
@@ -248,6 +275,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -268,6 +296,7 @@ from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, majori
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
+from ba_tpu_torch.utils import snapshot
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 COALITION = os.path.join(ROOT, "examples", "scenarios", "colluding_coalition.json")
@@ -288,6 +317,11 @@ STEPS_SIGNED, WINDOWS_SIGNED = 50, 3  # bench.py's iters and reps
 RPD_SCEN = 4  # the coalition campaign's rounds a dispatch
 CHUNK = 500
 PTXAS: dict = {}  # source -> ptxas_records of its build in phase_env
+R_FAIL, P_KILL = 16, 0.002  # failover_full_width: rounds, a general's death rate a round
+FAIL_REPS = 3  # its timed calls after the counted one
+CKPT_EVERY_PLAIN, CKPT_KEEP, CKPT_RESUME = 16, 2, 32  # the plain campaign's checkpoints
+B_NARROW, N_NARROW = 64, 128  # checkpoint_cross_device's campaign
+CKPT_DIR = os.path.join(ROOT, "_smoke_checkpoints")  # git-ignored; removed at the end
 COUNTING_FLAGS = ("-DBA_COUNT_DRAWS",)  # K1's counting build (words_drawn)
 CUDA_SOURCES = ("megastep.cu", "sweep_step.cu", "decompress.cu", "sha512_modl.cu",
                 "treeadd.cu", "window_verify.cu", "modl.cu", "powchain.cu", "window_mult.cu",
@@ -929,7 +963,8 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s):
     bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
     return {"name": "megastep_plain", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES, "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_pipeline_megastep",
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": RPD_FULL},
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
@@ -1046,13 +1081,284 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
     return {"name": "megastep_scenario", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES,
             "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_scenario_megastep",
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms[0],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": R},
             "dispatches_checked": len(outs), "plain_ms_per_dispatch": plain_ms,
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
             "tally_steps": steps}
+
+
+# -- failover and carry checkpoints at full width ------------------------------
+
+
+def kill_plane(seed, R, B, n):
+    """A seeded [R, B, n] kill schedule: each general dies with
+    probability P_KILL a round, and every instance's leader (index 0)
+    before round 1.  Drawn a round at a time in float32."""
+    rs = np.random.default_rng(seed)
+    kills = np.empty((R, B, n), bool)
+    for r in range(R):
+        np.less(rs.random((B, n), dtype=np.float32), P_KILL, out=kills[r])
+    kills[1, :, 0] = True
+    return kills
+
+
+def phase_failover_full_width(dev, seed, card, int_ops_per_s):
+    """``failover_sweep`` at B_FULL x CAP_FULL, R_FAIL rounds: one K1
+    scenario launch; instances 0-63 against the torch engine on the card
+    (leaders, decisions, final state); then FAIL_REPS more calls timed,
+    and the launch's bound from the inputs' needed work."""
+    key = rng.key(seed + 2, device=dev)
+    arrays = sweep_arrays(rng.fold_in(key, 1000), B_FULL, CAP_FULL, order=1)
+    kills = kill_plane(seed + 2, R_FAIL, B_FULL, CAP_FULL)
+    kills_dev = torch.from_numpy(kills).to(dev)
+    state = to_state(arrays, dev)
+    scenario_step.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = sweep.failover_sweep(key, state, kills_dev, engine="cuda", device=dev)
+    sync()
+    first_wall = time.perf_counter() - t0
+    launches = scenario_step.cuda_scenario_megastep.launches
+    check(launches == 1, f"failover_sweep launched K1 {launches} times, not once")
+    check(scenario_step.cuda_pipeline_megastep.launches == 0, "failover ran a plain dispatch")
+    hist, dec, lead = (out[k].cpu().numpy() for k in ("histograms", "decisions", "leaders"))
+    check(hist.shape == (R_FAIL, 3) and dec.shape == lead.shape == (R_FAIL, B_FULL),
+          "failover shapes")
+    for code in range(3):
+        check(np.array_equal(hist[:, code], (dec == code).sum(axis=1)),
+              "failover histograms disagree with its decisions")
+    check((lead[1] != 0).all(), "an instance kept its killed leader")
+    ref = sweep.failover_sweep(key, rows_of(state, 0, 64), kills_dev[:, :64].contiguous(),
+                               engine="torch", device=dev)
+    for name in ("leaders", "decisions"):
+        check(torch.equal(out[name][:, :64], ref[name]), f"failover {name} 0-63 differ")
+    check(max_abs_err(zip((t[:64] for t in out["final_state"].tensors()),
+                          ref["final_state"].tensors())) == 0,
+          "failover final state 0-63 differs")
+    walls, device_ms = [], []
+    for _ in range(FAIL_REPS):  # the caller's state is kept, so each call is the same
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sync()
+        t0 = time.perf_counter()
+        start.record()
+        again = sweep.failover_sweep(key, state, kills_dev, engine="cuda", device=dev)
+        end.record()
+        sync()
+        walls.append(time.perf_counter() - t0)
+        device_ms.append(start.elapsed_time(end))
+        check(torch.equal(again["decisions"], out["decisions"]), "failover is not repeatable")
+    B, n = state.faulty.shape
+    keep = torch.full_like(kills_dev, -1, dtype=torch.int8)
+    words, steps = work_counts(state, R_FAIL, strategy=torch.zeros_like(keep[0]),
+                               events={"kill": kills_dev, "revive": torch.zeros_like(kills_dev),
+                                       "set_faulty": keep, "set_strategy": keep})
+    # inputs: the state, the strategy plane, four event planes, key, counter,
+    # counters; outputs: the state planes and strategy, decisions, leaders,
+    # histograms and counter rows
+    nbytes = (B * 5 + B * n * 7 + R_FAIL * B * n * 4 + 16 + 4 + 20
+              + B * 4 + B * n * 3 + R_FAIL * B * 5 + R_FAIL * (12 + 20))
+    bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
+    wall = float(np.median(walls))
+    emit({"phase": "failover_full_width", "B": B_FULL, "capacity": CAP_FULL,
+          "rounds": R_FAIL, "p_kill": P_KILL, "kill_plane_bytes": kills.nbytes,
+          "first_wall_s": first_wall, "wall_s": walls, "device_ms": device_ms,
+          "agreement_rounds_per_s": R_FAIL * B_FULL / wall, "card": card,
+          "bound_ms": bound_ms, "bound_by": bound_by, "threefry_words_needed": words,
+          "tally_steps": steps, "kernel_launches": launches, "subset_equal": True,
+          "histogram_round1": hist[1].tolist(),
+          "alive_after": int(out["final_state"].alive.sum())})
+    return launches
+
+
+def same_tail(full, tail, start, names):
+    """``tail`` (a run resumed at ``start``) against ``full``'s rounds from
+    ``start`` and its final carry."""
+    for name in names:
+        check(np.array_equal(full[name][start:], tail[name]), f"resumed {name} differ")
+    check(full["counters"] == tail["counters"], "resumed counters differ")
+    check(max_abs_err(zip(full["final_state"].tensors(), tail["final_state"].tensors())) == 0,
+          "resumed final state differs")
+    if "final_strategy" in full:
+        check(torch.equal(full["final_strategy"], tail["final_strategy"]),
+              "resumed final strategy differs")
+    check(torch.equal(full["final_schedule"].counter, tail["final_schedule"].counter),
+          "resumed schedule counter differs")
+
+
+def headers_agree(paths):
+    """Each file's header round equals its stored KeySchedule counter."""
+    for path in paths:
+        meta, arrays = snapshot.read_carry_checkpoint(path)
+        check(meta["round"] == int(arrays["counter"]), f"{path}: round != counter")
+
+
+def checkpoint_campaign(name, run, total, every, resume_at, keep_last=None, out_names=()):
+    """One campaign three times: uninterrupted, with checkpoints every
+    ``every`` rounds into CKPT_DIR, and resumed from round ``resume_at``
+    with key=None, state=None.  ``run(**kw)`` drives it.  Returns the
+    phase's record and the K1 launches of the three runs."""
+    template = os.path.join(CKPT_DIR, name + "_{round}.npz")
+    kept = os.path.join(CKPT_DIR, f"{name}_resume_at_{resume_at}.npz")
+
+    def keep(r, path):  # the resume point outlives the family's pruning
+        if r == resume_at:
+            os.link(path, kept)
+
+    scenario_step.reset_launches()
+    walls = {}
+    for leg, kw in (("no_checkpoints", {}),
+                    ("checkpoints", dict(checkpoint_every=every, checkpoint_path=template,
+                                         checkpoint_keep_last=keep_last,
+                                         on_checkpoint=keep))):
+        sync()
+        t0 = time.perf_counter()
+        out = run(**kw)
+        sync()
+        walls[leg] = time.perf_counter() - t0
+        if leg == "no_checkpoints":
+            full = out
+    ckpt = out
+    same_tail(full, ckpt, 0, out_names)
+    left = [r for r, _ in snapshot.checkpoint_paths(template)]
+    want = list(range(every, total + 1, every))
+    if keep_last is not None:
+        want = want[-keep_last:]
+    check(left == want, f"{name}: checkpoints left on disk {left}, want {want}")
+    headers_agree([kept] + [p for _, p in snapshot.checkpoint_paths(template)])
+    sync()
+    t0 = time.perf_counter()
+    tail = run(resume=kept)
+    sync()
+    walls["resume"] = time.perf_counter() - t0
+    same_tail(full, tail, resume_at, out_names)
+    check(tail["stats"]["start_round"] == resume_at, "resume cursor")
+    check(tail["stats"]["run_id"] == ckpt["stats"]["run_id"] == full["stats"]["run_id"],
+          "the resumed run's id differs from the writer's")
+    writes = ckpt["stats"]["checkpoint_writes"]
+    return {"campaign": name, "rounds": total, "checkpoint_every": every,
+            "keep_last": keep_last, "resumed_from": resume_at, "files_left": left,
+            "checkpoint_bytes": [w["bytes"] for w in writes],
+            "write_host_ms": [w["host_ms"] for w in writes],
+            "wall_s_no_checkpoints": walls["no_checkpoints"],
+            "wall_s_checkpoints": walls["checkpoints"], "wall_s_resume": walls["resume"],
+            "run_id": tail["stats"]["run_id"], "bit_equal": True}, (
+        scenario_step.cuda_pipeline_megastep.launches,
+        scenario_step.cuda_scenario_megastep.launches)
+
+
+def phase_checkpoint_resume_full_width(dev, seed, card, arrays, s_arrays):
+    """Phase 4's plain campaign (64 rounds, 16 a dispatch, counters) with
+    a checkpoint every 16 rounds, the two newest kept, resumed at 32; and
+    phase 5's coalition campaign (8 rounds, 4 a dispatch) with a
+    checkpoint every 4, resumed at 4."""
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    atexit.register(shutil.rmtree, CKPT_DIR, True)  # also when a check fails
+    key = rng.key(seed, device=dev)
+    plain_kw = dict(depth=2, rounds_per_dispatch=RPD_FULL, collect_decisions=True,
+                    with_counters=True, engine="cuda", device=dev)
+
+    def plain(resume=None, **kw):
+        if resume is not None:
+            return pipeline.pipeline_sweep(None, None, R_FULL, resume=resume, **plain_kw)
+        return pipeline.pipeline_sweep(key, to_state(arrays, dev), R_FULL, **plain_kw, **kw)
+
+    rec_p, (p_plain, p_scen) = checkpoint_campaign(
+        "plain", plain, R_FULL, CKPT_EVERY_PLAIN, CKPT_RESUME, keep_last=CKPT_KEEP,
+        out_names=("histograms", "decisions", "counters_per_round"))
+    check((p_plain, p_scen) == (10, 0), f"plain campaign launches {(p_plain, p_scen)}")
+
+    spec = scenario_spec.load(COALITION)
+    s_key = rng.key(seed + 1, device=dev)
+    block = scenario_compile.compile_scenario(spec, B_FULL, CAP_FULL, sparse=True)
+    scen_kw = dict(depth=2, rounds_per_dispatch=RPD_SCEN, collect_decisions=True,
+                   engine="cuda", device=dev)
+
+    def scen(resume=None, **kw):
+        if resume is not None:
+            return pipeline.scenario_sweep(None, None, block, resume=resume, **scen_kw)
+        return pipeline.scenario_sweep(s_key, to_state(s_arrays, dev), block, **scen_kw, **kw)
+
+    rec_s, (s_plain, s_scen) = checkpoint_campaign(
+        "scenario", scen, spec.rounds, RPD_SCEN, RPD_SCEN,
+        out_names=("histograms", "decisions", "leaders", "counters_per_round"))
+    check((s_plain, s_scen) == (0, 5), f"scenario campaign launches {(s_plain, s_scen)}")
+    emit({"phase": "checkpoint_resume_full_width", "B": B_FULL, "capacity": CAP_FULL,
+          "card": card, "campaigns": [rec_p, rec_s]})
+    return p_plain, s_scen
+
+
+def flip_alive_byte(src, dst):
+    """``src`` rewritten to ``dst`` with one byte of ``alive`` flipped and
+    every other entry, the header included, as it was."""
+    with np.load(src) as data:
+        fields = {k: data[k] for k in data.files}
+    alive = fields["alive"].copy()
+    alive.flat[0] = not alive.flat[0]
+    fields["alive"] = alive
+    with open(dst, "wb") as fh:
+        np.savez(fh, **fields)
+
+
+def phase_checkpoint_cross_device(dev, seed):
+    """A narrow campaign, plain and scenario, written under engine="cuda"
+    and resumed with engine="torch" on the CPU: bit-equal to the card's
+    uninterrupted run.  Then ``python -m ba_tpu_torch.scenario`` validates
+    every checkpoint on disk, and refuses one with a byte of ``alive``
+    flipped."""
+    key = rng.key(seed + 3, device=dev)
+    arrays = sweep_arrays(rng.fold_in(key, 1000), B_NARROW, N_NARROW, order=1)
+    spec = scenario_spec.load(COALITION)
+    block = scenario_compile.compile_scenario(spec, B_NARROW, N_NARROW, sparse=True)
+    kw = dict(depth=2, collect_decisions=True)
+    scenario_step.reset_launches()
+    cases = {"narrow_plain": (None, R_FULL, RPD_FULL, dict(with_counters=True)),
+             "narrow_scenario": (block, spec.rounds, RPD_SCEN, {})}
+    for name, (scn, rounds, rpd, extra) in cases.items():
+        template = os.path.join(CKPT_DIR, name + "_{round}.npz")
+        run = dict(kw, rounds_per_dispatch=rpd, scenario=scn, **extra)
+        full = pipeline.pipeline_sweep(key, to_state(arrays, dev), rounds, engine="cuda",
+                                       device=dev, checkpoint_every=rpd,
+                                       checkpoint_path=template, **run)
+        resumed = template.format(round=rpd)
+        tail = pipeline.pipeline_sweep(None, None, rounds, resume=resumed, engine="torch",
+                                       device="cpu", **run)
+        check(tail["stats"]["engine"] == "torch", "the resumed run's engine")
+        names = ("histograms", "decisions", "counters_per_round") + (
+            ("leaders",) if scn is not None else ())
+        cpu_full = dict(full, final_state=full["final_state"].to(CPU),
+                        final_schedule=pipeline.fresh_copy(full["final_schedule"], CPU))
+        if scn is not None:
+            cpu_full["final_strategy"] = full["final_strategy"].cpu()
+        same_tail(cpu_full, tail, rpd, names)
+    launches = (scenario_step.cuda_pipeline_megastep.launches,
+                scenario_step.cuda_scenario_megastep.launches)
+    check(launches == (R_FULL // RPD_FULL, -(-spec.rounds // RPD_SCEN)),
+          f"cross-device launches {launches}")
+
+    files = sorted(os.path.join(CKPT_DIR, f) for f in os.listdir(CKPT_DIR)
+                   if f.endswith(".npz"))
+    cli = [sys.executable, "-m", "ba_tpu_torch.scenario"]
+    proc = subprocess.run(cli + files, capture_output=True, text=True, cwd=ROOT, timeout=300)
+    check(proc.returncode == 0 and proc.stdout.count(": OK") == len(files),
+          f"the scenario CLI refused a checkpoint: {proc.stderr[-500:]}")
+    bad = os.path.join(CKPT_DIR, "flipped_alive.npz")
+    flip_alive_byte(os.path.join(CKPT_DIR, f"narrow_scenario_{RPD_SCEN}.npz"), bad)
+    refused = subprocess.run(cli + [bad], capture_output=True, text=True, cwd=ROOT,
+                             timeout=300)
+    check(refused.returncode != 0 and "digest mismatch" in refused.stderr,
+          f"a flipped alive byte was not refused: rc {refused.returncode}, "
+          f"{refused.stderr[-300:]}")
+    emit({"phase": "checkpoint_cross_device", "B": B_NARROW, "n": N_NARROW,
+          "campaigns": list(cases), "written": "cuda", "resumed": "torch on the CPU",
+          "bit_equal": True, "cli_validated": len(files), "cli_refused_rc": refused.returncode,
+          "kernel_launches": {"plain": launches[0], "scenario": launches[1]}})
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches
 
 
 # -- K2: the fused signed sweep ---------------------------------------------
@@ -3260,6 +3566,17 @@ def main(argv=None) -> int:
     phase_middle(dev, rs)
     arrays, main_out, plain_launches = phase_full_width(dev, args.seed, card)
     s_arrays, planes, s_main_out, scen_launches = phase_scenario(dev, args.seed, card)
+    fail_launches = phase_failover_full_width(dev, args.seed, card, int_ops_per_s)
+    ckpt_plain, ckpt_scen = phase_checkpoint_resume_full_width(dev, args.seed, card, arrays,
+                                                               s_arrays)
+    cross_plain, cross_scen = phase_checkpoint_cross_device(dev, args.seed)
+    plain_launches = {"full_width_validity": plain_launches,
+                      "checkpoint_resume_full_width": ckpt_plain,
+                      "checkpoint_cross_device": cross_plain}
+    scen_launches = {"scenario_full_width": scen_launches,
+                     "failover_full_width": fail_launches,
+                     "checkpoint_resume_full_width": ckpt_scen,
+                     "checkpoint_cross_device": cross_scen}
     phase_k2_middle(dev, rs)
     phase_ed25519_known_answers(dev, rs)
     phase_ed25519_middle(dev, rs)

@@ -36,7 +36,9 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=PACKAGE.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "ba_tpu_torch.ops.scenario_step" in MODULES
+    for name in ("ba_tpu_torch.ops.scenario_step", "ba_tpu_torch.utils.snapshot",
+                 "ba_tpu_torch.obs.flight", "ba_tpu_torch.scenario.__main__"):
+        assert name in MODULES, name
 
 
 def test_no_module_imports_jax_or_ba_tpu():
@@ -51,6 +53,34 @@ def test_no_module_imports_jax_or_ba_tpu():
             else:
                 continue
             assert not any(_foreign(n) for n in names), (path, names)
+
+
+def test_no_module_reads_the_environment():
+    """The JAX package's environment knobs are keywords in the port (the
+    run id is ``pipeline_sweep(run_id=...)``)."""
+    for path in PACKAGE.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("environ", "getenv", "environb"), path
+
+
+def test_scenario_cli_loads_no_jax_and_no_torch():
+    """``python -m ba_tpu_torch.scenario`` on the committed specs: numpy
+    and the stdlib only."""
+    specs = sorted(str(p) for p in (PACKAGE.parent / "examples" / "scenarios").glob("*.json"))
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['scenario', *{specs!r}]\n"
+            "try:\n"
+            "    runpy.run_module('ba_tpu_torch.scenario', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ba_tpu', 'torch'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(specs) >= 2 and proc.stdout.count(": OK") == len(specs)
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
