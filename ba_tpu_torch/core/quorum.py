@@ -50,6 +50,17 @@ def quorum_threshold(total: torch.Tensor) -> torch.Tensor:
     return needed
 
 
+def quorum_threshold_py(total: int) -> int:
+    """:func:`quorum_threshold` on a Python int, for the REPL's shell."""
+    k = (total - 1) // 3
+    needed = 2 * k + 1
+    if total <= 3:
+        needed = total - 1
+    if total == 1:
+        needed = 1
+    return needed
+
+
 def quorum_decision(n_attack, n_retreat, n_undefined):
     """Final decision per instance: (decision [B] int8, needed, total)."""
     total = n_attack + n_retreat + n_undefined

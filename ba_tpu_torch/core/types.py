@@ -15,6 +15,8 @@ RETREAT = 0
 ATTACK = 1
 UNDEFINED = 2
 
+COMMAND_NAMES = ("retreat", "attack", "undefined")  # by code: the REPL's majority words
+
 
 def command_from_name(name: str) -> int:
     """Map a command string to its int8 code: anything that is not

@@ -485,7 +485,7 @@ RESERVED_CARRY_META_KEYS = frozenset(
      "sha256", "rounds_total", "shard_layout", "run_id", "traceparent"}
 )
 
-_SIGNED_PENDING = ("signed campaigns wait for the signed megastep, which the port "
+SIGNED_PENDING = ("signed campaigns wait for the signed megastep, which the port "
                    "does not have yet")
 
 
@@ -526,7 +526,7 @@ def save_carry_checkpoint(path: str, ckpt: CarryCheckpoint, **extra) -> int:
     from ba_tpu_torch import convert
 
     if ckpt.signed:
-        raise ValueError(f"signed=True carries are not written: {_SIGNED_PENDING}")
+        raise ValueError(f"signed=True carries are not written: {SIGNED_PENDING}")
     arrays = convert.carry_to_numpy(ckpt.state, ckpt.schedule, ckpt.counters, ckpt.strategy)
     layout = ckpt.shard_layout
     counters = arrays.get("counters")
@@ -722,7 +722,7 @@ def pipeline_sweep(
     _check_checkpointing(checkpoint_every, checkpoint_path, checkpoint_keep_last,
                          checkpoint_meta, on_checkpoint)
     if signed:
-        raise ValueError(f"signed=True: {_SIGNED_PENDING}")
+        raise ValueError(f"signed=True: {SIGNED_PENDING}")
     dev = resolve_device(device)
     engine = resolve_engine(engine, dev, m)
     plain_fn, scen_fn, _ = _engine_megasteps(engine)
@@ -733,7 +733,7 @@ def pipeline_sweep(
         if resume.signed:
             raise ValueError(f"resume checkpoint signed=True but this sweep has "
                              f"signed=False — a carry never crosses protocols "
-                             f"({_SIGNED_PENDING})")
+                             f"({SIGNED_PENDING})")
         if key is not None or state is not None:
             raise ValueError("resume= supplies the carry: pass key=None, state=None")
         if initial_strategy is not None:

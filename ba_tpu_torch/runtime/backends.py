@@ -1,0 +1,319 @@
+"""Execution backends for the interactive cluster (``ba_tpu/runtime/backends.py``).
+
+Two interchangeable engines behind ``Cluster``:
+
+- :class:`TorchBackend` — the port's batched core behind a B = 1 facade.
+  It pads the roster to a power-of-two capacity, as the JAX package's
+  ``JaxBackend`` does: the coins are drawn at the padded shape, so the
+  same roster, seed and capacity give the same bits in both packages.
+  Multi-round runs and scenario campaigns go through the pipelined
+  engine (``parallel/pipeline.py``), K1 on the card at m = 1.
+- :class:`PyBackend` — a sequential-Python oracle with the reference
+  semantics (ba.py:159-195, 258-285): plain loops and the stdlib's
+  ``random`` for the fault coins.
+
+Both draw faults from seeded RNG (the reference uses ``random.randint``
+per RPC call, ba.py:44-49, 268-273, unseeded; here they are
+reproducible).
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+from ba_tpu_torch.core import rng
+from ba_tpu_torch.core.state import SimState, resolve_device
+from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
+
+# Dispatches the pipelined engine keeps in flight (the reference's
+# ``BA_TPU_PIPELINE_DEPTH`` default).
+PIPELINE_DEPTH = 2
+
+
+class PyBackend:
+    """Sequential oracle: one cluster, plain loops, stdlib RNG only."""
+
+    def run_round(self, generals, leader_idx, order_code, seed):
+        coins = random.Random(seed)
+        n = len(generals)
+        alive = [g.alive for g in generals]
+        faulty = [g.faulty for g in generals]
+
+        # Round 1: push. A faulty leader flips a coin per recipient
+        # (equivocation, ba.py:268-273); the leader keeps the true order.
+        received = []
+        for i in range(n):
+            if i == leader_idx or not faulty[leader_idx]:
+                received.append(order_code)
+            else:
+                received.append(coins.randint(0, 1))
+
+        # Round 2: pull. Each lieutenant tallies its own received command
+        # plus every other alive non-primary general's answer; faulty
+        # responders coin-flip per query (ba.py:159-186, 44-49).
+        majorities = []
+        for i in range(n):
+            if i == leader_idx:
+                majorities.append(order_code)  # ba.py:284-285 (Q1)
+                continue
+            if not alive[i]:
+                majorities.append(UNDEFINED)
+                continue
+            n_attack = n_retreat = 0
+            for j in range(n):
+                if j == leader_idx or not alive[j]:
+                    continue
+                if j == i:
+                    vote = received[i]
+                elif faulty[j]:
+                    vote = coins.randint(0, 1)
+                else:
+                    vote = received[j]
+                if vote == ATTACK:
+                    n_attack += 1
+                else:
+                    n_retreat += 1
+            if n_attack > n_retreat:
+                majorities.append(ATTACK)
+            elif n_retreat > n_attack:
+                majorities.append(RETREAT)
+            else:
+                majorities.append(UNDEFINED)
+        return majorities
+
+
+class TorchBackend:
+    """The port's batched core behind a B = 1 interactive facade.
+
+    ``protocol`` selects the agreement engine: ``"om"`` (oral messages —
+    OM(1) at m == 1, the EIG tree otherwise) or ``"sm"`` (signed
+    messages, SM(m)).  ``signed=True`` (sm only) runs the Ed25519 path
+    each round: the host signs the commander's uttered values, the card
+    verifies them (K7, K5, K4, K3), and the validity mask gates the relay.
+
+    ``device`` is the card unless given (``resolve_device``: no GPU
+    raises).  ``rounds_per_dispatch`` is the pipelined engine's rounds a
+    dispatch (the reference's ``BA_TPU_PIPELINE_ROUNDS``); it keeps two
+    dispatches in flight (``PIPELINE_DEPTH``).  ``run_rounds`` and
+    ``run_scenario`` take a call's ``engine`` (``"torch"``, ``"cuda"``,
+    or ``None`` / ``"auto"`` for the default: K1 on the card at m = 1,
+    the composed torch engine otherwise).  There is nothing to compile,
+    so nothing is cached a capacity: a roster that crosses a power of two
+    simply runs at the new capacity.
+    """
+
+    def __init__(
+        self,
+        device=None,
+        m: int = 1,
+        protocol: str = "om",
+        signed: bool = False,
+        rounds_per_dispatch: int = 8,
+    ):
+        if protocol not in ("om", "sm"):
+            raise ValueError(f"unknown protocol {protocol!r}")
+        if signed and protocol != "sm":
+            raise ValueError("signed=True requires protocol='sm'")
+        self.device = resolve_device(device)
+        self.m = m
+        self.protocol = protocol
+        self.signed = signed
+        self.rounds_per_dispatch = rounds_per_dispatch
+        self._keys = None  # cached (sks, pks) for the B = 1 commander
+
+    @staticmethod
+    def _capacity(n: int) -> int:
+        cap = 4
+        while cap < n:
+            cap *= 2
+        return cap
+
+    def _make_state(self, generals, leader_idx, order_code) -> SimState:
+        cap = self._capacity(len(generals))
+        # Staged on the host and moved in one copy a field.
+        faulty = np.zeros((1, cap), np.bool_)
+        alive = np.zeros((1, cap), np.bool_)
+        ids = np.zeros((1, cap), np.int32)
+        for i, g in enumerate(generals):
+            faulty[0, i] = g.faulty
+            alive[0, i] = g.alive
+            ids[0, i] = g.id
+        dev = self.device
+        return SimState(
+            order=torch.full((1,), order_code, dtype=COMMAND_DTYPE, device=dev),
+            leader=torch.full((1,), leader_idx, dtype=torch.int32, device=dev),
+            faulty=torch.from_numpy(faulty).to(dev),
+            alive=torch.from_numpy(alive).to(dev),
+            ids=torch.from_numpy(ids).to(dev),
+        )
+
+    def _run_signed(self, state: SimState, key: torch.Tensor) -> torch.Tensor:
+        from ba_tpu_torch.core.om import round1_broadcast
+        from ba_tpu_torch.core.sm import sm_round
+        from ba_tpu_torch.crypto.signed import commander_keys, sign_received, verify_received
+
+        if self._keys is None:
+            self._keys = commander_keys(1, seed=0)
+        sks, pks = self._keys
+        k1, k2 = rng.split(key)
+        received = round1_broadcast(k1, state)
+        msgs, sigs = sign_received(sks, pks, received.cpu().numpy())
+        sig_valid = verify_received(pks, msgs, sigs, device=self.device)
+        return sm_round(k2, state, self.m, sig_valid=sig_valid, received=received)
+
+    def run_round(self, generals, leader_idx, order_code, seed):
+        """One round -> each roster general's majority code."""
+        n = len(generals)
+        state = self._make_state(generals, leader_idx, order_code)
+        key = rng.key(seed, self.device)
+        if self.signed:
+            maj = self._run_signed(state, key)
+        elif self.protocol == "sm":
+            from ba_tpu_torch.core.sm import sm_round
+
+            maj = sm_round(key, state, self.m)
+        elif self.m == 1:
+            from ba_tpu_torch.core.om import om1_round
+
+            maj = om1_round(key, state)
+        else:
+            from ba_tpu_torch.core.eig import eig_round
+
+            # max_liars keeps its safe n - 1 default: fault flags change
+            # interactively (g-state), so no tighter cap is known here.
+            maj = eig_round(key, state, self.m)
+        return maj[0, :n].tolist()  # one fetch for the whole row
+
+    def run_rounds(self, generals, leader_idx, order_code, seed, rounds, engine=None):
+        """``rounds`` agreement rounds through the pipelined sweep engine.
+
+        Returns ``(majorities_last, decision_codes, stats)`` — the last
+        round's majorities of each roster general (the REPL's
+        per-general block), each round's quorum decision code, and the
+        engine's stats with its counters — or None for unsigned SM, which
+        has no pipelined path (``Cluster`` then runs the rounds one by
+        one).  A signed backend raises: its pipelined engine (the signed
+        megastep and the sign-ahead lane) is not ported, and sequential
+        rounds would draw other coins than that engine does.
+        """
+        from ba_tpu_torch.parallel.pipeline import (
+            SIGNED_PENDING,
+            fresh_copy,
+            make_key_schedule,
+            pipeline_sweep,
+            round_keys,
+        )
+        from ba_tpu_torch.parallel.sweep import agreement_step
+
+        engine = None if engine == "auto" else engine
+        if self.signed:
+            raise ValueError(f"run_rounds on a signed backend: {SIGNED_PENDING}")
+        if self.protocol != "om":
+            if engine == "cuda":
+                raise ValueError(f"engine={engine!r} unsupported: protocol="
+                                 f"{self.protocol!r} unsigned has no pipelined path")
+            return None
+        n = len(generals)
+        key = rng.key(seed, self.device)
+        state = self._make_state(generals, leader_idx, order_code)
+        # The engine updates its state in place; keep a copy for the
+        # last-round majority recompute below.
+        state_copy = fresh_copy(state)
+        out = pipeline_sweep(
+            key,
+            state,
+            rounds,
+            m=self.m,
+            depth=PIPELINE_DEPTH,
+            rounds_per_dispatch=min(rounds, self.rounds_per_dispatch),
+            collect_decisions=True,
+            with_counters=True,
+            engine=engine,
+            device=self.device,
+        )
+        # The last round's per-general block, recomputed from the same key
+        # schedule (counter = rounds - 1): bit-exact with what the engine
+        # ran, at the cost of one more B = 1 round.
+        keys_last = round_keys(make_key_schedule(key, rounds - 1), 1)
+        maj = agreement_step(keys_last, state_copy, m=self.m)["majorities"]
+        majorities = maj[0, :n].tolist()
+        decisions = [int(v) for v in out["decisions"][:, 0]]
+        stats = dict(out["stats"], counters=out["counters"])
+        return majorities, decisions, stats
+
+    def run_scenario(
+        self,
+        generals,
+        leader_idx,
+        order_code,
+        seed,
+        spec,
+        checkpoint_every=None,
+        checkpoint_path=None,
+        checkpoint_keep_last=None,
+        supervise=False,
+        fault_plan=None,
+        mesh=None,
+        health_every=None,
+        engine=None,
+    ):
+        """A declarative scenario campaign on the B = 1 interactive cluster.
+
+        The spec compiles against the roster's ids at the padded capacity
+        (unknown ids raise), sparse, and runs through
+        ``pipeline_sweep(scenario=...)``: kills, revivals, fault flips,
+        strategies and re-election all on the device.
+        ``checkpoint_every`` / ``checkpoint_path`` /
+        ``checkpoint_keep_last`` go to the engine's carry checkpoints.
+        Oral messages only: returns None for sm / signed.
+
+        ``supervise``, ``fault_plan``, ``mesh`` and ``health_every`` raise:
+        the supervisor, the device mesh and the health sampler are not
+        ported to ``ba_tpu_torch`` yet.
+
+        Returns a dict: ``decisions`` (per-round quorum codes),
+        ``leaders`` (per-round roster indices), ``counters``, ``stats``,
+        and the final ``alive`` / ``faulty`` rows for the roster update.
+        """
+        from ba_tpu_torch.parallel.pipeline import pipeline_sweep
+        from ba_tpu_torch.scenario.compile import compile_scenario
+
+        if self.protocol != "om" or self.signed:
+            return None
+        for name, value in (("supervise", supervise), ("fault_plan", fault_plan),
+                            ("mesh", mesh), ("health_every", health_every)):
+            if value not in (None, False):
+                raise ValueError(f"{name}= is not ported to ba_tpu_torch yet")
+        n = len(generals)
+        cap = self._capacity(n)
+        ids = np.zeros(cap, np.int64)
+        for i, g in enumerate(generals):
+            ids[i] = g.id
+        block = compile_scenario(spec, batch=1, capacity=cap, ids=ids, sparse=True)
+        out = pipeline_sweep(
+            rng.key(seed, self.device),
+            self._make_state(generals, leader_idx, order_code),
+            spec.rounds,
+            m=self.m,
+            depth=PIPELINE_DEPTH,
+            rounds_per_dispatch=min(spec.rounds, self.rounds_per_dispatch),
+            collect_decisions=True,
+            scenario=block,
+            checkpoint_every=checkpoint_every,
+            checkpoint_path=checkpoint_path,
+            checkpoint_keep_last=checkpoint_keep_last,
+            engine=None if engine == "auto" else engine,
+            device=self.device,
+        )
+        final = out["final_state"]
+        return {
+            "decisions": [int(v) for v in out["decisions"][:, 0]],
+            "leaders": [int(v) for v in out["leaders"][:, 0]],
+            "counters": out["counters"],
+            "stats": out["stats"],
+            "alive": final.alive[0, :n].tolist(),
+            "faulty": final.faulty[0, :n].tolist(),
+        }

@@ -1,0 +1,256 @@
+"""The interactive REPL, byte for byte the JAX package's (``ba_tpu/runtime/repl.py``).
+
+Command surface and exact output formats follow SURVEY.md section 3.1
+(reference ba.py:354-445):
+
+- ``actual-order <cmd>`` — run one agreement round, print every general's
+  line ``G{id}, {primary|secondary}, majority={m}, state={F|NF}`` then the
+  ``Execute order: ...`` quorum line (ba.py:383-399, 237-255).
+- ``g-state`` / ``g-state <id> <faulty|non-faulty>`` — show / set fault
+  flags (ba.py:401-413); with three tokens the role column is omitted and
+  any third token other than "faulty" means non-faulty.
+- ``g-kill <id>`` — remove a general (ba.py:415-425).
+- ``g-add <n>`` — spawn n more (ba.py:427-437).
+- ``List`` — ``P{id}, {True|False}`` primary flags (ba.py:439-445).
+- ``Exit`` — leave the loop (ba.py:373-374).
+
+Extensions, as in the JAX package:
+
+- ``run-rounds <cmd> <R>`` — R agreement rounds in one pipelined device
+  run: the last round's block in ``actual-order`` format, then a
+  ``Rounds: ...`` decision tally.  On a signed backend it prints the
+  backend's error: the signed pipelined engine is not ported yet.
+- ``scenario <file> [<ckpt-path> <every>] [engine=torch|cuda|auto]`` — a
+  declarative scenario campaign through the pipelined mutating engine:
+  the decision tally and the scenario counters, then the roster in the
+  campaign's final state; with a checkpoint path, the carry is written
+  every <every> rounds.
+
+``stats``, ``search``, ``serve``, ``fleet`` and the ``scenario`` tokens
+``supervise`` and ``mesh=N`` print one line, ``<command> error: ... not
+ported to ba_tpu_torch yet``.
+
+Divergences from the reference (guarded crashes there, SURVEY.md section
+3.3): unknown ids and an empty cluster are ignored (Q4), and election is
+event-driven, so ``actual-order`` right after killing the leader cannot
+hit a not-yet-reelected assert (Q5).
+"""
+
+from __future__ import annotations
+
+from ba_tpu_torch.runtime.cluster import Cluster
+from ba_tpu_torch.scenario import spec as scenario_spec
+
+NOT_PORTED = "not ported to ba_tpu_torch yet"
+UNPORTED_COMMANDS = ("stats", "search", "serve", "fleet")
+SCENARIO_USAGE = ("(usage: scenario <file> [<ckpt-path> <every>] "
+                  "[supervise] [mesh=N] [engine=...])")
+
+
+def _fmt_state(faulty: bool) -> str:
+    return "F" if faulty else "NF"
+
+
+def quorum_line(res) -> str:
+    """The ``Execute order: ...`` line, exactly as ba.py:237-255 builds it."""
+    quorum_text = f"{res.needed} out of {res.total} quorum suggests"
+    quorum_fail = f"{res.n_undefined} out of {res.total} quorum not consistent"
+    faulty_text = "Non-faulty nodes in the system"
+    if res.nr_faulty > 0:
+        faulty_text = f"{res.nr_faulty} faulty node(s) in the system"
+    if res.decision == "retreat":
+        decision = f"retreat! {faulty_text} - {quorum_text} retreat"
+    elif res.decision == "attack":
+        decision = f"attack! {faulty_text} - {quorum_text} attack"
+    else:
+        decision = (
+            "cannot be determined - not enough generals in the system! "
+            f"{faulty_text} - {quorum_fail}"
+        )
+    return f"Execute order: {decision}"
+
+
+def _print_round(res, out) -> None:
+    for gid, is_primary, maj, faulty in res.per_general:
+        status = "primary" if is_primary else "secondary"
+        out(f"G{gid}, {status}, majority={maj}, state={_fmt_state(faulty)}")
+    out(quorum_line(res))
+
+
+def handle_command(cluster: Cluster, line: str, out) -> bool:
+    """Dispatch one REPL line.  Returns False when the loop should stop."""
+    return _dispatch(cluster, line.split(" "), out)
+
+
+def _dispatch(cluster: Cluster, cmd: list, out) -> bool:
+    command = cmd[0]
+
+    if command == "Exit":
+        return False
+
+    elif command == "actual-order":
+        if len(cmd) == 1:
+            return True
+        res = cluster.actual_order(cmd[1])
+        if res is None:
+            return True
+        _print_round(res, out)
+
+    elif command == "run-rounds":
+        if len(cmd) < 3:
+            return True
+        try:
+            rounds = int(cmd[2])
+        except ValueError:
+            return True
+        if rounds < 1:
+            return True
+        try:
+            ran = cluster.actual_order_rounds(cmd[1], rounds)
+        except ValueError as e:
+            # A signed backend refuses: its pipelined engine is not ported
+            # yet.  Any other ValueError is a fault and raises.
+            if not getattr(cluster.backend, "signed", False):
+                raise
+            out(f"run-rounds error: {e}")
+            return True
+        if ran is None:
+            return True
+        res, counts, _stats = ran
+        _print_round(res, out)
+        out(
+            f"Rounds: {rounds} - attack={counts['attack']}, "
+            f"retreat={counts['retreat']}, undefined={counts['undefined']}"
+        )
+
+    elif command == "scenario":
+        _scenario(cluster, cmd, out)
+
+    elif command in UNPORTED_COMMANDS:
+        out(f"{command} error: {NOT_PORTED}")
+
+    elif command == "g-state":
+        if len(cmd) == 3:
+            try:
+                gid = int(cmd[1])
+            except ValueError:
+                return True
+            # Any third token other than "faulty" means non-faulty (ba.py:407).
+            if not cluster.set_faulty(gid, cmd[2] == "faulty"):
+                return True
+        for g in cluster.generals:
+            primarity = ", primary" if g.id == cluster.leader_id else ", secondary"
+            primarity = primarity if len(cmd) != 3 else ""
+            out(f"G{g.id}{primarity}, state={_fmt_state(g.faulty)}")
+
+    elif command == "g-kill":
+        if len(cmd) == 1:
+            return True
+        try:
+            gid = int(cmd[1])
+        except ValueError:
+            return True
+        cluster.kill(gid)
+
+    elif command == "g-add":
+        if len(cmd) == 1:
+            return True
+        try:
+            count = int(cmd[1])
+        except ValueError:
+            return True
+        cluster.add(count)
+
+    elif command == "List":
+        for g in cluster.generals:
+            out(f"P{g.id}, {g.id == cluster.leader_id}")
+
+    return True
+
+
+def _scenario(cluster: Cluster, cmd: list, out) -> None:
+    """``scenario``: spec problems print one error line; an incapable
+    backend (PyBackend, SM) is silently ignored like other guarded
+    divergences.  The reference-exact ``line.split(" ")`` keeps empty
+    tokens, so a trailing space would read as an empty checkpoint path:
+    drop them here."""
+    args = [t for t in cmd[1:] if t]
+    engine = None
+    for tok in list(args):
+        if tok.startswith("engine="):
+            engine = tok[len("engine="):]
+            if not engine:
+                out("scenario error: engine= wants one of torch|cuda|auto")
+                return
+            args.remove(tok)
+    mesh_n = None
+    for tok in list(args):
+        if tok.startswith("mesh="):
+            try:
+                mesh_n = int(tok[len("mesh="):])
+            except ValueError:
+                out(f"scenario error: mesh= wants a device count, "
+                    f"got {tok[len('mesh='):]!r}")
+                return
+            if mesh_n < 1:
+                out(f"scenario error: mesh= must be >= 1, got {mesh_n}")
+                return
+            args.remove(tok)
+    supervise = False
+    if args and args[-1] == "supervise":
+        supervise = True
+        args = args[:-1]
+    if not args:
+        return
+    for name, asked in (("supervise", supervise), ("mesh=", mesh_n is not None)):
+        if asked:
+            out(f"scenario error: {name} {NOT_PORTED}")
+            return
+    ck_path = ck_every = None
+    if len(args) == 2:
+        # A path without <every> would silently run uncheckpointed.
+        out(f"scenario error: checkpoint path given without <every> {SCENARIO_USAGE}")
+        return
+    if len(args) > 3:
+        out(f"scenario error: too many arguments {SCENARIO_USAGE}")
+        return
+    if len(args) == 3:
+        ck_path = args[1]
+        try:
+            ck_every = int(args[2])
+        except ValueError:
+            out(f"scenario error: <every> must be an integer, got {args[2]!r}")
+            return
+        if ck_every < 1:
+            out(f"scenario error: <every> must be >= 1, got {ck_every}")
+            return
+    try:
+        spec = scenario_spec.load(args[0])
+    except (OSError, ValueError) as e:
+        out(f"scenario error: {e}")
+        return
+    try:
+        ran = cluster.run_scenario(spec, checkpoint_every=ck_every,
+                                   checkpoint_path=ck_path, engine=engine)
+    except (OSError, ValueError) as e:
+        # ValueError: the spec names ids not in the roster, or an unknown
+        # engine; OSError: an unwritable checkpoint path, mid-campaign.
+        out(f"scenario error: {e}")
+        return
+    if ran is None:
+        return
+    counts, res = ran
+    out(
+        f"Scenario {spec.name}: {spec.rounds} rounds - "
+        f"attack={counts['attack']}, retreat={counts['retreat']}, "
+        f"undefined={counts['undefined']}"
+    )
+    out("Scenario counters: " + ", ".join(f"{k}={v}" for k, v in res["counters"].items()))
+    if ck_path is not None:
+        out(f"Scenario checkpoints: {res['stats'].get('checkpoints', 0)} -> {ck_path}")
+
+
+def run_repl(cluster: Cluster, stdin, out) -> None:
+    for line in stdin:
+        if not handle_command(cluster, line.rstrip("\n"), out):
+            break

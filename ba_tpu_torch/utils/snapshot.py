@@ -1,5 +1,13 @@
-"""Checkpoints on disk (``ba_tpu/utils/snapshot.py``): SimState files and
-carry checkpoints.
+"""Checkpoints on disk (``ba_tpu/utils/snapshot.py``): SimState files,
+cluster snapshots and carry checkpoints.
+
+A **cluster snapshot** is the interactive cluster (roster, leader, round
+counter, seed, backend configuration) as the JAX package's JSON document,
+so ``--state FILE`` files cross between the packages both ways.  The
+configuration names the backend class as that format does: the port's
+``TorchBackend`` is written as the format's name for the batched device
+backend, ``"JaxBackend"`` (:data:`CLUSTER_BACKEND_NAMES`), and a cuda and
+a torch backend write the same configuration.
 
 A **carry checkpoint** is the pipelined engine's carry — SimState,
 KeySchedule (key data and round counter), the counter block, the live
@@ -34,6 +42,11 @@ CARRY_CHECKPOINT_VERSION = 1
 # header says which).
 CARRY_STATE_FIELDS = ("order", "leader", "faulty", "alive", "ids")
 CARRY_SCHED_FIELDS = ("key_data", "counter")
+
+CLUSTER_SNAPSHOT_VERSION = 1
+# Backend class names as a cluster snapshot writes them: the format's name
+# for the batched device backend is the JAX package's class name.
+CLUSTER_BACKEND_NAMES = {"TorchBackend": "JaxBackend"}
 
 # Sidecar suffixes that travel with a checkpoint: retention and
 # quarantine move or remove them together with their checkpoint.
@@ -102,6 +115,68 @@ def load_sim_state(path: str, device=None):
     state = SimState(*(torch.tensor(fields.pop(name), device=dev)
                        for name in CARRY_STATE_FIELDS))
     return state, fields
+
+
+def _backend_config(cluster) -> dict:
+    """Protocol-defining backend attributes (class + flags when present)."""
+    b = cluster.backend
+    name = type(b).__name__
+    return {
+        "backend": CLUSTER_BACKEND_NAMES.get(name, name),
+        "protocol": getattr(b, "protocol", "om"),
+        "m": getattr(b, "m", 1),
+        "signed": getattr(b, "signed", False),
+    }
+
+
+def save_cluster(path: str, cluster) -> None:
+    """Interactive Cluster -> JSON (roster, leader, round counter, seed,
+    backend configuration), atomically."""
+    doc = {
+        "version": CLUSTER_SNAPSHOT_VERSION,
+        "seed": cluster.seed,
+        "round": cluster._round,
+        "next_id": cluster._next_id,
+        "leader_id": cluster.leader_id,
+        "config": _backend_config(cluster),
+        "generals": [
+            {"id": g.id, "port": g.port, "faulty": g.faulty, "alive": g.alive}
+            for g in cluster.generals
+        ],
+    }
+
+    def write(tmp):
+        with open(tmp, "w") as fh:
+            json.dump(doc, fh)
+
+    _atomic_write(path, write)
+
+
+def restore_cluster(path: str, cluster) -> None:
+    """Load a JSON snapshot into an existing Cluster (backend unchanged).
+
+    Refuses a snapshot whose recorded backend configuration differs from
+    the running cluster's: a resumed session must not silently switch
+    protocol, recursion depth, signing or backend.
+    """
+    from ba_tpu_torch.runtime.cluster import General
+
+    with open(path) as fh:
+        doc = json.load(fh)
+    if doc.get("version") != CLUSTER_SNAPSHOT_VERSION:
+        raise ValueError(f"unknown cluster snapshot version in {path!r}")
+    want = doc.get("config")
+    have = _backend_config(cluster)
+    if want is not None and want != have:
+        raise ValueError(
+            f"snapshot {path!r} was taken with backend config {want}, "
+            f"but this run uses {have}; relaunch with matching flags"
+        )
+    cluster.seed = doc["seed"]
+    cluster._round = doc["round"]
+    cluster._next_id = doc["next_id"]
+    cluster.leader_id = doc["leader_id"]
+    cluster.generals = [General(**g) for g in doc["generals"]]
 
 
 def content_digest(arrays: dict) -> str:

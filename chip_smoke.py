@@ -4,7 +4,12 @@ its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
-Three paths, each through its hand-written kernels:
+The paths, each through its hand-written kernels:
+- the interactive REPL, ``python -m ba_tpu_torch.runtime.main`` and its
+  ``handle_command``: ``actual-order`` (no kernel at m = 1; K9 at m = 2;
+  K7, K5, K4 and K3 on a signed backend), ``run-rounds`` (K1, plain) and
+  ``scenario`` (K1, scenario), its output byte for byte the JAX
+  package's;
 - the oral OM(1) pipelined engine: ``pipeline_sweep`` (plain sweeps) and
   ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
   kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
@@ -227,6 +232,24 @@ Phases, one JSON line each:
    -m ba_tpu_torch.scenario`` validates every checkpoint written (exit
    0) and refuses one with a byte of ``alive`` flipped (digest mismatch);
    the checkpoints, in ``_smoke_checkpoints/``, are removed at the end;
+31. ``repl_cuda`` (run after phase 27): SURVEY.md section 3.1's script
+   (``REPL_SCRIPT``) through the launcher with ``--backend cuda``,
+   ``torch`` (the CPU) and ``py``: the card's stdout byte-equal to the
+   CPU's and to ``REPL_GOLDEN`` (the JAX package's output), its first 24
+   lines to the py oracle's (which draws its own coins after them); a
+   roster of 1 000 generals (capacity 1024), every third faulty through
+   ``g-state`` lines: ``actual-order attack``, ``run-rounds attack 32``
+   and ``scenario`` of cascading_failover.json on the card and the CPU,
+   every line equal; ``run-rounds attack 1024`` alone (128 K1 dispatches
+   of 8 rounds), timed, then again with every dispatch recorded and
+   replayed against the plain megastep; OM(2) on a roster of 100
+   (``actual-order``, ``run-rounds attack 4``; K9) card against CPU;
+   ``scenario <file> <dir>/ck_{round}.npz 2`` two rounds a dispatch, each
+   file validated and each one before the end resumed on the CPU's torch
+   engine bit-equal to the card's run; one signed ``actual-order
+   retreat`` at n = 4, the reference's quorum line; each command's wall
+   and ``run-rounds``' agreement-rounds/s; the launches join K1's, K9's
+   and the Ed25519 kernels' lines (K1's REPL dispatches as ``repl_path``);
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
@@ -294,6 +317,9 @@ from ba_tpu_torch.crypto import field as F
 from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, majority, modl,
                               powchain, scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import pipeline, sweep
+from ba_tpu_torch.runtime.backends import TorchBackend
+from ba_tpu_torch.runtime.cluster import Cluster
+from ba_tpu_torch.runtime.repl import handle_command
 from ba_tpu_torch.scenario import compile as scenario_compile
 from ba_tpu_torch.scenario import spec as scenario_spec
 from ba_tpu_torch.utils import snapshot
@@ -708,6 +734,20 @@ def work_counts(state, rounds, strategy=None, events=None, slot=False):
     return words, steps
 
 
+def k1_bytes(B, n, R, scenario):
+    """The bytes a K1 dispatch of R rounds at B x n must move at least.
+
+    Plain: each input read once (order, leader, faulty, alive, ids, key,
+    counter, counters) and each output written once (histograms,
+    decisions, counter rows; the state is unchanged).  Scenario: the
+    inputs also hold the strategy plane and the four event planes, and the
+    outputs the state planes and strategy, and the leaders."""
+    if scenario:
+        return (B * 5 + B * n * 7 + R * B * n * 4 + 16 + 4 + 20
+                + B * 4 + B * n * 3 + R * B * 5 + R * (12 + 20))
+    return B * 5 + B * n * 6 + 16 + 4 + 12 + R * (12 + B + 12)
+
+
 K1_DESIGN = ("each threefry word that holds a needed coin drawn once an instance and round, "
              "every bit used; n a multiple of 32: a warp a column, a lane a responder, "
              "a 32 x 32 bit transpose by shuffles, lane k pops asker k's coins (no atomics); "
@@ -926,10 +966,11 @@ def phase_full_width(dev, seed, card):
     return arrays, main_out, launches
 
 
-def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s):
+def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl_path):
     """The main path's first plain dispatch again (same key, state and
     shape): the kernel against the plain engine and against the main
-    path's own outputs; its time, the plain time and the bound."""
+    path's own outputs; its time, the plain time and the bound.  The
+    REPL's dispatches (``k1_repl_path``) ride along as ``repl_path``."""
     state = to_state(arrays, dev)
     counters = convert.counters_from_numpy([0, 0, 0], dev)
     sched = pipeline.make_key_schedule(rng.key(seed, device=dev))
@@ -957,19 +998,17 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s):
     check(words <= drawn <= 2 * words,
           f"K1 drew {drawn} threefry words on the card; the inputs need {words}")
     B, n = state.faulty.shape
-    # inputs: order, leader, faulty, alive, ids, key, counter, counters;
-    # outputs: histograms, decisions, counter rows (the state is unchanged)
-    nbytes = B * 5 + B * n * 6 + 16 + 4 + 12 + RPD_FULL * (12 + B + 12)
+    nbytes = k1_bytes(B, n, RPD_FULL, scenario=False)
     bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
     return {"name": "megastep_plain", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES, "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_pipeline_megastep",
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(err, repl_path["max_abs_err"]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": RPD_FULL},
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
-            "tally_steps": steps}
+            "tally_steps": steps, "repl_path": repl_path}
 
 
 def phase_scenario(dev, seed, card):
@@ -1014,12 +1053,14 @@ def phase_scenario(dev, seed, card):
     return arrays, planes, out, launches
 
 
-def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_per_s):
+def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_per_s,
+                         repl_path):
     """The main path's scenario dispatches again (same key, state and
     chunks of RPD_SCEN rounds), each continuing from the previous one's
     carry, schedule counter and counter block: every dispatch against the
     plain engine in full, the whole campaign against the main path's
-    outputs.  The first dispatch is timed and bounded."""
+    outputs.  The first dispatch is timed and bounded.  The REPL's
+    dispatches (``k1_repl_path``) ride along as ``repl_path``."""
     R = planes["kill"].shape[0]
     key = rng.key(seed + 1, device=dev)
     state = to_state(arrays, dev)
@@ -1072,23 +1113,20 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
     R = RPD_SCEN
     words, steps = work_counts(st0, R, strategy=strat0, events=ev0)
     B, n = st0.faulty.shape
-    # each input read once: order, leader, faulty, alive, ids, strategy, the
-    # four event planes, key, counter, counters; each output written once:
-    # leader, faulty, alive, strategy, decisions, leaders, histograms, rows
-    nbytes = (B * 5 + B * n * 7 + R * B * n * 4 + 16 + 4 + 20
-              + B * 4 + B * n * 3 + R * B * 5 + R * (12 + 20))
+    nbytes = k1_bytes(B, n, R, scenario=True)
     bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
     return {"name": "megastep_scenario", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES,
             "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_scenario_megastep",
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms[0],
+            "max_abs_err": max(err, repl_path["max_abs_err"]), "ms": ms,
+            "plain_ms": plain_ms[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": R},
             "dispatches_checked": len(outs), "plain_ms_per_dispatch": plain_ms,
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
-            "tally_steps": steps}
+            "tally_steps": steps, "repl_path": repl_path}
 
 
 # -- failover and carry checkpoints at full width ------------------------------
@@ -1156,11 +1194,7 @@ def phase_failover_full_width(dev, seed, card, int_ops_per_s):
     words, steps = work_counts(state, R_FAIL, strategy=torch.zeros_like(keep[0]),
                                events={"kill": kills_dev, "revive": torch.zeros_like(kills_dev),
                                        "set_faulty": keep, "set_strategy": keep})
-    # inputs: the state, the strategy plane, four event planes, key, counter,
-    # counters; outputs: the state planes and strategy, decisions, leaders,
-    # histograms and counter rows
-    nbytes = (B * 5 + B * n * 7 + R_FAIL * B * n * 4 + 16 + 4 + 20
-              + B * 4 + B * n * 3 + R_FAIL * B * 5 + R_FAIL * (12 + 20))
+    nbytes = k1_bytes(B, n, R_FAIL, scenario=True)
     bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
     wall = float(np.median(walls))
     emit({"phase": "failover_full_width", "B": B_FULL, "capacity": CAP_FULL,
@@ -3547,6 +3581,310 @@ def ab_kernels(dev, card, group, seed=0):
           "card": card})
 
 
+# -- the host shell on the card: the REPL (repl_cuda) --------------------------
+
+# SURVEY.md section 3.1's script, piped through the launcher at n = 4, seed 0.
+REPL_SCRIPT = ("g-state\nactual-order attack\ng-state 2 faulty\nactual-order retreat\n"
+               "g-kill 1\ng-add 2\nList\nactual-order attack\nactual-order charge\nExit\n")
+# What the JAX package's REPL (its JaxBackend) prints on REPL_SCRIPT;
+# tests/test_torch_backends.py holds this text against it.
+REPL_GOLDEN = """\
+G1, primary, state=NF
+G2, secondary, state=NF
+G3, secondary, state=NF
+G4, secondary, state=NF
+G1, primary, majority=attack, state=NF
+G2, secondary, majority=attack, state=NF
+G3, secondary, majority=attack, state=NF
+G4, secondary, majority=attack, state=NF
+Execute order: attack! Non-faulty nodes in the system - 3 out of 4 quorum suggests attack
+G1, state=NF
+G2, state=F
+G3, state=NF
+G4, state=NF
+G1, primary, majority=retreat, state=NF
+G2, secondary, majority=retreat, state=F
+G3, secondary, majority=retreat, state=NF
+G4, secondary, majority=retreat, state=NF
+Execute order: retreat! 1 faulty node(s) in the system - 3 out of 4 quorum suggests retreat
+P2, True
+P3, False
+P4, False
+P5, False
+P6, False
+G2, primary, majority=attack, state=F
+G3, secondary, majority=attack, state=NF
+G4, secondary, majority=attack, state=NF
+G5, secondary, majority=attack, state=NF
+G6, secondary, majority=attack, state=NF
+Execute order: attack! 1 faulty node(s) in the system - 3 out of 5 quorum suggests attack
+G2, primary, majority=charge, state=F
+G3, secondary, majority=retreat, state=NF
+G4, secondary, majority=retreat, state=NF
+G5, secondary, majority=retreat, state=NF
+G6, secondary, majority=retreat, state=NF
+Execute order: retreat! 1 faulty node(s) in the system - 3 out of 5 quorum suggests retreat
+"""
+# The lines before the faulty leader's first round (G2 leads after g-kill 1):
+# the py oracle draws its coins from Python's random, so only these are its too.
+REPL_COIN_FREE_LINES = 24
+REPL_CARD_BACKEND = "cuda"  # the launcher's --backend on the card
+N_REPL, R_REPL, R_REPL_TIMED = 1000, 32, 1024  # the full roster; run-rounds' two runs
+N_REPL_EIG = 100  # the m = 2 roster: OM(2) by the EIG tree, K9 at its resolve level
+RPD_REPL_CKPT = 2  # the checkpointed campaign's rounds a dispatch (three dispatches)
+CASCADING = os.path.join(ROOT, "examples", "scenarios", "cascading_failover.json")
+K1_REPL_WRAPPERS = {"K1 plain": scenario_step.cuda_pipeline_megastep,
+                    "K1 scenario": scenario_step.cuda_scenario_megastep}
+SIGNED_GOLDEN = ("Execute order: retreat! Non-faulty nodes in the system - "
+                 "3 out of 4 quorum suggests retreat")  # tests/test_backends.py:120-122
+
+
+def reset_all_launches():
+    scenario_step.reset_launches()
+    majority.reset_launches()
+    reset_ed_launches()
+
+
+def launcher(backend):
+    """REPL_SCRIPT through ``python -m ba_tpu_torch.runtime.main 4 --backend
+    <backend>`` -> (stdout, wall s); it must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ba_tpu_torch.runtime.main", "4", "--backend", backend],
+        input=REPL_SCRIPT, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the launcher with --backend {backend} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def repl(cluster, lines, walls=None, tag=""):
+    """``lines`` through the port's REPL -> the printed lines; ``walls``
+    takes each line's host wall seconds under ``"<tag>: <line>"`` (a
+    line's output is fetched, so its device work is done)."""
+    out = []
+    for line in lines:
+        t0 = time.perf_counter()
+        handle_command(cluster, line, out.append)
+        if walls is not None:
+            walls[f"{tag}: {line.replace(ROOT + os.sep, '')}"] = time.perf_counter() - t0
+    return out
+
+
+def roster(backend, n=N_REPL):
+    """A cluster of ``n`` generals on ``backend`` with every third one (ids
+    3, 6, ...: lieutenants) made faulty by ``g-state <id> faulty`` lines ->
+    (cluster, the lines printed)."""
+    cluster = Cluster(n, backend, seed=0)
+    return cluster, repl(cluster, [f"g-state {gid} faulty" for gid in range(3, n + 1, 3)])
+
+
+def k1_flat(out):
+    """A megastep's outputs as a flat list of tensors (state, counter, the rest)."""
+    state, sched, *rest = out
+    return [*state.tensors(), sched.counter, *rest]
+
+
+def k1_repl_path(path, calls, launches, int_ops_per_s):
+    """The REPL path's K1 dispatches, recorded (inputs copied before each):
+    each again through its wrapper, bit-equal to the path's own output and
+    to the plain megastep's on the same inputs; the first one's CUDA-event
+    time as launched and queued, its plain time and its bound.  Dispatches
+    replayed must equal the launches counted on the path's run."""
+    check(len(calls) == launches,
+          f"K1 on {path}: {len(calls)} dispatches recorded, {launches} launches counted")
+    err = 0
+    for key, args, kw, recorded, _ in calls:
+        kernel = K1_REPL_WRAPPERS[key]
+        plain = pipeline.scenario_megastep if key == "K1 scenario" else pipeline.pipeline_megastep
+        got = k1_flat(kernel(*pipeline.fresh_copy(args), **kw))
+        check(max_abs_err(zip(got, k1_flat(recorded))) == 0,
+              f"a replayed {key} dispatch of {path} differs from the path's own output")
+        err = max(err, max_abs_err(zip(got, k1_flat(plain(*pipeline.fresh_copy(args), **kw)))))
+    key, args, kw, _, _ = calls[0]
+    kernel = K1_REPL_WRAPPERS[key]
+    plain = pipeline.scenario_megastep if key == "K1 scenario" else pipeline.pipeline_megastep
+    _, plain_ms = timed_plain(lambda: plain(*pipeline.fresh_copy(args), **kw))
+    copies = iter([pipeline.fresh_copy(args) for _ in range(22)])
+    ms = time_cuda(lambda: kernel(*next(copies), **kw), reps=10)
+    device_ms = time_cuda(lambda: kernel(*next(copies), **kw), reps=10, queued=True)
+    state, R = args[0], kw["rounds"]
+    B, n = state.faulty.shape
+    if key == "K1 scenario":
+        words, steps = work_counts(state, R, strategy=args[2], events=args[4])
+    else:
+        words, steps = work_counts(state, R)
+    nbytes = k1_bytes(B, n, R, scenario=key == "K1 scenario")
+    bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
+    return {"path": path, "launches": launches, "calls": 1, "dispatches_replayed": len(calls),
+            "max_abs_err": err, "shape": {"B": B, "n": n, "R": R}, "ms_each": ms,
+            "device_ms_each": device_ms, "plain_ms_each": plain_ms, "bound_ms_each": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_repl_cuda(dev, card, int_ops_per_s):
+    """The host shell on the card, through the entry points a user calls.
+
+    1. REPL_SCRIPT through the launcher with the card's backend, the CPU's
+       torch backend and the py oracle, three processes: the card's stdout
+       byte-equal to the torch backend's and to REPL_GOLDEN (the JAX
+       package's output), and its first REPL_COIN_FREE_LINES lines to the
+       py oracle's.
+    2. A roster of N_REPL generals (capacity 1024), every third one faulty:
+       ``actual-order attack``, ``run-rounds attack 32`` and ``scenario``
+       of cascading_failover.json on the card and on the CPU, every line
+       equal; then ``run-rounds attack 1024`` on the card alone (128 K1
+       dispatches of 8 rounds), timed, and once more with its dispatches
+       recorded, each replayed against the plain megastep.  At m = 2 on
+       N_REPL_EIG generals: ``actual-order attack`` and ``run-rounds
+       attack 4`` on the card and the CPU (K9 at the resolve level).
+    3. ``scenario <file> <dir>/ck_{round}.npz 2`` on the card, two rounds a
+       dispatch: each file validates, and each one before the campaign's
+       end resumes on the CPU's torch engine bit-equal to the card's run;
+       the campaign once more with its dispatches recorded and replayed.
+    4. One signed round, ``actual-order retreat`` on SM(1) with Ed25519 at
+       n = 4: the reference's quorum line; K7, K5, K4 and K3 launched, and
+       the round once more with its dispatches recorded.
+    """
+    walls = {}
+    std = {b: launcher(b) for b in (REPL_CARD_BACKEND, "torch", "py")}
+    card_out = std[REPL_CARD_BACKEND][0]
+    check(card_out == REPL_GOLDEN, "the launcher's stdout on the card differs from the "
+          "JAX package's REPL output")
+    check(card_out == std["torch"][0], "the launcher's stdout differs between card and CPU")
+    k = REPL_COIN_FREE_LINES
+    check(card_out.splitlines()[:k] == std["py"][0].splitlines()[:k],
+          "the launcher's coin-free lines differ from the py oracle's")
+
+    # The walls read warm calls: each timed command's first call in the
+    # process (CUDA's context, torch's and the kernels' module loads) runs
+    # on a throwaway cluster of the same shape first.
+    repl(roster(TorchBackend(device=dev))[0], ["actual-order attack"])
+    on_card, card_lines = roster(TorchBackend(device=dev))
+    on_cpu, cpu_lines = roster(TorchBackend(device="cpu"))
+    lines = ["actual-order attack", f"run-rounds attack {R_REPL}", f"scenario {CASCADING}"]
+    reset_all_launches()
+    card_lines += repl(on_card, lines, walls, f"n {N_REPL}")
+    plain_launches = scenario_step.cuda_pipeline_megastep.launches
+    scen_launches = scenario_step.cuda_scenario_megastep.launches
+    cpu_lines += repl(on_cpu, lines)
+    check(card_lines == cpu_lines, "the full roster's lines differ between card and CPU")
+    check(plain_launches == R_REPL // 8 and scen_launches == 1,
+          f"K1 launches {plain_launches} plain, {scen_launches} scenario")
+
+    timed, _ = roster(TorchBackend(device=dev))
+    line = f"run-rounds attack {R_REPL_TIMED}"
+    start = timed._round
+    reset_all_launches()
+    sync()
+    timed_lines = repl(timed, [line], walls, f"n {N_REPL}, alone")
+    run_rounds_s = walls[f"n {N_REPL}, alone: {line}"]
+    timed_launches = scenario_step.cuda_pipeline_megastep.launches
+    check(timed_launches == R_REPL_TIMED // 8, f"run-rounds: {timed_launches} K1 launches")
+    check(timed_lines[-1] == f"Rounds: {R_REPL_TIMED} - attack={R_REPL_TIMED}, retreat=0, "
+          "undefined=0", f"run-rounds: {timed_lines[-1]}")
+    timed._round = start  # the same round seeds again
+    with recording(K1_REPL_WRAPPERS, snapshot=True) as calls:
+        again = repl(timed, [line])
+    check(again == timed_lines, "the recorded run-rounds printed other lines")
+    plain_path = k1_repl_path(f"repl_cuda: {line} (n {N_REPL})", calls, timed_launches,
+                              int_ops_per_s)
+    check(plain_path["max_abs_err"] == 0, "a run-rounds dispatch differs from the plain megastep")
+
+    eig_lines = ["actual-order attack", "run-rounds attack 4"]
+    repl(roster(TorchBackend(device=dev, m=2), N_REPL_EIG)[0], ["actual-order attack"])
+    eig_card, _ = roster(TorchBackend(device=dev, m=2), N_REPL_EIG)
+    reset_all_launches()
+    got = repl(eig_card, eig_lines, walls, f"m 2, n {N_REPL_EIG}")
+    k9_launches = majority.masked_majority_rows.launches
+    check(got == repl(roster(TorchBackend(device="cpu", m=2), N_REPL_EIG)[0], eig_lines),
+          "the m = 2 roster's lines differ between card and CPU")
+    check(k9_launches > 0, "the m = 2 roster launched no K9")
+    with recording(K9_WRAPPERS) as k9_calls:
+        again = repl(roster(TorchBackend(device=dev, m=2), N_REPL_EIG)[0], eig_lines)
+    check(again == got, "the recorded m = 2 roster printed other lines")
+
+    spec = scenario_spec.load(CASCADING)
+    ck_dir = os.path.join(CKPT_DIR, "repl")
+    os.makedirs(ck_dir, exist_ok=True)
+    atexit.register(shutil.rmtree, CKPT_DIR, True)
+    ckpt, _ = roster(TorchBackend(device=dev, rounds_per_dispatch=RPD_REPL_CKPT))
+    ids = np.array([g.id for g in ckpt.generals] + [0] * (CAP_FULL - N_REPL), np.int64)
+    results = []
+    run = ckpt.backend.run_scenario
+    ckpt.backend.run_scenario = lambda *a, **kw: results.append(run(*a, **kw)) or results[-1]
+    line = f"scenario {CASCADING} {ck_dir}/ck_{{round}}.npz 2"
+    reset_all_launches()
+    ck_lines = repl(ckpt, [line], walls, f"n {N_REPL}, 2 rounds a dispatch")
+    ck_launches = scenario_step.cuda_scenario_megastep.launches
+    check(ck_launches == -(-spec.rounds // RPD_REPL_CKPT),
+          f"checkpointed scenario: {ck_launches} K1 launches")
+    res = results[0]
+    check(ck_lines[-1] == f"Scenario checkpoints: {spec.rounds // 2} -> {ck_dir}/ck_{{round}}.npz",
+          f"checkpointed scenario: {ck_lines[-1]}")
+    block = scenario_compile.compile_scenario(spec, batch=1, capacity=CAP_FULL, ids=ids,
+                                              sparse=True)
+    resumed = []
+    for r in range(2, spec.rounds + 1, 2):
+        path = os.path.join(ck_dir, f"ck_{r}.npz")
+        meta = snapshot.validate_carry_checkpoint(path)
+        check(meta["round"] == r and meta["scenario"], f"{path}: {meta}")
+        if r == spec.rounds:
+            continue
+        out = pipeline.pipeline_sweep(None, None, spec.rounds, resume=path, scenario=block,
+                                      rounds_per_dispatch=RPD_REPL_CKPT, collect_decisions=True,
+                                      engine="torch", device="cpu")
+        check(out["decisions"][:, 0].tolist() == res["decisions"][r:]
+              and out["leaders"][:, 0].tolist() == res["leaders"][r:]
+              and out["counters"] == res["counters"]
+              and out["final_state"].alive[0, :N_REPL].tolist() == res["alive"]
+              and out["final_state"].faulty[0, :N_REPL].tolist() == res["faulty"],
+              f"the resume from round {r} on the CPU differs from the card's run")
+        resumed.append(r)
+    replay_ckpt, _ = roster(TorchBackend(device=dev, rounds_per_dispatch=RPD_REPL_CKPT))
+    with recording(K1_REPL_WRAPPERS, snapshot=True) as s_calls:
+        again = repl(replay_ckpt, [line.replace("/ck_", "/again_ck_")])
+    check(again[:2] == ck_lines[:2], "the recorded checkpointed scenario printed other lines")
+    scen_path = k1_repl_path(f"repl_cuda: scenario cascading_failover.json, checkpoints "
+                             f"every 2 (n {N_REPL})", s_calls, ck_launches, int_ops_per_s)
+    check(scen_path["max_abs_err"] == 0, "a scenario dispatch differs from the plain megastep")
+
+    signed_backend = TorchBackend(device=dev, protocol="sm", signed=True)
+    repl(Cluster(4, signed_backend, seed=1), ["actual-order retreat"])
+    signed_cluster = Cluster(4, signed_backend, seed=1)
+    reset_all_launches()
+    signed_lines = repl(signed_cluster, ["actual-order retreat"], walls, "SM(1) signed, n 4")
+    signed_launches = ed_launches()
+    check(signed_lines[-1] == SIGNED_GOLDEN, f"signed round: {signed_lines[-1]}")
+    check(all(signed_launches[k] > 0 for k in ("K7", "K5", "K4", "K3")),
+          f"signed round launches {signed_launches}")
+    with recording(ED_WRAPPERS) as ed_calls:
+        again = repl(Cluster(4, TorchBackend(device=dev, protocol="sm", signed=True), seed=1),
+                     ["actual-order retreat"])
+    check(again == signed_lines, "the recorded signed round printed other lines")
+
+    emit({"phase": "repl_cuda", "card": card,
+          "launcher": {"stdout_bytes": len(card_out), "equal_to_reference_golden": True,
+                       "equal_to_torch_cpu": True, "coin_free_lines_equal_to_py": k,
+                       "wall_s": {b: w for b, (_, w) in std.items()}},
+          "roster": {"n": N_REPL, "capacity": CAP_FULL, "faulty": N_REPL // 3,
+                     "lines_equal_to_cpu": len(card_lines)},
+          "command_wall_s": walls,
+          "run_rounds_agreement_rounds_per_s": R_REPL_TIMED / run_rounds_s,
+          # K1's share of run-rounds' wall: its dispatches' queued time over the wall
+          "run_rounds_k1_share_of_wall": (plain_path["device_ms_each"] * timed_launches
+                                          / (run_rounds_s * 1e3)),
+          "k1_plain_launches": plain_launches + timed_launches,
+          "k1_scenario_launches": scen_launches + ck_launches, "k9_launches": k9_launches,
+          "resumed_on_cpu_from_rounds": resumed, "signed_launches": signed_launches,
+          "signed_line": signed_lines[-1]})
+    return {"plain": plain_launches + timed_launches, "plain_path": plain_path,
+            "scenario": scen_launches + ck_launches, "scenario_path": scen_path,
+            "k9": (f"repl_cuda: m = 2 roster, {' / '.join(eig_lines)} (n {N_REPL_EIG})",
+                   k9_calls, k9_launches, 1),
+            "ed": ("repl_cuda: signed actual-order retreat (n 4)", ed_calls, signed_launches, 1)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3597,14 +3935,18 @@ def main(argv=None) -> int:
     phase_ladder_pow_known_answers(dev, rs)
     phase_ladder_pow_middle(dev, rs)
     ladder_pow = phase_ladder_pow_full_width(dev, rs, card)
+    shell = phase_repl_cuda(dev, card, int_ops_per_s)
+    plain_launches["repl_cuda"] = shell["plain"]
+    scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
-        kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s),
+        kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s,
+                          shell["plain_path"]),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
-                             int_ops_per_s),
+                             int_ops_per_s, shell["scenario_path"]),
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
-        *kernel_lines_crypto([*setup_paths, c3, ladder_pow], int_ops_per_s),
-        kernel_line_k9(k9_paths, int_ops_per_s),
+        *kernel_lines_crypto([*setup_paths, c3, ladder_pow, shell["ed"]], int_ops_per_s),
+        kernel_line_k9([*k9_paths, shell["k9"]], int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

@@ -1,0 +1,212 @@
+"""The port's REPL prints the strings ``tests/test_repl.py`` pins, byte for
+byte, through ``handle_command`` on the port's ``PyBackend`` and on its
+``TorchBackend`` on the CPU, and through the launcher
+``python -m ba_tpu_torch.runtime.main``; the commands that are not ported
+yet print one error line."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ba_tpu_torch.runtime.backends import PyBackend, TorchBackend
+from ba_tpu_torch.runtime.cluster import Cluster
+from ba_tpu_torch.runtime.main import build_cluster
+from ba_tpu_torch.runtime.repl import handle_command
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BACKENDS = {"py": PyBackend, "torch": lambda: TorchBackend(device="cpu")}
+
+
+def drive(cluster, lines):
+    out = []
+    for line in lines:
+        if not handle_command(cluster, line, out.append):
+            break
+    return out
+
+
+@pytest.fixture(params=sorted(BACKENDS))
+def make_backend(request):
+    return BACKENDS[request.param]
+
+
+@pytest.fixture()
+def cluster4(make_backend):
+    return Cluster(4, make_backend(), seed=0)
+
+
+def test_g_state_initial(cluster4):
+    assert drive(cluster4, ["g-state"]) == [
+        "G1, primary, state=NF",
+        "G2, secondary, state=NF",
+        "G3, secondary, state=NF",
+        "G4, secondary, state=NF",
+    ]
+
+
+def test_actual_order_all_honest(cluster4):
+    assert drive(cluster4, ["actual-order attack"]) == [
+        "G1, primary, majority=attack, state=NF",
+        "G2, secondary, majority=attack, state=NF",
+        "G3, secondary, majority=attack, state=NF",
+        "G4, secondary, majority=attack, state=NF",
+        "Execute order: attack! Non-faulty nodes in the system"
+        " - 3 out of 4 quorum suggests attack",
+    ]
+
+
+def test_g_state_set_faulty_drops_role_column(cluster4):
+    assert drive(cluster4, ["g-state 2 faulty"]) == [
+        "G1, state=NF",
+        "G2, state=F",
+        "G3, state=NF",
+        "G4, state=NF",
+    ]
+
+
+def test_actual_order_one_faulty_lieutenant(cluster4):
+    out = drive(cluster4, ["g-state 2 faulty", "actual-order retreat"])
+    assert out[4:] == [
+        "G1, primary, majority=retreat, state=NF",
+        "G2, secondary, majority=retreat, state=F",
+        "G3, secondary, majority=retreat, state=NF",
+        "G4, secondary, majority=retreat, state=NF",
+        "Execute order: retreat! 1 faulty node(s) in the system"
+        " - 3 out of 4 quorum suggests retreat",
+    ]
+
+
+def test_kill_add_list_and_reelection(cluster4):
+    out = drive(cluster4, ["g-kill 1", "List", "g-add 2", "List", "actual-order attack"])
+    assert out == [
+        "P2, True",
+        "P3, False",
+        "P4, False",
+        "P2, True",
+        "P3, False",
+        "P4, False",
+        "P5, False",
+        "P6, False",
+        "G2, primary, majority=attack, state=NF",
+        "G3, secondary, majority=attack, state=NF",
+        "G4, secondary, majority=attack, state=NF",
+        "G5, secondary, majority=attack, state=NF",
+        "G6, secondary, majority=attack, state=NF",
+        "Execute order: attack! Non-faulty nodes in the system"
+        " - 3 out of 5 quorum suggests attack",
+    ]
+
+
+def test_raw_command_string_passthrough(cluster4):
+    assert drive(cluster4, ["actual-order foo"]) == [
+        "G1, primary, majority=foo, state=NF",
+        "G2, secondary, majority=retreat, state=NF",
+        "G3, secondary, majority=retreat, state=NF",
+        "G4, secondary, majority=retreat, state=NF",
+        "Execute order: retreat! Non-faulty nodes in the system"
+        " - 3 out of 4 quorum suggests retreat",
+    ]
+
+
+def test_single_general_undefined_quorum(make_backend):
+    cluster = Cluster(1, make_backend(), seed=0)
+    assert drive(cluster, ["actual-order foo"]) == [
+        "G1, primary, majority=foo, state=NF",
+        "Execute order: cannot be determined - not enough generals in the"
+        " system! Non-faulty nodes in the system - 1 out of 1 quorum not"
+        " consistent",
+    ]
+
+
+def test_guarded_edges_do_not_crash(cluster4):
+    out = drive(
+        cluster4,
+        ["g-kill", "g-kill 99", "g-state 99 faulty", "g-add", "nonsense", "",
+         "actual-order", "g-kill 1", "g-kill 2", "g-kill 3", "g-kill 4", "List",
+         "actual-order attack", "run-rounds attack 3", "g-state"],
+    )
+    assert out == []
+
+
+def test_exit_stops_loop(cluster4):
+    assert drive(cluster4, ["Exit", "g-state"]) == []
+
+
+def test_faulty_leader_election_not_disturbed(cluster4):
+    drive(cluster4, ["g-state 1 faulty"])
+    assert cluster4.leader_id == 1
+    drive(cluster4, ["g-kill 1"])
+    assert cluster4.leader_id == 2
+
+
+@pytest.mark.parametrize("line", ["stats", "stats --live", "search gens=1", "serve start",
+                                  "fleet start replicas=2"])
+def test_unported_commands_print_one_line(cluster4, line):
+    command = line.split(" ")[0]
+    assert drive(cluster4, [line]) == [f"{command} error: not ported to ba_tpu_torch yet"]
+
+
+@pytest.mark.parametrize("tokens,name", [("supervise", "supervise"),
+                                         ("mesh=1", "mesh="),
+                                         ("ck.npz 2 supervise", "supervise")])
+def test_unported_scenario_tokens_print_one_line(cluster4, tokens, name):
+    spec = ROOT / "examples" / "scenarios" / "cascading_failover.json"
+    assert drive(cluster4, [f"scenario {spec} {tokens}"]) == [
+        f"scenario error: {name} not ported to ba_tpu_torch yet"]
+    assert [g.id for g in cluster4.generals] == [1, 2, 3, 4]  # nothing ran
+
+
+def test_run_rounds_on_a_signed_backend_prints_its_error():
+    cluster = Cluster(4, TorchBackend(device="cpu", protocol="sm", signed=True), seed=0)
+    out = drive(cluster, ["run-rounds attack 2"])
+    assert len(out) == 1 and out[0].startswith("run-rounds error: run_rounds on a signed backend")
+    assert "signed megastep" in out[0]
+    assert cluster._round == 0
+
+
+def test_run_rounds_fault_on_an_unsigned_backend_raises(monkeypatch):
+    """Only the signed backend's refusal prints as one line; any other
+    ValueError from the pipelined run is a fault and propagates."""
+    def fault(*args, **kwargs):
+        raise ValueError("a fault inside the pipelined run")
+
+    backend = TorchBackend(device="cpu")
+    monkeypatch.setattr(backend, "run_rounds", fault)
+    with pytest.raises(ValueError, match="a fault inside"):
+        drive(Cluster(4, backend, seed=0), ["run-rounds attack 2"])
+
+
+def test_cuda_backend_without_a_card_exits_with_the_device_error(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["3"], ["3", "--backend", "cuda"]):
+        with pytest.raises(SystemExit) as exc:
+            build_cluster(argv)
+        assert exc.value.code == 1
+        assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_cli_subprocess_torch_backend():
+    """The launcher contract (stdin -> stdout) on the CPU's torch backend."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ba_tpu_torch.runtime.main", "3", "--backend", "torch"],
+        input="g-state\nactual-order attack\nstats\nExit\n",
+        capture_output=True,
+        text=True,
+        timeout=120,
+        cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines() == [
+        "G1, primary, state=NF",
+        "G2, secondary, state=NF",
+        "G3, secondary, state=NF",
+        "G1, primary, majority=attack, state=NF",
+        "G2, secondary, majority=attack, state=NF",
+        "G3, secondary, majority=attack, state=NF",
+        "Execute order: attack! Non-faulty nodes in the system"
+        " - 2 out of 3 quorum suggests attack",
+        "stats error: not ported to ba_tpu_torch yet",
+    ]
