@@ -1,5 +1,6 @@
-"""PyTorch / CUDA port of ``ba_tpu``: the oral OM(1) pipelined engine and
-the fused signed SM(m) sweep.
+"""PyTorch / CUDA port of ``ba_tpu``: the oral OM(1) pipelined engine, the
+signed SM(m) pipelined engine with its sign-ahead lane, and the fused
+signed SM(m) sweep.
 
 The package mirrors ``ba_tpu``'s folder layout so each module has an
 obvious counterpart.  It imports torch and numpy only — never jax and

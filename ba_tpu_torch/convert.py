@@ -4,8 +4,8 @@ Arrays from the JAX package (``np.asarray`` of its jax arrays, or any
 object with the same field names) become the port's carry, and back:
 ``SimState``, ``KeySchedule`` (key data + counter; one key a slot for
 a coalesced batch), the strategy plane, counter blocks (per slot for a
-coalesced batch) and ``ScenarioBlock`` planes, and Ed25519 field elements
-and points.  The tests feed both packages the same carry through here.
+coalesced batch), ``ScenarioBlock`` planes, the signed engine's table
+verdicts, and Ed25519 field elements and points.  The tests feed both packages the same carry through here.
 Numpy dtypes follow the reference: order int8, leader int32, faulty /
 alive bool, ids int32, key data uint32, counter int32, field limbs int32.
 
@@ -153,6 +153,13 @@ def events_from_numpy(chunk: dict, device=None) -> dict:
     dtypes = {"kill": torch.bool, "revive": torch.bool,
               "set_faulty": torch.int8, "set_strategy": torch.int8}
     return {name: _tensor(chunk[name], dt, device) for name, dt in dtypes.items()}
+
+
+def verdicts_from_numpy(ok, device=None) -> torch.Tensor:
+    """Table verdicts as the signed engine takes them: bool ``[B, V]`` for
+    one round (``signed_agreement_step``) or ``[R, B, V]`` planes (the
+    signed megasteps)."""
+    return _tensor(np.asarray(ok).astype(np.bool_), torch.bool, device)
 
 
 def block_from_numpy(block):

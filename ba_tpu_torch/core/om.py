@@ -44,10 +44,12 @@ def round1_apply(state: SimState, coins: torch.Tensor, strategies=None) -> torch
 
 
 def round1_broadcast(key: torch.Tensor, state: SimState, strategies=None) -> torch.Tensor:
-    """Round 1 under one key: a fair coin per recipient (``coin_bits`` of
-    ``[B, n]``) for a faulty leader's lies -> ``[B, n]`` int8."""
+    """Round 1: a fair coin per recipient for a faulty leader's lies ->
+    ``[B, n]`` int8.  One key ``[2]`` draws ``coin_bits(key, (B, n))``;
+    keys ``[B, 2]`` draw ``(n,)`` a row, each row's own B = 1 round."""
     B, n = state.faulty.shape
-    return round1_apply(state, rng.coin_bits(key, (B, n)), strategies)
+    coins = rng.coin_bits(key, (B, n) if key.dim() == 1 else (n,))
+    return round1_apply(state, coins, strategies)
 
 
 def round2_apply(

@@ -17,7 +17,11 @@
 - ``choice(V)``: exactly one value -> that value, else UNDEFINED; the
   commander reports its own order.
 
-On the same keys every draw and output is bit-exact with the JAX package.
+Two key modes, as ``core/eig.py``'s: one key data ``[2]`` for the whole
+batch (every draw one stream over the batch, ``coin_bits(key, (B, n, n,
+2))``), or one key a row, ``[B, 2]`` (``signed_agreement_step``): row b
+draws what a B = 1 exchange under its own key draws.  On the same keys
+every draw and output is bit-exact with the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ from ba_tpu_torch.core.quorum import majority_counts, quorum_decision
 from ba_tpu_torch.core.state import SimState
 from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
 from ba_tpu_torch.scenario.strategies import send_gate
+
+
+def _shape(key: torch.Tensor, batch: int, shape) -> tuple:
+    """A draw's shape: over the batch for one key ``[2]``, per row for
+    keys ``[batch, 2]``."""
+    return (batch, *shape) if key.dim() == 1 else tuple(shape)
 
 
 def _initial_seen(state: SimState, received: torch.Tensor) -> torch.Tensor:
@@ -52,7 +62,7 @@ def sm_relay_rounds(key: torch.Tensor, state: SimState, seen: torch.Tensor, m: i
     honest = state.alive & ~state.faulty
     for r in range(1, m + 1):
         if withhold is None:
-            coins = rng.coin_bits(rng.fold_in(key, r), (B, n, n, 2), torch.bool)
+            coins = rng.coin_bits(rng.fold_in(key, r), _shape(key, B, (n, n, 2)), torch.bool)
             if strategies is not None:
                 coins = send_gate(strategies[:, None, :, None], coins,
                                   torch.arange(n, device=dev)[None, :, None, None],
@@ -72,7 +82,8 @@ def sm_relay_rounds(key: torch.Tensor, state: SimState, seen: torch.Tensor, m: i
 def sm_relay_rounds_collapsed(key: torch.Tensor, state: SimState, seen: torch.Tensor,
                               m: int) -> torch.Tensor:
     """m collapsed relay rounds; round r draws ``uniform_u8(fold_in(key, r),
-    (B, n, 2))``.  Returns the final seen masks."""
+    (B, n, 2))`` (``(n, 2)`` a row for keys ``[B, 2]``).  Returns the final
+    seen masks."""
     B, n = state.faulty.shape
     traitor = state.faulty & state.alive
     honest = state.alive & ~state.faulty
@@ -82,7 +93,7 @@ def sm_relay_rounds_collapsed(key: torch.Tensor, state: SimState, seen: torch.Te
         chain_ok = (r < t)[:, None] | held_honest
         k_cnt = (seen & traitor[..., None]).sum(dim=1)
         thresh = rng.or_coin_threshold8(k_cnt, chain_ok)
-        u = rng.uniform_u8(rng.fold_in(key, r), (B, n, 2))
+        u = rng.uniform_u8(rng.fold_in(key, r), _shape(key, B, (n, 2)))
         incoming = (u < thresh[:, None, :]) | held_honest[:, None, :]
         seen = (seen | incoming) & state.alive[..., None]
     return seen

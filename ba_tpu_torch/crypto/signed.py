@@ -1,13 +1,20 @@
-"""Signed orders: the per-(instance, value) signature tables of the signed
-SM(m) sweep (the table part of ``ba_tpu/crypto/signed.py``).
+"""Signed orders: the per-(instance, value) signature tables of signed
+SM(m) (``ba_tpu/crypto/signed.py``).
 
 A commander utters at most V distinct claims and Ed25519 is
 deterministic, so every signature the protocol can carry lives in one
 ``[B, V]`` table: each distinct signature is verified once, and a
 general's round-1 value selects its verdict (``sig_valid_from_tables``).
 
-Message encoding (MSG_LEN bytes): ``b"BAv1" || instance u32 LE || value
-u8 || zero pad``; binding the instance id stops cross-instance replay.
+The host tier (keys, the value and round-bound message grammars,
+native batch signing, ``verify_host_exact``) lives in ``crypto/tables.py``,
+which imports no torch, and is re-exported here.
+:func:`verify_exact` is the exact verify by device: the native host
+verifier for data on the CPU, K7, K5, K4 and K3 on the card (the
+reference's ``_verify_received_exact``, whose platform probe and
+``BA_TPU_VERIFY_NATIVE`` knob become the device argument).
+:func:`sign_round1` and :func:`signed_sm_agreement` are the one-shot
+signed round.
 
 Keys, signatures and verdicts are byte-identical with the reference's.
 The setup signs on the card by default (``sign_value_tables_device``:
@@ -37,12 +44,24 @@ import time
 import numpy as np
 import torch
 
-from ba_tpu_torch import native
-from ba_tpu_torch.core.state import resolve_device
-from ba_tpu_torch.crypto import ed25519, oracle
+from ba_tpu_torch.core.state import SimState, resolve_device
+from ba_tpu_torch.crypto import ed25519
+from ba_tpu_torch.crypto.tables import (  # noqa: F401  (re-exported: the host tier)
+    MSG_LEN,
+    _round_table_msgs,
+    _sign_table_msgs,
+    _value_table_msgs,
+    commander_keys,
+    key_table_arrays,
+    order_message,
+    round_message,
+    secret_rows,
+    sign_round_tables,
+    sign_table_msgs_arrays,
+    sign_value_tables,
+    verify_host_exact,
+)
 
-MSG_LEN = 16
-_MAGIC = b"BAv1"
 VERIFY_CHUNK = 65536  # signatures a verify dispatch (``ba_tpu/crypto/signed.py:380``)
 # Setup chunks by sign route, as the reference derives them
 # (``bench.py:692-696``): the host signs chunk c + 1 while the card
@@ -50,52 +69,6 @@ VERIFY_CHUNK = 65536  # signatures a verify dispatch (``ba_tpu/crypto/signed.py:
 SETUP_CHUNKS = 2
 DEVICE_SIGN_CHUNKS = 1
 VERIFY_ROUTES = ("exact", "rlc")
-
-
-def secret_rows(sks: list[bytes]) -> np.ndarray:
-    """32-byte secret keys as uint8 [B, 32], in one copy (a stack of B
-    one-row arrays takes ~1.4 us a key)."""
-    return np.frombuffer(bytearray(b"".join(sks)), np.uint8).reshape(len(sks), 32)
-
-
-def commander_keys(batch: int, seed: int = 0) -> tuple[list[bytes], np.ndarray]:
-    """Deterministic per-instance commander keypairs: (secret keys as
-    32-byte strings, public keys uint8 [B, 32])."""
-    sks = [oracle.secret_from_seed(f"{seed}:{b}".encode()) for b in range(batch)]
-    return sks, native.publickey_batch(secret_rows(sks))
-
-
-def order_message(instance: int, value: int) -> bytes:
-    """The signed claim: "commander of ``instance`` says ``value``"."""
-    body = _MAGIC + int(instance).to_bytes(4, "little") + bytes([value & 0xFF])
-    return body.ljust(MSG_LEN, b"\0")
-
-
-def _value_table_msgs(B: int, n_values: int, base: int) -> np.ndarray:
-    """``order_message`` over the [B, V] grid -> uint8 [B, V, MSG_LEN];
-    row b binds instance ``base + b``."""
-    msgs = np.zeros((B, n_values, MSG_LEN), np.uint8)
-    msgs[:, :, 0:4] = np.frombuffer(_MAGIC, np.uint8)
-    msgs[:, :, 4:8] = (
-        np.arange(base, base + B, dtype="<u4").view(np.uint8).reshape(B, 1, 4)
-    )
-    msgs[:, :, 8] = np.arange(n_values, dtype=np.uint8)[None, :]
-    return msgs
-
-
-def sign_value_tables(sks: list[bytes], pks: np.ndarray, n_values: int = 2,
-                      base: int = 0) -> tuple[np.ndarray, np.ndarray]:
-    """``n_values`` signs per commander: msgs uint8 [B, V, MSG_LEN] and
-    sigs uint8 [B, V, 64].  ``base`` offsets the bound instance ids."""
-    B = len(sks)
-    msgs = _value_table_msgs(B, n_values, base)
-    sk_arr = secret_rows(sks)
-    sigs = native.sign_batch(
-        np.repeat(sk_arr, n_values, axis=0),
-        np.repeat(np.asarray(pks, np.uint8), n_values, axis=0),
-        msgs.reshape(B * n_values, MSG_LEN),
-    )
-    return msgs, sigs.reshape(B, n_values, 64)
 
 
 def sign_received(sks: list[bytes], pks: np.ndarray, received: np.ndarray,
@@ -131,19 +104,6 @@ def sign_value_tables_device(sks: list[bytes], pks, n_values: int = 2, base: int
     pk = _to_device(pks, dev).repeat_interleave(n_values, dim=0)
     sigs = ed25519.sign(sk, pk, _to_device(msgs, dev).reshape(B * n_values, MSG_LEN))
     return msgs, sigs.reshape(B, n_values, 64)
-
-
-def verify_host_exact(pks, msgs, sigs) -> np.ndarray:
-    """Exact per-signature verification on the host -> bool [B, n] numpy:
-    pks [B, 32], msgs [B, n, MSG_LEN], sigs [B, n, 64], the cofactorless
-    RFC 8032 equation with h reduced mod L."""
-    pks_np = np.asarray(pks, np.uint8)
-    msgs_np = np.asarray(msgs, np.uint8)
-    sigs_np = np.asarray(sigs, np.uint8)
-    B, n = msgs_np.shape[:2]
-    return native.verify_batch(
-        np.repeat(pks_np, n, axis=0), msgs_np.reshape(B * n, -1), sigs_np.reshape(B * n, 64)
-    ).reshape(B, n)
 
 
 def sig_valid_from_tables(ok: torch.Tensor, received: torch.Tensor) -> torch.Tensor:
@@ -199,6 +159,26 @@ def verify_received(pks, msgs, sigs, device=None, verify: str = "exact") -> torc
                           sigs[o:o + VERIFY_CHUNK])
            for o in range(0, total, VERIFY_CHUNK)]
     return torch.cat(oks).reshape(B, n)
+
+
+def host_verify_route(device=None) -> bool:
+    """True when :func:`verify_exact` verifies on the host for ``device``
+    (the card unless given): every device but a CUDA one."""
+    return resolve_device(device).type != "cuda"
+
+
+def verify_exact(pks, msgs, sigs, device=None) -> torch.Tensor:
+    """The exact per-signature verdicts -> bool [B, n] on ``device`` (the
+    card unless given): pks [B, 32], msgs [B, n, MSG_LEN], sigs [B, n,
+    64].  On the card :func:`verify_received` (K7, K5, K4, K3; nothing
+    waits for the card); on the CPU the native host verifier, the same
+    verdicts in one C call.  A native library that cannot be built
+    raises."""
+    dev = resolve_device(device)
+    if not host_verify_route(dev):
+        return verify_received(pks, msgs, sigs, dev)
+    host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in (pks, msgs, sigs)]
+    return torch.from_numpy(verify_host_exact(*host)).to(dev)
 
 
 def fresh_rlc_coeffs(total: int) -> np.ndarray:
@@ -381,3 +361,46 @@ def setup_signed_tables(batch: int, seed: int = 0, device=None,
     ``verify`` is ``"exact"`` or ``"rlc"`` (:func:`queue_signed_tables`).
     """
     return drain_signed_tables(queue_signed_tables(batch, seed, device, sign_device, verify))
+
+
+def sign_round1(key: torch.Tensor, state: SimState, seed: int = 0,
+                corrupt: np.ndarray | None = None, dedup_verify: bool = False):
+    """The sign-then-verify preamble of a signed agreement
+    (``ba_tpu/crypto/signed.py:836``): the round-1 broadcast under
+    ``split(key)[0]``, the commanders' signatures of what each general
+    received (host-signed), their exact verify on the state's device
+    (:func:`verify_exact`) -> ``(relay_key, received, sig_valid)``.
+
+    ``dedup_verify`` verifies each (instance, value) table signature once
+    and selects the [B, n] mask from it (``sig_valid_from_tables``);
+    per-copy ``corrupt`` faults need the full verify."""
+    from ba_tpu_torch.core import rng
+    from ba_tpu_torch.core.om import round1_broadcast
+
+    dev = state.device
+    k1, k2 = rng.split(key).unbind(-2)
+    received = round1_broadcast(k1, state)
+    sks, pks = commander_keys(state.batch, seed)
+    if dedup_verify:
+        if corrupt is not None:
+            raise ValueError("per-copy corruption needs the full verify")
+        msgs_t, sigs_t = sign_value_tables(sks, pks)
+        sig_valid = sig_valid_from_tables(verify_exact(pks, msgs_t, sigs_t, dev), received)
+    else:
+        msgs, sigs = sign_received(sks, pks, received.cpu().numpy(), corrupt)
+        sig_valid = verify_exact(pks, msgs, sigs, dev)
+    return k2, received, sig_valid
+
+
+def signed_sm_agreement(key: torch.Tensor, state: SimState, m: int, withhold=None,
+                        corrupt: np.ndarray | None = None, seed: int = 0,
+                        collapsed: bool = False) -> dict:
+    """End-to-end signed SM(m) (``ba_tpu/crypto/signed.py:871``): sign,
+    verify, m relay rounds gated on the validity mask, the quorum ->
+    ``sm_agreement``'s dict plus ``sig_valid``."""
+    from ba_tpu_torch.core.sm import sm_agreement
+
+    k2, received, sig_valid = sign_round1(key, state, seed, corrupt)
+    out = sm_agreement(k2, state, m, withhold, sig_valid, received, collapsed)
+    out["sig_valid"] = sig_valid
+    return out

@@ -34,6 +34,15 @@
   every slot folds instance index 0 (:func:`slot_round_keys`), and each
   slot keeps its own counter block (:func:`slot_counter_delta`), so slot
   ``b`` is bit-identical to its own B = 1 run at equal padded capacity.
+- **Signed SM(m)**: ``signed=True`` runs :func:`signed_megastep` (or
+  :func:`coalesced_signed_megastep`), each round a
+  ``signed_agreement_step`` gated on that round's table verdicts, which
+  the sign-ahead lane (``parallel/signing.py``) signs and verifies while
+  the earlier dispatches are in flight.  The reference runs these
+  megasteps in XLA, never in a Pallas kernel, so they are plain torch on
+  every device (``engine="torch"``); the lane's verify launches K7, K5,
+  K4 and K3 on the card.  Counters are always on
+  (SIGNED_COUNTER_NAMES).
 """
 
 from __future__ import annotations
@@ -51,15 +60,16 @@ import torch
 from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.state import SimState, resolve_device
-from ba_tpu_torch.core.types import UNDEFINED
+from ba_tpu_torch.core.types import ATTACK, RETREAT, UNDEFINED
 from ba_tpu_torch.obs import flight
-from ba_tpu_torch.parallel.sweep import agreement_step
+from ba_tpu_torch.parallel.sweep import agreement_step, signed_agreement_step
 from ba_tpu_torch.utils import snapshot
 
 COUNTER_NAMES = ("quorum_failures", "unanimous_rounds", "equivocation_observed")
 SCENARIO_COUNTER_NAMES = COUNTER_NAMES + ("ic1_violations", "ic2_violations")
-# The signed campaigns' block (the JAX package's signed engine): the port
-# reads it from a checkpoint's header to refuse a signed carry by name.
+# The signed engine's block: the agreement counters, then instances whose
+# round table held a rejected signature, and instances whose faulty, alive
+# commander reached its lieutenants with both orders.
 SIGNED_COUNTER_NAMES = COUNTER_NAMES + ("sig_rejections", "commander_equivocations")
 
 ENGINES = ("torch", "cuda")
@@ -408,28 +418,138 @@ def coalesced_megastep(
     return (state, sched, strategy, out["majorities"], *ys)
 
 
-def engine_support(m: int = 1) -> str | None:
+def signed_counters_init(device=None) -> torch.Tensor:
+    return torch.zeros(len(SIGNED_COUNTER_NAMES), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
+def _signed_verdicts(out: dict, state: SimState, ok: torch.Tensor):
+    """Per instance, [B] bool each: the round table held a rejected
+    signature; the commander is faulty and alive and its alive
+    lieutenants received both orders this round."""
+    lieutenants = _lieutenants(state)
+    received = out["received"]
+    got_a = ((received == ATTACK) & lieutenants).any(dim=1)
+    got_r = ((received == RETREAT) & lieutenants).any(dim=1)
+    leader = state.leader.long()[:, None]
+    leader_faulty = state.faulty.gather(1, leader)[:, 0]
+    leader_alive = state.alive.gather(1, leader)[:, 0]
+    return (~ok).any(dim=-1), got_a & got_r & leader_faulty & leader_alive
+
+
+def signed_counter_delta(out: dict, state: SimState, ok: torch.Tensor) -> torch.Tensor:
+    """One signed round's increments, int32 ``[5]``: the agreement deltas,
+    then ``sig_rejections`` (instances whose table ``ok`` [B, V] holds a
+    False) and ``commander_equivocations`` (faulty alive commanders whose
+    alive lieutenants received both orders)."""
+    rejected, equivocated = _signed_verdicts(out, state, ok)
+    extra = torch.stack([rejected.sum(dtype=torch.int32), equivocated.sum(dtype=torch.int32)])
+    return torch.cat([agreement_counter_delta(out, state), extra])
+
+
+def slot_signed_counter_delta(out: dict, state: SimState, ok: torch.Tensor) -> torch.Tensor:
+    """:func:`signed_counter_delta` per slot, int32 ``[B, 5]``: row ``b``
+    is what slot ``b``'s own B = 1 signed run folds."""
+    rejected, equivocated = _signed_verdicts(out, state, ok)
+    extra = torch.stack([rejected, equivocated], dim=-1).to(torch.int32)
+    return torch.cat([slot_counter_delta(out, state, False), extra], dim=-1)
+
+
+def _signed_scan(state: SimState, sched: KeySchedule, counters: torch.Tensor,
+                 ok_planes: torch.Tensor, *, rounds: int, m: int = 1, collapsed: bool = False,
+                 collect_decisions: bool = False):
+    """The signed scan core.  Round r runs ``signed_agreement_step`` under
+    ``round_keys`` at ``counter + r`` on the verdicts ``ok_planes[r]``
+    ([rounds, B, V] bool).  Returns ``(carry, ys)`` with carry ``(state,
+    sched, counters)`` and ys ``(histograms[, decisions], counter_rows)``,
+    the layout of the plain scan with counters."""
+    hists, decs, rows = [], [], []
+    for r in range(rounds):
+        keys = round_keys(_advanced(sched, r), state.batch)
+        out = signed_agreement_step(keys, state, ok_planes[r], m=m, collapsed=collapsed)
+        counters = counters + signed_counter_delta(out, state, ok_planes[r])
+        hists.append(out["histogram"])
+        if collect_decisions:
+            decs.append(out["decision"])
+        rows.append(counters)
+    ys = (torch.stack(hists),) + ((torch.stack(decs),) if collect_decisions else ())
+    return (state, _advanced(sched, rounds), counters), ys + (torch.stack(rows),)
+
+
+def signed_megastep(state: SimState, sched: KeySchedule, counters: torch.Tensor,
+                    ok_planes: torch.Tensor, *, rounds: int, m: int = 1,
+                    collapsed: bool = False, collect_decisions: bool = False):
+    """``rounds`` signed SM(m) rounds in one dispatch
+    (``ba_tpu/parallel/pipeline.py:781``): the round-1 broadcast, each
+    value gated on its table verdict, m relay rounds (collapsed with
+    ``collapsed``) and the quorum, a round at a time.
+
+    ``counters`` is the SIGNED_COUNTER_NAMES block, ``ok_planes`` the
+    lane's ``[rounds, B, V]`` verdicts.  Returns ``(state, sched,
+    histograms[, decisions], counter_rows)``: the state as given (signed
+    rounds do not change it), the schedule with its counter advanced in
+    place, counter_rows ``[rounds, 5]`` cumulative.  Round ``counter + r``
+    equals :func:`signed_agreement_step` of that round's keys, which is
+    what ``parallel/signing.sequential_signed_sweep`` runs.
+    """
+    (_, sc, _), ys = _signed_scan(state, sched, counters, ok_planes, rounds=rounds, m=m,
+                                  collapsed=collapsed, collect_decisions=collect_decisions)
+    sched.counter.copy_(sc.counter)
+    return (state, sched, *ys)
+
+
+def coalesced_signed_megastep(state: SimState, sched: KeySchedule, slot_counters: torch.Tensor,
+                              ok_planes: torch.Tensor, *, rounds: int, m: int = 1,
+                              collapsed: bool = False):
+    """``rounds`` signed rounds of a coalesced serving batch in one
+    dispatch (``ba_tpu/parallel/pipeline.py:861``).  ``sched`` is a slot
+    schedule, so slot ``b`` is bit-identical to its own B = 1
+    ``pipeline_sweep(signed=True)`` at equal padded capacity.  Returns
+    ``(state, sched, None, last_majorities, decisions, counter_rows)``,
+    :func:`coalesced_megastep`'s tuple with no strategy plane."""
+    if rounds < 1:
+        raise ValueError(f"rounds={rounds} must be >= 1")
+    ctr = slot_counters
+    decs, rows = [], []
+    for r in range(rounds):
+        out = signed_agreement_step(slot_round_keys(_advanced(sched, r)), state, ok_planes[r],
+                                    m=m, collapsed=collapsed)
+        ctr = ctr + slot_signed_counter_delta(out, state, ok_planes[r])
+        decs.append(out["decision"])
+        rows.append(ctr)
+    sched.counter.add_(rounds)
+    return (state, sched, None, out["majorities"], torch.stack(decs),
+            torch.stack(rows))
+
+
+def engine_support(m: int = 1, signed: bool = False) -> str | None:
     """None when K1 covers this combination, else the reason it cannot
-    (``ba_tpu/parallel/pipeline.py:109``): K1 runs OM(1) only."""
+    (``ba_tpu/parallel/pipeline.py:109``): K1 runs oral OM(1) only."""
+    if signed:
+        return ("signed=True (the signed megastep runs on the composed torch engine, "
+                "as the reference's runs in XLA; K1 covers oral OM(1) only)")
     if m != 1:
         return f"m={m} (the dense EIG tree stays on the composed torch engine)"
     return None
 
 
-def resolve_engine(engine: str | None, device: torch.device, m: int = 1) -> str:
-    """``None`` picks ``"cuda"`` on a CUDA device at m = 1, and ``"torch"``
-    on the CPU or at any other m (OM(m) by the EIG tree, which launches K9
-    at every resolve level on the card).  ``"cuda"`` off the card, at
-    m != 1, or under the non-partitionable threefry mode (the kernel
-    encodes only the partitionable one) raises: there is no fallback."""
+def resolve_engine(engine: str | None, device: torch.device, m: int = 1,
+                   signed: bool = False) -> str:
+    """``None`` picks ``"cuda"`` on a CUDA device for oral OM(1), and
+    ``"torch"`` on the CPU, at any other m (OM(m) by the EIG tree, which
+    launches K9 at every resolve level on the card) and for signed runs.
+    ``"cuda"`` off the card, at m != 1, with ``signed``, or under the
+    non-partitionable threefry mode (the kernel encodes only the
+    partitionable one) raises: there is no fallback."""
     if m < 0:
         raise ValueError(f"m={m} must be >= 0")
     if engine is None:
-        engine = "cuda" if device.type == "cuda" and engine_support(m) is None else "torch"
+        engine = ("cuda" if device.type == "cuda" and engine_support(m, signed) is None
+                  else "torch")
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r} unknown; choose from {ENGINES}")
     if engine == "cuda":
-        reason = engine_support(m)
+        reason = engine_support(m, signed)
         if reason is not None:
             raise ValueError(f"engine='cuda' cannot run {reason}")
         if device.type != "cuda":
@@ -464,8 +584,9 @@ class CarryCheckpoint:
     are ``None`` on carries that never had them.  A ``[d, C]`` counter
     block (one a device) sums to the canonical block when written, and
     ``shard_layout`` records the writer's layout (``{"data": 1}`` here).
-    ``signed`` marks a signed campaign's carry, which the port does not
-    resume yet; ``run_id`` is the run that wrote it.
+    ``signed`` marks a signed campaign's carry (its counters are
+    SIGNED_COUNTER_NAMES, and it resumes only a signed sweep); ``run_id``
+    is the run that wrote it.
     """
 
     state: SimState
@@ -484,10 +605,6 @@ RESERVED_CARRY_META_KEYS = frozenset(
     {"format", "v", "round", "scenario", "signed", "counter_names",
      "sha256", "rounds_total", "shard_layout", "run_id", "traceparent"}
 )
-
-SIGNED_PENDING = ("signed campaigns wait for the signed megastep, which the port "
-                   "does not have yet")
-
 
 def _carry_meta(round_cursor: int, counters, strategy, shard_layout=None, run_id=None,
                 signed=False, **extra) -> dict:
@@ -521,12 +638,9 @@ def save_carry_checkpoint(path: str, ckpt: CarryCheckpoint, **extra) -> int:
     a carry no dispatch is rewriting (the sweep's ``checkpoint_every``
     does this for you).  ``extra`` keys ride the header.  A ``[d, C]``
     counter block sums to the canonical block here (``shard_layout``
-    defaults to ``{"data": d}`` then).  Returns the array bytes written.
-    A signed carry raises: the port cannot resume one yet."""
+    defaults to ``{"data": d}`` then).  Returns the array bytes written."""
     from ba_tpu_torch import convert
 
-    if ckpt.signed:
-        raise ValueError(f"signed=True carries are not written: {SIGNED_PENDING}")
     arrays = convert.carry_to_numpy(ckpt.state, ckpt.schedule, ckpt.counters, ckpt.strategy)
     layout = ckpt.shard_layout
     counters = arrays.get("counters")
@@ -653,6 +767,11 @@ def pipeline_sweep(
     host_work=None,
     on_event=None,
     signed: bool = False,
+    collapsed: bool = False,
+    sign_seed: int = 0,
+    sign_coalesce: int = 2,
+    pool=None,
+    cache=None,
     checkpoint_every: int | None = None,
     checkpoint_path: str | None = None,
     checkpoint_keep_last: int | None = None,
@@ -675,8 +794,18 @@ def pipeline_sweep(
     the state is consumed — use the returned ``final_state``.  At m != 1
     every round is OM(m) by the EIG tree on the composed torch engine
     (``max_liars`` caps its fused level's lying count; derive it from
-    the state).  ``signed=True`` raises: the signed megastep is not
-    ported yet.
+    the state).
+
+    ``signed=True`` runs signed SM(m) through :func:`signed_megastep` on
+    the composed torch engine (``engine="cuda"`` raises), counters always
+    on (SIGNED_COUNTER_NAMES), ``collapsed`` picking the O(B n) relay.
+    A sign-ahead lane (``parallel/signing.SignAheadLane(B,
+    seed=sign_seed, pool=pool, cache=cache)``) stages each window's table
+    verdicts: window 0 before the loop, window d + 1 right after dispatch
+    d, while the dispatches before it are in flight, up to
+    ``sign_coalesce`` windows in one signing and verifying pass (the
+    reference's ``BA_TPU_SIGN_COALESCE``).  A signed run takes no
+    scenario block; ``collapsed`` needs ``signed``.
 
     With ``scenario`` (a compiled ``ScenarioBlock`` or
     ``SparseScenarioBlock`` of matching shape) every dispatch runs the
@@ -711,7 +840,10 @@ def pipeline_sweep(
     ``final_counters`` (the live block); in scenario mode ``leaders`` and
     ``final_strategy``; ``final_state``, ``final_schedule``; and
     ``stats`` (with ``start_round``, ``checkpoints``, each write's round,
-    bytes and host ms in ``checkpoint_writes``, and ``run_id``).
+    bytes and host ms in ``checkpoint_writes``, ``run_id``, ``signed``,
+    and the lane's ``sign_ahead_s``, ``sign_pool_workers``,
+    ``sign_pool_s``, ``sign_cache_hits``, ``host_sign_s``,
+    ``host_verify_s``; zeros on an oral run).
     """
     if rounds < 1:
         raise ValueError(f"rounds={rounds} must be >= 1")
@@ -722,18 +854,24 @@ def pipeline_sweep(
     _check_checkpointing(checkpoint_every, checkpoint_path, checkpoint_keep_last,
                          checkpoint_meta, on_checkpoint)
     if signed:
-        raise ValueError(f"signed=True: {SIGNED_PENDING}")
+        if scenario is not None:
+            raise ValueError("signed=True cannot take a scenario block (the signed "
+                             "megastep has no mutating-round form)")
+        if sign_coalesce < 1:
+            raise ValueError(f"sign_coalesce={sign_coalesce} must be >= 1")
+        with_counters = True
+    elif collapsed:
+        raise ValueError("collapsed= is the signed relay dial; it needs signed=True")
     dev = resolve_device(device)
-    engine = resolve_engine(engine, dev, m)
+    engine = resolve_engine(engine, dev, m, signed)
     plain_fn, scen_fn, _ = _engine_megasteps(engine)
 
     if isinstance(resume, (str, os.PathLike)):
         resume = load_carry_checkpoint(resume, dev)
     if resume is not None:
-        if resume.signed:
-            raise ValueError(f"resume checkpoint signed=True but this sweep has "
-                             f"signed=False — a carry never crosses protocols "
-                             f"({SIGNED_PENDING})")
+        if resume.signed != signed:
+            raise ValueError(f"resume checkpoint signed={resume.signed} but this sweep has "
+                             f"signed={signed} — a carry never crosses protocols")
         if key is not None or state is not None:
             raise ValueError("resume= supplies the carry: pass key=None, state=None")
         if initial_strategy is not None:
@@ -799,14 +937,17 @@ def pipeline_sweep(
         sched = make_key_schedule(key.to(dev))
         if scenario is not None:
             counters = scenario_counters_init(dev)
+        elif signed:
+            counters = signed_counters_init(dev)
         else:
             counters = agreement_counters_init(dev) if with_counters else None
 
     def identity_material():
         from ba_tpu_torch import convert
 
-        material = [convert.key_data_to_numpy(
-            key if key is not None else resume.schedule.key_data).tobytes()]
+        material = [f"signed:m={m}:collapsed={collapsed}"] if signed else []
+        material.append(convert.key_data_to_numpy(
+            key if key is not None else resume.schedule.key_data).tobytes())
         if scenario is not None:
             doc = getattr(scenario, "to_doc", None)
             if doc is not None:
@@ -834,6 +975,27 @@ def pipeline_sweep(
             zero_staged[hi - lo] = staged
         return staged
 
+    lane = None
+    signed_bounds, signed_pending = [], {}
+    if signed:
+        from ba_tpu_torch.parallel.signing import SignAheadLane
+
+        lane = SignAheadLane(B, seed=sign_seed, pool=pool, cache=cache, device=dev)
+        cursor = start
+        for nr in chunks:
+            signed_bounds.append((cursor, cursor + nr))
+            cursor += nr
+
+    def stage_signed(i):
+        """Window i's verdict planes: signed, with the next
+        ``sign_coalesce`` - 1 windows not yet staged, in one lane pass;
+        the extra planes wait here for their turn."""
+        want = signed_bounds[i]
+        if want not in signed_pending:
+            group = [b for b in signed_bounds[i:i + sign_coalesce] if b not in signed_pending]
+            signed_pending.update(zip(group, lane.stage_windows(group)))
+        return signed_pending.pop(want)
+
     inflight: collections.deque = collections.deque()
     retired = []
     max_in_flight = 0
@@ -845,7 +1007,7 @@ def pipeline_sweep(
         t0 = time.perf_counter()
         written = checkpoint_path.replace("{round}", str(round_cursor))
         nbytes = save_carry_checkpoint(
-            written, CarryCheckpoint(*carry, round=round_cursor, run_id=rid),
+            written, CarryCheckpoint(*carry, round=round_cursor, signed=signed, run_id=rid),
             rounds_total=rounds, **(checkpoint_meta or {}),
         )
         writes.append({"round": round_cursor, "bytes": nbytes,
@@ -867,7 +1029,11 @@ def pipeline_sweep(
             on_event("retire", d)
 
     lo = start
-    staged = stage(start, start + chunks[0]) if scenario is not None else None
+    staged = None
+    if scenario is not None:
+        staged = stage(start, start + chunks[0])
+    elif signed:
+        staged = stage_signed(0)
     for d, nr in enumerate(chunks):
         hi = lo + nr
         if scenario is not None:
@@ -881,6 +1047,12 @@ def pipeline_sweep(
             state, sched, strategy = out[:3]
             ys = out[3:]
             counters = ys[2][-1]
+        elif signed:
+            out = signed_megastep(state, sched, counters, staged, rounds=nr, m=m,
+                                  collapsed=collapsed, collect_decisions=collect_decisions)
+            state, sched = out[:2]
+            ys = out[2:]
+            counters = ys[-1][-1]
         else:
             out = plain_fn(
                 state, sched, rounds=nr, m=m, max_liars=max_liars,
@@ -900,6 +1072,8 @@ def pipeline_sweep(
             on_event("dispatch", d)
         if scenario is not None and d + 1 < len(chunks):
             staged = stage(hi, hi + chunks[d + 1])
+        elif signed and d + 1 < len(chunks):
+            staged = stage_signed(d + 1)
         if host_work is not None:
             host_work(d)
         while len(inflight) > depth:
@@ -925,6 +1099,8 @@ def pipeline_sweep(
             "checkpoint_writes": writes,
             "engine": engine,
             "run_id": rid,
+            "signed": signed,
+            **_lane_stats(lane),
         },
     }
     if scenario is not None:
@@ -935,7 +1111,7 @@ def pipeline_sweep(
         if collect_decisions:
             result["decisions"] = np.concatenate([ys[3] for ys in retired])
     else:
-        names = COUNTER_NAMES
+        names = SIGNED_COUNTER_NAMES if signed else COUNTER_NAMES
         rows = np.concatenate([ys[-1] for ys in retired]) if with_counters else None
         if collect_decisions:
             result["decisions"] = np.concatenate([ys[1] for ys in retired])
@@ -944,6 +1120,17 @@ def pipeline_sweep(
         result["counters_per_round"] = rows
         result["final_counters"] = counters
     return result
+
+
+def _lane_stats(lane) -> dict:
+    """The sign-ahead lane's readings for a sweep's ``stats`` (zeros
+    without a lane)."""
+    if lane is None:
+        return dict.fromkeys(("sign_ahead_s", "sign_pool_workers", "sign_pool_s",
+                              "sign_cache_hits", "host_sign_s", "host_verify_s"), 0)
+    return {"sign_ahead_s": round(lane.sign_ahead_s, 6), "sign_pool_workers": lane.pool_workers,
+            "sign_pool_s": round(lane.pool_s, 6), "sign_cache_hits": lane.cache_hits,
+            "host_sign_s": round(lane.sign_s, 6), "host_verify_s": round(lane.verify_s, 6)}
 
 
 def _check_checkpointing(every, path, keep_last, meta, on_checkpoint) -> None:
@@ -995,6 +1182,9 @@ def coalesced_sweep(
     initial_strategy=None,
     signed: bool = False,
     collapsed: bool = False,
+    sign_seed: int = 0,
+    pool=None,
+    cache=None,
     exec_seam=None,
     on_retire=None,
     engine: str | None = None,
@@ -1018,10 +1208,18 @@ def coalesced_sweep(
     ``on_retire(dispatch, lo, hi, host_ys)`` receives each retired
     window's host block ``(decisions, counter_rows[, leaders])``.
     ``device`` and ``engine`` follow :func:`resolve_engine`; the state
-    moves to the device and is consumed.  ``signed`` and ``collapsed``
-    raise: the signed coalesced megastep is not ported yet.  At m != 1
-    every slot runs OM(m) by the EIG tree on the composed torch engine,
-    ``max_liars`` capping its fused level's lying count.
+    moves to the device and is consumed.  At m != 1 every slot runs OM(m)
+    by the EIG tree on the composed torch engine, ``max_liars`` capping
+    its fused level's lying count.
+
+    ``signed=True`` runs every slot through
+    :func:`coalesced_signed_megastep` (per-slot SIGNED_COUNTER_NAMES
+    blocks; ``collapsed`` picks the O(B n) relay; no scenario).  Every
+    slot's own B = 1 run signs the tables of instance 0 under
+    ``sign_seed``, so the slots' tables coincide: one B = 1 lane
+    (``SignAheadLane(1, seed=sign_seed, pool=pool, cache=cache)``) stages
+    all ``rounds`` up front, and each dispatch's ``[nr, 1, V]`` verdicts
+    broadcast over the slots.
 
     Returns a dict: ``decisions`` [rounds, B] int8, ``majorities`` [B, n]
     (the final round's), ``counters`` [B, C] int32 (each slot's final
@@ -1034,11 +1232,13 @@ def coalesced_sweep(
         raise ValueError(f"depth={depth} must be >= 1")
     if rounds_per_dispatch < 1:
         raise ValueError(f"rounds_per_dispatch={rounds_per_dispatch} must be >= 1")
-    if signed or collapsed:
-        raise ValueError("signed and collapsed cohorts wait for the signed coalesced "
-                         "megastep, which the port does not have yet")
+    if signed and scenario is not None:
+        raise ValueError("signed cohorts cannot carry scenario planes (the signed "
+                         "megastep has no mutating-round form)")
+    if collapsed and not signed:
+        raise ValueError("collapsed= is the signed relay dial; it needs signed=True")
     dev = resolve_device(device)
-    engine = resolve_engine(engine, dev, m)
+    engine = resolve_engine(engine, dev, m, signed)
     B, n = state.faulty.shape
     if len(slot_keys) != B:
         raise ValueError(f"{len(slot_keys)} slot key(s) for a batch of {B}")
@@ -1061,32 +1261,50 @@ def coalesced_sweep(
             strategy = torch.as_tensor(initial_strategy).to(dev, torch.int8).clone()
     elif initial_strategy is not None:
         raise ValueError("initial_strategy needs a scenario block")
-    names = SCENARIO_COUNTER_NAMES if is_scenario else COUNTER_NAMES
+    names = (SCENARIO_COUNTER_NAMES if is_scenario
+             else SIGNED_COUNTER_NAMES if signed else COUNTER_NAMES)
     counters = torch.zeros((B, len(names)), dtype=torch.int32, device=dev)
     upload = torch.cuda.Stream(dev) if is_scenario and dev.type == "cuda" else None
+    coalesced_fn, stage, lane = _engine_megasteps(engine)[2], None, None
 
-    def stage(lo, hi):
-        chunk = {name: planes[name][lo:hi] for name in EVENT_PLANES}
-        if all(isinstance(v, torch.Tensor) for v in chunk.values()):
-            return {name: v.to(dev).contiguous() for name, v in chunk.items()}, None
-        return _stage_chunk(chunk, dev, upload)
+    if is_scenario:
+        def stage(lo, hi):
+            chunk = {name: planes[name][lo:hi] for name in EVENT_PLANES}
+            if all(isinstance(v, torch.Tensor) for v in chunk.values()):
+                return {name: v.to(dev).contiguous() for name, v in chunk.items()}, None
+            return _stage_chunk(chunk, dev, upload)
+    elif signed:
+        from ba_tpu_torch.parallel.signing import SignAheadLane
+
+        lane = SignAheadLane(1, seed=sign_seed, pool=pool, cache=cache, device=dev)
+        ok_planes = lane.stage(0, rounds)
+
+        def stage(lo, hi):  # the B = 1 lane's verdicts, the same for every slot
+            return ok_planes[lo:hi].expand(hi - lo, B, ok_planes.shape[-1]), None
+
+        def coalesced_fn(state, sched, strategy, counters, verdicts, *, rounds, m, max_liars,
+                         scenario):
+            return coalesced_signed_megastep(state, sched, counters, verdicts, rounds=rounds,
+                                             m=m, collapsed=collapsed)
 
     out = _coalesced_loop(
-        state, sched, strategy, counters, stage if is_scenario else None,
-        _chunks(rounds, rounds_per_dispatch), m=m, max_liars=max_liars, depth=depth,
-        coalesced_fn=_engine_megasteps(engine)[2], exec_seam=exec_seam,
-        on_retire=on_retire,
+        state, sched, strategy, counters, stage, _chunks(rounds, rounds_per_dispatch), m=m,
+        max_liars=max_liars, depth=depth, coalesced_fn=coalesced_fn, exec_seam=exec_seam,
+        on_retire=on_retire, scenario=is_scenario,
     )
     out["counter_names"] = list(names)
     out["stats"]["engine"] = engine
+    if lane is not None:
+        out["stats"].update(_lane_stats(lane))
     return out
 
 
 def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_liars, depth,
-                    coalesced_fn, exec_seam, on_retire):
+                    coalesced_fn, exec_seam, on_retire, scenario):
     """The coalesced batch's dispatch loop: :func:`pipeline_sweep`'s
     depth-k retire discipline (pinned copies behind a CUDA event, no other
-    wait), each dispatch's event planes staged just before it."""
+    wait), each dispatch's planes (events, or a signed cohort's verdicts)
+    staged just before it."""
     inflight: collections.deque = collections.deque()
     retired = []
     max_in_flight = 0
@@ -1109,8 +1327,7 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_l
             if ready is not None:
                 torch.cuda.current_stream(state.device).wait_event(ready)
         call = functools.partial(coalesced_fn, state, sched, strategy, counters, events,
-                                 rounds=nr, m=m, max_liars=max_liars,
-                                 scenario=stage is not None)
+                                 rounds=nr, m=m, max_liars=max_liars, scenario=scenario)
         out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
         state, sched, strategy, majorities = out[:4]
         ys = out[4:]
@@ -1135,6 +1352,6 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_l
             "max_in_flight": max_in_flight,
         },
     }
-    if stage is not None:
+    if scenario:
         result["leaders"] = np.concatenate([ys[2] for ys in retired])
     return result

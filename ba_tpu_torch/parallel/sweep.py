@@ -1,8 +1,9 @@
 """Sweep states and one agreement round per instance with per-instance
 keys (``ba_tpu/parallel/sweep.py``: ``make_sweep_state``,
 ``bucketed_sweep_states``, ``decision_histogram``, ``agreement_step``:
-OM(1) on its coin-injected path, OM(m) through ``core/eig.py``; and
-``failover_sweep``, a kill-only campaign in one megastep)."""
+OM(1) on its coin-injected path, OM(m) through ``core/eig.py``;
+``signed_agreement_step``, the signed SM(m) round of the signed engine;
+and ``failover_sweep``, a kill-only campaign in one megastep)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 
 from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.eig import eig_round
-from ba_tpu_torch.core.om import om1_round_from_coins
+from ba_tpu_torch.core.om import om1_round_from_coins, round1_broadcast
 from ba_tpu_torch.core.quorum import majority_counts, quorum_decision
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
@@ -142,6 +143,41 @@ def agreement_step(keys: torch.Tensor, state: SimState, m: int = 1,
         "needed": needed,
         "total": total,
         "histogram": decision_histogram(decision),
+    }
+
+
+def signed_agreement_step(keys: torch.Tensor, state: SimState, ok: torch.Tensor,
+                          m: int = 1, collapsed: bool = False) -> dict:
+    """One signed SM(m) round per instance with per-instance keys
+    (``ba_tpu/parallel/sweep.py:321``); ``keys`` is ``[B, 2]`` key data.
+
+    Per instance, as a B = 1 round under its own key: split the key, the
+    commander's round-1 broadcast under the first half, each received
+    value gated on its table verdict (``ok`` [B, 2] bool, the round's
+    per-(instance, value) verdicts, by the reference's V = 2 select of
+    ``sig_valid_from_tables``; any other V raises), then ``sm_round``
+    under the second half: m relay rounds, exact, or collapsed with
+    ``collapsed``, and the quorum.  Returns the :func:`agreement_step` dict plus ``received``
+    [B, n], the round-1 values the signed counters read.
+    """
+    from ba_tpu_torch.core.sm import sm_round
+
+    if ok.shape[-1] != 2:
+        raise ValueError(f"ok {tuple(ok.shape)}: the signed round takes V = 2 verdict tables")
+    k1, k2 = rng.split(keys).unbind(-2)
+    received = round1_broadcast(k1, state)
+    sig_valid = torch.where(received == 1, ok[:, 1:2], ok[:, 0:1])
+    majorities = sm_round(k2, state, m, sig_valid=sig_valid, received=received,
+                          collapsed=collapsed)
+    n_attack, n_retreat, n_undefined = majority_counts(majorities, state.alive)
+    decision, needed, total = quorum_decision(n_attack, n_retreat, n_undefined)
+    return {
+        "majorities": majorities,
+        "decision": decision,
+        "needed": needed,
+        "total": total,
+        "histogram": decision_histogram(decision),
+        "received": received,
     }
 
 

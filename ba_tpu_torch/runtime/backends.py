@@ -90,9 +90,11 @@ class TorchBackend:
 
     ``protocol`` selects the agreement engine: ``"om"`` (oral messages —
     OM(1) at m == 1, the EIG tree otherwise) or ``"sm"`` (signed
-    messages, SM(m)).  ``signed=True`` (sm only) runs the Ed25519 path
-    each round: the host signs the commander's uttered values, the card
-    verifies them (K7, K5, K4, K3), and the validity mask gates the relay.
+    messages, SM(m)).  ``signed=True`` (sm only) runs the Ed25519 path:
+    a round signs the commander's uttered values on the host, the card
+    verifies them (K7, K5, K4, K3), and the validity mask gates the relay;
+    ``run_rounds`` runs the signed pipelined engine behind its sign-ahead
+    lane (signed by the process's default pool, verified on the card).
 
     ``device`` is the card unless given (``resolve_device``: no GPU
     raises).  ``rounds_per_dispatch`` is the pipelined engine's rounds a
@@ -122,7 +124,7 @@ class TorchBackend:
         self.protocol = protocol
         self.signed = signed
         self.rounds_per_dispatch = rounds_per_dispatch
-        self._keys = None  # cached (sks, pks) for the B = 1 commander
+        self._sign_lane = None  # the B = 1 commander's keys and round tables
 
     @staticmethod
     def _capacity(n: int) -> int:
@@ -150,14 +152,22 @@ class TorchBackend:
             ids=torch.from_numpy(ids).to(dev),
         )
 
+    def _lane(self):
+        """The B = 1 commander's lane (keys of seed 0, as the engine's
+        ``sign_seed``), made once; only its keys and tables are used."""
+        if self._sign_lane is None:
+            from ba_tpu_torch.parallel.signing import SignAheadLane
+
+            self._sign_lane = SignAheadLane(1, seed=0, pool=0, cache=0, device=self.device)
+        return self._sign_lane
+
     def _run_signed(self, state: SimState, key: torch.Tensor) -> torch.Tensor:
         from ba_tpu_torch.core.om import round1_broadcast
         from ba_tpu_torch.core.sm import sm_round
-        from ba_tpu_torch.crypto.signed import commander_keys, sign_received, verify_received
+        from ba_tpu_torch.crypto.signed import sign_received, verify_received
 
-        if self._keys is None:
-            self._keys = commander_keys(1, seed=0)
-        sks, pks = self._keys
+        lane = self._lane()
+        sks, pks = lane.sks, lane.pks
         k1, k2 = rng.split(key)
         received = round1_broadcast(k1, state)
         msgs, sigs = sign_received(sks, pks, received.cpu().numpy())
@@ -195,12 +205,13 @@ class TorchBackend:
         per-general block), each round's quorum decision code, and the
         engine's stats with its counters — or None for unsigned SM, which
         has no pipelined path (``Cluster`` then runs the rounds one by
-        one).  A signed backend raises: its pipelined engine (the signed
-        megastep and the sign-ahead lane) is not ported, and sequential
-        rounds would draw other coins than that engine does.
+        one).  A signed backend runs the signed megastep behind the
+        sign-ahead lane (``pipeline_sweep(signed=True)``, tables of
+        ``sign_seed`` 0); its last round's block is recomputed from the
+        same round's tables, verified exactly on the backend's device (K7,
+        K5, K4 and K3 on the card).
         """
         from ba_tpu_torch.parallel.pipeline import (
-            SIGNED_PENDING,
             fresh_copy,
             make_key_schedule,
             pipeline_sweep,
@@ -209,9 +220,7 @@ class TorchBackend:
         from ba_tpu_torch.parallel.sweep import agreement_step
 
         engine = None if engine == "auto" else engine
-        if self.signed:
-            raise ValueError(f"run_rounds on a signed backend: {SIGNED_PENDING}")
-        if self.protocol != "om":
+        if self.protocol != "om" and not self.signed:
             if engine == "cuda":
                 raise ValueError(f"engine={engine!r} unsupported: protocol="
                                  f"{self.protocol!r} unsigned has no pipelined path")
@@ -231,6 +240,7 @@ class TorchBackend:
             rounds_per_dispatch=min(rounds, self.rounds_per_dispatch),
             collect_decisions=True,
             with_counters=True,
+            signed=self.signed,
             engine=engine,
             device=self.device,
         )
@@ -238,7 +248,16 @@ class TorchBackend:
         # schedule (counter = rounds - 1): bit-exact with what the engine
         # ran, at the cost of one more B = 1 round.
         keys_last = round_keys(make_key_schedule(key, rounds - 1), 1)
-        maj = agreement_step(keys_last, state_copy, m=self.m)["majorities"]
+        if self.signed:
+            from ba_tpu_torch.crypto.signed import verify_exact
+            from ba_tpu_torch.parallel.sweep import signed_agreement_step
+
+            lane = self._lane()
+            msgs, sigs = lane.round_tables(rounds - 1)
+            ok = verify_exact(lane.pks, msgs, sigs, self.device)
+            maj = signed_agreement_step(keys_last, state_copy, ok, m=self.m)["majorities"]
+        else:
+            maj = agreement_step(keys_last, state_copy, m=self.m)["majorities"]
         majorities = maj[0, :n].tolist()
         decisions = [int(v) for v in out["decisions"][:, 0]]
         stats = dict(out["stats"], counters=out["counters"])

@@ -18,8 +18,9 @@ Extensions, as in the JAX package:
 
 - ``run-rounds <cmd> <R>`` — R agreement rounds in one pipelined device
   run: the last round's block in ``actual-order`` format, then a
-  ``Rounds: ...`` decision tally.  On a signed backend it prints the
-  backend's error: the signed pipelined engine is not ported yet.
+  ``Rounds: ...`` decision tally; on a signed backend (the signed
+  megastep behind the sign-ahead lane) then ``Signed lane:
+  sign_ahead_s=<s>, dispatches=<d>``.
 - ``scenario <file> [<ckpt-path> <every>] [engine=torch|cuda|auto]`` — a
   declarative scenario campaign through the pipelined mutating engine:
   the decision tally and the scenario counters, then the roster in the
@@ -105,23 +106,19 @@ def _dispatch(cluster: Cluster, cmd: list, out) -> bool:
             return True
         if rounds < 1:
             return True
-        try:
-            ran = cluster.actual_order_rounds(cmd[1], rounds)
-        except ValueError as e:
-            # A signed backend refuses: its pipelined engine is not ported
-            # yet.  Any other ValueError is a fault and raises.
-            if not getattr(cluster.backend, "signed", False):
-                raise
-            out(f"run-rounds error: {e}")
-            return True
+        ran = cluster.actual_order_rounds(cmd[1], rounds)
         if ran is None:
             return True
-        res, counts, _stats = ran
+        res, counts, stats = ran
         _print_round(res, out)
         out(
             f"Rounds: {rounds} - attack={counts['attack']}, "
             f"retreat={counts['retreat']}, undefined={counts['undefined']}"
         )
+        if stats and stats.get("signed"):
+            # the sign-ahead lane ran: its overlap wall and the dispatches
+            out(f"Signed lane: sign_ahead_s={stats.get('sign_ahead_s')}, "
+                f"dispatches={stats.get('dispatches')}")
 
     elif command == "scenario":
         _scenario(cluster, cmd, out)

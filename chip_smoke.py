@@ -7,9 +7,15 @@ its kernels against their plain PyTorch versions.
 The paths, each through its hand-written kernels:
 - the interactive REPL, ``python -m ba_tpu_torch.runtime.main`` and its
   ``handle_command``: ``actual-order`` (no kernel at m = 1; K9 at m = 2;
-  K7, K5, K4 and K3 on a signed backend), ``run-rounds`` (K1, plain) and
-  ``scenario`` (K1, scenario), its output byte for byte the JAX
-  package's;
+  K7, K5, K4 and K3 on a signed backend), ``run-rounds`` (K1, plain; on a
+  signed backend the signed pipelined engine, K7, K5, K4 and K3 in its
+  last round's check) and ``scenario`` (K1, scenario), its output byte
+  for byte the JAX package's;
+- the signed SM(m) pipelined engine, ``pipeline_sweep(signed=True)``: the
+  signed megastep (plain torch, as the reference's runs in XLA) behind
+  the sign-ahead lane, which signs each window's round tables on the host
+  and verifies them on the card through K7, K5, K4 and K3 (its device
+  route), or on the host with a live signing pool;
 - the oral OM(1) pipelined engine: ``pipeline_sweep`` (plain sweeps) and
   ``scenario_sweep`` (mutating campaigns), both through K1, the megastep
   kernel (``ba_tpu_torch/ops/csrc/megastep.cu``);
@@ -248,8 +254,33 @@ Phases, one JSON line each:
    file validated and each one before the end resumed on the CPU's torch
    engine bit-equal to the card's run; one signed ``actual-order
    retreat`` at n = 4, the reference's quorum line; each command's wall
-   and ``run-rounds``' agreement-rounds/s; the launches join K1's, K9's
-   and the Ed25519 kernels' lines (K1's REPL dispatches as ``repl_path``);
+   and ``run-rounds``' agreement-rounds/s; then the signed session,
+   ``main 4 --protocol sm --signed`` with ``run-rounds attack 8`` through
+   the launcher on the card and on the CPU, every line equal but
+   ``sign_ahead_s``'s value, and the same ``run-rounds`` in-process on
+   the card (K7, K5, K4, K3 twice each: the lane's one pass and the last
+   round's check), once more recorded; the launches join K1's, K9's and the Ed25519 kernels' lines
+   (K1's REPL dispatches as ``repl_path``);
+32. ``signed_pipeline_middle``: ``pipeline_sweep(signed=True)`` at B = 64,
+   capacity 64 (``make_sweep_state``, every fourth leader faulty), m = 2,
+   the exact relay, 6 rounds 2 a dispatch, every seventh instance's
+   ATTACK signature corrupted in every round, on the card with ``pool=0``
+   (the lane's device route: K7, K5, K4, K3 and nothing else launched)
+   and on the CPU (the native host verifier): decisions, histograms,
+   counters (``sig_rejections`` as many as were corrupted) and final
+   state bit-equal; once more on the card, recorded;
+33. ``signed_pipeline_full_width``: B = 10 240 at capacity 1024, m = 3,
+   the collapsed relay, 16 rounds 4 a dispatch, depth 2, ``sign_seed`` 0,
+   two windows a lane pass (163 840 verify lanes, VERIFY_CHUNK pieces):
+   run A with ``pool=0`` (device route; 6 launches each of K7, K5, K4,
+   K3), run B with the default pool signing and the card verifying (the
+   same launches; every worker alive), run C ``sequential_signed_sweep`` for 4 rounds — bit-equal in
+   decisions, histograms and counters (C against A's first 4 rounds);
+   each run's wall and agreement-rounds/s, the lane's ``sign_ahead_s``,
+   ``sign_s``, ``verify_s`` and ``pool_s``, host signatures/s, one
+   dispatch of the signed megastep and of its threefry draws alone (CUDA
+   events), the pool's workers and the host's cores; run A once more with
+   its dispatches recorded for the kernels line;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
@@ -257,8 +288,9 @@ what the main paths recorded (phases 17 and 18 each run once more with
 their dispatches recorded, inputs copied before each dispatch): each
 setup route run once more with its dispatches recorded (the wrappers'
 arguments and outputs, taken at their modules), and one call of each of
-config #3's legs on its first inputs, and one more run of phase 27's
-path; K9 likewise, from one more call of
+config #3's legs on its first inputs, one more run of phase 27's
+path, of phase 31's two signed commands, of phase 32's card run and of
+phase 33's run A; K9 likewise, from one more call of
 config #2 and of eig_n1024 and one more m = 2 sweep; every recorded dispatch is held
 against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
@@ -3637,6 +3669,11 @@ K1_REPL_WRAPPERS = {"K1 plain": scenario_step.cuda_pipeline_megastep,
                     "K1 scenario": scenario_step.cuda_scenario_megastep}
 SIGNED_GOLDEN = ("Execute order: retreat! Non-faulty nodes in the system - "
                  "3 out of 4 quorum suggests retreat")  # tests/test_backends.py:120-122
+# The signed session: SM(1) with Ed25519 at n = 4, run-rounds through the signed
+# pipelined engine; its lines differ between backends only in sign_ahead_s's value.
+SIGNED_SCRIPT = "g-state 2 faulty\nrun-rounds attack 8\nExit\n"
+SIGNED_ARGS = ("--protocol", "sm", "--signed")
+SIGN_AHEAD = re.compile(r"sign_ahead_s=[0-9.e-]+")
 
 
 def reset_all_launches():
@@ -3645,13 +3682,13 @@ def reset_all_launches():
     reset_ed_launches()
 
 
-def launcher(backend):
-    """REPL_SCRIPT through ``python -m ba_tpu_torch.runtime.main 4 --backend
-    <backend>`` -> (stdout, wall s); it must exit 0."""
+def launcher(backend, script=REPL_SCRIPT, args=()):
+    """``script`` through ``python -m ba_tpu_torch.runtime.main 4 --backend
+    <backend> <args>`` -> (stdout, wall s); it must exit 0."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "ba_tpu_torch.runtime.main", "4", "--backend", backend],
-        input=REPL_SCRIPT, capture_output=True, text=True, timeout=600, cwd=ROOT)
+        [sys.executable, "-m", "ba_tpu_torch.runtime.main", "4", "--backend", backend, *args],
+        input=script, capture_output=True, text=True, timeout=600, cwd=ROOT)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0,
           f"the launcher with --backend {backend} exited {proc.returncode}: {proc.stderr[-2000:]}")
@@ -3745,6 +3782,12 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
     4. One signed round, ``actual-order retreat`` on SM(1) with Ed25519 at
        n = 4: the reference's quorum line; K7, K5, K4 and K3 launched, and
        the round once more with its dispatches recorded.
+    5. The signed session, ``main 4 --protocol sm --signed`` on SIGNED_SCRIPT
+       (``run-rounds attack 8``: the signed megastep behind the sign-ahead
+       lane and its default pool) with ``--backend`` cuda and torch (the
+       CPU): every line equal but ``sign_ahead_s``'s value.  In-process,
+       the same ``run-rounds`` on the card launches K7, K5, K4 and K3 once
+       each (the last round's recomputed check), and once more recorded.
     """
     walls = {}
     std = {b: launcher(b) for b in (REPL_CARD_BACKEND, "torch", "py")}
@@ -3863,6 +3906,29 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
                      ["actual-order retreat"])
     check(again == signed_lines, "the recorded signed round printed other lines")
 
+    signed_std = {b: launcher(b, SIGNED_SCRIPT, SIGNED_ARGS) for b in (REPL_CARD_BACKEND, "torch")}
+    masked = {b: SIGN_AHEAD.sub("sign_ahead_s=*", out).splitlines()
+              for b, (out, _) in signed_std.items()}
+    check(masked[REPL_CARD_BACKEND] == masked["torch"],
+          "the signed session's lines differ between card and CPU")
+    check(masked["torch"][-2:] == ["Rounds: 8 - attack=8, retreat=0, undefined=0",
+                                   "Signed lane: sign_ahead_s=*, dispatches=1"],
+          f"the signed session printed {masked['torch'][-2:]}")
+    rr_line = "run-rounds attack 8"
+    rr = Cluster(4, TorchBackend(device=dev, protocol="sm", signed=True), seed=1)
+    repl(rr, ["g-state 2 faulty"])
+    reset_all_launches()
+    rr_lines = repl(rr, [rr_line], walls, "SM(1) signed, n 4")
+    rr_launches = ed_launches()
+    check(all(rr_launches[k] == 2 for k in LANE_KERNELS)
+          and sum(rr_launches.values()) == 2 * len(LANE_KERNELS),
+          f"signed run-rounds launches {rr_launches}")  # the lane's one pass, the last round
+    with recording(ED_WRAPPERS) as rr_calls:
+        rr_again = Cluster(4, TorchBackend(device=dev, protocol="sm", signed=True), seed=1)
+        again = repl(rr_again, ["g-state 2 faulty", rr_line])[4:]
+    check([SIGN_AHEAD.sub("", x) for x in again] == [SIGN_AHEAD.sub("", x) for x in rr_lines],
+          "the recorded signed run-rounds printed other lines")
+
     emit({"phase": "repl_cuda", "card": card,
           "launcher": {"stdout_bytes": len(card_out), "equal_to_reference_golden": True,
                        "equal_to_torch_cpu": True, "coin_free_lines_equal_to_py": k,
@@ -3877,12 +3943,228 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
           "k1_plain_launches": plain_launches + timed_launches,
           "k1_scenario_launches": scen_launches + ck_launches, "k9_launches": k9_launches,
           "resumed_on_cpu_from_rounds": resumed, "signed_launches": signed_launches,
-          "signed_line": signed_lines[-1]})
+          "signed_line": signed_lines[-1],
+          "signed_session": {"lines_equal_but_sign_ahead_s": len(masked["torch"]),
+                             "wall_s": {b: w for b, (_, w) in signed_std.items()},
+                             "signed_lane_lines": [x for x in rr_lines
+                                                   if x.startswith("Signed lane")],
+                             "run_rounds_launches": rr_launches}})
     return {"plain": plain_launches + timed_launches, "plain_path": plain_path,
             "scenario": scen_launches + ck_launches, "scenario_path": scen_path,
             "k9": (f"repl_cuda: m = 2 roster, {' / '.join(eig_lines)} (n {N_REPL_EIG})",
                    k9_calls, k9_launches, 1),
-            "ed": ("repl_cuda: signed actual-order retreat (n 4)", ed_calls, signed_launches, 1)}
+            "ed": [("repl_cuda: signed actual-order retreat (n 4)", ed_calls, signed_launches, 1),
+                   (f"repl_cuda: signed {rr_line} (n 4), the lane and the last round's check",
+                    rr_calls,
+                    rr_launches, 1)]}
+
+
+# -- the signed SM(m) pipelined engine and its sign-ahead lane -------------------
+
+B_SPM, CAP_SPM, M_SPM, R_SPM, RPD_SPM = 64, 64, 2, 6, 2  # signed_pipeline_middle
+CORRUPT_EVERY_SPM = 7  # signed_pipeline_middle: the instances whose tables are corrupted
+# signed_pipeline_full_width: config #5's shape through the general engine
+B_SPF, CAP_SPF, M_SPF, R_SPF, RPD_SPF, DEPTH_SPF = 10_240, 1024, 3, 16, 4, 2
+R_SEQ = 4  # run C's rounds, held against run A's first ones
+SIGN_COALESCE = 2  # pipeline_sweep's default: two windows a lane pass
+LANE_KERNELS = ("K7", "K5", "K4", "K3")  # the exact verify of the round tables
+
+
+def signed_arrays(key, B, cap):
+    """``make_sweep_state``'s draws with the leader faulty in every fourth
+    instance, so the commander-equivocation counter moves."""
+    arrays = convert.state_to_numpy(sweep.make_sweep_state(key, B, cap, order=1))
+    arrays["faulty"][::4, 0] = True
+    return arrays
+
+
+def same_signed_run(a, b, what, names=("histograms", "decisions", "counters_per_round")):
+    for name in names:
+        check(np.array_equal(a[name], b[name]), f"{what}: {name} differ")
+    check(a["counters"] == b["counters"], f"{what}: counters {a['counters']} != {b['counters']}")
+    for name in ("order", "leader", "faulty", "alive", "ids"):
+        check(torch.equal(getattr(a["final_state"], name).cpu(),
+                          getattr(b["final_state"], name).cpu()), f"{what}: final {name}")
+
+
+def lane_launches_only(launches, what):
+    """The lane's device route launches K7, K5, K4 and K3 and nothing else."""
+    check(all(launches[k] > 0 for k in LANE_KERNELS)
+          and not any(v for k, v in launches.items() if k not in LANE_KERNELS),
+          f"{what}: launches {launches}")
+
+
+@contextlib.contextmanager
+def corrupted_tables(every):
+    """While open, the lane's in-process signer flips one byte of the
+    ATTACK signature of every ``every``-th instance in every round it
+    signs, so those verdicts are False and ``sig_rejections`` moves."""
+    from ba_tpu_torch.parallel import signing
+
+    real = signing.SignAheadLane._sign_inprocess
+
+    def corrupt(self, rounds):
+        sigs = real(self, rounds)
+        sigs[:, ::every, ATTACK, 0] ^= 0xFF
+        return sigs
+
+    signing.SignAheadLane._sign_inprocess = corrupt
+    try:
+        yield
+    finally:
+        signing.SignAheadLane._sign_inprocess = real
+
+
+def phase_signed_pipeline_middle(dev, seed):
+    """``pipeline_sweep(signed=True)`` at B = 64, capacity 64, m = 2, the
+    exact relay, 6 rounds 2 a dispatch, every seventh instance's ATTACK
+    signature corrupted in every round: on the card with ``pool=0`` (the
+    device route, K7, K5, K4 and K3 verifying each window's tables), then
+    on the CPU (the native host verifier).  Decisions, histograms,
+    counters (``sig_rejections`` > 0 among them) and the final state
+    bit-equal: the kernels' verdicts, rejections included, held against
+    the host's along the whole path.  Run once more on the card with its
+    dispatches recorded for the kernels line."""
+    key = rng.key(seed + 17, device=dev)
+    arrays = signed_arrays(key, B_SPM, CAP_SPM)
+    kw = dict(signed=True, m=M_SPM, rounds_per_dispatch=RPD_SPM, collect_decisions=True,
+              pool=0, cache=0)
+    with corrupted_tables(CORRUPT_EVERY_SPM):
+        reset_ed_launches()
+        card = pipeline.pipeline_sweep(key, to_state(arrays, dev), R_SPM, device=dev, **kw)
+        sync()
+        launches = ed_launches()
+        cpu = pipeline.pipeline_sweep(key.cpu(), to_state(arrays, "cpu"), R_SPM, device="cpu",
+                                      **kw)
+        with recording(ED_WRAPPERS) as calls:
+            again = pipeline.pipeline_sweep(key, to_state(arrays, dev), R_SPM, device=dev, **kw)
+    lane_launches_only(launches, "signed_pipeline_middle")
+    same_signed_run(card, cpu, "signed pipeline, card against CPU")
+    same_signed_run(card, again, "the recorded signed pipeline")
+    rejected = len(range(0, B_SPM, CORRUPT_EVERY_SPM)) * R_SPM
+    check(card["counters"]["sig_rejections"] == rejected,
+          f"sig_rejections {card['counters']['sig_rejections']}, {rejected} corrupted")
+    check(card["counters"]["commander_equivocations"] > 0, "no equivocation was counted")
+    emit({"phase": "signed_pipeline_middle", "B": B_SPM, "capacity": CAP_SPM, "m": M_SPM,
+          "rounds": R_SPM, "rounds_per_dispatch": RPD_SPM, "card_equals_cpu": True,
+          "corrupted_every": CORRUPT_EVERY_SPM, "counters": card["counters"],
+          "launches": launches})
+    return (f"signed_pipeline_middle (B {B_SPM}, corrupted tables)", calls, launches, 1)
+
+
+def relay_draws(keys, n, m):
+    """The threefry draws of one ``signed_agreement_step`` on per-instance
+    keys: the splits, round 1's coins and m collapsed relay rounds'
+    uniforms (what the step draws, without the rest of the round)."""
+    k1, k2 = rng.split(keys).unbind(-2)
+    out = [rng.coin_bits(k1, (n,))]
+    relay = rng.split(k2).unbind(-2)[1]
+    out += [rng.uniform_u8(rng.fold_in(relay, r), (n, 2)) for r in range(1, m + 1)]
+    return out
+
+
+def phase_signed_pipeline_full_width(dev, seed, card):
+    """The north star's shape through the general signed engine: B = 10 240
+    instances at capacity 1024 (``make_sweep_state``, the leader faulty in
+    every fourth), m = 3, the collapsed relay, 16 rounds 4 a dispatch,
+    depth 2, ``sign_seed`` 0, two windows a lane pass, no cache.
+
+    A. ``pool=0``: in-process signing, the tables verified on the card
+       (the device route: 163 840 lanes a pass in VERIFY_CHUNK pieces,
+       K7, K5, K4, K3); launches counted.
+    B. the default pool signing (its workers started first, every one
+       alive at the end), the tables verified on the card as in A: the
+       same launches.
+    C. ``sequential_signed_sweep``, the blocking driver, for the first
+       R_SEQ rounds, verifying on the card.
+    A, B and C bit-equal in decisions, histograms and counters (C against
+    A's first R_SEQ rounds), A and B in the final state too.  Then the
+    signed megastep of one dispatch and its threefry draws alone (CUDA
+    events), and run A once more with its kernel dispatches recorded.
+    """
+    from ba_tpu_torch.crypto import pool as pool_mod
+    from ba_tpu_torch.parallel import signing
+
+    t_phase = time.perf_counter()
+    key = rng.key(seed + 5, device=dev)
+    arrays = signed_arrays(rng.fold_in(key, 1), B_SPF, CAP_SPF)
+    kw = dict(signed=True, m=M_SPF, collapsed=True, rounds_per_dispatch=RPD_SPF,
+              depth=DEPTH_SPF, sign_seed=0, sign_coalesce=SIGN_COALESCE,
+              collect_decisions=True, cache=0, device=dev)
+
+    def run(pool):
+        sync()
+        t0 = time.perf_counter()
+        out = pipeline.pipeline_sweep(key, to_state(arrays, dev), R_SPF, pool=pool, **kw)
+        sync()
+        return out, time.perf_counter() - t0
+
+    reset_ed_launches()
+    out_a, wall_a = run(0)
+    launches = ed_launches()
+    lane_launches_only(launches, "run A")
+    passes = -(-R_SPF // (RPD_SPF * SIGN_COALESCE))
+    lanes = RPD_SPF * SIGN_COALESCE * B_SPF * 2
+    check(all(launches[k] == passes * -(-lanes // signed.VERIFY_CHUNK) for k in LANE_KERNELS),
+          f"run A: {launches} for {passes} passes of {lanes} lanes")
+
+    workers = pool_mod.default_workers()
+    check(workers > 0, f"the default pool has no workers on {os.cpu_count()} cores")
+    pool = pool_mod.default_pool()
+    check(pool is not None and pool.workers == workers, "the default pool did not start")
+    reset_ed_launches()
+    out_b, wall_b = run(None)
+    check(ed_launches() == launches, f"run B launched {ed_launches()}, run A {launches}")
+    check(out_b["stats"]["sign_pool_s"] > 0, "run B: the pool signed nothing")
+    check(pool.workers == workers and pool.degraded == 0,
+          f"pool: {pool.workers} of {workers} workers alive, {pool.degraded} degraded")
+    same_signed_run(out_a, out_b, "run A against run B")
+
+    sync()
+    t0 = time.perf_counter()
+    out_c = signing.sequential_signed_sweep(key, to_state(arrays, dev), R_SEQ, m=M_SPF,
+                                            collapsed=True, device=dev)
+    wall_c = time.perf_counter() - t0
+    for name in ("histograms", "decisions"):
+        check(np.array_equal(out_c[name], out_a[name][:R_SEQ]), f"run C: {name} differ")
+    want = dict(zip(pipeline.SIGNED_COUNTER_NAMES, out_a["counters_per_round"][R_SEQ - 1]))
+    check(out_c["counters"] == {k: int(v) for k, v in want.items()},
+          f"run C counters {out_c['counters']} != run A's {want}")
+    check(out_a["counters"]["commander_equivocations"] > 0, "no equivocation was counted")
+
+    # one dispatch of the megastep alone, and its threefry draws alone
+    lane = signing.SignAheadLane(B_SPF, pool=0, cache=0, device=dev)
+    ok = lane.stage(0, RPD_SPF)
+    state = to_state(arrays, dev)
+    sched = pipeline.make_key_schedule(key)
+    ctr = pipeline.signed_counters_init(dev)
+    megastep_ms = time_cuda(lambda: pipeline.signed_megastep(
+        state, sched, ctr, ok, rounds=RPD_SPF, m=M_SPF, collapsed=True), reps=3)
+    keys = pipeline.round_keys(sched, B_SPF)
+    draws_ms = time_cuda(lambda: relay_draws(keys, CAP_SPF, M_SPF), reps=3) * RPD_SPF
+
+    with recording(ED_WRAPPERS) as calls:
+        again, _ = run(0)
+    same_signed_run(out_a, again, "the recorded run A")
+    stats = {tag: {k: out["stats"][k] for k in ("sign_ahead_s", "host_sign_s", "host_verify_s",
+                                                 "sign_pool_s", "sign_pool_workers")}
+             for tag, out in (("A", out_a), ("B", out_b))}
+    sigs = B_SPF * 2 * R_SPF
+    emit({"phase": "signed_pipeline_full_width", "card": card, "B": B_SPF,
+          "capacity": CAP_SPF, "m": M_SPF, "collapsed": True, "rounds": R_SPF,
+          "rounds_per_dispatch": RPD_SPF, "depth": DEPTH_SPF, "sign_coalesce": SIGN_COALESCE,
+          "a_equals_b_equals_c": True, "counters": out_a["counters"],
+          "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c},
+          "agreement_rounds_per_s": {"A": B_SPF * R_SPF / wall_a, "B": B_SPF * R_SPF / wall_b,
+                                     "C": B_SPF * R_SEQ / wall_c},
+          "lane": stats, "sequential_timings": out_c["timings"],
+          "host_signatures_per_s": {tag: sigs / st["host_sign_s"] for tag, st in stats.items()},
+          "signatures": sigs, "verify_lanes_a_pass": lanes,
+          "megastep_ms_a_dispatch": megastep_ms, "threefry_draws_ms_a_dispatch": draws_ms,
+          "threefry_share_of_megastep": draws_ms / megastep_ms,
+          "pool_workers": workers, "cpu_count": os.cpu_count(), "launches_a": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return ("signed_pipeline_full_width: run A, the lane's device route", calls, launches, 1)
 
 
 def main(argv=None) -> int:
@@ -3936,6 +4218,8 @@ def main(argv=None) -> int:
     phase_ladder_pow_middle(dev, rs)
     ladder_pow = phase_ladder_pow_full_width(dev, rs, card)
     shell = phase_repl_cuda(dev, card, int_ops_per_s)
+    signed_middle = phase_signed_pipeline_middle(dev, args.seed)
+    signed_path = phase_signed_pipeline_full_width(dev, args.seed, card)
     plain_launches["repl_cuda"] = shell["plain"]
     scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
@@ -3945,7 +4229,9 @@ def main(argv=None) -> int:
                              int_ops_per_s, shell["scenario_path"]),
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
-        *kernel_lines_crypto([*setup_paths, c3, ladder_pow, shell["ed"]], int_ops_per_s),
+        *kernel_lines_crypto([*setup_paths, c3, ladder_pow, *shell["ed"], signed_middle,
+                              signed_path],
+                             int_ops_per_s),
         kernel_line_k9([*k9_paths, shell["k9"]], int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")

@@ -171,12 +171,38 @@ def test_noncanonical_run_rounds_takes_the_quirk_path(jax_backends):
 
 
 def test_signed_run_rounds_raises():
+    """A signed backend's ``run_rounds`` refuses the fused CUDA engine,
+    which has no signed form, before it runs a round."""
+    gens = Cluster(4, PyBackend(), seed=0).generals
     backend = TorchBackend(device="cpu", protocol="sm", signed=True)
-    cluster = Cluster(4, backend, seed=0)
-    with pytest.raises(ValueError, match="signed megastep"):
-        backend.run_rounds(cluster.generals, 0, 1, 0, 3)
     with pytest.raises(ValueError, match="signed"):
-        cluster.actual_order_rounds("attack", 3)
+        backend.run_rounds(gens, 0, 1, 42, 3, engine="cuda")
+
+
+def test_signed_run_rounds_matches_the_reference(jax_backends, monkeypatch):
+    """A signed backend's ``run_rounds`` runs the signed pipelined engine:
+    the last round's majorities, the decisions and the signed counters
+    equal ``JaxBackend``'s (its pool off)."""
+    from ba_tpu.crypto import pool as j_pool
+
+    from ba_tpu_torch.crypto import pool as t_pool
+
+    monkeypatch.setenv("BA_TPU_SIGN_POOL", "0")
+    monkeypatch.setattr(t_pool, "default_workers", lambda: 0)
+    j_pool.shutdown_defaults()
+    t_pool.shutdown_defaults()
+    try:
+        gens = Cluster(4, PyBackend(), seed=0).generals
+        gens[1].faulty = True
+        backend = TorchBackend(device="cpu", protocol="sm", signed=True)
+        got = backend.run_rounds(gens, 0, 1, 42, 6)
+        want = _jax_backend(jax_backends, "signed").run_rounds(gens, 0, 1, 42, 6)
+    finally:
+        j_pool.shutdown_defaults()
+        t_pool.shutdown_defaults()
+    assert got[:2] == tuple(want[:2])
+    assert got[2]["counters"] == want[2]["counters"]
+    assert got[2]["signed"] is True and got[2]["dispatches"] == want[2]["dispatches"] == 1
 
 
 def _spec(tmp_path, doc, name="spec.json"):

@@ -303,14 +303,19 @@ def test_resume_validation_errors(tmp_path):
 
 
 def test_signed_carries_raise(tmp_path):
-    """The port has no signed engine yet: signed=True raises, a signed
-    carry is not written, and a signed file (the reference's header
-    form) loads but does not resume."""
+    """A signed carry is written with the signed counter table and refuses
+    to resume an oral sweep; a signed file in the reference's header form
+    loads and refuses the same way, and is rewritten unchanged."""
     arrays = _state_arrays()
-    with pytest.raises(ValueError, match="signed"):
-        tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), R, signed=True,
-                          checkpoint_every=2, checkpoint_path=str(tmp_path / "s.npz"),
-                          device="cpu")
+    signed_ck = str(tmp_path / "s_{round}.npz")
+    tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), R, signed=True,
+                      rounds_per_dispatch=2, checkpoint_every=4, checkpoint_path=signed_ck,
+                      device="cpu", pool=0)
+    meta = snapshot.validate_carry_checkpoint(signed_ck.format(round=4))
+    assert meta["signed"] and meta["counter_names"] == list(tp.SIGNED_COUNTER_NAMES)
+    with pytest.raises(ValueError, match="crosses protocols"):
+        tp.pipeline_sweep(None, None, R, resume=signed_ck.format(round=4), with_counters=True,
+                          rounds_per_dispatch=2, device="cpu")
     path = str(tmp_path / "p_{round}.npz")
     tp.pipeline_sweep(rng.key(0, device="cpu"), _tstate(arrays), 4, with_counters=True,
                       device="cpu", checkpoint_every=2, checkpoint_path=path)
@@ -324,8 +329,11 @@ def test_signed_carries_raise(tmp_path):
     with pytest.raises(ValueError, match="crosses protocols"):
         tp.pipeline_sweep(None, None, 4, resume=signed_path, with_counters=True,
                           device="cpu")
-    with pytest.raises(ValueError, match="signed"):
-        tp.save_carry_checkpoint(str(tmp_path / "w.npz"), ck)
+    with pytest.raises(ValueError, match="crosses protocols"):
+        tp.pipeline_sweep(None, None, 4, resume=path.format(round=2), signed=True,
+                          device="cpu", pool=0)
+    tp.save_carry_checkpoint(str(tmp_path / "w.npz"), ck)
+    assert snapshot.read_carry_checkpoint(str(tmp_path / "w.npz"))[0]["signed"]
     # a block whose stored names differ from the table the header picks
     snapshot.write_carry_checkpoint(signed_path, host, dict(
         meta, counter_names=list(tp.SIGNED_COUNTER_NAMES)))

@@ -278,7 +278,7 @@ def test_coalesced_validation():
     with pytest.raises(ValueError, match="scenario planes"):
         run(keys, _tstate(arrays), 4, scenario=planes)
     with pytest.raises(ValueError, match="signed"):
-        run(keys, _tstate(arrays), 4, signed=True)
+        run(keys, _tstate(arrays), 4, signed=True, scenario=planes, pool=0)
     with pytest.raises(ValueError, match="signed"):
         run(keys, _tstate(arrays), 4, collapsed=True)
     with pytest.raises(ValueError, match="m=2"):  # K1 is OM(1) only; m = 2 runs on "torch"

@@ -39,7 +39,9 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
     for name in ("ba_tpu_torch.ops.scenario_step", "ba_tpu_torch.utils.snapshot",
                  "ba_tpu_torch.obs.flight", "ba_tpu_torch.scenario.__main__",
                  "ba_tpu_torch.runtime.backends", "ba_tpu_torch.runtime.cluster",
-                 "ba_tpu_torch.runtime.repl", "ba_tpu_torch.runtime.main"):
+                 "ba_tpu_torch.runtime.repl", "ba_tpu_torch.runtime.main",
+                 "ba_tpu_torch.crypto.pool", "ba_tpu_torch.crypto.tables",
+                 "ba_tpu_torch.parallel.signing"):
         assert name in MODULES, name
 
 

@@ -159,12 +159,20 @@ def test_unported_scenario_tokens_print_one_line(cluster4, tokens, name):
     assert [g.id for g in cluster4.generals] == [1, 2, 3, 4]  # nothing ran
 
 
-def test_run_rounds_on_a_signed_backend_prints_its_error():
+def test_run_rounds_on_a_signed_backend_prints_the_lane_line(monkeypatch):
+    """A signed backend runs ``run-rounds`` through the signed pipelined
+    engine: the round's block, the tally and the ``Signed lane:`` line,
+    and no error line (the default signing pool without workers here)."""
+    from ba_tpu_torch.crypto import pool
+
+    monkeypatch.setattr(pool, "default_workers", lambda: 0)
+    pool.shutdown_defaults()
     cluster = Cluster(4, TorchBackend(device="cpu", protocol="sm", signed=True), seed=0)
     out = drive(cluster, ["run-rounds attack 2"])
-    assert len(out) == 1 and out[0].startswith("run-rounds error: run_rounds on a signed backend")
-    assert "signed megastep" in out[0]
-    assert cluster._round == 0
+    assert len(out) == 7 and not any("error" in line for line in out)
+    assert out[5] == "Rounds: 2 - attack=2, retreat=0, undefined=0"
+    assert out[6].startswith("Signed lane: sign_ahead_s=") and out[6].endswith(", dispatches=1")
+    assert cluster._round == 2
 
 
 def test_run_rounds_fault_on_an_unsigned_backend_raises(monkeypatch):
