@@ -404,3 +404,22 @@ def signed_sm_agreement(key: torch.Tensor, state: SimState, m: int, withhold=Non
     out = sm_agreement(k2, state, m, withhold, sig_valid, received, collapsed)
     out["sig_valid"] = sig_valid
     return out
+
+
+def signed_sm_agreement_sharded(mesh, key: torch.Tensor, state: SimState, m: int,
+                                corrupt: np.ndarray | None = None, seed: int = 0,
+                                collapsed: bool = True) -> dict:
+    """Signed SM(m) across a device mesh (``ba_tpu/crypto/signed.py:896``):
+    :func:`sign_round1` (on the card its verify runs K7, K5, K4 and K3),
+    then the relay and the quorum node-sharded
+    (``parallel/sm_parallel.sm_node_sharded``): instances over "data", each
+    cluster's generals over "node".  Returns its dict plus ``sig_valid``."""
+    from ba_tpu_torch.parallel.mesh import gather_tree
+    from ba_tpu_torch.parallel.sm_parallel import sm_node_sharded
+
+    state = gather_tree(state)
+    k2, received, sig_valid = sign_round1(key, state, seed, corrupt)
+    out = sm_node_sharded(mesh, k2, state, m, received=received, sig_valid=sig_valid,
+                          collapsed=collapsed)
+    out["sig_valid"] = sig_valid
+    return out

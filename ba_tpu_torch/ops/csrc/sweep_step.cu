@@ -56,9 +56,11 @@
 //
 // Randomness: Philox4x32-10, written out here and in the plain version
 // (ba_tpu_torch/ops/sweep_step.py) so the two are bit-equal; no library
-// generator.  Key (seed, b), counter (rr, j, d / 4, 0), draw d = word
+// generator.  Key (seed, index_base + b), counter (rr, j, d / 4, 0), draw d = word
 // d % 4: d = 0 the round-1 coin (bit 0), d = r relay round r (byte 0 for
-// RETREAT, byte 1 for ATTACK).  A draw is computed only where its value
+// RETREAT, byte 1 for ATTACK).  index_base is the global index of the
+// launch's first instance: a shard of a larger batch draws the streams the
+// whole batch's launch would.  A draw is computed only where its value
 // can matter: alive non-leader recipients of a faulty leader, and alive
 // generals in a relay round whose threshold lies strictly inside (0, 256).
 //
@@ -141,11 +143,11 @@ __device__ __forceinline__ uint32_t seg_sum(uint32_t v) {
 // of `todo` is general j0 + step i.
 // Round 1: a faulty leader's coins (bit 0 of draw 0).
 __device__ __noinline__ uint32_t round1_coins(uint32_t todo, int rr, int j0, int step,
-                                              uint32_t seed, int b) {
+                                              uint32_t seed, uint32_t kb) {
     uint32_t coins = 0u;
     for (; todo; todo &= todo - 1) {
         const int i = __ffs(todo) - 1;
-        coins |= (philox_word(rr, j0 + step * i, 0, seed, b) & 1u) << i;
+        coins |= (philox_word(rr, j0 + step * i, 0, seed, kb) & 1u) << i;
     }
     return coins;
 }
@@ -154,13 +156,13 @@ __device__ __noinline__ uint32_t round1_coins(uint32_t todo, int rr, int j0, int
 // th_r for RETREAT, byte 1 below th_a for ATTACK; a threshold of 0 or 256
 // draws nothing).
 __device__ __noinline__ uint2 relay_draws(uint32_t todo, int rr, int j0, int step, int r,
-                                          uint32_t seed, int b, int th_r, int th_a) {
+                                          uint32_t seed, uint32_t kb, int th_r, int th_a) {
     const bool draw_r = th_r > 0 && th_r < 256;
     const bool draw_a = th_a > 0 && th_a < 256;
     uint2 fire = make_uint2(0u, 0u);
     for (; todo; todo &= todo - 1) {
         const int i = __ffs(todo) - 1;
-        const uint32_t x = philox_word(rr, j0 + step * i, r, seed, b);
+        const uint32_t x = philox_word(rr, j0 + step * i, r, seed, kb);
         if (draw_r && (int)(x & 0xFFu) < th_r) fire.x |= 1u << i;
         if (draw_a && (int)((x >> 8) & 0xFFu) < th_a) fire.y |= 1u << i;
     }
@@ -169,7 +171,8 @@ __device__ __noinline__ uint2 relay_draws(uint32_t todo, int rr, int j0, int ste
 
 template <int S, int W>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-sweep_step_kernel(int B, int n, int m, int rounds, const int32_t* __restrict__ seed_p,
+sweep_step_kernel(int B, int n, int m, int rounds, int index_base,
+                  const int32_t* __restrict__ seed_p,
                   const int8_t* __restrict__ order, const int32_t* __restrict__ leader,
                   const uint8_t* __restrict__ faulty, const uint8_t* __restrict__ alive,
                   const uint8_t* __restrict__ ok, int8_t* __restrict__ dec) {
@@ -181,6 +184,7 @@ sweep_step_kernel(int B, int n, int m, int rounds, const int32_t* __restrict__ s
     const int b = b0 + lane / S;
     const bool valid = b < B;  // a lane past B keeps empty masks
     const uint32_t seed = (uint32_t)seed_p[0];
+    const uint32_t kb = (uint32_t)index_base + (uint32_t)b;  // the Philox key's instance word
     const size_t row = (size_t)b * n;
 
     // Bit i of word w is general sl + S (32 w + i).
@@ -231,7 +235,7 @@ sweep_step_kernel(int B, int n, int m, int rounds, const int32_t* __restrict__ s
                 uint32_t recv_a = ord_a, recv_r = ord_r;
                 if (leader_faulty) {
                     recv_a = round1_coins(alive_m[w] & ~leader_bit[w], rr + h, sl + 32 * S * w,
-                                          S, seed, b);
+                                          S, seed, kb);
                     recv_r = ~recv_a;
                 }
                 recv_a = (recv_a & ~leader_bit[w]) | (ord_a & leader_bit[w]);
@@ -268,7 +272,7 @@ sweep_step_kernel(int B, int n, int m, int rounds, const int32_t* __restrict__ s
                     uint32_t fire_a = th_a >= 256 ? alive_m[w] : 0u;
                     if (draws) {
                         const uint2 f = relay_draws(alive_m[w], rr + h, sl + 32 * S * w, S, r,
-                                                    seed, b, th_r, th_a);
+                                                    seed, kb, th_r, th_a);
                         fire_r |= f.x;
                         fire_a |= f.y;
                     }
@@ -317,27 +321,28 @@ void lane_layout(int n, int& S, int& W) {
 }
 
 template <int S, int W>
-cudaError_t launch_sweep_step(int B, int n, int m, int rounds, const void* seed,
+cudaError_t launch_sweep_step(int B, int n, int m, int rounds, int index_base, const void* seed,
                               const void* order, const void* leader, const void* faulty,
                               const void* alive, const void* ok, void* dec, cudaStream_t s) {
     constexpr int per_block = WARPS_PER_BLOCK * (32 / S);
     const dim3 grid((unsigned)((B + per_block - 1) / per_block));
     sweep_step_kernel<S, W><<<grid, WARPS_PER_BLOCK * 32, 0, s>>>(
-        B, n, m, rounds, (const int32_t*)seed, (const int8_t*)order, (const int32_t*)leader,
+        B, n, m, rounds, index_base, (const int32_t*)seed, (const int8_t*)order,
+        (const int32_t*)leader,
         (const uint8_t*)faulty, (const uint8_t*)alive, (const uint8_t*)ok, (int8_t*)dec);
     return cudaGetLastError();
 }
 
 // The instance of W words a lane for S lanes an instance (32 W S <= 1024).
 template <int W>
-cudaError_t launch_words(int S, int B, int n, int m, int rounds, const void* seed,
+cudaError_t launch_words(int S, int B, int n, int m, int rounds, int index_base, const void* seed,
                          const void* order, const void* leader, const void* faulty,
                          const void* alive, const void* ok, void* dec, cudaStream_t s) {
 #define K2_CASE(SS)                                                                      \
     case SS:                                                                             \
         if constexpr (32 * W * SS <= MAX_N)                                              \
-            return launch_sweep_step<SS, W>(B, n, m, rounds, seed, order, leader, faulty, \
-                                            alive, ok, dec, s);                          \
+            return launch_sweep_step<SS, W>(B, n, m, rounds, index_base, seed, order,     \
+                                            leader, faulty, alive, ok, dec, s);          \
         break;
     switch (S) { K2_CASE(1) K2_CASE(2) K2_CASE(4) K2_CASE(8) K2_CASE(16) K2_CASE(32) }
 #undef K2_CASE
@@ -346,18 +351,19 @@ cudaError_t launch_words(int S, int B, int n, int m, int rounds, const void* see
 
 }  // namespace
 
-extern "C" int ba_sweep_step(int B, int n, int m, int rounds, const void* seed,
+extern "C" int ba_sweep_step(int B, int n, int m, int rounds, int index_base, const void* seed,
                              const void* order, const void* leader, const void* faulty,
                              const void* alive, const void* ok, void* dec, void* stream) {
-    if (B < 1 || n < 1 || n > MAX_N || m < 0 || rounds < 1) return (int)cudaErrorInvalidValue;
+    if (B < 1 || n < 1 || n > MAX_N || m < 0 || rounds < 1 || index_base < 0)
+        return (int)cudaErrorInvalidValue;
     int S, W;
     lane_layout(n, S, W);
     const cudaStream_t s = (cudaStream_t)stream;
     if (W == 1 && S == 1)  // n <= 32: one word, one lane an instance
-        return (int)launch_sweep_step<1, 1>(B, n, m, rounds, seed, order, leader, faulty,
-                                            alive, ok, dec, s);
-    return (int)launch_words<LANE_WORDS>(S, B, n, m, rounds, seed, order, leader, faulty,
-                                         alive, ok, dec, s);
+        return (int)launch_sweep_step<1, 1>(B, n, m, rounds, index_base, seed, order, leader,
+                                            faulty, alive, ok, dec, s);
+    return (int)launch_words<LANE_WORDS>(S, B, n, m, rounds, index_base, seed, order, leader,
+                                         faulty, alive, ok, dec, s);
 }
 
 extern "C" int ba_philox4x32_10(int count, const void* in, void* out, void* stream) {

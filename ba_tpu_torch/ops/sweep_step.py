@@ -11,7 +11,9 @@ quorum — reading the state once and writing one int8 decision per
 Randomness.  The TPU kernel draws from the TPU's hardware PRNG, which no
 other device reproduces; K2 and :func:`plain_fused_signed_sweep_step`
 draw from Philox4x32-10 instead, written out in both, so the two are
-bit-equal.  The key is (seed as uint32, instance index b), the counter
+bit-equal.  The key is (seed as uint32, instance index b), where b is
+``index_base`` plus the row (the global index: a shard of a larger batch
+draws what the whole batch's launch draws for it), the counter
 (round rr, general j, d // 4, 0), and draw d is word d % 4: d = 0 is the
 round-1 coin (bit 0), d = r is relay round r (byte 0 gates RETREAT, byte
 1 gates ATTACK).  Each draw is fixed by (seed, b, rr, j, d) alone, so
@@ -24,6 +26,10 @@ equal in distribution otherwise.
 :func:`fused_signed_sweep_step` keeps the reference's signature: on a
 CPU tensor it runs the plain version; on a CUDA tensor it launches K2 or
 raises.  It keeps a plain integer ``launches`` count.
+:func:`fused_sharded_sweep_step` is the reference's sharded form on a
+device mesh: one call of it a "data" shard, each numbering its instances
+from ``shard * B / d``, so every shard count gives the unsharded step's
+bits and no (seed, b) pair is drawn by two shards.
 """
 
 from __future__ import annotations
@@ -75,18 +81,25 @@ def _check_rounds(rounds: int) -> None:
         raise ValueError(f"rounds={rounds} outside [1, {MAX_ROUNDS}]")
 
 
+def _check_index_base(index_base: int) -> None:
+    if not 0 <= index_base < 2**31:
+        raise ValueError(f"index_base={index_base} outside [0, 2**31)")
+
+
 def plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int = 3,
-                                  rounds: int = 1) -> torch.Tensor:
+                                  rounds: int = 1, index_base: int = 0) -> torch.Tensor:
     """The plain version of K2: a loop over rounds, each vectorised over
     ``[B, n]``.  Like the kernel it computes a Philox block only where a
     draw can matter (a faulty leader's coins, a relay threshold inside
     (0, 256)); each such check syncs with the host.  Returns ``[B]``
-    int8 for ``rounds == 1``, else ``[B, rounds]``."""
+    int8 for ``rounds == 1``, else ``[B, rounds]``; row i draws as
+    instance ``index_base + i``."""
     _check_rounds(rounds)
+    _check_index_base(index_base)
     B, n = faulty.shape
     dev = faulty.device
     seed_u32 = seed.reshape(-1)[:1].to(dev, torch.int64) & M32
-    b = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    b = torch.arange(index_base, index_base + B, dtype=torch.int64, device=dev)[:, None]
     j = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
     is_leader = j == leader.to(dev, torch.int64)[:, None]
     leader_faulty = faulty.gather(1, leader.long()[:, None])
@@ -137,7 +150,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.ba_sweep_step
     if fn.argtypes is None:  # pointers as c_void_p, or ctypes cuts them to 32 bits
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
         fn.restype = ctypes.c_int
         lib.ba_philox4x32_10.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
         lib.ba_philox4x32_10.restype = ctypes.c_int
@@ -164,19 +177,22 @@ def kernel_philox4x32_10(words: torch.Tensor) -> torch.Tensor:
 
 
 def fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int = 3,
-                            rounds: int = 1) -> torch.Tensor:
+                            rounds: int = 1, index_base: int = 0) -> torch.Tensor:
     """``rounds`` fused signed-sweep agreement rounds in one launch.
 
     seed int32 [1] (vary it per dispatch), order int8 [B], leader int32
     [B] (in [0, n)), faulty / alive bool [B, n], ok bool [B, 2] (the
     per-value table verdicts, RETREAT then ATTACK).  Returns decisions
     [B] int8 for ``rounds == 1``, else [B, rounds] int8, column r being
-    round r's independent decision.
+    round r's independent decision.  Row i draws as instance
+    ``index_base + i`` (the global index of a shard's first row).
     """
     _check_rounds(rounds)
+    _check_index_base(index_base)
     dev = faulty.device
     if dev.type == "cpu":
-        return plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m, rounds)
+        return plain_fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m, rounds,
+                                             index_base)
     if dev.type != "cuda":
         raise ValueError(f"the sweep-step kernel runs on a CUDA device, not {dev}")
     B, n = faulty.shape
@@ -191,7 +207,7 @@ def fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m: int = 3,
     _build.check_tensor(ok, "ok", torch.bool, (B, 2), dev)
     dec = torch.empty((B, rounds), dtype=COMMAND_DTYPE, device=dev)
     err = _lib().ba_sweep_step(
-        B, n, m, rounds, seed.data_ptr(), order.data_ptr(), leader.data_ptr(),
+        B, n, m, rounds, index_base, seed.data_ptr(), order.data_ptr(), leader.data_ptr(),
         faulty.data_ptr(), alive.data_ptr(), ok.data_ptr(), dec.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -206,3 +222,39 @@ fused_signed_sweep_step.launches = 0
 
 def reset_launches() -> None:
     fused_signed_sweep_step.launches = 0
+
+
+def fused_sharded_sweep_step(mesh, seed, order, leader, faulty, alive, ok, m: int = 3,
+                             rounds: int = 1):
+    """The fused step over a device mesh (``ba_tpu/ops/sweep_step.py:299``):
+    instances split on the mesh's "data" axis, one
+    :func:`fused_signed_sweep_step` a shard on the shard's device (K2 on
+    the card, its plain version on the CPU), with no traffic between
+    shards.  The inputs are full values (``put_global`` keeps each
+    process's shards); ``seed`` is replicated.
+
+    Where the reference seeds shard k with ``seed + k * 0x9E3779B9`` (the
+    TPU's hardware generator cannot be keyed by instance), shard k here
+    numbers its rows from ``index_base = k * B / d``: the Philox key is
+    (seed, global instance index), so any shard count, one included, is
+    bit-identical to the unsharded step and no (seed, b) pair is drawn by
+    two shards.  Returns the decisions as a Sharded value of the
+    reference's global shape (``[B]`` for one round, else ``[B,
+    rounds]``); ``np.asarray`` or ``.gather()`` assembles them.
+    """
+    from ba_tpu_torch.parallel import mesh as _mesh
+
+    B = faulty.shape[0]
+    d = mesh.shape["data"]
+    if B % d:
+        raise ValueError(f"batch {B} does not split over the mesh's {d} \"data\" entries")
+    row = _mesh.P("data")
+    args = [_mesh.put_global(mesh, x, row) for x in (order, leader, faulty, alive, ok)]
+
+    def local(seed, order, leader, faulty, alive, ok):
+        base = _mesh.axis_index("data") * (B // d)
+        return fused_signed_sweep_step(seed, order, leader, faulty, alive, ok, m, rounds,
+                                       index_base=base)
+
+    step = _mesh.shard_map(local, mesh, row, collectives=False)
+    return step(_mesh.gather_tree(seed), *args)

@@ -43,6 +43,12 @@
   every device (``engine="torch"``); the lane's verify launches K7, K5,
   K4 and K3 on the card.  Counters are always on
   (SIGNED_COUNTER_NAMES).
+- **Mesh**: ``mesh=`` splits the batch over a device mesh's "data" axis
+  (``parallel/shard.py``): the same scan cores a shard, keys folded by
+  global instance index, per-shard counter blocks and histogram rows
+  summed at retire, checkpoints gathered on write and split again on
+  read.  Every mesh dispatch runs the shard-mapped torch scan core, as
+  the reference's runs its XLA one (``engine="cuda"`` raises).
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, RETREAT, UNDEFINED
 from ba_tpu_torch.obs import flight
+from ba_tpu_torch.parallel import mesh as _mesh
 from ba_tpu_torch.parallel.sweep import agreement_step, signed_agreement_step
 from ba_tpu_torch.utils import snapshot
 
@@ -87,28 +94,20 @@ class KeySchedule:
 
 def _map_tensors(fn, tree):
     """``tree`` with ``fn`` applied to each tensor: a SimState,
-    KeySchedule, tensor, None, or a tuple / list / dict of them."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, (SimState, KeySchedule)):
-        return type(tree)(
-            *(_map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree))
-        )
-    if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v) for k, v in tree.items()}
-    return type(tree)(_map_tensors(fn, v) for v in tree)
+    KeySchedule, tensor, None, or a tuple / list / dict of them (a
+    Sharded value: to each of its pieces)."""
+    return _mesh.tree_map(lambda x: x.map(fn) if isinstance(x, _mesh.Sharded) else fn(x), tree)
 
 
 def fresh_copy(tree, device=None):
     """A live copy of a SimState, KeySchedule, tensor, or a tuple / list /
-    dict of them, on ``device`` (default: where each tensor lies).
+    dict of them, on ``device`` (default: where each tensor lies; a
+    Sharded value stays sharded, or with a ``device`` is gathered there).
     Megasteps update their carry in place, so a caller that needs the
     pre-run state afterwards copies it first."""
     if device is None:
         return _map_tensors(torch.clone, tree)
-    return _map_tensors(lambda t: t.to(device, copy=True), tree)
+    return _map_tensors(lambda t: t.to(device, copy=True), _mesh.gather_tree(tree))
 
 
 def make_key_schedule(key: torch.Tensor, counter: int = 0) -> KeySchedule:
@@ -195,23 +194,39 @@ def slot_counter_delta(out: dict, state: SimState, scenario: bool) -> torch.Tens
     return torch.stack(cols, dim=-1).to(torch.int32)
 
 
-def _batch_counter_delta(out: dict, state: SimState, scenario: bool) -> torch.Tensor:
+def _batch_counter_delta(out: dict, state: SimState, scenario: bool,
+                         axis_name: str | None) -> torch.Tensor:
     delta = slot_counter_delta(out, state, scenario).sum(dim=0, dtype=torch.int32)
-    delta[1] = (out["histogram"].max() == out["decision"].shape[0]).to(torch.int32)
+    if axis_name is None:
+        delta[1] = (out["histogram"].max() == out["decision"].shape[0]).to(torch.int32)
+    else:
+        hist = _mesh.psum(out["histogram"], axis_name)
+        # the bins partition the whole batch: max == sum is "one bin holds everyone"
+        unanimous = (hist.max() == hist.sum()).to(torch.int32)
+        delta[1] = unanimous if _mesh.axis_index(axis_name) == 0 else 0
     return delta
 
 
-def agreement_counter_delta(out: dict, state: SimState) -> torch.Tensor:
+def agreement_counter_delta(out: dict, state: SimState,
+                            axis_name: str | None = None) -> torch.Tensor:
     """One round's increments of COUNTER_NAMES, int32 ``[3]``:
     UNDEFINED quorum decisions, 1 if every instance decided alike, and
-    instances with a live traitor whose alive lieutenants disagree."""
-    return _batch_counter_delta(out, state, False)
+    instances with a live traitor whose alive lieutenants disagree.
+
+    ``axis_name`` is the mesh's shard axis when a shard_map body calls
+    it: the per-instance counts stay shard-local (the shards' blocks sum
+    to the single-device block), but unanimity is a property of the whole
+    batch, so the 3-bin histogram is summed over the axis and the verdict
+    credited to shard 0 alone."""
+    return _batch_counter_delta(out, state, False, axis_name)
 
 
-def scenario_counter_delta(out: dict, state: SimState) -> torch.Tensor:
+def scenario_counter_delta(out: dict, state: SimState,
+                           axis_name: str | None = None) -> torch.Tensor:
     """The agreement deltas followed by the IC1 / IC2 instance counts,
-    int32 ``[5]`` (the verdicts of :func:`slot_counter_delta`)."""
-    return _batch_counter_delta(out, state, True)
+    int32 ``[5]`` (the verdicts of :func:`slot_counter_delta`);
+    ``axis_name`` as in :func:`agreement_counter_delta`."""
+    return _batch_counter_delta(out, state, True, axis_name)
 
 
 def _advanced(sched: KeySchedule, rounds: int) -> KeySchedule:
@@ -228,10 +243,14 @@ def _pipeline_scan(
     max_liars: int | None = None,
     collect_decisions: bool = False,
     index_base: int = 0,
+    axis_name: str | None = None,
 ):
     """The plain (non-mutating) scan core.  Returns ``(carry, ys)`` with
     carry ``(state, sched[, counters])`` and ys ``(histograms[,
-    decisions][, counter_rows])``, stacked over rounds."""
+    decisions][, counter_rows])``, stacked over rounds.  ``index_base``
+    and ``axis_name`` are the mesh's seam (``parallel/shard.py``): a shard
+    folds its keys by global instance index, and the counter delta sums
+    the histogram over the axis."""
     hists, decs, rows = [], [], []
     for r in range(rounds):
         keys = round_keys(_advanced(sched, r), state.batch, index_base)
@@ -240,7 +259,7 @@ def _pipeline_scan(
         if collect_decisions:
             decs.append(out["decision"])
         if counters is not None:
-            counters = counters + agreement_counter_delta(out, state)
+            counters = counters + agreement_counter_delta(out, state, axis_name)
             rows.append(counters)
     ys = (torch.stack(hists),)
     if collect_decisions:
@@ -279,10 +298,12 @@ def _scenario_scan(
     max_liars: int | None = None,
     collect_decisions: bool = False,
     index_base: int = 0,
+    axis_name: str | None = None,
 ):
     """The mutating-round scan core.  Per round: the event transition
     (:func:`_apply_events`), then the strategy-aware round, and the
-    scenario counters fold.
+    scenario counters fold (``index_base`` / ``axis_name`` as in
+    :func:`_pipeline_scan`).
 
     Returns ``(carry, ys)`` with carry ``(state, sched, strategy,
     counters)`` and ys ``(histograms, leaders, counter_rows[,
@@ -294,7 +315,7 @@ def _scenario_scan(
         st, strat = _apply_events(st, strat, events, r)
         keys = round_keys(_advanced(sched, r), st.batch, index_base)
         out = agreement_step(keys, st, m=m, max_liars=max_liars, strategies=strat)
-        counters = counters + scenario_counter_delta(out, st)
+        counters = counters + scenario_counter_delta(out, st, axis_name)
         hists.append(out["histogram"])
         leaders.append(st.leader)
         rows.append(counters)
@@ -522,34 +543,41 @@ def coalesced_signed_megastep(state: SimState, sched: KeySchedule, slot_counters
             torch.stack(rows))
 
 
-def engine_support(m: int = 1, signed: bool = False) -> str | None:
+def engine_support(m: int = 1, n_shards: int = 1, signed: bool = False,
+                   meshed: bool = False) -> str | None:
     """None when K1 covers this combination, else the reason it cannot
-    (``ba_tpu/parallel/pipeline.py:109``): K1 runs oral OM(1) only."""
+    (``ba_tpu/parallel/pipeline.py:109``): K1 runs oral OM(1) on one
+    device only.  ``meshed`` covers a mesh whose data axis is 1: every
+    mesh dispatch runs the shard-mapped torch scan core."""
     if signed:
         return ("signed=True (the signed megastep runs on the composed torch engine, "
                 "as the reference's runs in XLA; K1 covers oral OM(1) only)")
     if m != 1:
         return f"m={m} (the dense EIG tree stays on the composed torch engine)"
+    if n_shards != 1 or meshed:
+        return (f"mesh data={n_shards} (every mesh dispatch runs the shard-mapped torch "
+                f"scan core, as the reference's runs its shard_map-wrapped XLA one; "
+                f"K1 is single-device)")
     return None
 
 
 def resolve_engine(engine: str | None, device: torch.device, m: int = 1,
-                   signed: bool = False) -> str:
-    """``None`` picks ``"cuda"`` on a CUDA device for oral OM(1), and
-    ``"torch"`` on the CPU, at any other m (OM(m) by the EIG tree, which
-    launches K9 at every resolve level on the card) and for signed runs.
-    ``"cuda"`` off the card, at m != 1, with ``signed``, or under the
-    non-partitionable threefry mode (the kernel encodes only the
-    partitionable one) raises: there is no fallback."""
+                   signed: bool = False, *, n_shards: int = 1, meshed: bool = False) -> str:
+    """``None`` picks ``"cuda"`` on a CUDA device for oral OM(1) on one
+    device, and ``"torch"`` on the CPU, at any other m (OM(m) by the EIG
+    tree, which launches K9 at every resolve level on the card), for
+    signed runs and on a mesh.  ``"cuda"`` off the card, at m != 1, with
+    ``signed``, on a mesh, or under the non-partitionable threefry mode
+    (the kernel encodes only the partitionable one) raises: there is no
+    fallback."""
     if m < 0:
         raise ValueError(f"m={m} must be >= 0")
+    reason = engine_support(m, n_shards, signed, meshed)
     if engine is None:
-        engine = ("cuda" if device.type == "cuda" and engine_support(m, signed) is None
-                  else "torch")
+        engine = "cuda" if device.type == "cuda" and reason is None else "torch"
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r} unknown; choose from {ENGINES}")
     if engine == "cuda":
-        reason = engine_support(m, signed)
         if reason is not None:
             raise ValueError(f"engine='cuda' cannot run {reason}")
         if device.type != "cuda":
@@ -634,14 +662,15 @@ def _carry_meta(round_cursor: int, counters, strategy, shard_layout=None, run_id
 
 def save_carry_checkpoint(path: str, ckpt: CarryCheckpoint, **extra) -> int:
     """Write a carry to ``path`` (atomic, versioned, the JAX package's
-    format and dtypes).  The carry's tensors may lie on any device; pass
-    a carry no dispatch is rewriting (the sweep's ``checkpoint_every``
-    does this for you).  ``extra`` keys ride the header.  A ``[d, C]``
+    format and dtypes).  The carry's tensors may lie on any device, or
+    be Sharded values (gathered here); pass a carry no dispatch is
+    rewriting (the sweep's ``checkpoint_every`` does this for you).  ``extra`` keys ride the header.  A ``[d, C]``
     counter block sums to the canonical block here (``shard_layout``
     defaults to ``{"data": d}`` then).  Returns the array bytes written."""
     from ba_tpu_torch import convert
 
-    arrays = convert.carry_to_numpy(ckpt.state, ckpt.schedule, ckpt.counters, ckpt.strategy)
+    carry = _mesh.gather_tree((ckpt.state, ckpt.schedule, ckpt.counters, ckpt.strategy))
+    arrays = convert.carry_to_numpy(*carry)
     layout = ckpt.shard_layout
     counters = arrays.get("counters")
     if counters is not None and counters.ndim == 2:
@@ -688,22 +717,32 @@ class _Inflight:
     compute stream behind the dispatch, before the next dispatch
     rewrites the carry in place, and the same event marks it done: the
     boundary's carry, with no device clone and no new wait.  On the CPU
-    the carry is cloned, since the engine reuses it in place there too."""
+    the carry is cloned, since the engine reuses it in place there too.
+    Sharded outputs (a mesh run) copy each piece and record an event on
+    every device they lie on; the fetch assembles the global blocks
+    (across processes through the mesh's group)."""
 
     def __init__(self, ys, carry=None):
         if ys[0].is_cuda:
-            self.host = tuple(_pinned(y) for y in ys)
+            self.host = tuple(_map_tensors(_pinned, y) for y in ys)
             self.carry = _map_tensors(_pinned, carry)
-            self.done = torch.cuda.Event()
-            self.done.record()
+            self.done = []
+            for dev in sorted({str(t.device) for y in ys for t in _pieces(y)}):
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(torch.device(dev)))
+                self.done.append(event)
         else:
-            self.host, self.done = ys, None
+            self.host, self.done = ys, []
             self.carry = fresh_copy(carry)
 
     def fetch(self) -> tuple:
-        if self.done is not None:
-            self.done.synchronize()
-        return tuple(h.numpy() for h in self.host)
+        for event in self.done:
+            event.synchronize()
+        return tuple(np.asarray(h) for h in self.host)
+
+
+def _pieces(x) -> list:
+    return list(x.pieces.values()) if isinstance(x, _mesh.Sharded) else [x]
 
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:
@@ -743,6 +782,25 @@ def _stage_chunk(host: dict, device: torch.device, stream=None):
     return planes, ready
 
 
+def _stage_chunk_mesh(host: dict, mesh, uploads: dict):
+    """:func:`_stage_chunk` for a mesh: each owned entry's ``[R, B/d,
+    n]`` slice staged on its device (so the whole chunk never lands on one
+    entry), the planes as Sharded values.  Returns (planes, the events the
+    dispatch must wait on)."""
+    from ba_tpu_torch.parallel import shard as _shard
+
+    pieces, events = {name: {} for name in EVENT_PLANES}, []
+    for pos, chunk in _shard.host_chunk_pieces(mesh, host).items():
+        dev = mesh.device(pos)
+        planes, ready = _stage_chunk(chunk, dev, uploads.get(dev))
+        for name in EVENT_PLANES:
+            pieces[name][pos] = planes[name]
+        if ready is not None:
+            events.append((dev, ready))
+    return {name: _mesh.Sharded(mesh, _shard.EVENT_SPECS, host[name].shape, pieces[name])
+            for name in EVENT_PLANES}, events
+
+
 def _chunks(rounds: int, rounds_per_dispatch: int) -> list:
     """Rounds a dispatch: full dispatches, then the remainder."""
     chunks = [rounds_per_dispatch] * (rounds // rounds_per_dispatch)
@@ -780,6 +838,7 @@ def pipeline_sweep(
     on_rows=None,
     resume=None,
     run_id: str | None = None,
+    mesh=None,
     engine: str | None = None,
     device=None,
 ):
@@ -834,6 +893,26 @@ def pipeline_sweep(
     the run takes the checkpoint's id, else one derived from the round
     count, the key data and the scenario (``obs/flight.py``).
 
+    ``mesh=`` (``parallel/mesh.py``) splits the batch over the mesh's
+    "data" axis (the batch must divide it; checked before anything is
+    staged): the state, the replicated schedule, the per-shard counter
+    block ``[d, C]`` and the strategy plane are Sharded values, each
+    chunk's event planes are staged a shard at a time, and every dispatch
+    runs ``parallel/shard.py``'s megasteps, each shard folding its keys by
+    global instance index, so the run is bit-exact with the single-device
+    one.  The per-shard histogram and counter rows are summed at retire
+    (``reduce_host_ys``), so ``on_rows`` and the result see the same
+    blocks at any d; the one collective a round is the histogram sum of
+    the unanimity verdict (an add within a process, an ``all_reduce`` on
+    the current stream across processes), never a host sync.  The engine
+    is ``"torch"`` (``engine="cuda"`` raises); ``final_state``,
+    ``final_schedule``, ``final_strategy`` and ``final_counters`` (the
+    live ``[d, C]`` block) come back Sharded.  Checkpoints gather on
+    write (the counter blocks summed, ``shard_layout`` the mesh's axes in
+    the header) and split again on read: ``resume=`` works at any d, a
+    live carry of Sharded values included, with or without a mesh.
+    ``signed=True`` takes no mesh.
+
     Returns a dict: ``histograms`` [rounds - start, 3] (the rounds this
     call ran); ``decisions`` with ``collect_decisions``; with counters
     ``counters`` (name -> int), ``counters_per_round`` and
@@ -843,7 +922,10 @@ def pipeline_sweep(
     bytes and host ms in ``checkpoint_writes``, ``run_id``, ``signed``,
     and the lane's ``sign_ahead_s``, ``sign_pool_workers``,
     ``sign_pool_s``, ``sign_cache_hits``, ``host_sign_s``,
-    ``host_verify_s``; zeros on an oral run).
+    ``host_verify_s``; zeros on an oral run; ``engine`` and
+    ``engine_fallback``, the reason K1 could not run the sweep, or None;
+    ``shards``, ``carry_bytes_per_shard``, ``plane_peak_bytes`` and
+    ``plane_peak_bytes_per_shard``).
     """
     if rounds < 1:
         raise ValueError(f"rounds={rounds} must be >= 1")
@@ -859,12 +941,18 @@ def pipeline_sweep(
                              "megastep has no mutating-round form)")
         if sign_coalesce < 1:
             raise ValueError(f"sign_coalesce={sign_coalesce} must be >= 1")
+        if mesh is not None:
+            raise ValueError("signed=True is single-device (mesh signed combos are "
+                             "unsupported; shard by running independent sweeps)")
         with_counters = True
     elif collapsed:
         raise ValueError("collapsed= is the signed relay dial; it needs signed=True")
-    dev = resolve_device(device)
-    engine = resolve_engine(engine, dev, m, signed)
-    plain_fn, scen_fn, _ = _engine_megasteps(engine)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device(mesh.local_positions[0])
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device} but the mesh's entries are {dev.type} devices")
 
     if isinstance(resume, (str, os.PathLike)):
         resume = load_carry_checkpoint(resume, dev)
@@ -888,8 +976,15 @@ def pipeline_sweep(
         raise ValueError("pass key and state, or resume= with key=None, state=None")
     else:
         start = 0
-        state = state.to(dev)
+        state = _mesh.gather_tree(state, dev) if mesh is None else state
     B, n = state.faulty.shape
+    from ba_tpu_torch.parallel import shard as _shard  # it imports this module
+
+    n_shards = 1 if mesh is None else _shard.validate_mesh(mesh, B)
+    reason = engine_support(m, n_shards, signed, mesh is not None)
+    engine = resolve_engine(engine, dev, m, signed, n_shards=n_shards,
+                            meshed=mesh is not None)
+    plain_fn, scen_fn, _ = _engine_megasteps(engine)
 
     strategy = None
     if scenario is not None:
@@ -911,7 +1006,8 @@ def pipeline_sweep(
         elif initial_strategy is None:
             strategy = torch.zeros((B, n), dtype=torch.int8, device=dev)
         else:
-            strategy = torch.as_tensor(initial_strategy).to(dev, torch.int8).clone()
+            strategy = torch.as_tensor(_mesh.gather_tree(initial_strategy)).to(
+                dev, torch.int8).clone()
             if strategy.shape != (B, n):
                 raise ValueError(
                     f"initial_strategy shape {tuple(strategy.shape)} != {(B, n)}"
@@ -941,6 +1037,16 @@ def pipeline_sweep(
             counters = signed_counters_init(dev)
         else:
             counters = agreement_counters_init(dev) if with_counters else None
+    if mesh is not None:
+        state = _mesh.shard_state(mesh, state)
+        sched = KeySchedule(*(_mesh.put_global(mesh, t, _mesh.P())
+                              for t in (sched.key_data, sched.counter)))
+        if counters is not None:
+            counters = _shard.expand_counters(mesh, counters)
+        if strategy is not None:
+            strategy = _mesh.put_global(mesh, strategy, _shard.STRATEGY_SPECS)
+        plain_fn = functools.partial(_shard.sharded_pipeline_megastep, mesh=mesh)
+        scen_fn = functools.partial(_shard.sharded_scenario_megastep, mesh=mesh)
 
     def identity_material():
         from ba_tpu_torch import convert
@@ -964,13 +1070,23 @@ def pipeline_sweep(
 
     chunks = _chunks(rounds - start, rounds_per_dispatch)
     zero_staged: dict = {}
-    upload = torch.cuda.Stream(dev) if scenario is not None and dev.type == "cuda" else None
+    devices = {dev} if mesh is None else {mesh.device(p) for p in mesh.local_positions}
+    uploads = ({d: torch.cuda.Stream(d) for d in devices if d.type == "cuda"}
+               if scenario is not None else {})
+    plane_peak_bytes = 0
 
     def stage(lo, hi):
+        nonlocal plane_peak_bytes
         empty = scenario.chunk_is_empty(lo, hi)
         if empty and hi - lo in zero_staged:
             return zero_staged[hi - lo]
-        staged = _stage_chunk(scenario.chunk(lo, hi), dev, upload)
+        host = scenario.chunk(lo, hi)
+        plane_peak_bytes = max(plane_peak_bytes, sum(v.nbytes for v in host.values()))
+        if mesh is None:
+            planes, ready = _stage_chunk(host, dev, uploads.get(dev))
+            staged = planes, [] if ready is None else [(dev, ready)]
+        else:
+            staged = _stage_chunk_mesh(host, mesh, uploads)
         if empty:
             zero_staged[hi - lo] = staged
         return staged
@@ -1006,8 +1122,13 @@ def pipeline_sweep(
     def write_checkpoint(round_cursor, carry):
         t0 = time.perf_counter()
         written = checkpoint_path.replace("{round}", str(round_cursor))
+        layout = None
+        if mesh is not None:  # gather on write: the canonical arrays, the writer's layout
+            carry, layout = _mesh.gather_tree(carry, torch.device("cpu")), \
+                _shard.shard_layout(mesh)
         nbytes = save_carry_checkpoint(
-            written, CarryCheckpoint(*carry, round=round_cursor, signed=signed, run_id=rid),
+            written, CarryCheckpoint(*carry, round=round_cursor, shard_layout=layout,
+                                     signed=signed, run_id=rid),
             rounds_total=rounds, **(checkpoint_meta or {}),
         )
         writes.append({"round": round_cursor, "bytes": nbytes,
@@ -1020,6 +1141,10 @@ def pipeline_sweep(
     def retire():
         d, lo, hi, box = inflight.popleft()
         host_ys = box.fetch()
+        if mesh is not None:  # the per-shard rows summed to the canonical blocks
+            host_ys = _shard.reduce_host_ys(host_ys, scenario=scenario is not None,
+                                            collect_decisions=collect_decisions,
+                                            with_counters=with_counters)
         retired.append(host_ys)
         if on_rows is not None:  # before the checkpoint of the same retire
             on_rows(d, lo, hi, host_ys)
@@ -1038,8 +1163,8 @@ def pipeline_sweep(
         hi = lo + nr
         if scenario is not None:
             events, ready = staged
-            if ready is not None:
-                torch.cuda.current_stream(dev).wait_event(ready)
+            for ready_dev, event in ready:
+                torch.cuda.current_stream(ready_dev).wait_event(event)
             out = scen_fn(
                 state, sched, strategy, counters, events,
                 rounds=nr, m=m, max_liars=max_liars, collect_decisions=collect_decisions,
@@ -1083,6 +1208,7 @@ def pipeline_sweep(
     while inflight:
         retire()
 
+    carry = (state, sched, counters, strategy)
     result = {
         "histograms": np.concatenate([ys[0] for ys in retired]),
         "final_state": state,
@@ -1098,8 +1224,13 @@ def pipeline_sweep(
             "checkpoints": len(writes),
             "checkpoint_writes": writes,
             "engine": engine,
+            "engine_fallback": reason if engine == "torch" else None,
             "run_id": rid,
             "signed": signed,
+            "shards": n_shards,
+            "carry_bytes_per_shard": _shard.per_shard_nbytes(carry),
+            "plane_peak_bytes": plane_peak_bytes,
+            "plane_peak_bytes_per_shard": plane_peak_bytes // n_shards,
             **_lane_stats(lane),
         },
     }

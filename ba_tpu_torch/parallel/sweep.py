@@ -3,7 +3,8 @@ keys (``ba_tpu/parallel/sweep.py``: ``make_sweep_state``,
 ``bucketed_sweep_states``, ``decision_histogram``, ``agreement_step``:
 OM(1) on its coin-injected path, OM(m) through ``core/eig.py``;
 ``signed_agreement_step``, the signed SM(m) round of the signed engine;
-and ``failover_sweep``, a kill-only campaign in one megastep)."""
+``failover_sweep``, a kill-only campaign in one megastep; and
+``sharded_sweep``, one round with the instances split over a mesh)."""
 
 from __future__ import annotations
 
@@ -229,3 +230,32 @@ def failover_sweep(
     )
     return {"leaders": out[4], "decisions": out[6], "histograms": out[3],
             "final_state": out[0]}
+
+
+def sharded_sweep(mesh, key: torch.Tensor, state: SimState, m: int = 1) -> dict:
+    """One agreement round per instance, the instances split over the
+    mesh's "data" axis (``ba_tpu/parallel/sweep.py:386``).
+
+    The key splits into B per-instance keys globally, the keys and the
+    state shard with the batch (``put_global``: every process passes the
+    full value), each shard runs :func:`agreement_step` on its rows, and
+    the 3-bin histogram is summed over "data" (the one collective; across
+    processes through the mesh's group).  Every per-instance output comes
+    back as a Sharded value of its global shape, the histogram replicated.
+    Bit-exact with the unsharded step: instance b draws from its own key.
+    """
+    from ba_tpu_torch.parallel import mesh as _mesh
+
+    state = _mesh.gather_tree(state)
+    keys = rng.split(key.to(state.device), state.batch)
+    row = _mesh.P("data")
+
+    def local(keys, st):
+        out = agreement_step(keys, st, m=m)
+        out["histogram"] = _mesh.psum(out["histogram"], "data")
+        return out
+
+    specs = {"majorities": row, "decision": row, "needed": row, "total": row,
+             "histogram": _mesh.P()}
+    return _mesh.shard_map(local, mesh, specs)(_mesh.put_global(mesh, keys, row),
+                                              _mesh.shard_state(mesh, state))

@@ -27,6 +27,7 @@ import torch
 from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
+from ba_tpu_torch.parallel.mesh import gather_tree
 
 # Dispatches the pipelined engine keeps in flight (the reference's
 # ``BA_TPU_PIPELINE_DEPTH`` default).
@@ -289,9 +290,11 @@ class TorchBackend:
         ``checkpoint_keep_last`` go to the engine's carry checkpoints.
         Oral messages only: returns None for sm / signed.
 
-        ``supervise``, ``fault_plan``, ``mesh`` and ``health_every`` raise:
-        the supervisor, the device mesh and the health sampler are not
-        ported to ``ba_tpu_torch`` yet.
+        ``mesh`` goes to the engine's mesh path (``pipeline_sweep(mesh=)``);
+        this facade is B = 1, so the mesh's "data" axis must be 1 (a larger
+        one raises the engine's divisibility error).  ``supervise``,
+        ``fault_plan`` and ``health_every`` raise: the supervisor and the
+        health sampler are not ported to ``ba_tpu_torch`` yet.
 
         Returns a dict: ``decisions`` (per-round quorum codes),
         ``leaders`` (per-round roster indices), ``counters``, ``stats``,
@@ -303,7 +306,7 @@ class TorchBackend:
         if self.protocol != "om" or self.signed:
             return None
         for name, value in (("supervise", supervise), ("fault_plan", fault_plan),
-                            ("mesh", mesh), ("health_every", health_every)):
+                            ("health_every", health_every)):
             if value not in (None, False):
                 raise ValueError(f"{name}= is not ported to ba_tpu_torch yet")
         n = len(generals)
@@ -324,10 +327,11 @@ class TorchBackend:
             checkpoint_every=checkpoint_every,
             checkpoint_path=checkpoint_path,
             checkpoint_keep_last=checkpoint_keep_last,
+            mesh=mesh,
             engine=None if engine == "auto" else engine,
             device=self.device,
         )
-        final = out["final_state"]
+        final = gather_tree(out["final_state"])
         return {
             "decisions": [int(v) for v in out["decisions"][:, 0]],
             "leaders": [int(v) for v in out["leaders"][:, 0]],

@@ -27,9 +27,10 @@ Extensions, as in the JAX package:
   campaign's final state; with a checkpoint path, the carry is written
   every <every> rounds.
 
-``stats``, ``search``, ``serve``, ``fleet`` and the ``scenario`` tokens
-``supervise`` and ``mesh=N`` print one line, ``<command> error: ... not
-ported to ba_tpu_torch yet``.
+``scenario <file> ... mesh=N`` runs the campaign on ``make_mesh((N, 1))``
+over the backend's device.  ``stats``, ``search``, ``serve``, ``fleet``
+and the ``scenario`` token ``supervise`` print one line, ``<command>
+error: ... not ported to ba_tpu_torch yet``.
 
 Divergences from the reference (guarded crashes there, SURVEY.md section
 3.3): unknown ids and an empty cluster are ignored (Q4), and election is
@@ -199,10 +200,9 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
         args = args[:-1]
     if not args:
         return
-    for name, asked in (("supervise", supervise), ("mesh=", mesh_n is not None)):
-        if asked:
-            out(f"scenario error: {name} {NOT_PORTED}")
-            return
+    if supervise:
+        out(f"scenario error: supervise {NOT_PORTED}")
+        return
     ck_path = ck_every = None
     if len(args) == 2:
         # A path without <every> would silently run uncheckpointed.
@@ -227,11 +227,20 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
         out(f"scenario error: {e}")
         return
     try:
+        mesh = None
+        device = getattr(cluster.backend, "device", None)
+        if mesh_n is not None and device is not None:
+            # over the backend's device: on one card (or the CPU) mesh=2
+            # cannot build, and its ValueError names both counts
+            from ba_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh((mesh_n, 1), ("data", "node"), devices=[device])
         ran = cluster.run_scenario(spec, checkpoint_every=ck_every,
-                                   checkpoint_path=ck_path, engine=engine)
+                                   checkpoint_path=ck_path, mesh=mesh, engine=engine)
     except (OSError, ValueError) as e:
-        # ValueError: the spec names ids not in the roster, or an unknown
-        # engine; OSError: an unwritable checkpoint path, mid-campaign.
+        # ValueError: the spec names ids not in the roster, an unknown
+        # engine or a mesh the device cannot hold; OSError: an unwritable
+        # checkpoint path, mid-campaign.
         out(f"scenario error: {e}")
         return
     if ran is None:

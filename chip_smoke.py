@@ -49,6 +49,13 @@ The paths, each through its hand-written kernels:
   majority (``ba_tpu_torch/ops/csrc/majority.cu``), at every resolve
   level: BASELINE config #2 (``bench_om3_n10``), ``bench_eig_n1024`` and
   the sweeps at m = 2 (the composed torch engine: K1 is OM(1) only);
+- several devices: K2's sharded form ``fused_sharded_sweep_step`` (one K2
+  launch a "data" shard), the mesh engine ``pipeline_sweep(mesh=)`` /
+  ``scenario_sweep(mesh=)`` (the shard-mapped torch scan core, as the
+  reference's mesh runs its XLA core) with checkpoints that move between
+  device counts, a one-rank NCCL group, the node-sharded OM(1), EIG and
+  SM protocols and the REPL's ``scenario ... mesh=N``, on meshes whose
+  entries name the one card (NCCL cannot put two ranks on one GPU);
 - the double-and-add scalar multiply and the field exponentiations, which
   have no production caller here or in the reference:
   ``ed25519.scalar_mult`` through K3'' (``scalar_mult.cu``) at 65 536
@@ -281,10 +288,53 @@ Phases, one JSON line each:
    dispatch of the signed megastep and of its threefry draws alone (CUDA
    events), the pool's workers and the host's cores; run A once more with
    its dispatches recorded for the kernels line;
+34. ``sharded_sweep_step_full_width``: ``fused_sharded_sweep_step`` on
+   phase 10's buckets, seeds and verdicts (config #5's shape) on a
+   one-entry and a four-entry mesh of cuda:0, timed as phase 10 (a
+   warm-up step, 3 windows of 50): K2 launched once a shard a bucket a
+   step, every decision ATTACK, every step bit-equal to
+   ``fused_signed_sweep_step`` at the same seed (checked in a second pass,
+   counted apart), the median agreement-rounds/s beside phase 10's; then
+   (``sharded_sweep_step_middle``) the four-entry mesh at phase 6's
+   middle shapes (B = 256, n in {37, 1024}, 1 and 35 rounds), every shard
+   launch recorded and replayed against the plain version at its index
+   base (0, 64, 128, 192);
+35. ``mesh_pipeline_full_width``: ``pipeline_sweep(mesh=)`` on phase 4's
+   arrays (every fourth leader faulty), 8 rounds 4 a dispatch, counters
+   and decisions, on one- and two-entry meshes at B = 1 000 and on a
+   20-entry mesh at B = 10 000 (500 a shard, what one plain-engine call
+   holds; the entries take turns), and ``scenario_sweep(mesh=)`` of the
+   coalition campaign on a two-entry mesh at B = 1 000 (checkpointed
+   every 4 rounds) and on the 20-entry mesh at B = 10 000: engine
+   "torch", no K1 launch, decisions, leaders, histograms and counters
+   bit-equal to the single-device K1 run at the same key; each run's
+   wall, agreement-rounds/s, per-shard bytes and the engine's reason;
+36. ``mesh_checkpoint_reshard``: phase 35's two-entry checkpoint at round
+   4 has header ``shard_layout`` {"data": 2, "node": 1}, resumes on one
+   device through K1, and its live carry (``[2, C]`` counters, Sharded
+   planes) resumes without a mesh, each tail bit-equal to K1's run;
+37. ``distributed_nccl``: ``init_distributed`` with one rank, NCCL and a
+   tcp://127.0.0.1:<free port> method, ``make_global_mesh()``;
+   ``sharded_sweep``, one sharded K2 step and two dispatches of
+   ``pipeline_sweep(mesh=)`` at B = 64, n = 128 (counters on: an NCCL
+   all-reduce a round) bit-equal to an in-process mesh of the same
+   shape; the group destroyed at the end;
+38. ``node_sharded``: ``om1_node_sharded`` (B = 16, n = 256),
+   ``eig_node_sharded`` (n = 64, m = 2) and ``sm_node_sharded`` at config
+   #4's point (n = 1 024, m = 32, collapsed) on a (1, 2) mesh of cuda:0,
+   bit-equal to the same calls on a (1, 2) CPU mesh, and
+   ``signed_sm_agreement_sharded`` at n = 64 (its verify through K7, K5,
+   K4 and K3) equal to the CPU's; each one's wall;
+39. ``repl_mesh``: ``scenario <file> mesh=1`` through ``handle_command``
+   on the card prints ``REPL_MESH_GOLDEN`` (the JAX package's bytes) and
+   what the command prints without ``mesh=``; ``mesh=2`` prints one
+   ``scenario error:`` line naming both counts and runs nothing;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
-dispatch.  For K1's slot mode, the Ed25519 kernels, K3' and P it replays
-what the main paths recorded (phases 17 and 18 each run once more with
+dispatch (K2's sharded form: phase 34's four-entry warm-up step, shard
+by shard, against the plain version at each shard's index base).  For
+K1's slot mode, the Ed25519 kernels, K3' and P it replays what the main
+paths recorded (phases 17 and 18 each run once more with
 their dispatches recorded, inputs copied before each dispatch): each
 setup route run once more with its dispatches recorded (the wrappers'
 arguments and outputs, taken at their modules), and one call of each of
@@ -325,6 +375,7 @@ import atexit
 import concurrent.futures
 import contextlib
 import ctypes
+import functools
 import gc
 import hashlib
 import json
@@ -348,7 +399,13 @@ from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
 from ba_tpu_torch.crypto import field as F
 from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, majority, modl,
                               powchain, scenario_step, sha512_kernel, sweep_step, treeadd)
+from ba_tpu_torch.parallel import eig_parallel as eparallel
+from ba_tpu_torch.parallel import mesh as pmesh
+from ba_tpu_torch.parallel import multihost
+from ba_tpu_torch.parallel import node_parallel as nparallel
 from ba_tpu_torch.parallel import pipeline, sweep
+from ba_tpu_torch.parallel import shard as pshard
+from ba_tpu_torch.parallel import sm_parallel as smparallel
 from ba_tpu_torch.runtime.backends import TorchBackend
 from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.repl import handle_command
@@ -4167,6 +4224,459 @@ def phase_signed_pipeline_full_width(dev, seed, card):
     return ("signed_pipeline_full_width: run A, the lane's device route", calls, launches, 1)
 
 
+# -- several devices: the mesh slice (phases 34-39) --------------------------
+
+K2S_REPLACES = "ba_tpu/ops/sweep_step.py:299"
+K2S_ENTRIES = 4  # the sharded step's four-entry mesh of cuda:0
+K2S_MIDDLE_N = (37, 1024)  # phase 6's middle shapes, B = 256, for the recorded shard launches
+B_MESH_SMALL, R_MESH, RPD_MESH = 1_000, 8, 4  # the one- and two-entry meshes' batch
+# A plain (torch engine) call holds CHUNK instances of n = 1024 at once on the card (the coin
+# unpack alone is ~8 MB an instance), so the full-width mesh has B_FULL / CHUNK entries of
+# cuda:0, which take turns between the histogram sums.
+MESH_FULL_ENTRIES = B_FULL // CHUNK
+B_NCCL, N_NCCL, R_NCCL, RPD_NCCL = 64, 128, 4, 2
+B_NODE, N_OM1, N_EIG, M_EIG = 16, 256, 64, 2
+N_C4_NODE, M_C4_NODE = 1024, 32  # config #4's point (tests/test_sm_parallel.py:211)
+B_SIGNED_NODE, N_SIGNED_NODE, M_SIGNED_NODE = 8, 64, 2
+# What the JAX package's REPL prints for REPL_MESH_SCRIPT at n = 4, seed 0;
+# tests/test_torch_backends.py holds this text against it.
+REPL_MESH_SCRIPT = (f"scenario {CASCADING} mesh=1", "g-state", "actual-order attack")
+NCCL = "nccl"  # the one-rank group's backend on the card
+REPL_MESH_GOLDEN = """\
+Scenario cascading-failover: 6 rounds - attack=6, retreat=0, undefined=0
+Scenario counters: quorum_failures=0, unanimous_rounds=6, equivocation_observed=0, \
+ic1_violations=0, ic2_violations=0
+G2, secondary, state=NF
+G4, primary, state=NF
+G2, secondary, majority=attack, state=NF
+G4, primary, majority=attack, state=NF
+Execute order: attack! Non-faulty nodes in the system - 1 out of 2 quorum suggests attack
+"""
+
+
+CARD = torch.device("cuda", 0)  # the one card every mesh entry names
+
+
+def card_mesh(d, node=1):
+    """A (d, node) mesh whose entries all name cuda:0."""
+    return pmesh.make_mesh((d, node), devices=[CARD] * (d * node))
+
+
+def k2_shards(mesh, states, oks):
+    """Each bucket's K2 inputs split once on the mesh's "data" axis (so
+    the timed steps pass Sharded values and copy nothing)."""
+    row = pmesh.P("data")
+    return [[multihost.put_global(mesh, x, row) for x in (st.order, st.leader, st.faulty, st.alive, ok)]
+            for st, ok in zip(states, oks)]
+
+
+def phase_sharded_sweep_step(card, states, oks, seeds, unsharded_walls):
+    """``fused_sharded_sweep_step`` at config #5's shape (phase 10's
+    buckets, seeds and verdicts), on a one-entry and a four-entry mesh of
+    cuda:0, timed as phase 10 times the unsharded step (a warm-up step,
+    then WINDOWS_SIGNED windows of STEPS_SIGNED steps); K2 launched once a
+    shard a bucket a step; then every step again, each bucket's decisions
+    held against ``fused_signed_sweep_step`` at the same seed (counted
+    apart); then the four-entry mesh at phase 6's middle shapes with
+    every shard launch recorded and replayed against the plain version
+    at its index base.  Returns the four-entry run for the kernels line."""
+    n_steps = seeds.shape[0]
+    per_window = B_SIGNED * ROUNDS_SIGNED * STEPS_SIGNED
+    unsharded = sorted(per_window / w for w in unsharded_walls)
+    runs = {}
+    for d in (1, K2S_ENTRIES):
+        mesh = card_mesh(d)
+        shards = k2_shards(mesh, states, oks)
+        not_attack = torch.zeros((), dtype=torch.int64, device=mesh.device((0, 0)))
+
+        def step(it):
+            outs = []
+            for i, args in enumerate(shards):
+                dec = sweep_step.fused_sharded_sweep_step(mesh, seeds[it, i:i + 1], *args,
+                                                          M_SIGNED, ROUNDS_SIGNED)
+                for piece in dec.pieces.values():
+                    not_attack.add_((piece != ATTACK).sum())
+                outs.append(dec)
+            return outs
+
+        sweep_step.reset_launches()
+        first = step(0)
+        walls = []
+        for w in range(WINDOWS_SIGNED):
+            sync()
+            t0 = time.perf_counter()
+            for it in range(w * STEPS_SIGNED + 1, (w + 1) * STEPS_SIGNED + 1):
+                step(it)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        launches = sweep_step.fused_signed_sweep_step.launches
+        check(launches == d * len(states) * n_steps, f"sharded K2 launches {launches} on {d}")
+        check(int(not_attack) == 0, f"SM validity on {d} entries: some decision not ATTACK")
+        mismatched = torch.zeros((), dtype=torch.int64, device=not_attack.device)
+        for it in range(n_steps):
+            for i, (st, ok_b) in enumerate(zip(states, oks)):
+                got = sweep_step.fused_sharded_sweep_step(mesh, seeds[it, i:i + 1], *shards[i],
+                                                          M_SIGNED, ROUNDS_SIGNED).gather()
+                want = sweep_step.fused_signed_sweep_step(
+                    *k2_args(seeds[it, i:i + 1], st, ok_b, ROUNDS_SIGNED))
+                mismatched.add_((got != want).sum())
+        check(int(mismatched) == 0,
+              f"the {d}-entry sharded step differs from the unsharded one: {int(mismatched)}")
+        rates = sorted(per_window / w for w in walls)
+        runs[d] = {"mesh": mesh, "shards": shards, "first": first, "launches": launches}
+        emit({"phase": "sharded_sweep_step_full_width", "entries": d, "device": "cuda:0",
+              "batch": B_SIGNED, "buckets": [st.batch for st in states], "m": M_SIGNED,
+              "rounds_per_dispatch": ROUNDS_SIGNED, "steps": n_steps,
+              "kernel_launches": launches, "launches_per_bucket_step": d,
+              "steps_bit_equal_unsharded": n_steps, "all_attack": True,
+              "window_wall_s": walls,
+              "agreement_rounds_per_s": {"best": rates[-1], "median": rates[len(rates) // 2],
+                                         "worst": rates[0]},
+              "unsharded_median": unsharded[len(unsharded) // 2], "card": card})
+
+    mesh = runs[K2S_ENTRIES]["mesh"]
+    rs = np.random.default_rng(18)
+    replays, err = 0, 0
+    with recording({"K2": sweep_step.fused_signed_sweep_step}) as calls:
+        for n in K2S_MIDDLE_N:
+            for rounds in (1, 35):
+                seed_t, st, ok = k2_inputs(rs, 256, n, CARD)
+                sweep_step.fused_sharded_sweep_step(mesh, seed_t, st.order, st.leader,
+                                                    st.faulty, st.alive, ok, M_SIGNED, rounds)
+    check(len(calls) == K2S_ENTRIES * len(K2S_MIDDLE_N) * 2, f"recorded {len(calls)} launches")
+    for _, args, kw, out, _ in calls:
+        want = sweep_step.plain_fused_signed_sweep_step(*args, **kw)
+        err = max(err, max_abs_err([(out, want)]))
+        replays += 1
+    check(err == 0, f"a recorded shard launch differs from the plain version: {err}")
+    check(sorted({kw["index_base"] for _, _, kw, _, _ in calls}) == [0, 64, 128, 192],
+          "the shards' index bases")
+    emit({"phase": "sharded_sweep_step_middle", "entries": K2S_ENTRIES, "B": 256,
+          "n": list(K2S_MIDDLE_N), "rounds": [1, 35], "recorded_launches": replays,
+          "max_abs_err": err})
+    runs[K2S_ENTRIES]["middle_replays"] = replays
+    return runs[K2S_ENTRIES]
+
+
+def kernel_line_k2_sharded(run, states, oks, seeds, int_ops_per_s):
+    """The four-entry main path's warm-up step again, bucket by bucket:
+    each shard's piece against the plain version at its index base (and
+    the main path's piece), the step's CUDA-event time, the plain time
+    and the bound summed over the shards."""
+    mesh, shards, first = run["mesh"], run["shards"], run["first"]
+    buckets, err = [], 0
+    for i, (st, ok_b) in enumerate(zip(states, oks)):
+        seed_i = seeds[0, i:i + 1]
+        dec = sweep_step.fused_sharded_sweep_step(mesh, seed_i, *shards[i], M_SIGNED,
+                                                  ROUNDS_SIGNED)
+        per = st.batch // K2S_ENTRIES
+        plain_ms = bound_ms = 0.0
+        by = []
+        for pos, piece in dec.pieces.items():
+            rows = slice(pos[0] * per, (pos[0] + 1) * per)
+            sub = rows_of(st, rows.start, rows.stop)
+            args = k2_args(seed_i, sub, ok_b[rows], ROUNDS_SIGNED)
+            want, ms = timed_plain(lambda: sweep_step.plain_fused_signed_sweep_step(
+                *args, index_base=rows.start))
+            plain_ms += ms
+            err = max(err, max_abs_err([(piece, want)]))
+            check(torch.equal(piece, first[i].pieces[pos]),
+                  f"main path's shard {pos} of bucket {i} differs from the replay")
+            b_ms, b_by, _ = k2_bound(sub, k2_philox_calls(sub, ROUNDS_SIGNED), ROUNDS_SIGNED,
+                                     M_SIGNED, int_ops_per_s)
+            bound_ms += b_ms
+            by.append(b_by)
+        ms = time_cuda(lambda: sweep_step.fused_sharded_sweep_step(
+            mesh, seed_i, *shards[i], M_SIGNED, ROUNDS_SIGNED), reps=10)
+        buckets.append({"B": st.batch, "n": st.n, "shards": K2S_ENTRIES, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "operations" if all(b == "operations" for b in by)
+                        else "bytes"})
+    check(err == 0, f"full-width shard launch differs from plain: {err}")
+    return {"name": "sweep_step_sharded", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2S_REPLACES,
+            "wrapper": "ba_tpu_torch/ops/sweep_step.py:fused_sharded_sweep_step",
+            "launches": run["launches"], "max_abs_err": err,
+            "ms": sum(b["ms"] for b in buckets),
+            "plain_ms": sum(b["plain_ms"] for b in buckets),
+            "bound_ms": sum(b["bound_ms"] for b in buckets),
+            "bound_by": "operations" if all(b["bound_by"] == "operations" for b in buckets)
+            else "bytes", "library_ms": None, "checked_against_plain": True,
+            "per": f"step ({K2S_ENTRIES} shard launches a bucket, one entry each of cuda:0)",
+            "middle_replays": run["middle_replays"], "design": K2_DESIGN,
+            "ptxas": PTXAS["sweep_step.cu"], "buckets": buckets}
+
+
+def host(x) -> np.ndarray:
+    """A tensor (on any device) or a Sharded value as a host array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def same_outputs(a, b, names, what):
+    for name in names:
+        check(np.array_equal(np.asarray(a[name]), np.asarray(b[name])), f"{what}: {name}")
+    check(a["counters"] == b["counters"], f"{what}: counters")
+
+
+def phase_mesh_pipeline(dev, seed, card, arrays):
+    """``pipeline_sweep(mesh=)`` and ``scenario_sweep(mesh=)`` on meshes of
+    cuda:0 against the single-device K1 run at the same key: the plain
+    campaign (phase 4's arrays, every fourth leader faulty, R_MESH rounds
+    RPD_MESH a dispatch, counters and decisions) on a one- and a
+    two-entry mesh at B_MESH_SMALL and on MESH_FULL_ENTRIES entries at
+    B_FULL; the coalition campaign on a two-entry mesh at B_MESH_SMALL,
+    checkpointed every 4 rounds, and on MESH_FULL_ENTRIES entries at
+    B_FULL.  Every run's engine is "torch" (no K1 launch), its outputs
+    bit-equal to K1's.  Returns what phase 36 resumes."""
+    key = rng.key(seed + 3, device=dev)
+    faulty = dict(arrays, faulty=arrays["faulty"].copy())
+    faulty["faulty"][::4, 0] = True
+    kw = dict(depth=2, rounds_per_dispatch=RPD_MESH, collect_decisions=True, device=dev)
+    names = ("decisions", "histograms", "counters_per_round")
+
+    def on_mesh(what, fn, ref, d, B, out_names, **extra):
+        scenario_step.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = fn(mesh=card_mesh(d), **extra)
+        wall = time.perf_counter() - t0
+        launched = (scenario_step.cuda_pipeline_megastep.launches
+                    + scenario_step.cuda_scenario_megastep.launches)
+        check(launched == 0, f"{what}: K1 launched on the mesh")
+        stats = out["stats"]
+        check(stats["engine"] == "torch" and stats["shards"] == d, f"{what}: engine, shards")
+        same_outputs(out, ref, out_names, f"{what} on {d} entries")
+        emit({"phase": "mesh_pipeline_full_width", "campaign": what, "entries": d,
+              "device": "cuda:0", "B": B, "capacity": CAP_FULL, "rounds": R_MESH,
+              "rounds_per_dispatch": RPD_MESH, "bit_equal_k1": True, "wall_s": wall,
+              "agreement_rounds_per_s": R_MESH * B / wall,
+              "carry_bytes_per_shard": stats["carry_bytes_per_shard"],
+              "plane_peak_bytes_per_shard": stats["plane_peak_bytes_per_shard"],
+              "engine": stats["engine"], "engine_fallback": stats["engine_fallback"],
+              "counters": out["counters"], "card": card})
+        return out
+
+    for B, entries in ((B_MESH_SMALL, (1, 2)), (B_FULL, (MESH_FULL_ENTRIES,))):
+        sub = {k: v[:B] for k, v in faulty.items()}
+        ref = pipeline.pipeline_sweep(key, to_state(sub, dev), R_MESH, engine="cuda",
+                                      with_counters=True, **kw)
+        check(ref["stats"]["engine"] == "cuda", "the reference run is K1's")
+        for d in entries:
+            out = on_mesh("plain", functools.partial(
+                pipeline.pipeline_sweep, key, to_state(sub, dev), R_MESH, with_counters=True,
+                **kw), ref, d, B, names)
+            check(np.array_equal(np.asarray(out["final_counters"]).sum(0),
+                                 ref["final_counters"].cpu().numpy()), "final counters")
+
+    spec = scenario_spec.load(COALITION)
+    s_arrays = sweep_arrays(rng.fold_in(key, 2000), B_FULL, CAP_FULL,
+                            order=0 if spec.order == "retreat" else 1)
+    s_names = ("decisions", "leaders", "histograms", "counters_per_round")
+    small = None
+    for B, d in ((B_MESH_SMALL, 2), (B_FULL, MESH_FULL_ENTRIES)):
+        sub = {k: v[:B] for k, v in s_arrays.items()}
+        block = scenario_compile.compile_scenario(spec, B, CAP_FULL, sparse=True)
+        ref = pipeline.scenario_sweep(key, to_state(sub, dev), block, engine="cuda", **kw)
+        extra = {}
+        if B == B_MESH_SMALL:
+            os.makedirs(CKPT_DIR, exist_ok=True)
+            extra = dict(checkpoint_every=4,
+                         checkpoint_path=os.path.join(CKPT_DIR, "mesh2_{round}.npz"))
+        out = on_mesh("coalition", functools.partial(
+            pipeline.scenario_sweep, key, to_state(sub, dev), block, **kw, **extra),
+            ref, d, B, s_names)
+        for name in ("leader", "faulty", "alive"):
+            check(np.array_equal(np.asarray(getattr(out["final_state"], name)),
+                                 getattr(ref["final_state"], name).cpu().numpy()),
+                  f"coalition final {name}")
+        if B == B_MESH_SMALL:
+            small = dict(key=key, sub=sub, block=block, ref=ref, kw=kw,
+                         path=os.path.join(CKPT_DIR, "mesh2_4.npz"))
+    return small
+
+
+def phase_mesh_checkpoint_reshard(dev, card, small):
+    """Phase 35's two-entry coalition checkpoint at round 4: its header's
+    layout is the mesh's, it resumes on one device through K1 (engine
+    "cuda"), and a live carry of it ([2, C] counters, Sharded planes)
+    resumes without a mesh; each tail bit-equal to K1's uninterrupted
+    run."""
+    path, block, ref, kw = small["path"], small["block"], small["ref"], small["kw"]
+    meta, _ = snapshot.read_carry_checkpoint(path)
+    check(meta["shard_layout"] == {"data": 2, "node": 1}, f"layout {meta['shard_layout']}")
+    names = ("decisions", "leaders", "counters_per_round")
+
+    def tail_ok(tail, what):
+        for name in names:
+            check(np.array_equal(tail[name], ref[name][4:]), f"{what}: {name}")
+        check(tail["counters"] == ref["counters"], f"{what}: counters")
+
+    scenario_step.reset_launches()
+    t0 = time.perf_counter()
+    tail = pipeline.scenario_sweep(None, None, block, resume=path, engine="cuda", **kw)
+    file_s = time.perf_counter() - t0
+    tail_ok(tail, "resume from the mesh file")
+    check(scenario_step.cuda_scenario_megastep.launches == 1, "K1 ran the resumed tail")
+    ck = pipeline.load_carry_checkpoint(path, dev)
+    mesh = card_mesh(2)
+    live = pipeline.CarryCheckpoint(
+        state=pmesh.shard_state(mesh, ck.state), schedule=ck.schedule,
+        counters=pshard.expand_counters(mesh, ck.counters),
+        strategy=multihost.put_global(mesh, ck.strategy, pmesh.P("data")), round=ck.round,
+        shard_layout=pshard.shard_layout(mesh))
+    check(live.counters.shape == (2, len(pipeline.SCENARIO_COUNTER_NAMES)), "live [2, C]")
+    t0 = time.perf_counter()
+    tail = pipeline.scenario_sweep(None, None, block, resume=live, engine="cuda", **kw)
+    live_s = time.perf_counter() - t0
+    tail_ok(tail, "resume of the live [2, C] carry")
+    emit({"phase": "mesh_checkpoint_reshard", "written_on_entries": 2,
+          "shard_layout": meta["shard_layout"], "resumed_on": "one device, engine cuda",
+          "round": meta["round"], "bit_equal": True, "resume_file_s": file_s,
+          "resume_live_s": live_s, "card": card})
+
+
+def phase_distributed_nccl(dev, card):
+    """A one-rank NCCL group (``init_distributed`` with a
+    tcp://127.0.0.1:<free port> method) and ``make_global_mesh()`` over
+    it: ``sharded_sweep``, one sharded K2 step and two dispatches of
+    ``pipeline_sweep(mesh=)`` with counters (each round's histogram sum an
+    NCCL all-reduce), each bit-equal to the same call on an in-process
+    mesh of the same shape; the group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ranks = multihost.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    init_s = time.perf_counter() - t0
+    try:
+        check(ranks == 1 and dist.get_backend() == NCCL, "a one-rank NCCL group")
+        group_mesh = multihost.make_global_mesh()
+        check(group_mesh.group is not None, "the global mesh keeps the group")
+        local = pmesh.make_mesh(tuple(group_mesh.shape.values()),
+                                devices=list(group_mesh.devices.flat))
+        key = rng.key(37, device=dev)
+        arrays = sweep_arrays(key, B_NCCL, N_NCCL, order=1)
+        arrays["faulty"][::4, 0] = True
+        walls = {}
+
+        def both(name, fn):
+            outs = []
+            for mesh in (group_mesh, local):
+                sync()
+                t = time.perf_counter()
+                outs.append(fn(mesh))
+                sync()
+                walls.setdefault(name, []).append(time.perf_counter() - t)
+            return outs
+
+        a, b = both("sharded_sweep", lambda mesh: sweep.sharded_sweep(
+            mesh, rng.key(9, device=dev), to_state(arrays, dev)))
+        for name in ("majorities", "decision", "histogram"):
+            check(np.array_equal(np.asarray(a[name]), np.asarray(b[name])), f"sweep {name}")
+        seed_t, st, ok = k2_inputs(np.random.default_rng(37), B_NCCL, N_NCCL, dev)
+        args = (seed_t, st.order, st.leader, st.faulty, st.alive, ok, M_SIGNED, 35)
+        sweep_step.reset_launches()
+        a, b = both("k2_step", lambda mesh: sweep_step.fused_sharded_sweep_step(mesh, *args))
+        check(sweep_step.fused_signed_sweep_step.launches == 2 * group_mesh.size, "K2 launches")
+        check(np.array_equal(np.asarray(a), np.asarray(b)), "sharded K2 step")
+        check(np.array_equal(np.asarray(a), sweep_step.fused_signed_sweep_step(*args).cpu()),
+              "sharded K2 step against the unsharded one")
+        kw = dict(rounds_per_dispatch=RPD_NCCL, collect_decisions=True, with_counters=True)
+        a, b = both("pipeline_sweep", lambda mesh: pipeline.pipeline_sweep(
+            key, to_state(arrays, dev), R_NCCL, mesh=mesh, **kw))
+        same_outputs(a, b, ("decisions", "histograms", "counters_per_round"), "NCCL pipeline")
+        check(a["stats"]["dispatches"] == 2, "two dispatches")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "distributed_nccl", "backend": NCCL, "ranks": 1,
+          "mesh": group_mesh.shape, "init_s": init_s, "bit_equal_in_process": True,
+          "walls_s": {k: {"group": v[0], "in_process": v[1]} for k, v in walls.items()},
+          "B": B_NCCL, "n": N_NCCL, "card": card})
+
+
+def phase_node_sharded(dev, card):
+    """``om1_node_sharded`` (B_NODE, N_OM1), ``eig_node_sharded`` (n =
+    N_EIG, m = M_EIG) and ``sm_node_sharded`` at config #4's point (B = 1,
+    n = 1024, m = 32, collapsed, the first 32 generals faulty) on a (1, 2)
+    mesh of cuda:0, each bit-equal to the same call on a (1, 2) CPU mesh;
+    ``signed_sm_agreement_sharded`` (B_SIGNED_NODE, N_SIGNED_NODE) on the
+    card verifies through K7, K5, K4 and K3 and equals the CPU's."""
+    card_m = card_mesh(1, 2)
+    cpu_m = pmesh.make_mesh((1, 2), devices=[CPU] * 2)
+    rs = np.random.default_rng(38)
+
+    def arrays_of(B, n, faulty):
+        leader = rs.integers(0, n, B).astype(np.int32)
+        f = np.zeros((B, n), bool)
+        f[:, :faulty] = True
+        return dict(order=rs.integers(0, 2, B).astype(np.int8), leader=leader, faulty=f,
+                    alive=rs.random((B, n)) < 0.95,
+                    ids=np.tile(np.arange(1, n + 1, dtype=np.int32), (B, 1)))
+
+    cases = [("om1_node_sharded", nparallel.om1_node_sharded, arrays_of(B_NODE, N_OM1, 60), ()),
+             ("eig_node_sharded", eparallel.eig_node_sharded, arrays_of(B_NODE, N_EIG, 15),
+              (M_EIG,)),
+             ("sm_node_sharded_config4", smparallel.sm_node_sharded,
+              dict(arrays_of(1, N_C4_NODE, 32), leader=np.zeros(1, np.int32)), (M_C4_NODE,))]
+    walls = {}
+    for name, fn, arrays, extra in cases:
+        fn(card_m, rng.key(5, device=dev), to_state(arrays, dev), *extra)  # warm
+        sync()
+        t0 = time.perf_counter()
+        got = fn(card_m, rng.key(5, device=dev), to_state(arrays, dev), *extra)
+        np.asarray(got["decision"])
+        walls[name] = time.perf_counter() - t0
+        want = fn(cpu_m, rng.key(5, device="cpu"), to_state(arrays, CPU), *extra)
+        for k in want:
+            check(np.array_equal(host(got[k]), host(want[k])), f"{name}: {k}")
+    arrays = arrays_of(B_SIGNED_NODE, N_SIGNED_NODE, 8)
+    reset_ed_launches()
+    t0 = time.perf_counter()
+    got = signed.signed_sm_agreement_sharded(card_m, rng.key(6, device=dev), to_state(arrays, dev),
+                                             M_SIGNED_NODE, seed=3)
+    np.asarray(got["decision"])
+    walls["signed_sm_agreement_sharded"] = time.perf_counter() - t0
+    launched = ed_launches()
+    check(all(launched[k] > 0 for k in LANE_KERNELS), f"verify kernels {launched}")
+    want = signed.signed_sm_agreement_sharded(cpu_m, rng.key(6, device="cpu"),
+                                              to_state(arrays, CPU), M_SIGNED_NODE, seed=3)
+    for k in want:
+        check(np.array_equal(host(got[k]), host(want[k])), f"signed: {k}")
+    emit({"phase": "node_sharded", "mesh": {"data": 1, "node": 2}, "device": "cuda:0",
+          "bit_equal_cpu_mesh": True, "wall_s": walls,
+          "verify_launches": {k: launched[k] for k in LANE_KERNELS},
+          "config4": {"B": 1, "n": N_C4_NODE, "m": M_C4_NODE, "collapsed": True,
+                      "rounds_per_s": 1 / walls["sm_node_sharded_config4"]}, "card": card})
+
+
+def phase_repl_mesh(dev, card):
+    """``scenario <file> mesh=1`` through ``handle_command`` on the card:
+    the JAX package's bytes (REPL_MESH_GOLDEN) and those of the command
+    without ``mesh=``; ``mesh=2`` prints one ``scenario error:`` line
+    naming both counts (the card is one device) and runs nothing."""
+    walls = {}
+    meshed = repl(Cluster(4, TorchBackend(device=dev), seed=0), REPL_MESH_SCRIPT, walls, "mesh=1")
+    plain_script = (REPL_MESH_SCRIPT[0].replace(" mesh=1", ""), *REPL_MESH_SCRIPT[1:])
+    plain = repl(Cluster(4, TorchBackend(device=dev), seed=0), plain_script, walls, "no mesh")
+    check(meshed == plain == REPL_MESH_GOLDEN.splitlines(),
+          f"scenario mesh=1 printed {meshed}, without mesh= {plain}")
+    cluster = Cluster(4, TorchBackend(device=dev), seed=0)
+    scenario_step.reset_launches()
+    err = repl(cluster, (REPL_MESH_SCRIPT[0].replace("mesh=1", "mesh=2"),))
+    check(len(err) == 1 and err[0].startswith("scenario error: mesh shape (2, 1) needs 2 "
+                                              "device(s) but only 1 are available"),
+          f"mesh=2 printed {err}")
+    check([g.id for g in cluster.generals] == [1, 2, 3, 4] and cluster._round == 0,
+          "mesh=2 ran something")
+    check(scenario_step.cuda_scenario_megastep.launches == 0, "mesh=2 launched K1")
+    emit({"phase": "repl_mesh", "mesh1_equals_golden": True, "mesh2_error": err[0],
+          "walls_s": walls, "card": card})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4220,6 +4730,12 @@ def main(argv=None) -> int:
     shell = phase_repl_cuda(dev, card, int_ops_per_s)
     signed_middle = phase_signed_pipeline_middle(dev, args.seed)
     signed_path = phase_signed_pipeline_full_width(dev, args.seed, card)
+    k2_sharded = phase_sharded_sweep_step(card, states, oks, seeds, walls)
+    mesh_small = phase_mesh_pipeline(dev, args.seed, card, arrays)
+    phase_mesh_checkpoint_reshard(dev, card, mesh_small)
+    phase_distributed_nccl(dev, card)
+    phase_node_sharded(dev, card)
+    phase_repl_mesh(dev, card)
     plain_launches["repl_cuda"] = shell["plain"]
     scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
@@ -4229,6 +4745,7 @@ def main(argv=None) -> int:
                              int_ops_per_s, shell["scenario_path"]),
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
+        kernel_line_k2_sharded(k2_sharded, states, oks, seeds, int_ops_per_s),
         *kernel_lines_crypto([*setup_paths, c3, ladder_pow, *shell["ed"], signed_middle,
                               signed_path],
                              int_ops_per_s),

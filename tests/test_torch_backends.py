@@ -278,7 +278,10 @@ def test_scenario_command_guards(jax_backends, tmp_path):
          "scenario error: engine='bogus' unknown; choose from ('torch', 'cuda')"),
         (f"scenario {path} engine=cuda",
          "scenario error: engine='cuda' runs on a CUDA device, not cpu"),
-        (f"scenario {path} mesh=8", "scenario error: mesh= not ported to ba_tpu_torch yet"),
+        (f"scenario {path} mesh=8",
+         "scenario error: mesh shape (8, 1) needs 8 device(s) but only 1 are available — "
+         "shrink the shape or pass devices= with more entries (an entry may repeat a "
+         "device)"),
         (f"scenario {path} supervise",
          "scenario error: supervise not ported to ba_tpu_torch yet"),
     ]:
@@ -291,10 +294,47 @@ def test_run_scenario_unported_options_raise():
     backend = TorchBackend(device="cpu")
     cluster = Cluster(4, backend, seed=0)
     spec = object()  # never reached: the options are checked first
-    for kw in ({"supervise": True}, {"fault_plan": object()}, {"mesh": object()},
-               {"health_every": 2}):
+    for kw in ({"supervise": True}, {"fault_plan": object()}, {"health_every": 2}):
         with pytest.raises(ValueError, match="not ported"):
             backend.run_scenario(cluster.generals, 0, 1, 0, spec, **kw)
+
+
+def test_scenario_mesh_one_matches_the_reference(jax_backends, tmp_path):
+    """``scenario <file> mesh=1`` runs the B = 1 campaign through the mesh
+    path: the reference's bytes, and the bytes of the same command
+    without ``mesh=``; the roster ends the same."""
+    path = _spec(tmp_path, REPL_SPEC)
+    coalition = ROOT / "examples" / "scenarios" / "colluding_coalition.json"
+    for n, seed, spec in ((5, 0, path), (12, 4, coalition)):
+        script = [f"scenario {spec} mesh=1", "g-state", "actual-order attack"]
+        got, want, port, ref = both(jax_backends, "om1", n, seed, script)
+        assert got == want
+        assert got[0].startswith("Scenario ")
+        assert_same_roster(port, ref)
+        plain, _, plain_port, _ = both(jax_backends, "om1", n, seed,
+                                       [f"scenario {spec}", *script[1:]])
+        assert plain == got
+        assert_same_roster(plain_port, ref)
+
+
+def test_run_scenario_takes_a_mesh(tmp_path):
+    """``TorchBackend.run_scenario(mesh=)`` runs (a one-entry mesh, the
+    facade's B = 1) and equals the run without one."""
+    from ba_tpu_torch.parallel.mesh import make_mesh
+    from ba_tpu_torch.scenario import spec as t_spec
+
+    spec = t_spec.load(_spec(tmp_path, REPL_SPEC))
+    runs = []
+    for mesh in (None, make_mesh((1, 1), devices=["cpu"])):
+        backend = TorchBackend(device="cpu")
+        cluster = Cluster(5, backend, seed=0)
+        runs.append(backend.run_scenario(cluster.generals, 0, 1, 3, spec, mesh=mesh))
+    assert runs[1]["stats"]["shards"] == 1 and runs[1]["stats"]["engine"] == "torch"
+    for key in ("decisions", "leaders", "counters", "alive", "faulty"):
+        assert runs[0][key] == runs[1][key], key
+    with pytest.raises(ValueError, match="not divisible"):
+        backend.run_scenario(cluster.generals, 0, 1, 3, spec,
+                             mesh=make_mesh((2, 1), devices=["cpu"] * 2))
 
 
 def test_capacity_follows_the_roster():
@@ -321,3 +361,16 @@ def test_survey_script_golden_is_the_reference_output(jax_backends):
     py = drive(Cluster(4, PyBackend(), seed=0), script)
     k = chip_smoke.REPL_COIN_FREE_LINES
     assert py[:k] == want[:k] and py != want  # the py oracle's own coins after that
+
+
+def test_repl_mesh_golden_is_the_reference_output(jax_backends):
+    """chip_smoke's repl_mesh phase holds the card's ``scenario ... mesh=1``
+    against this golden text: it is what the reference prints, and what
+    the port prints on the CPU."""
+    import chip_smoke
+
+    script = list(chip_smoke.REPL_MESH_SCRIPT)
+    ref = JCluster(4, _jax_backend(jax_backends, "om1"), seed=0)
+    want = drive(ref, script, j_handle_command)
+    assert chip_smoke.REPL_MESH_GOLDEN.splitlines() == want
+    assert drive(Cluster(4, TorchBackend(device="cpu"), seed=0), script) == want

@@ -41,7 +41,10 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
                  "ba_tpu_torch.runtime.backends", "ba_tpu_torch.runtime.cluster",
                  "ba_tpu_torch.runtime.repl", "ba_tpu_torch.runtime.main",
                  "ba_tpu_torch.crypto.pool", "ba_tpu_torch.crypto.tables",
-                 "ba_tpu_torch.parallel.signing"):
+                 "ba_tpu_torch.parallel.signing", "ba_tpu_torch.parallel.mesh",
+                 "ba_tpu_torch.parallel.multihost", "ba_tpu_torch.parallel.shard",
+                 "ba_tpu_torch.parallel.node_parallel", "ba_tpu_torch.parallel.eig_parallel",
+                 "ba_tpu_torch.parallel.sm_parallel"):
         assert name in MODULES, name
 
 

@@ -395,6 +395,34 @@ def test_sweep_step_kernel_bit_equal_at_bucket_edges(cuda_device, n, m, rounds):
     assert (other != want).any()  # the draws decided what was compared
 
 
+@pytest.mark.parametrize("index_base", [1, 37, 2**31 - 40])
+@pytest.mark.parametrize("n", [6, 513])
+def test_sweep_step_kernel_index_base(cuda_device, n, index_base):
+    """K2's ``index_base`` keys row i's Philox stream by instance
+    ``index_base + i``, as the plain version does; the sharded form on a
+    mesh of ``cuda_device`` repeated is the unsharded launch's bits."""
+    from ba_tpu_torch.parallel.mesh import make_mesh
+
+    B, m, rounds = 36, 3, 35
+    seed, st, ok = _draw_inputs(n + index_base % 97, B, 6, cuda_device)
+    pad = torch.zeros((B, n - 6), dtype=torch.bool, device=cuda_device)  # dead generals
+    faulty, alive = torch.cat([st.faulty, pad], 1), torch.cat([st.alive, pad], 1)
+    args = (seed, st.order, st.leader, faulty, alive, ok, m, rounds)
+    got = sweep_step.fused_signed_sweep_step(*args, index_base=index_base)
+    want = sweep_step.plain_fused_signed_sweep_step(*args, index_base=index_base)
+    at_zero = sweep_step.plain_fused_signed_sweep_step(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert (at_zero != want).any()  # the offset moved the draws that decide
+    whole = sweep_step.fused_signed_sweep_step(*args)
+    for d in (1, 4):
+        before = sweep_step.fused_signed_sweep_step.launches
+        sharded = sweep_step.fused_sharded_sweep_step(
+            make_mesh((d, 1), devices=[cuda_device] * d), *args)
+        assert sweep_step.fused_signed_sweep_step.launches == before + d
+        assert torch.equal(sharded.gather().cpu(), whole.cpu())
+
+
 def test_kernel_philox_known_answers(cuda_device):
     """Random123's known answers through the Philox rounds of the kernel's
     own source."""

@@ -150,13 +150,30 @@ def test_unported_commands_print_one_line(cluster4, line):
 
 
 @pytest.mark.parametrize("tokens,name", [("supervise", "supervise"),
-                                         ("mesh=1", "mesh="),
+                                         ("mesh=1 supervise", "supervise"),
                                          ("ck.npz 2 supervise", "supervise")])
 def test_unported_scenario_tokens_print_one_line(cluster4, tokens, name):
     spec = ROOT / "examples" / "scenarios" / "cascading_failover.json"
     assert drive(cluster4, [f"scenario {spec} {tokens}"]) == [
         f"scenario error: {name} not ported to ba_tpu_torch yet"]
     assert [g.id for g in cluster4.generals] == [1, 2, 3, 4]  # nothing ran
+
+
+def test_scenario_mesh_tokens(cluster4):
+    """``mesh=1`` prints what the command prints without it; ``mesh=2``
+    prints one error line naming both counts (the backend is one device)
+    and runs nothing; PyBackend ignores the command, as without mesh=."""
+    spec = ROOT / "examples" / "scenarios" / "cascading_failover.json"
+    twin = Cluster(4, type(cluster4.backend)(**({"device": "cpu"}
+                                                if hasattr(cluster4.backend, "device")
+                                                else {})), seed=0)
+    assert drive(cluster4, [f"scenario {spec} mesh=2"]) == (
+        ["scenario error: mesh shape (2, 1) needs 2 device(s) but only 1 are available — "
+         "shrink the shape or pass devices= with more entries (an entry may repeat a "
+         "device)"] if hasattr(cluster4.backend, "device") else [])
+    assert [g.id for g in cluster4.generals] == [1, 2, 3, 4]  # nothing ran
+    assert drive(cluster4, [f"scenario {spec} mesh=1", "g-state"]) == \
+        drive(twin, [f"scenario {spec}", "g-state"])
 
 
 def test_run_rounds_on_a_signed_backend_prints_the_lane_line(monkeypatch):
