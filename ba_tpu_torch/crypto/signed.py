@@ -363,6 +363,129 @@ def setup_signed_tables(batch: int, seed: int = 0, device=None,
     return drain_signed_tables(queue_signed_tables(batch, seed, device, sign_device, verify))
 
 
+SIGN_DEVICE_ROUTES = ("auto", True, False)
+WARM_SEED = 987654321  # the throw-away key-set warm_signed_tables signs
+
+
+def sign_on_device(sign_device="auto", device=None) -> bool:
+    """Resolve the sign route (``ba_tpu/crypto/signed.py:654``; its
+    ``BA_TPU_SIGN_DEVICE`` variable is the ``sign_device`` argument):
+    ``True`` / ``False`` force it, ``"auto"`` signs on the device exactly
+    when ``device`` (the card unless given) is a CUDA one, where the
+    kernels are live.  A CPU device never turns it on."""
+    if sign_device is True or sign_device is False:
+        return sign_device
+    if sign_device != "auto":
+        raise ValueError(f"sign_device must be one of {SIGN_DEVICE_ROUTES}, got {sign_device!r}")
+    return resolve_device(device).type == "cuda"
+
+
+def _sign_chunk(sks, pks, lo, device_sign, dev):
+    if device_sign:
+        return sign_value_tables_device(sks, pks, base=lo, device=dev)
+    return sign_value_tables(sks, pks, base=lo)
+
+
+def _pad_rows(a, pad: int):
+    """``a`` with ``pad`` copies of its first row appended (numpy or a
+    tensor, whichever it is)."""
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[:1].expand(pad, *a.shape[1:])])
+    return np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
+
+
+def setup_signed_tables_overlapped(batch: int, seed: int = 0, chunks: int = 2, *,
+                                   sign_device="auto", verify: str = "exact", device=None):
+    """Key-set setup in ``chunks`` chunks, chunk c's upload and verify
+    queued on ``device`` (the card unless given) while the host signs
+    chunk c + 1 (``ba_tpu/crypto/signed.py:678``) ->
+    ``(sks, pks, msgs_t, sigs_t, ok, timings)``.
+
+    Every chunk has the same shape: the tail chunk is padded with copies
+    of its first row, and its verdicts are cut back.  ``sign_device``
+    picks the route (:func:`sign_on_device`): on the device each chunk's
+    signing (K5', K5, K4, K8, K6) queues behind the previous chunk's
+    verify, and the host only builds messages.  ``verify="exact"``
+    verifies every signature (K7, K5, K4, K3); ``"rlc"`` queues one batch
+    check a chunk (:func:`rlc_batch_ok`) without fetching it, all the
+    chunks' flags come back in the one drain, and a chunk that rejects
+    falls back to the exact verify after it.  Nothing waits for the card
+    before the drain, whose one copy also brings device signatures home.
+
+    ``msgs_t``, ``sigs_t`` are host arrays, byte-identical with
+    :func:`setup_signed_tables`'s for the same ``batch`` and ``seed``;
+    ``ok`` is bool ``[batch, 2]`` on the device.  ``timings``: ``keys_s``,
+    ``sign_s`` (host signing, or the host time to queue device signing),
+    ``drain_s`` (last dispatch to verdicts and signatures on the host),
+    ``total_s``, ``chunks``, ``device_sign``.
+    """
+    _check_route(verify)
+    if not 1 <= chunks <= batch:
+        raise ValueError(f"chunks={chunks} out of range for batch={batch}")
+    dev = resolve_device(device)
+    device_sign = sign_on_device(sign_device, dev)
+    t_start = time.perf_counter()
+    sks, pks = commander_keys(batch, seed)
+    t_keys = time.perf_counter() - t_start
+    per = -(-batch // chunks)
+    sign_s = 0.0
+    msgs_parts, sigs_parts, queued = [], [], []
+    for lo in range(0, batch, per):
+        hi = min(batch, lo + per)
+        t0 = time.perf_counter()
+        m_c, s_c = _sign_chunk(sks[lo:hi], pks[lo:hi], lo, device_sign, dev)
+        sign_s += time.perf_counter() - t0
+        msgs_parts.append(m_c)
+        sigs_parts.append(s_c)
+        pk_c = pks[lo:hi]
+        if hi - lo < per:  # one shape for every chunk's dispatches
+            pk_c, m_c, s_c = (_pad_rows(a, per - (hi - lo)) for a in (pk_c, m_c, s_c))
+        if verify == "rlc":
+            queued.append((rlc_batch_ok(pk_c, m_c, s_c, dev), pk_c, m_c, s_c, hi - lo))
+        else:
+            queued.append((verify_received(pk_c, m_c, s_c, dev)[:hi - lo], None, None, None,
+                           hi - lo))
+    t_signed = time.perf_counter()
+    flat = [q[0].to(torch.uint8).reshape(-1) for q in queued]
+    if device_sign:
+        flat += [sig.reshape(-1) for sig in sigs_parts]
+    fetched = torch.cat(flat).cpu().numpy()  # the one drain
+    n_ok = sum(q[0].numel() for q in queued)
+    if verify == "rlc":
+        oks = []
+        for flag, (_, pk_c, m_c, s_c, keep) in zip(fetched[:n_ok].astype(bool), queued):
+            oks.append(torch.ones((keep, m_c.shape[1]), dtype=torch.bool, device=dev) if flag
+                       else verify_received(pk_c, m_c, s_c, dev)[:keep])
+        ok = torch.cat(oks) if len(oks) > 1 else oks[0]
+        if not fetched[:n_ok].all():
+            ok.cpu()  # the fallback's verdicts, drained too
+    else:
+        ok = torch.cat([q[0] for q in queued]) if len(queued) > 1 else queued[0][0]
+    sigs_t = (fetched[n_ok:].reshape(batch, -1, 64) if device_sign
+              else np.concatenate(sigs_parts))
+    t_end = time.perf_counter()
+    timings = {"keys_s": t_keys, "sign_s": sign_s, "drain_s": t_end - t_signed,
+               "total_s": t_end - t_start, "chunks": len(queued), "device_sign": device_sign}
+    return sks, pks, np.concatenate(msgs_parts), sigs_t, ok, timings
+
+
+def warm_signed_tables(batch: int, chunks: int = 4, *, sign_device="auto",
+                       verify: str = "exact", device=None) -> None:
+    """Run the chunk shape :func:`setup_signed_tables_overlapped` will
+    dispatch once, off the clock, on the throw-away key-set
+    ``seed=987654321`` (``ba_tpu/crypto/signed.py:792``): the sign route's
+    kernels, the ``"rlc"`` route's batch check when asked, and the exact
+    verify (its fallback) always, each fetched."""
+    _check_route(verify)
+    dev = resolve_device(device)
+    per = -(-batch // chunks)
+    sks, pks = commander_keys(per, seed=WARM_SEED)
+    m_c, s_c = _sign_chunk(sks, pks, 0, sign_on_device(sign_device, dev), dev)
+    if verify == "rlc":
+        rlc_batch_ok(pks, m_c, s_c, dev).cpu()
+    verify_received(pks, m_c, s_c, dev).cpu()
+
+
 def sign_round1(key: torch.Tensor, state: SimState, seed: int = 0,
                 corrupt: np.ndarray | None = None, dedup_verify: bool = False):
     """The sign-then-verify preamble of a signed agreement

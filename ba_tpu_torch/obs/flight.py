@@ -25,10 +25,11 @@ def valid_run_id(run_id) -> bool:
 
 def derive_run_id(*material) -> str:
     """``run-<sha256[:16]>`` over the campaign identity material: ``bytes``
-    hash raw, anything else its ``str()``, each followed by a NUL."""
+    (or a ``memoryview`` of them) hash raw, anything else its ``str()``,
+    each followed by a NUL."""
     h = hashlib.sha256()
     for m in material:
-        h.update(m if isinstance(m, bytes) else str(m).encode())
+        h.update(m if isinstance(m, (bytes, memoryview)) else str(m).encode())
         h.update(b"\x00")
     return "run-" + h.hexdigest()[:16]
 

@@ -31,6 +31,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict = {}
+_local = threading.local()  # first loads of a library, by the thread that made them
+loads_total = 0  # first loads of a library in the process, by any thread
 build_log: dict = {}  # source name (and added flags) -> the compiler's output of its last build
 
 
@@ -94,9 +96,19 @@ def check_aligned(t, name: str, align: int = 16) -> None:
 def load(source: str, flags: tuple = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<source>`` (built with ``flags``
     added), built on first use."""
+    global loads_total
     with _lock:
         name = _name(source, flags)
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(source, flags)))
+            _local.loads = thread_loads() + 1
+            loads_total += 1
         return lib
+
+
+def thread_loads() -> int:
+    """Libraries this thread has built or loaded first in the process:
+    the serving tier counts a rise during a dispatch as a compile on the
+    request path."""
+    return getattr(_local, "loads", 0)

@@ -17,7 +17,9 @@ The last is the slot mode: a serving cohort of independent slots, one
 base key and one counter block a slot, each slot folding instance index
 0, and the last round's majorities of every general.  On a CUDA tensor they launch the kernel or
 raise; on a CPU tensor they run the plain version.  Each keeps a plain
-integer ``launches`` count, raised by one per kernel launch.
+integer ``launches`` count, raised by one per kernel launch (a replay of
+a CUDA graph that holds a slot-mode launch counts as one,
+:func:`count_graph_replay`; the capture itself counts none).
 """
 
 from __future__ import annotations
@@ -188,7 +190,8 @@ def cuda_coalesced_megastep(
         state, sched, strategy, slot_counters, events,
         rounds=rounds, collect_decisions=True, slot=True,
     )
-    cuda_coalesced_megastep.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        cuda_coalesced_megastep.launches += 1
     out = (state, sched, strategy, majorities, decisions, rows)
     if scenario:
         out += (leaders,)
@@ -198,6 +201,13 @@ def cuda_coalesced_megastep(
 cuda_pipeline_megastep.launches = 0
 cuda_scenario_megastep.launches = 0
 cuda_coalesced_megastep.launches = 0
+
+
+def count_graph_replay() -> None:
+    """A replay of a CUDA graph that holds one slot-mode launch
+    (``obs/graphcache.py``) launches the kernel once: its count is the
+    slot mode's, like the wrapper's own launches."""
+    cuda_coalesced_megastep.launches += 1
 
 
 def reset_launches() -> None:

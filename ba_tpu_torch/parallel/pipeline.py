@@ -54,11 +54,13 @@
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import functools
 import json
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -67,9 +69,11 @@ from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.election import elect_lowest_id
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, RETREAT, UNDEFINED
+from ba_tpu_torch import obs
 from ba_tpu_torch.obs import flight
 from ba_tpu_torch.parallel import mesh as _mesh
 from ba_tpu_torch.parallel.sweep import agreement_step, signed_agreement_step
+from ba_tpu_torch.utils import metrics as _metrics
 from ba_tpu_torch.utils import snapshot
 
 COUNTER_NAMES = ("quorum_failures", "unanimous_rounds", "equivocation_observed")
@@ -1320,6 +1324,8 @@ def coalesced_sweep(
     on_retire=None,
     engine: str | None = None,
     device=None,
+    run_id: str | None = None,
+    executables=None,
 ):
     """Run a coalesced serving batch through the depth-k pipelined loop:
     B independent requests, one padded batch, bit-exact slot results.
@@ -1352,10 +1358,37 @@ def coalesced_sweep(
     all ``rounds`` up front, and each dispatch's ``[nr, 1, V]`` verdicts
     broadcast over the slots.
 
+    ``executables`` is a warm-entry cache (``obs/graphcache.py``'s
+    ``GraphCache``, anything with ``get(fn, axes)`` and ``evict``),
+    consulted before each dispatch under the warmup lattice's axes: a
+    captured CUDA graph replays the dispatch, an eager entry runs it as
+    without the cache, and a miss runs it eagerly and counts in
+    ``stats["warm_misses"]``.  A replay that raises evicts its entry and
+    the same dispatch runs eagerly (``stats["graph_fallbacks"]``).
+    Without ``executables`` the dispatches are exactly those above.
+
+    The batch's run id is ``run_id`` (validated), else derived from the
+    slot keys, the round count and the event planes' content
+    (``obs/flight.py``): before the first dispatch when the sink is on,
+    else while the loop dispatches (host planes, hashed on a thread) or
+    after the last dispatch (keys alone, or planes on the card, whose
+    fetch and hash at full width are a cost of their own: pass ``run_id``
+    to skip them); it rides ``stats["run_id"]`` and one ``flight_span`` record a retired
+    window when the sink is on (``utils/metrics.configure``), and no
+    process-wide run scope is taken.
+    Each dispatch and retire feeds the ``pipeline_*`` instruments of the
+    default registry that the health sampler (``obs/health.py``) reads,
+    from host clocks the loop reads anyway.
+
     Returns a dict: ``decisions`` [rounds, B] int8, ``majorities`` [B, n]
     (the final round's), ``counters`` [B, C] int32 (each slot's final
     block) and ``counter_names``, ``leaders`` [rounds, B] (scenario only),
-    and ``stats``.
+    and ``stats``: ``rounds``, ``slots``, ``dispatches``, ``depth``,
+    ``max_in_flight``, ``engine``, ``run_id``, ``request_path_compiles``
+    (dispatches during which this thread built or first loaded a kernel
+    library, ``ops/_build.thread_loads``), ``compile_s`` (their walls),
+    ``retire_fetch_s``, ``warm_dispatches``, ``warm_misses`` and
+    ``graph_fallbacks``.
     """
     if rounds < 1:
         raise ValueError(f"rounds={rounds} must be >= 1")
@@ -1375,6 +1408,7 @@ def coalesced_sweep(
         raise ValueError(f"{len(slot_keys)} slot key(s) for a batch of {B}")
     state = state.to(dev)
     sched = make_slot_key_schedule(slot_keys)
+    key_material = sched.key_data
     sched = KeySchedule(sched.key_data.to(dev), sched.counter.to(dev))
     is_scenario = scenario is not None
     strategy = planes = None
@@ -1418,58 +1452,190 @@ def coalesced_sweep(
             return coalesced_signed_megastep(state, sched, counters, verdicts, rounds=rounds,
                                              m=m, collapsed=collapsed)
 
+    def identity_material():
+        from ba_tpu_torch import convert
+
+        material = ["coalesced", rounds, B, convert.key_data_to_numpy(key_material).tobytes()]
+        if signed:
+            material.append(f"signed:m={m}:collapsed={collapsed}")
+        if is_scenario:
+            material += [_plane_bytes(planes[name], name) for name in EVENT_PLANES]
+        return material
+
+    # The run id is needed before the first dispatch only when a flight
+    # record will carry it.  Else host planes are hashed on a thread while
+    # the loop dispatches (sha256 releases the interpreter lock), and keys
+    # alone, or planes on the card, are hashed after the last dispatch.
+    sink_on = _metrics.default_sink().enabled
+    rid = hashing = None
+    if run_id is not None or sink_on:
+        rid = flight.resolve_run_id(run_id=run_id, material_fn=identity_material)
+    elif is_scenario and not any(isinstance(planes[k], torch.Tensor)
+                                 and planes[k].device.type != "cpu" for k in EVENT_PLANES):
+        hasher = concurrent.futures.ThreadPoolExecutor(1)
+        hashing = hasher.submit(flight.resolve_run_id, material_fn=identity_material)
+        hasher.shutdown(wait=False)
+    axes = {"batch": B, "capacity": n, "m": m, "max_liars": max_liars, "unroll": 1,
+            "scenario": is_scenario, "signed": signed,
+            "collapsed": collapsed if signed else False, "engine": engine}
     out = _coalesced_loop(
         state, sched, strategy, counters, stage, _chunks(rounds, rounds_per_dispatch), m=m,
         max_liars=max_liars, depth=depth, coalesced_fn=coalesced_fn, exec_seam=exec_seam,
-        on_retire=on_retire, scenario=is_scenario,
+        on_retire=on_retire, scenario=is_scenario, run_id=rid, executables=executables,
+        axes=axes, sink_on=sink_on,
     )
     out["counter_names"] = list(names)
     out["stats"]["engine"] = engine
+    if hashing is not None:
+        rid = hashing.result()
+    out["stats"]["run_id"] = rid or flight.resolve_run_id(material_fn=identity_material)
     if lane is not None:
         out["stats"].update(_lane_stats(lane))
     return out
 
 
+def _plane_bytes(plane, name: str) -> memoryview:
+    """An event plane's bytes as the JAX package's run id hashes them
+    (its compiled block's dtype), without a copy when they are already
+    so laid out on the host."""
+    if isinstance(plane, torch.Tensor):
+        plane = plane.cpu().numpy()
+    dtype = np.bool_ if _PLANE_DTYPES[name] == torch.bool else np.int8
+    return memoryview(np.ascontiguousarray(plane, dtype).reshape(-1).view(np.uint8))
+
+
+_instruments: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _pipeline_instruments(reg) -> dict:
+    """The dispatch loop's instruments, under the JAX package's names:
+    the health sampler's depth-occupancy and retire-lag inputs.  Looked
+    up once a registry (a registry never replaces an instrument)."""
+    inst = _instruments.get(reg)
+    if inst is None:
+        inst = _instruments[reg] = {
+            "lat": reg.histogram("pipeline_dispatch_latency_s"),
+            "lag": reg.histogram("pipeline_retire_lag_s"),
+            "occ": reg.histogram("pipeline_depth_occupancy", base=1.0, n_buckets=16),
+            "disp": reg.counter("pipeline_dispatches_total"),
+            "ret": reg.counter("pipeline_retires_total"),
+            "rounds": reg.counter("pipeline_rounds_total"),
+            "fallbacks": reg.counter("pipeline_graph_fallbacks_total"),
+        }
+    return inst
+
+
+def _emit_flight_span(d, lo, hi, latency_s, lag_s, run_id, ctx, t_perf) -> None:
+    """One ``flight_span`` record of a retired window, stamped with the
+    batch's run id and the window's own context."""
+    rec = {"event": "flight_span", "v": _metrics.SCHEMA_VERSION, "phase": "retire",
+           "dispatch": d, "lo": lo, "hi": hi, "latency_s": round(latency_s, 6),
+           "lag_s": round(lag_s, 6), "run_id": run_id, "t_perf": round(t_perf, 6)}
+    if ctx is not None:
+        rec["trace_id"], rec["span_id"] = ctx[0], ctx[1]
+        if ctx[2] is not None:
+            rec["parent_id"] = ctx[2]
+    _metrics.emit(rec)
+
+
 def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_liars, depth,
-                    coalesced_fn, exec_seam, on_retire, scenario):
+                    coalesced_fn, exec_seam, on_retire, scenario, run_id, executables, axes,
+                    sink_on):
     """The coalesced batch's dispatch loop: :func:`pipeline_sweep`'s
     depth-k retire discipline (pinned copies behind a CUDA event, no other
     wait), each dispatch's planes (events, or a signed cohort's verdicts)
-    staged just before it."""
+    staged just before it, its warm entry looked up first.  The health
+    instruments' readings, from host clocks the loop reads anyway, are
+    kept in lists and go to the registry once, when the loop ends: a
+    serving batch is short, and the service samples its health between
+    batches."""
+    from ba_tpu_torch.ops import _build
+
+    perf = time.perf_counter
     inflight: collections.deque = collections.deque()
     retired = []
     max_in_flight = 0
+    tally = dict.fromkeys(("request_path_compiles", "warm_dispatches", "warm_misses",
+                           "graph_fallbacks"), 0)
+    compile_s = retire_fetch_s = 0.0
+    lats, lags, occupancy, retired_rounds = [], [], [], [0]
+    # this thread's library loads; the process-wide count is the cheap
+    # per-dispatch check, the thread's count decides whose load it was
+    loads, loads_total = _build.thread_loads(), _build.loads_total
 
     def retire():
-        d, lo, hi, box = inflight.popleft()
+        nonlocal retire_fetch_s
+        d, lo, hi, box, t_sub, ctx = inflight.popleft()
+        t0 = perf()
         host_ys = box.fetch() if exec_seam is None else exec_seam(
             box.fetch, "retire", d, lo, hi)
+        t1 = perf()
+        retire_fetch_s += t1 - t0
+        lags.append(t1 - t0)
+        lats.append(t1 - t_sub)
+        retired_rounds[0] += hi - lo
+        if sink_on:
+            _emit_flight_span(d, lo, hi, t1 - t_sub, t1 - t0, run_id, ctx, t_sub)
         retired.append(host_ys)
         if on_retire is not None:
             on_retire(d, lo, hi, host_ys)
 
     lo = 0
     majorities = None
-    for d, nr in enumerate(chunks):
-        hi = lo + nr
-        events = None
-        if stage is not None:
-            events, ready = stage(lo, hi)
-            if ready is not None:
-                torch.cuda.current_stream(state.device).wait_event(ready)
-        call = functools.partial(coalesced_fn, state, sched, strategy, counters, events,
-                                 rounds=nr, m=m, max_liars=max_liars, scenario=scenario)
-        out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
-        state, sched, strategy, majorities = out[:4]
-        ys = out[4:]
-        counters = ys[1][-1]  # the cumulative rows' last row continues
-        inflight.append((d, lo, hi, _Inflight(ys)))
-        max_in_flight = max(max_in_flight, len(inflight))
-        while len(inflight) > depth:
+    try:
+        for d, nr in enumerate(chunks):
+            hi = lo + nr
+            events = None
+            if stage is not None:
+                events, ready = stage(lo, hi)
+                if ready is not None:
+                    torch.cuda.current_stream(state.device).wait_event(ready)
+            call = functools.partial(coalesced_fn, state, sched, strategy, counters, events,
+                                     rounds=nr, m=m, max_liars=max_liars, scenario=scenario)
+            entry, fell_back = None, []
+            if executables is not None:
+                win = dict(axes, rounds=nr)
+                entry = executables.get("coalesced_megastep", win)
+                if entry is None:
+                    tally["warm_misses"] += 1
+                elif entry.graph:
+                    call = _graph_call(functools.partial(entry, state, sched, strategy,
+                                                         counters, events),
+                                       call, executables, win, fell_back)
+            t_disp = perf()
+            out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
+            t_sub = perf()
+            if _build.loads_total != loads_total:
+                loads_total = _build.loads_total
+                if _build.thread_loads() != loads:
+                    loads = _build.thread_loads()
+                    tally["request_path_compiles"] += 1
+                    compile_s += t_sub - t_disp
+            if entry is not None:
+                tally["graph_fallbacks" if fell_back else "warm_dispatches"] += 1
+            state, sched, strategy, majorities = out[:4]
+            ys = out[4:]
+            counters = ys[1][-1]  # the cumulative rows' last row continues
+            ctx = None
+            if sink_on and obs.trace.current() is not None:
+                ctx = obs.trace.child_context()
+            inflight.append((d, lo, hi, _Inflight(ys), t_sub, ctx))
+            occupancy.append(len(inflight))
+            max_in_flight = max(max_in_flight, len(inflight))
+            while len(inflight) > depth:
+                retire()
+            lo = hi
+        while inflight:
             retire()
-        lo = hi
-    while inflight:
-        retire()
+    finally:
+        inst = _pipeline_instruments(obs.default_registry())
+        inst["lat"].record_many(lats)
+        inst["lag"].record_many(lags)
+        inst["occ"].record_many(occupancy)
+        inst["disp"].inc(len(occupancy))
+        inst["ret"].inc(len(lags))
+        inst["rounds"].inc(retired_rounds[0])
+        inst["fallbacks"].inc(tally["graph_fallbacks"])
 
     result = {
         "decisions": np.concatenate([ys[0] for ys in retired]),
@@ -1481,8 +1647,24 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_l
             "dispatches": len(chunks),
             "depth": depth,
             "max_in_flight": max_in_flight,
+            **tally,
+            "compile_s": round(compile_s, 6),
+            "retire_fetch_s": round(retire_fetch_s, 6),
         },
     }
     if scenario:
         result["leaders"] = np.concatenate([ys[2] for ys in retired])
     return result
+
+
+def _graph_call(replay, eager, executables, axes, fell_back):
+    """A dispatch by its captured graph; a replay that raises evicts the
+    entry and runs the same dispatch eagerly (noted in ``fell_back``)."""
+    def call():
+        try:
+            return replay()
+        except Exception:
+            executables.evict("coalesced_megastep", axes)
+            fell_back.append(axes)
+            return eager()
+    return call

@@ -28,9 +28,12 @@ Extensions, as in the JAX package:
   every <every> rounds.
 
 ``scenario <file> ... mesh=N`` runs the campaign on ``make_mesh((N, 1))``
-over the backend's device.  ``stats``, ``search``, ``serve``, ``fleet``
-and the ``scenario`` token ``supervise`` print one line, ``<command>
-error: ... not ported to ba_tpu_torch yet``.
+over the backend's device.  ``serve start [queue=N] [window=S]
+[batch=N] [warm=0|1] [engine=torch|cuda|auto]`` / ``serve stat`` /
+``serve stop`` run a local agreement service
+(``runtime/serve.py``) on the backend's device.  ``stats``, ``search``,
+``fleet`` and the ``scenario`` token ``supervise`` print one line,
+``<command> error: ... not ported to ba_tpu_torch yet``.
 
 Divergences from the reference (guarded crashes there, SURVEY.md section
 3.3): unknown ids and an empty cluster are ignored (Q4), and election is
@@ -44,7 +47,9 @@ from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.scenario import spec as scenario_spec
 
 NOT_PORTED = "not ported to ba_tpu_torch yet"
-UNPORTED_COMMANDS = ("stats", "search", "serve", "fleet")
+UNPORTED_COMMANDS = ("stats", "search", "fleet")
+SERVE_USAGE = ("serve error: usage: serve start [queue=N] [window=S] [batch=N] [warm=0|1] "
+               "| serve stat | serve stop")
 SCENARIO_USAGE = ("(usage: scenario <file> [<ckpt-path> <every>] "
                   "[supervise] [mesh=N] [engine=...])")
 
@@ -123,6 +128,9 @@ def _dispatch(cluster: Cluster, cmd: list, out) -> bool:
 
     elif command == "scenario":
         _scenario(cluster, cmd, out)
+
+    elif command == "serve":
+        _serve(cluster, cmd, out)
 
     elif command in UNPORTED_COMMANDS:
         out(f"{command} error: {NOT_PORTED}")
@@ -254,6 +262,65 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
     out("Scenario counters: " + ", ".join(f"{k}={v}" for k, v in res["counters"].items()))
     if ck_path is not None:
         out(f"Scenario checkpoints: {res['stats'].get('checkpoints', 0)} -> {ck_path}")
+
+
+def _serve(cluster: Cluster, cmd: list, out) -> None:
+    """``serve start [queue=N] [window=S] [batch=N] [warm=0|1]
+    [engine=torch|cuda|auto]`` / ``serve stat`` / ``serve stop``: a local
+    ``AgreementService`` on the backend's device (the card for a backend
+    without one), printing the JAX package's lines."""
+    from ba_tpu_torch.obs import registry as _registry
+    from ba_tpu_torch.runtime import serve as serve_mod
+
+    args = [t for t in cmd[1:] if t]
+    if not args or args[0] not in ("start", "stat", "stop"):
+        out(SERVE_USAGE)
+        return
+    svc = getattr(cluster, "_serve_service", None)
+    if args[0] == "start":
+        if svc is not None and svc.running():
+            out("serve error: already running (serve stop first)")
+            return
+        overrides = {}
+        names = {"queue": ("max_queue", int), "window": ("coalesce_window_s", float),
+                 "batch": ("max_batch", int), "warm": ("warm", int), "engine": ("engine", str)}
+        for tok in args[1:]:
+            key, sep, val = tok.partition("=")
+            if not sep or key not in names:
+                out(f"serve error: unknown option {tok!r} (usage: serve start [queue=N] "
+                    f"[window=S] [batch=N] [warm=0|1] [engine=torch|cuda|auto])")
+                return
+            field, cast = names[key]
+            try:
+                overrides[field] = cast(val)
+            except ValueError:
+                out(f"serve error: {key}= wants a {cast.__name__}, got {val!r}")
+                return
+        if "warm" in overrides:
+            overrides["warm"] = bool(overrides["warm"])
+        device = getattr(cluster.backend, "device", None)
+        try:
+            cfg = serve_mod.ServeConfig(device=None if device is None else str(device),
+                                        **overrides)
+            svc = serve_mod.AgreementService(cfg, registry=_registry.default_registry())
+            svc.start()
+        except (RuntimeError, ValueError) as e:
+            out(f"serve error: {e}")
+            return
+        cluster._serve_service = svc
+        out(f"serve: started (queue={cfg.max_queue}, window={cfg.coalesce_window_s}s, "
+            f"batch={cfg.max_batch}" + (", warm" if cfg.warm else "") + ")")
+    elif svc is None:
+        out("serve error: not running (serve start first)")
+    elif args[0] == "stat":
+        for k, v in svc.stats().items():
+            out(f"serve_{k} {v}")
+    else:
+        svc.stop()
+        cluster._serve_service = None
+        st = svc.stats()
+        out(f"serve: stopped — admitted={st['admitted']}, completed={st['completed']}, "
+            f"rejected={st['rejected']}, expired={st['expired']}, failed={st['failed']}")
 
 
 def run_repl(cluster: Cluster, stdin, out) -> None:

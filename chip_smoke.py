@@ -43,6 +43,11 @@ The paths, each through its hand-written kernels:
 - the coalesced serving batch, ``coalesced_sweep``, through K1's slot
   mode (the same source): ``bench.py``'s ``bench_serving`` requests alone
   and coalesced, and a full-width scenario cohort;
+- the serving tier, ``runtime/serve.py``'s ``AgreementService`` (its
+  cohorts through ``coalesced_sweep``: K1's slot mode, as CUDA graphs when
+  warm, K7, K5, K4 and K3 through a signed cohort's lane, K9 at m = 2),
+  and the REPL's ``serve``; ``setup_signed_tables_overlapped`` by both
+  sign routes and both verify routes;
 - BASELINE configs #1 (``bench_om1_n4``) and #4 (``bench_n1024_m32``),
   which run no kernel: the plain OM(1) round and the collapsed SM(32);
 - OM(m) by the EIG tree (``core/eig.py``), through K9, the masked
@@ -266,8 +271,11 @@ Phases, one JSON line each:
    the launcher on the card and on the CPU, every line equal but
    ``sign_ahead_s``'s value, and the same ``run-rounds`` in-process on
    the card (K7, K5, K4, K3 twice each: the lane's one pass and the last
-   round's check), once more recorded; the launches join K1's, K9's and the Ed25519 kernels' lines
-   (K1's REPL dispatches as ``repl_path``);
+   round's check), once more recorded; then ``serve start batch=8
+   engine=cuda``, 8 requests through the cluster's service (each bit-equal
+   to its run alone), ``serve stat`` and ``serve stop``, their lines the
+   JAX package's; the launches join K1's, K9's and the Ed25519 kernels'
+   lines (K1's REPL dispatches as ``repl_path``);
 32. ``signed_pipeline_middle``: ``pipeline_sweep(signed=True)`` at B = 64,
    capacity 64 (``make_sweep_state``, every fourth leader faulty), m = 2,
    the exact relay, 6 rounds 2 a dispatch, every seventh instance's
@@ -329,13 +337,37 @@ Phases, one JSON line each:
    on the card prints ``REPL_MESH_GOLDEN`` (the JAX package's bytes) and
    what the command prints without ``mesh=``; ``mesh=2`` prints one
    ``scenario error:`` line naming both counts and runs nothing;
+40. ``serve_bench_serving``: ``bench.py``'s ``bench_serving`` legs on the
+   card at its shape (``phase_serve_bench_serving``): each request alone,
+   a live ``AgreementService`` (``engine="cuda"``, K1's slot mode) whose
+   every result is bit-equal to its run alone, and the deadline-storm
+   drill (examples/faults/deadline_storm.json, a 50 ms stall a window, a
+   queue of 4): no hung client, the queue bounded, a probe served after;
+41. ``serve_full_width``: the service at max_batch 1 024, a queue of
+   16 384 and 64 client threads, 8 832 requests (plain run-rounds at
+   capacity 1024, coalition campaigns, signed run-rounds through the
+   lane's K7, K5, K4 and K3, OM(2) through K9), a sample of 128 bit-equal
+   to their runs alone; wall, requests/s, latency, cohorts, launches,
+   peak memory and the share of the host's result building;
+42. ``serve_warm``: a warm service (CUDA graphs of K1's slot mode for
+   every cohort bucket, eager entries for the rest) with live traffic
+   during its warmup; after the warm barrier no compile on the request
+   path, warm dispatches, no graph fallback, every result bit-equal to a
+   cold service's; cold against warm latency;
+43. ``signed_setup_overlapped``: ``setup_signed_tables_overlapped(10 240)``
+   in 2 and 4 chunks by each sign route and verify route after
+   ``warm_signed_tables``: tables byte-equal to ``setup_signed_tables``',
+   every verdict True, the timings beside phase 9's;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch (K2's sharded form: phase 34's four-entry warm-up step, shard
 by shard, against the plain version at each shard's index base).  For
 K1's slot mode, the Ed25519 kernels, K3' and P it replays what the main
 paths recorded (phases 17 and 18 each run once more with
-their dispatches recorded, inputs copied before each dispatch): each
+their dispatches recorded, inputs copied before each dispatch; the
+serving phases' cohorts once more through the service's own staging,
+``AgreementService._execute``, every dispatch timed and held against
+plain): each
 setup route run once more with its dispatches recorded (the wrappers'
 arguments and outputs, taken at their modules), and one call of each of
 config #3's legs on its first inputs, one more run of phase 27's
@@ -375,6 +407,7 @@ import atexit
 import concurrent.futures
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import gc
 import hashlib
@@ -384,6 +417,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -397,6 +431,8 @@ from ba_tpu_torch.core.state import SimState, make_state
 from ba_tpu_torch.core.types import ATTACK
 from ba_tpu_torch.crypto import ed25519, oracle, scalar, sha512, signed
 from ba_tpu_torch.crypto import field as F
+from ba_tpu_torch.obs import flight
+from ba_tpu_torch.obs import registry as obs_registry
 from ba_tpu_torch.ops import (_build, decompress, fieldmul_probe, ladder, majority, modl,
                               powchain, scenario_step, sha512_kernel, sweep_step, treeadd)
 from ba_tpu_torch.parallel import eig_parallel as eparallel
@@ -406,6 +442,7 @@ from ba_tpu_torch.parallel import node_parallel as nparallel
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.parallel import shard as pshard
 from ba_tpu_torch.parallel import sm_parallel as smparallel
+from ba_tpu_torch.runtime import chaos, serve
 from ba_tpu_torch.runtime.backends import TorchBackend
 from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.repl import handle_command
@@ -677,7 +714,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    obj.setdefault("t_s", time.perf_counter() - T0)  # seconds since the script started
     print(json.dumps(obj), flush=True)
 
 
@@ -2681,7 +2722,10 @@ def phase_coalesced_full_width(dev, seed, card):
     rounds 4 a dispatch.  Checks: shapes, decisions and leaders in range,
     each slot's unanimity column = rounds and quorum failures = its
     UNDEFINED decisions, and 64 slots against their own B = 1 runs.
-    Then the cohort once more, its dispatches recorded."""
+    The wall holds the batch's derived run id (the planes fetched and
+    hashed after the last dispatch); that derivation is also timed alone
+    and its id checked against the run's.  Then the cohort once more,
+    its dispatches recorded."""
     spec = scenario_spec.load(COALITION)
     R = spec.rounds
     arrays = sweep_arrays(rng.fold_in(rng.key(seed + 2, device=dev), 1000), B_FULL, CAP_FULL,
@@ -2700,6 +2744,12 @@ def phase_coalesced_full_width(dev, seed, card):
     wall = time.perf_counter() - t0
     launches = scenario_step.cuda_coalesced_megastep.launches
     check(launches == -(-R // RPD_COAL), f"full-width slot-mode launches {launches}")
+    t0 = time.perf_counter()
+    material = [pipeline._plane_bytes(planes[k], k) for k in pipeline.EVENT_PLANES]
+    rid = flight.derive_run_id("coalesced", R, B_FULL, convert.key_data_to_numpy(
+        pipeline.make_slot_key_schedule(keys).key_data).tobytes(), *material)
+    run_id_s = time.perf_counter() - t0
+    check(rid == out["stats"]["run_id"], f"run id {out['stats']['run_id']}, derived {rid}")
     dec, lead, ctr = out["decisions"], out["leaders"], out["counters"]
     check(dec.shape == (R, B_FULL) and lead.shape == (R, B_FULL)
           and ctr.shape == (B_FULL, 5) and out["majorities"].shape == (B_FULL, CAP_FULL),
@@ -2724,7 +2774,9 @@ def phase_coalesced_full_width(dev, seed, card):
     emit({"phase": "coalesced_full_width", "spec": os.path.basename(COALITION),
           "slots": B_FULL, "capacity": CAP_FULL, "rounds": R,
           "rounds_per_dispatch": RPD_COAL, "wall_s": wall,
-          "slot_rounds_per_s": B_FULL * R / wall, "sample_equal_alone": SAMPLE_COAL,
+          "slot_rounds_per_s": B_FULL * R / wall, "run_id_s": run_id_s,
+          "run_id_plane_bytes": sum(m.nbytes for m in material),
+          "sample_equal_alone": SAMPLE_COAL,
           "counters_sum": dict(zip(out["counter_names"], ctr.sum(0).tolist())),
           "decision_histogram": np.bincount(dec.ravel(), minlength=3).tolist(),
           "kernel_launches": launches, "card": card})
@@ -2768,7 +2820,8 @@ def replay_slot(calls, int_ops_per_s):
     against the recorded output (the path's own) and the plain version;
     its CUDA-event time (mean of 10 after a warm-up, 3 at full width),
     the plain version's (one call, host clock) and the bound.  Dispatches
-    of one shape are summed into one entry."""
+    of one shape are summed into one entry: every reading in it was
+    taken on each of them."""
     groups = {}
     kernel = scenario_step.cuda_coalesced_megastep
     for _, args, kw, recorded, _ in calls:
@@ -2778,6 +2831,7 @@ def replay_slot(calls, int_ops_per_s):
         got = slot_flat(kernel(*pipeline.fresh_copy(args), **kw))
         check(max_abs_err(zip(got, slot_flat(recorded))) == 0,
               "a replayed slot-mode dispatch differs from its path's own output")
+        what = f"B {B}, n {n}, R {R}, {'scenario' if scen else 'plain'}"
         want, plain_ms = timed_plain(lambda: plain_slots(pipeline.fresh_copy(args), kw))
         reps = 10 if B * n <= 1 << 16 else 3
         copies = iter([pipeline.fresh_copy(args) for _ in range(reps + 1)])
@@ -2787,7 +2841,6 @@ def replay_slot(calls, int_ops_per_s):
               "K1's counting build differs from the kernel on a slot-mode dispatch")
         words, steps = work_counts(state, R, strategy=args[2], events=args[4], slot=True)
         bound_ms, bound_by = bound(words, steps, slot_nbytes(B, n, R, scen), int_ops_per_s)
-        what = f"B {B}, n {n}, R {R}, {'scenario' if scen else 'plain'}"
         g = groups.setdefault(what, {"what": what, "dispatches": 0, "max_abs_err": 0,
                                      "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                      "bound_by": bound_by, "threefry_words_needed": 0,
@@ -2808,9 +2861,11 @@ def replay_slot(calls, int_ops_per_s):
 def kernel_line_slot(paths, int_ops_per_s):
     """K1's slot-mode line.  ``paths``: (path, recorded calls, launches
     counted on the path's main run, the calls that run made of each
-    recorded one).  Every recorded dispatch is replayed
-    (``replay_slot``); a path's dispatches replayed, times its calls,
-    must equal its counted launches."""
+    recorded one).  Every recorded dispatch is replayed, timed and held
+    against the plain version (``replay_slot``); a path's dispatches
+    replayed, times its calls, must equal
+    its counted launches (a serving path's graph replays count as
+    launches, and its recorded rerun dispatches each window eagerly)."""
     entries = []
     for path, calls, launches, runs in paths:
         parts = replay_slot(calls, int_ops_per_s)
@@ -2839,7 +2894,8 @@ def kernel_line_slot(paths, int_ops_per_s):
 # there; 2 here: a call takes ~16 s of host-bound plain torch on the card's
 # machine, and 3 reps of 5 were 40 % of this script's run.
 B_C1, N_C1, ITERS_C1 = 4_194_304, 4, 30
-N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 100, 2
+# bench_n1024_m32 runs 100 rounds a call; 25 keep the script inside its time limit
+N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 25, 2
 
 
 def bench_timed(fn, args_of, iters, reps=3):
@@ -2884,9 +2940,9 @@ def phase_config1(dev, card):
 
 
 def phase_config4(dev, card):
-    """BASELINE config #4 as bench_n1024_m32 runs it: the collapsed
+    """BASELINE config #4 at bench_n1024_m32's shape: the collapsed
     sm_agreement at B = 1, n = 1024, m = 32, the first 32 generals faulty
-    (the commander among them), 100 rounds a call on split(key, 100),
+    (the commander among them), 25 rounds a call on split(key, 25),
     keys fold_in(key(4), i); every round's honest lieutenants agree (IC1)
     and count all 1024 (counted on the card, read after the clock)."""
     faulty = torch.zeros((1, N_C4), dtype=torch.bool, device=dev)
@@ -3986,6 +4042,8 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
     check([SIGN_AHEAD.sub("", x) for x in again] == [SIGN_AHEAD.sub("", x) for x in rr_lines],
           "the recorded signed run-rounds printed other lines")
 
+    serve_seg = repl_serve(dev)
+
     emit({"phase": "repl_cuda", "card": card,
           "launcher": {"stdout_bytes": len(card_out), "equal_to_reference_golden": True,
                        "equal_to_torch_cpu": True, "coin_free_lines_equal_to_py": k,
@@ -4001,6 +4059,7 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
           "k1_scenario_launches": scen_launches + ck_launches, "k9_launches": k9_launches,
           "resumed_on_cpu_from_rounds": resumed, "signed_launches": signed_launches,
           "signed_line": signed_lines[-1],
+          "serve": {k: v for k, v in serve_seg.items() if k != "calls"},
           "signed_session": {"lines_equal_but_sign_ahead_s": len(masked["torch"]),
                              "wall_s": {b: w for b, (_, w) in signed_std.items()},
                              "signed_lane_lines": [x for x in rr_lines
@@ -4008,6 +4067,8 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
                              "run_rounds_launches": rr_launches}})
     return {"plain": plain_launches + timed_launches, "plain_path": plain_path,
             "scenario": scen_launches + ck_launches, "scenario_path": scen_path,
+            "slot": ("repl_cuda: serve start batch=8 engine=cuda, 8 requests",
+                     serve_seg["calls"], serve_seg["k1_slot_launches"], 1),
             "k9": (f"repl_cuda: m = 2 roster, {' / '.join(eig_lines)} (n {N_REPL_EIG})",
                    k9_calls, k9_launches, 1),
             "ed": [("repl_cuda: signed actual-order retreat (n 4)", ed_calls, signed_launches, 1),
@@ -4677,6 +4738,670 @@ def phase_repl_mesh(dev, card):
           "walls_s": walls, "card": card})
 
 
+# -- the serving tier: AgreementService, warm serving, the overlapped setup ------
+
+# AgreementService.stats()'s keys, in the JAX package's order
+# (ba_tpu/runtime/serve.py:1498-1534); ``serve stat`` prints one line each.
+SERVE_STAT_KEYS = ("open", "running", "tier", "window_s", "queue_depth", "queue_limit",
+                   "max_batch", "admitted", "completed", "rejected", "expired", "failed",
+                   "retries", "stalls", "batches", "batch_s_ewma", "injected",
+                   "compiles_on_request_path", "warm", "slo", "slo_reports", "engine")
+SERVE_WINDOW_S, STORM_STALL_S = 0.01, 0.05  # bench_serving's window and storm stall
+STORM_PLAN = os.path.join(ROOT, "examples", "faults", "deadline_storm.json")
+# serve_full_width: the size a user runs a service at
+FW_BATCH, FW_QUEUE, FW_CLIENTS, FW_RPD, FW_ROUNDS = 1024, 16_384, 64, 8, 32
+FW_PLAIN, FW_SCEN, FW_SIGNED, FW_EIG = 8_192, 512, 64, 64
+FW_N_SIGNED, FW_N_EIG = 64, 16
+FW_SAMPLE = (("run-rounds", 64), ("scenario", 32), ("signed", 16), ("m2", 16))  # 128 in all
+WARM_WINDOW_S = 0.2  # serve_warm: one 1 024-slot cohort forms inside it (halved at tier 1)
+OVERLAP_CHUNKS = (2, 4)  # setup_signed_tables_overlapped's chunk counts
+ALL_WRAPPERS = {**SLOT_WRAPPERS, **ED_WRAPPERS, **K9_WRAPPERS}
+
+
+def serve_request(i, rounds=SERVE_ROUNDS):
+    """bench_serving's request i (bench.py:1542-1551)."""
+    return serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2], n=4,
+                                  faulty=((2,), (), (1, 3))[i % 3], seed=1000 + i,
+                                  rounds=rounds)
+
+
+def served(svc, reqs):
+    """``reqs`` submitted with no deadline and waited for -> (results,
+    each request's submit-to-result seconds)."""
+    t0 = [time.perf_counter()] * len(reqs)
+    tickets = []
+    for i, r in enumerate(reqs):
+        t0[i] = time.perf_counter()
+        tickets.append(svc.submit(r, deadline_s=None))
+    results, lat = [], []
+    for t, start in zip(tickets, t0):
+        results.append(t.result(timeout=600))
+        lat.append(time.perf_counter() - start)
+    return results, lat
+
+
+def burst(svc, reqs):
+    """``reqs`` admitted to an open service whose dispatcher has not
+    started (``open()``), then ``start()``: the dispatcher finds the whole
+    burst queued and coalesces it as one cohort, however slowly the host
+    admits it -> (results, each request's start-to-result seconds)."""
+    tickets = [svc.submit(r, deadline_s=None) for r in reqs]
+    t0 = time.perf_counter()
+    svc.start()
+    results, lat = [], []
+    for t in tickets:
+        results.append(t.result(timeout=600))
+        lat.append(time.perf_counter() - t0)
+    return results, lat
+
+
+def clients(svc, reqs, n_clients, sequential):
+    """``reqs`` from ``n_clients`` threads, request i on client i mod
+    n_clients: each submits and waits one at a time (``sequential``, as
+    bench_serving's clients do) or submits all of its requests, then waits
+    -> (results in request order, latencies, wall s)."""
+    results, lat = [None] * len(reqs), [0.0] * len(reqs)
+
+    def client(c):
+        mine = list(range(c, len(reqs), n_clients))
+        if sequential:
+            for i in mine:
+                (results[i],), (lat[i],) = served(svc, [reqs[i]])
+        else:
+            res, ls = served(svc, [reqs[i] for i in mine])
+            for i, r, x in zip(mine, res, ls):
+                results[i], lat[i] = r, x
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(n_clients) as ex:
+        list(ex.map(client, range(n_clients)))
+    return results, lat, time.perf_counter() - t0
+
+
+def pct(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, int(len(s) * q))]
+
+
+def same_result(a, b):
+    return all(a.get(k) == b.get(k) for k in ("decisions", "counts", "majorities", "counters",
+                                             "leaders"))
+
+
+def cohorts_of(reqs, results):
+    """The served cohorts, each its requests in slot order: results that
+    share a run id came from one cohort."""
+    groups = {}
+    for req, res in zip(reqs, results):
+        groups.setdefault(res["run_id"], {})[res["slot"]] = req
+    out = []
+    for g in groups.values():
+        check(sorted(g) == list(range(len(g))), "a run id spans two cohorts")
+        out.append([g[s] for s in sorted(g)])
+    return out
+
+
+def tickets_for(reqs):
+    """Tickets as ``submit`` makes them (a scenario request's planes
+    compiled at its capacity)."""
+    out = []
+    for i, r in enumerate(reqs):
+        t = serve.Ticket(r, i, None)
+        if r.kind == "scenario":
+            cap = serve._capacity(r.n)
+            t._block = scenario_compile.compile_scenario(
+                r.spec, batch=1, capacity=cap, ids=np.arange(1, cap + 1, dtype=np.int64))
+        out.append(t)
+    return out
+
+
+def execute(cfg, dev, reqs):
+    """``reqs`` as one cohort through the service's own staging and
+    dispatch (``AgreementService._execute`` of a service that never
+    starts: no queue, no cache) -> its results."""
+    svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+    svc._device = dev
+    return svc._execute(tickets_for(reqs))[0]
+
+
+def rerun_recorded(cfg, dev, cohorts):
+    """The served cohorts once more, eagerly, each through
+    ``AgreementService._execute``, their kernel dispatches recorded (the
+    inputs copied before each): the same dispatches the service made."""
+    with recording(ALL_WRAPPERS, snapshot=True) as calls:
+        for reqs in cohorts:
+            execute(cfg, dev, reqs)
+    by = {"slot": [], "ed": [], "k9": []}
+    for c in calls:
+        by["slot" if c[0] in SLOT_WRAPPERS else "k9" if c[0] in K9_WRAPPERS else "ed"].append(c)
+    return by
+
+
+def served_launches(slot_before=0):
+    return {"K1 slot": scenario_step.cuda_coalesced_megastep.launches - slot_before,
+            "K9": majority.masked_majority_rows.launches, **ed_launches()}
+
+
+def slot_dispatches(cfg, cohorts):
+    """K1 slot-mode dispatches the cohorts make on the card: one a window
+    of each cohort whose engine resolves to the kernel."""
+    n = 0
+    for reqs in cohorts:
+        key = serve.cohort_key(reqs[0], cfg.engine, cfg.m)
+        engine, m, signed_ = key[3], key[4], key[5]
+        if engine in ("cuda", "auto") and m == 1 and not signed_:
+            n += len(pipeline._chunks(key[1], cfg.rounds_per_dispatch))
+    return n
+
+
+def repl_serve(dev):
+    """Phase 31's ``serve``: ``serve start batch=8 engine=cuda`` on a
+    cluster of the card, 8 of bench_serving's requests through its
+    service, ``serve stat`` and ``serve stop``; the lines the JAX
+    package's, every result bit-equal to its run alone, the K1 slot-mode
+    launches accounted for, the cohorts once more recorded."""
+    serve_cluster = Cluster(4, TorchBackend(device=dev), seed=0)
+    started = repl(serve_cluster, ["serve start batch=8 engine=cuda"])
+    check(started == ["serve: started (queue=64, window=0.005s, batch=8)"],
+          f"serve start printed {started}")
+    svc = serve_cluster._serve_service
+    serve_reqs = [serve_request(i) for i in range(SERVE_COHORT)]
+    reset_all_launches()
+    serve_results, _ = served(svc, serve_reqs)
+    serve_launches = scenario_step.cuda_coalesced_megastep.launches
+    stat = repl(serve_cluster, ["serve stat"])
+    check([x.split(" ")[0] for x in stat] == [f"serve_{k}" for k in SERVE_STAT_KEYS]
+          and f"serve_completed {SERVE_COHORT}" in stat and "serve_engine cuda" in stat,
+          f"serve stat printed {stat}")
+    stopped = repl(serve_cluster, ["serve stop"])
+    check(stopped == [f"serve: stopped — admitted={SERVE_COHORT}, completed={SERVE_COHORT}, "
+                      f"rejected=0, expired=0, failed=0"], f"serve stop printed {stopped}")
+    serve_cfg = serve.ServeConfig(max_batch=SERVE_COHORT, engine="cuda", device=str(dev))
+    check(all(same_result(r, execute(serve_cfg, dev, [q])[0])
+              for q, r in zip(serve_reqs, serve_results)),
+          "a request served through the REPL's service differs from its run alone")
+    serve_cohorts = cohorts_of(serve_reqs, serve_results)
+    check(serve_launches == slot_dispatches(serve_cfg, serve_cohorts),
+          f"the REPL's service: {serve_launches} K1 slot launches")
+    serve_calls = rerun_recorded(serve_cfg, dev, serve_cohorts)["slot"]
+    return {"lines": started + stat + stopped, "requests": SERVE_COHORT,
+            "cohorts": len(serve_cohorts), "k1_slot_launches": serve_launches,
+            "bit_equal_alone": True, "calls": serve_calls}
+
+
+def timed_cohorts(svc, cfg):
+    """Measure each cohort the service dispatches: a list that fills with
+    (cohort label, slots, the wall of ``_execute``: staging, the engine
+    and the result building) as the service runs."""
+    log, execute_ = [], svc._execute
+
+    def timed(live):
+        t0 = time.perf_counter()
+        out = execute_(live)
+        log.append((serve.cohort_label(serve.cohort_key(live[0].request, cfg.engine, cfg.m)),
+                    len(live), time.perf_counter() - t0))
+        return out
+
+    svc._execute = timed
+    return log
+
+
+def phase_serve_bench_serving(dev, card):
+    """bench.py:1493 ``bench_serving``'s three legs on the card at its
+    shape (8 clients x 4 requests, n = 4, capacity 4, 32 rounds, max_batch
+    8, queue 32, window 0.01 s, 8 rounds a dispatch, ``engine="cuda"``):
+    1. each request alone, one slot through ``coalesced_sweep``;
+    2. a live ``AgreementService``, each client submitting and waiting in
+       turn: every result bit-equal to leg 1's (decisions, counts,
+       majorities, counters); its K1 slot-mode launches counted, then its
+       cohorts once more, recorded, for the kernels line;
+    3. the deadline-storm drill: examples/faults/deadline_storm.json's
+       client plan on 16 clients, a 50 ms stall at every dispatch window,
+       a queue of 4; no client hangs, the queue stays bounded, both
+       shedding (rejections or expiries) and served requests occur, and a
+       probe request afterwards is served bit-equal to leg 1's."""
+    reqs = [serve_request(i) for i in range(SERVE_CLIENTS * SERVE_PER_CLIENT)]
+    cfg = serve.ServeConfig(max_batch=SERVE_COHORT, max_queue=4 * SERVE_COHORT,
+                            coalesce_window_s=SERVE_WINDOW_S, rounds_per_dispatch=SERVE_RPD,
+                            engine="cuda", device=str(dev))
+    execute(cfg, dev, reqs[:1])  # off the clock: the first launch's module load
+    t0 = time.perf_counter()
+    alone = [execute(cfg, dev, [r])[0] for r in reqs]
+    alone_s = time.perf_counter() - t0
+
+    svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+    svc.start()
+    scenario_step.reset_launches()
+    results, lat, wall = clients(svc, reqs, SERVE_CLIENTS, sequential=True)
+    launches = scenario_step.cuda_coalesced_megastep.launches
+    stats = svc.stats()
+    svc.stop()
+    check(all(same_result(r, a) for r, a in zip(results, alone)),
+          "a served request differs from its run alone")
+    cohorts = cohorts_of(reqs, results)
+    check(launches == slot_dispatches(cfg, cohorts) and stats["failed"] == 0,
+          f"serving: {launches} K1 slot launches for {len(cohorts)} cohorts")
+    calls = rerun_recorded(cfg, dev, cohorts)["slot"]
+
+    storm = chaos.ChaosInjector(chaos.load(STORM_PLAN))
+    stall = chaos.from_dict({"name": "storm-stall", "faults": [
+        {"round": r, "kind": "stall", "phase": "dispatch", "seconds": STORM_STALL_S,
+         "times": -1} for r in range(0, SERVE_ROUNDS, SERVE_RPD)]})
+    storm_queue = max(2, SERVE_COHORT // 2)
+    svc2 = serve.AgreementService(dataclasses.replace(cfg, max_queue=storm_queue),
+                                  fault_plan=stall, registry=obs_registry.MetricsRegistry())
+    svc2.start()
+    counts = {"ok": 0, "rejected": 0, "expired": 0, "failed": 0}
+    lock, storming, ordinals = threading.Lock(), threading.Event(), iter(range(10**9))
+    depth_seen = [0]
+
+    def storm_client(c):
+        for j in range(SERVE_PER_CLIENT):
+            req, abandon = reqs[(c * SERVE_PER_CLIENT + j) % len(reqs)], False
+            with lock:
+                ordinal = next(ordinals)
+            for f in storm.client_faults(ordinal):
+                if f.kind == "slow_client":
+                    time.sleep(f.seconds)
+                elif f.kind == "abandon":
+                    abandon = True
+                elif f.kind == "deadline_storm":
+                    storming.set()
+            try:
+                ticket = svc2.submit(req, deadline_s=0.001 if storming.is_set() else 5.0)
+            except serve.Overloaded:
+                outcome = "rejected"
+            else:
+                outcome = None
+                if not abandon:
+                    try:
+                        ticket.result(timeout=600)
+                        outcome = "ok"
+                    except serve.DeadlineExceeded:
+                        outcome = "expired"
+                    except serve.RequestFailed:
+                        outcome = "failed"
+            with lock:
+                depth_seen[0] = max(depth_seen[0], svc2.stats()["queue_depth"])
+                if outcome:
+                    counts[outcome] += 1
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=storm_client, args=(c,)) for c in range(2 * SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    storm_s = time.perf_counter() - t0
+    hung = sum(th.is_alive() for th in threads)
+    probe = None
+    for _ in range(200):
+        try:
+            probe = svc2.submit(reqs[0], deadline_s=None)
+            break
+        except serve.Overloaded:
+            time.sleep(0.05)
+    check(probe is not None, "the service never decayed its shed tier after the storm")
+    probe_ok = same_result(probe.result(timeout=600), alone[0])
+    storm_stats = svc2.stats()
+    svc2.stop()
+    survived = hung == 0 and probe_ok
+    bounded = depth_seen[0] <= storm_queue and storm_stats["queue_depth"] <= storm_queue
+    shed = counts["rejected"] + counts["expired"]
+    check(survived and bounded and shed > 0 and counts["ok"] > 0,
+          f"the storm drill: hung {hung}, probe {probe_ok}, counts {counts}, "
+          f"max depth {depth_seen[0]} of {storm_queue}")
+    emit({"phase": "serve_bench_serving", "requests": len(reqs), "clients": SERVE_CLIENTS,
+          "n": 4, "capacity": SERVE_CAP, "rounds": SERVE_ROUNDS,
+          "rounds_per_dispatch": SERVE_RPD, "max_batch": SERVE_COHORT,
+          "window_s": SERVE_WINDOW_S, "engine": "cuda",
+          "sequential_wall_s": alone_s, "sequential_requests_per_s": len(reqs) / alone_s,
+          "serving_wall_s": wall, "requests_per_s": len(reqs) / wall,
+          "agreement_rounds_per_s": len(reqs) * SERVE_ROUNDS / wall,
+          "p50_latency_s": pct(lat, 0.5), "p99_latency_s": pct(lat, 0.99),
+          "batches": stats["batches"], "cohorts": len(cohorts),
+          "bit_equal_alone": True, "k1_slot_launches": launches,
+          "storm": {**counts, "requests": 2 * SERVE_CLIENTS * SERVE_PER_CLIENT,
+                    "wall_s": storm_s, "injected_client_faults": len(storm.fired),
+                    "queue_limit": storm_queue, "max_queue_depth_seen": depth_seen[0],
+                    "stalls_injected": storm_stats["injected"]},
+          "overload_survived_ok": survived, "queue_bounded": bounded, "card": card})
+    return ("serve_bench_serving: a live service, 8 clients x 4 requests", calls, launches, 1)
+
+
+def full_width_requests(seed):
+    """serve_full_width's requests, seeded: plain run-rounds at n uniform in
+    [513, 1024] with an eighth of the generals faulty, the coalition
+    campaign at n = 1024, signed run-rounds at n = 64 and OM(2) at
+    n = 16 (those two on ``engine="auto"``: K1 runs oral OM(1) only)."""
+    rs = np.random.default_rng(seed)
+    spec = scenario_spec.load(COALITION)
+
+    def faulty(n):
+        return tuple(int(i) for i in np.sort(rs.choice(n, n // 8, replace=False)))
+
+    reqs = []
+    for i in range(FW_PLAIN):
+        n = int(rs.integers(CAP_FULL // 2 + 1, CAP_FULL + 1))
+        reqs.append(serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2],
+                                           n=n, faulty=faulty(n), seed=20_000 + i,
+                                           rounds=FW_ROUNDS))
+    for i in range(FW_SCEN):
+        reqs.append(serve.AgreementRequest(kind="scenario", n=CAP_FULL, seed=40_000 + i,
+                                           spec=spec))
+    for i in range(FW_SIGNED):
+        reqs.append(serve.AgreementRequest(kind="run-rounds", n=FW_N_SIGNED,
+                                           faulty=faulty(FW_N_SIGNED), seed=50_000 + i,
+                                           rounds=FW_ROUNDS, signed=True, engine="auto"))
+    for i in range(FW_EIG):
+        reqs.append(serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2],
+                                           n=FW_N_EIG, faulty=faulty(FW_N_EIG), seed=60_000 + i,
+                                           rounds=FW_ROUNDS, m=2, engine="auto"))
+    order = rs.permutation(len(reqs))
+    return [reqs[i] for i in order]
+
+
+def phase_serve_full_width(dev, seed, card):
+    """The service at the size a user runs it: max_batch 1 024, a queue of
+    16 384, 64 client threads each submitting its share and then waiting,
+    ``engine="cuda"``, 8 rounds a dispatch; 8 192 plain run-rounds of 32
+    rounds (n in [513, 1024], capacity 1024, an eighth faulty), 512
+    coalition campaigns at n = 1024, 64 signed run-rounds at n = 64 (the
+    sign-ahead lane: K7, K5, K4 and K3) and 64 at m = 2, n = 16 (K9).  A
+    seeded sample of 128 requests across the kinds is held bit-equal to
+    its run alone (one slot through the same staging).  Launches counted
+    over the service's run; then its cohorts once more, recorded, for the
+    kernels lines (K1's slot mode timed and held against plain on the
+    first dispatch of each shape)."""
+    reqs = full_width_requests(seed)
+    cfg = serve.ServeConfig(max_batch=FW_BATCH, max_queue=FW_QUEUE,
+                            rounds_per_dispatch=FW_RPD, engine="cuda", device=str(dev))
+    svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+    per_cohort = timed_cohorts(svc, cfg)
+    svc.start()
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    results, lat, wall = clients(svc, reqs, FW_CLIENTS, sequential=False)
+    launches = served_launches()
+    stats, timing = svc.stats(), svc.timings()
+    svc.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(stats["completed"] == len(reqs) and stats["failed"] == stats["rejected"] == 0,
+          f"serve_full_width: {stats}")
+    cohorts = cohorts_of(reqs, results)
+    check(launches["K1 slot"] == slot_dispatches(cfg, cohorts),
+          f"serve_full_width: {launches['K1 slot']} K1 slot launches")
+    kinds = ["signed" if r.signed else "m2" if r.m == 2 else r.kind for r in reqs]
+    rs = np.random.default_rng(seed + 1)
+    sample = []
+    for kind, k in FW_SAMPLE:
+        idx = [i for i, x in enumerate(kinds) if x == kind]
+        sample += [int(i) for i in rs.choice(idx, k, replace=False)]
+    for i in sample:
+        check(same_result(results[i], execute(cfg, dev, [reqs[i]])[0]),
+              f"served request {i} ({kinds[i]}) differs from its run alone")
+    recorded = rerun_recorded(cfg, dev, cohorts)
+    big = [c for c in recorded["slot"] if c[1][0].batch == FW_BATCH]
+    check(bool(big), "no 1 024-slot cohort formed")
+    _, args, kw, _, _ = big[0]
+    copies = iter([pipeline.fresh_copy(args) for _ in range(5)])
+    k1_ms = time_cuda(lambda: scenario_step.cuda_coalesced_megastep(*next(copies), **kw), reps=3)
+    rounds = sum(serve.request_rounds(r) for r in reqs)
+    emit({"phase": "serve_full_width", "requests": len(reqs),
+          "by_kind": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "max_batch": FW_BATCH, "max_queue": FW_QUEUE, "clients": FW_CLIENTS,
+          "rounds_per_dispatch": FW_RPD, "engine": "cuda", "wall_s": wall,
+          "requests_per_s": len(reqs) / wall, "agreement_rounds_per_s": rounds / wall,
+          "p50_latency_s": pct(lat, 0.5), "p99_latency_s": pct(lat, 0.99),
+          "cohorts": len(cohorts), "mean_slots_per_cohort": len(reqs) / len(cohorts),
+          "cohort_walls": per_cohort,
+          "k1_slot_launches": launches["K1 slot"], "k9_launches": launches["K9"],
+          "lane_launches": {k: launches[k] for k in LANE_KERNELS},
+          "request_path_compiles": stats["compiles_on_request_path"],
+          "max_memory_allocated_bytes": peak, "sample_equal_alone": len(sample),
+          "host": {**timing, "result_build_share_of_execute":
+                   timing["result_build_s"] / timing["execute_s"]},
+          "k1_event_ms_full_cohort_dispatch": k1_ms,
+          "result_build_ms_per_cohort": timing["result_build_s"] / timing["cohorts"] * 1e3,
+          "card": card})
+    path = "serve_full_width: 8 832 requests, 64 clients"
+    return {"slot": (path, recorded["slot"], launches["K1 slot"], 1),
+            "ed": (path + ", the signed cohorts' lane", recorded["ed"],
+                   {k: launches[k] for k in ED_KERNELS}, 1),
+            "k9": (path + ", the m = 2 cohorts", recorded["k9"], launches["K9"], 1)}
+
+
+GVE_CALLS = 200  # graph_vs_eager: dispatches timed a way, and coalesced_sweep calls
+
+
+def graph_vs_eager(dev):
+    """K1's slot mode by its CUDA graph (``obs/graphcache.py``) against
+    the eager wrapper at phase 17's shapes (B = 1 alone, B = 8 a cohort;
+    n = 4 at capacity 4, 8 rounds a dispatch).  Per dispatch, the carry
+    chained from one dispatch to the next as the loop chains it: the host
+    wall of the call (no wait) and the CUDA-event time of GVE_CALLS calls
+    in a row.  End to end: the mean wall of a 32-round ``coalesced_sweep``
+    with and without the graph cache, the two alternating.  Both ways
+    bit-equal.  Launches made here count on no path."""
+    from ba_tpu_torch.obs import graphcache
+
+    kernel = scenario_step.cuda_coalesced_megastep
+    out = {}
+    for B in (1, SERVE_COHORT):
+        axes = {"batch": B, "capacity": SERVE_CAP, "rounds": SERVE_RPD, "m": 1,
+                "max_liars": None, "unroll": 1, "scenario": False, "signed": False,
+                "collapsed": False, "engine": "cuda"}
+        cache = graphcache.GraphCache(dev)
+        cache.ensure(graphcache.COALESCED_FN, axes)
+        entry = cache.get(graphcache.COALESCED_FN, axes)
+        reqs = serve_requests()[:B]
+
+        def carry():
+            faulty = np.zeros((B, SERVE_CAP), bool)
+            for i, (_, fl, _) in enumerate(reqs):
+                faulty[i, list(fl)] = True
+            state = to_state(dict(order=np.array([o for o, _, _ in reqs], np.int8),
+                                  leader=np.zeros(B, np.int32), faulty=faulty,
+                                  alive=np.ones((B, SERVE_CAP), bool),
+                                  ids=np.tile(np.arange(1, SERVE_CAP + 1, dtype=np.int32),
+                                              (B, 1))), dev)
+            sched = pipeline.make_slot_key_schedule(
+                [rng.key(seed, device="cpu") for _, _, seed in reqs])
+            sched = pipeline.KeySchedule(sched.key_data.to(dev), sched.counter.to(dev))
+            counters = torch.zeros((B, len(pipeline.COUNTER_NAMES)), dtype=torch.int32,
+                                   device=dev)
+            return [state, sched, counters]
+
+        def way(call):
+            c = carry()
+
+            def one():
+                o = call(c[0], c[1], None, c[2], None)
+                c[0], c[1], c[2] = o[0], o[1], o[5][-1]
+                return o
+
+            one()
+            sync()
+            host = []
+            for _ in range(GVE_CALLS):
+                t0 = time.perf_counter()
+                one()
+                host.append(time.perf_counter() - t0)
+            sync()
+            ev = time_cuda(one, reps=GVE_CALLS)
+            last = [t.clone() for t in one()[3:6]]
+            return {"host_us_each": 1e6 * sum(host) / len(host), "event_us_each": 1e3 * ev}, last
+
+        eager, e_last = way(lambda *a: kernel(*a, rounds=SERVE_RPD, scenario=False))
+        graph, g_last = way(entry)
+        check(all(torch.equal(a, b) for a, b in zip(e_last, g_last)),
+              f"B {B}: a graph replay differs from the eager dispatch")
+
+        def sweep(executables):
+            c = carry()
+            return pipeline.coalesced_sweep([rng.key(seed, device="cpu") for _, _, seed in reqs],
+                                            c[0], SERVE_ROUNDS, rounds_per_dispatch=SERVE_RPD,
+                                            engine="cuda", device=dev, executables=executables)
+
+        walls = {"eager": 0.0, "graph": 0.0}
+        firsts = {}
+        for i in range(2 * GVE_CALLS):
+            name, ex = ("eager", None) if i % 2 == 0 else ("graph", cache)
+            t0 = time.perf_counter()
+            res = sweep(ex)
+            walls[name] += time.perf_counter() - t0
+            firsts.setdefault(name, res)
+        check(all(np.array_equal(firsts["eager"][k], firsts["graph"][k])
+                  for k in ("decisions", "counters", "majorities")),
+              f"B {B}: coalesced_sweep with graphs differs from without")
+        check(firsts["graph"]["stats"]["warm_dispatches"] == -(-SERVE_ROUNDS // SERVE_RPD),
+              f"B {B}: {firsts['graph']['stats']}")
+        out[f"B {B}"] = {"dispatch": {"eager": eager, "graph": graph},
+                         "coalesced_sweep_ms_each": {k: 1e3 * v / GVE_CALLS
+                                                     for k, v in walls.items()}}
+    return out
+
+
+def phase_serve_warm(dev, card):
+    """Warm serving on the card: ``warm=True``, ``warm_capacities=(4,
+    1024)``, ``warm_rounds=32``, ``warm_ms=(1, 2)``, ``warm_signed=True``,
+    max_batch 1 024, window 0.2 s, ``engine="cuda"``.  Live traffic
+    (phase 40's 32 requests) runs while the warmup captures; then
+    ``warm_barrier()``, then phase 40's 32 requests from 8 clients.  A
+    second warm service, opened without its dispatcher, passes its barrier,
+    admits a 1 024-request burst (n = 1 024, 32 rounds) and then starts, so
+    the burst is one 1 024-slot plain cohort whatever the host's pace of
+    admission.  Asserts, for both: no compile on the request path after
+    the barrier, warm dispatches, no graph fallback, every result bit-equal
+    to a cold service's (the same config without warm, driven the same
+    way: the graphs' replays equal the eager dispatches)."""
+    cfg = serve.ServeConfig(max_batch=FW_BATCH, max_queue=FW_QUEUE,
+                            coalesce_window_s=WARM_WINDOW_S, rounds_per_dispatch=SERVE_RPD,
+                            engine="cuda", device=str(dev), warm=True,
+                            warm_capacities=(SERVE_CAP, CAP_FULL), warm_rounds=SERVE_ROUNDS,
+                            warm_ms=(1, 2), warm_signed=True)
+    small = [serve_request(i) for i in range(SERVE_CLIENTS * SERVE_PER_CLIENT)]
+    big = [serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2],
+                                  n=CAP_FULL, faulty=(i % 7 + 1, CAP_FULL // 2 + i % 5),
+                                  seed=70_000 + i, rounds=SERVE_ROUNDS)
+           for i in range(FW_BATCH)]
+
+    def warmed(svc, reg):
+        check(svc.warm_barrier(timeout=600), "the warmup never finished")
+        return reg.get("serve_compile_on_request_path_total").value
+
+    def after(svc, reg, rpc_before):
+        stats, wstats = svc.stats(), svc.warm_stats()
+        rpc = reg.get("serve_compile_on_request_path_total").value - rpc_before
+        svc.stop()
+        check(rpc == 0, f"a warm service compiled on the request path: {rpc}")
+        check(stats["warmup_errors"] == 0 and stats["warmup_warmed"] == stats["warmup_planned"],
+              f"the warmup: {stats}")
+        check(wstats["warm_dispatches"] > 0 and wstats["graph_fallbacks"] == 0,
+              f"warm dispatches: {wstats}")
+        return stats, wstats
+
+    reg = obs_registry.MetricsRegistry()
+    svc = serve.AgreementService(cfg, registry=reg)
+    t0 = time.perf_counter()
+    svc.start()
+    live, _, _ = clients(svc, small, SERVE_CLIENTS, sequential=True)  # during the warmup
+    rpc_before = warmed(svc, reg)
+    warm_wall = time.perf_counter() - t0
+    scenario_step.reset_launches()
+    warm_small, lat, _ = clients(svc, small, SERVE_CLIENTS, sequential=True)
+    launches = scenario_step.cuda_coalesced_megastep.launches
+    stats, wstats = after(svc, reg, rpc_before)
+
+    big_reg = obs_registry.MetricsRegistry()
+    big_svc = serve.AgreementService(cfg, registry=big_reg)
+    t0 = time.perf_counter()
+    big_svc.open()
+    big_rpc_before = warmed(big_svc, big_reg)
+    big_warm_wall = time.perf_counter() - t0
+    scenario_step.reset_launches()
+    warm_big, lat_big = burst(big_svc, big)
+    launches += scenario_step.cuda_coalesced_megastep.launches
+    big_stats, big_wstats = after(big_svc, big_reg, big_rpc_before)
+
+    cold_svc = serve.AgreementService(dataclasses.replace(cfg, warm=False),
+                                      registry=obs_registry.MetricsRegistry())
+    cold_svc.open()
+    cold_big, cold_lat_big = burst(cold_svc, big)
+    cold_small, cold_lat, _ = clients(cold_svc, small, SERVE_CLIENTS, sequential=True)
+    cold_svc.stop()
+    check(all(same_result(a, b) for a, b in zip(warm_small + warm_big, cold_small + cold_big)),
+          "a warm result differs from the cold service's")
+    check(all(same_result(a, b) for a, b in zip(live, warm_small)),
+          "a result served during the warmup differs")
+    cohorts = cohorts_of(small, warm_small) + cohorts_of(big, warm_big)
+    check(launches == slot_dispatches(cfg, cohorts),
+          f"serve_warm: {launches} K1 slot launches (graph replays and eager)")
+    check(any(len(c) == FW_BATCH for c in cohorts),
+          f"the 1 024-slot cohort did not form: {sorted(map(len, cohorts))}")
+    calls = rerun_recorded(dataclasses.replace(cfg, warm=False), dev, cohorts)["slot"]
+    replay_vs_eager = graph_vs_eager(dev)
+    emit({"phase": "serve_warm", "warm_capacities": list(cfg.warm_capacities),
+          "warm_rounds": cfg.warm_rounds, "warm_ms": list(cfg.warm_ms),
+          "warm_signed": True, "max_batch": FW_BATCH, "window_s": WARM_WINDOW_S,
+          "warmup_wall_s": warm_wall, "warmup_runner_wall_s": wstats["warmup_wall_s"],
+          "burst_service_warmup_wall_s": big_warm_wall,
+          "planned": stats["warmup_planned"], "graphs_captured": wstats["graphs_captured"],
+          "eager_entries": wstats["eager_entries"], "live_requests_during_warmup": len(small),
+          "serve_compile_on_request_path_total": 0,
+          "warm_dispatches": wstats["warm_dispatches"] + big_wstats["warm_dispatches"],
+          "graph_fallbacks": wstats["graph_fallbacks"] + big_wstats["graph_fallbacks"],
+          "k1_slot_launches": launches, "bit_equal_cold": True, "cohorts": len(cohorts),
+          "cohort_sizes": sorted((len(c) for c in cohorts), reverse=True),
+          "burst_completed": big_stats["completed"],
+          "warm": {"p50_latency_s": pct(lat, 0.5), "p99_latency_s": pct(lat, 0.99),
+                   "burst_p50_from_start_s": pct(lat_big, 0.5)},
+          "cold": {"p50_latency_s": pct(cold_lat, 0.5), "p99_latency_s": pct(cold_lat, 0.99),
+                   "burst_p50_from_start_s": pct(cold_lat_big, 0.5)},
+          "graph_vs_eager": replay_vs_eager, "card": card})
+    return ("serve_warm: 32 requests, then a 1 024-slot burst, after the barrier (graph "
+            "replays)", calls, launches, 1)
+
+
+def phase_signed_setup_overlapped(dev, setup_t, card):
+    """``setup_signed_tables_overlapped(10 240)`` after
+    ``warm_signed_tables`` of the same chunk shape, in 2 and 4 chunks, for
+    each ``sign_device`` in (True, False) and ``verify`` in ("exact",
+    "rlc"): every verdict True, ``msgs`` and ``sigs`` byte-equal to
+    ``setup_signed_tables(10 240)``'s; the timings beside phase 9's
+    ``total_s``.  The launches of the 2-chunk runs are counted, and those
+    runs once more recorded for the kernels lines."""
+    _, _, msgs, sigs, ok, _ = signed.setup_signed_tables(B_SIGNED, device=dev)
+    check(bool(ok.all()), "the reference setup rejected a table signature")
+    runs, paths = {}, []
+    for sign_device in (True, False):
+        for verify in ("exact", "rlc"):
+            for chunks in OVERLAP_CHUNKS:
+                kw = dict(chunks=chunks, sign_device=sign_device, verify=verify, device=dev)
+                signed.warm_signed_tables(B_SIGNED, **kw)
+                sync()
+                reset_ed_launches()
+                out = signed.setup_signed_tables_overlapped(B_SIGNED, **kw)
+                launches = ed_launches()
+                check(bool(out[4].all()) and np.array_equal(out[2], msgs)
+                      and np.array_equal(out[3], sigs),
+                      f"the overlapped setup ({kw}) differs from setup_signed_tables'")
+                runs[f"{'device' if sign_device else 'host'}_sign.{verify}.c{chunks}"] = {
+                    k: out[5][k] for k in ("keys_s", "sign_s", "drain_s", "total_s", "chunks",
+                                           "device_sign")} | {"kernel_launches": launches}
+                if chunks == OVERLAP_CHUNKS[0]:
+                    with recording(ED_WRAPPERS) as calls:
+                        again = signed.setup_signed_tables_overlapped(B_SIGNED, **kw)
+                    check(np.array_equal(again[3], sigs), "the recorded setup differs")
+                    paths.append((f"signed_setup_overlapped: sign_device={sign_device}, "
+                                  f"{verify}, {chunks} chunks", calls, launches, 1))
+    emit({"phase": "signed_setup_overlapped", "batch": B_SIGNED, "runs": runs,
+          "phase9_total_s": {k: v["total_s"] for k, v in setup_t.items()},
+          "all_valid": True, "tables_equal_setup_signed_tables": True, "card": card})
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4736,6 +5461,10 @@ def main(argv=None) -> int:
     phase_distributed_nccl(dev, card)
     phase_node_sharded(dev, card)
     phase_repl_mesh(dev, card)
+    slot_paths.append(phase_serve_bench_serving(dev, card))
+    full = phase_serve_full_width(dev, args.seed, card)
+    slot_paths += [full["slot"], phase_serve_warm(dev, card), shell["slot"]]
+    overlapped = phase_signed_setup_overlapped(dev, setup_t, card)
     plain_launches["repl_cuda"] = shell["plain"]
     scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
@@ -4747,9 +5476,9 @@ def main(argv=None) -> int:
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
         kernel_line_k2_sharded(k2_sharded, states, oks, seeds, int_ops_per_s),
         *kernel_lines_crypto([*setup_paths, c3, ladder_pow, *shell["ed"], signed_middle,
-                              signed_path],
+                              signed_path, full["ed"], *overlapped],
                              int_ops_per_s),
-        kernel_line_k9([*k9_paths, shell["k9"]], int_ops_per_s),
+        kernel_line_k9([*k9_paths, shell["k9"], full["k9"]], int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

@@ -20,6 +20,11 @@ imports that checkout's package, and runs one of:
   signed sweep, and by CUDA events one full-width dispatch of K1 in each
   mode, one plain dispatch at capacity 1000 (n not a multiple of 32) and
   K2's warm-up dispatch of each bucket;
+- ``serving``: the checkout's own ``chip_smoke.py``'s phase 17
+  (``phase_coalesced_serving``: bench_serving's 32 requests alone and in
+  cohorts of 8 through ``coalesced_sweep``) three times, the reading the
+  median requests/s of each leg, then its phase 18
+  (``phase_coalesced_full_width``), the reading its wall;
 - any other PHASE names a group of ``chip_smoke.AB_GROUPS``, run by
   ``ab_kernels`` of the same ``chip_smoke.py``, loaded alike: the group's
   sources built alone, then by CUDA events each of its readings in
@@ -69,6 +74,13 @@ RUNS = {
         "cs.phase_config3(dev, cs.smi('name,power.limit'))\n"
     ),
     "sweeps": LOAD_BESIDE + "cs.ab_sweeps(torch.device('cuda'), cs.smi('name,power.limit'))\n",
+    "serving": (
+        "import torch, chip_smoke as cs\n"
+        "dev, card = torch.device('cuda'), cs.smi('name,power.limit')\n"
+        "for _ in range(3):\n"
+        "    cs.phase_coalesced_serving(dev, card)\n"
+        "cs.phase_coalesced_full_width(dev, 0, card)\n"
+    ),
 }
 # (reading, True where higher wins); a group's come with its line
 READINGS = {
@@ -80,6 +92,8 @@ READINGS = {
                ("coalesced_slot_rounds_per_s", True), ("signed_sweep_rounds_per_s", True),
                ("k1_plain_ms", False), ("k1_scenario_ms", False), ("k1_slot_ms", False),
                ("k1_plain_n1000_ms", False), ("k2_step_ms", False)],
+    "serving": [("alone_requests_per_s", True), ("coalesced_requests_per_s", True),
+                ("full_width_wall_s", False)],
 }
 
 
@@ -111,6 +125,12 @@ def reading(lines: list[dict], phase: str) -> dict:
         row["rlc_cuda_mallocs"] = ph["one_call"]["rlc"].get("cuda_mallocs", 0)
         row["card"] = ph["card"]
         return row
+    if phase == "serving":
+        legs = [ln for ln in lines if ln.get("phase") == "coalesced_serving"]
+        return {**{key: statistics.median(ln[key] for ln in legs)
+                   for key in ("alone_requests_per_s", "coalesced_requests_per_s")},
+                "full_width_wall_s": by["coalesced_full_width"]["wall_s"],
+                "card": by["coalesced_full_width"]["card"]}
     if phase not in RUNS:  # a group of chip_smoke.AB_GROUPS
         line = by[f"ab_{phase}"]
         row = dict(line["readings"])
@@ -147,7 +167,7 @@ def main(argv=None) -> int:
     parser.add_argument("a")
     parser.add_argument("b")
     parser.add_argument("--phase", default="config3",
-                        help="config3, sweeps, or a group of chip_smoke.AB_GROUPS")
+                        help="config3, sweeps, serving, or a group of chip_smoke.AB_GROUPS")
     parser.add_argument("--pairs", type=int, default=2)
     parser.add_argument("--out")
     args = parser.parse_args(argv)

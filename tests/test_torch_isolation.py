@@ -44,7 +44,11 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
                  "ba_tpu_torch.parallel.signing", "ba_tpu_torch.parallel.mesh",
                  "ba_tpu_torch.parallel.multihost", "ba_tpu_torch.parallel.shard",
                  "ba_tpu_torch.parallel.node_parallel", "ba_tpu_torch.parallel.eig_parallel",
-                 "ba_tpu_torch.parallel.sm_parallel"):
+                 "ba_tpu_torch.parallel.sm_parallel", "ba_tpu_torch.utils.metrics",
+                 "ba_tpu_torch.obs.registry", "ba_tpu_torch.obs.trace",
+                 "ba_tpu_torch.obs.health", "ba_tpu_torch.obs.graphcache",
+                 "ba_tpu_torch.runtime.supervisor", "ba_tpu_torch.runtime.chaos",
+                 "ba_tpu_torch.runtime.warmup", "ba_tpu_torch.runtime.serve"):
         assert name in MODULES, name
 
 

@@ -231,6 +231,48 @@ def test_coalesced_sweep_cuda_engine_equals_torch(cuda_device):
     assert res["cuda", True]["stats"]["engine"] == "cuda"
 
 
+@pytest.mark.parametrize("depth", [1, 2])
+def test_slot_graph_replay_matches_eager(cuda_device, depth):
+    """A CUDA graph of K1's slot-mode dispatch (``obs/graphcache.py``)
+    replayed by ``coalesced_sweep(executables=)`` gives the eager
+    dispatches' bits: plain and scenario, windows 4, 4 and a ragged 2,
+    depth 2 keeping a replay's outputs in flight while the next replays."""
+    from ba_tpu_torch.obs.graphcache import GraphCache
+
+    B, n, R, rpd = 8, 64, 10, 4
+    arrays, events, strategy = _arrays(21, B, n, R)
+    keys = [rng.key(70 + b, device="cpu") for b in range(B)]
+    cache = GraphCache(cuda_device)
+    scenario_step.reset_launches()
+    for scenario in (False, True):
+        for window in (rpd, R % rpd):
+            info = cache.ensure("coalesced_megastep", {
+                "batch": B, "capacity": n, "rounds": window, "m": 1, "max_liars": None,
+                "unroll": 1, "scenario": scenario, "signed": False, "collapsed": False,
+                "engine": "cuda"})
+            assert info["graph"]
+    assert cache.graphs() == 4
+    # one eager launch a capture; the capture itself counts none
+    assert scenario_step.cuda_coalesced_megastep.launches == 4
+    for planes in (None, events):
+        runs = []
+        for executables in (None, cache, cache):
+            state = convert.state_from_numpy(type("S", (), arrays), cuda_device)
+            scenario_step.reset_launches()
+            runs.append(pipeline.coalesced_sweep(
+                keys, state, R, rounds_per_dispatch=rpd, depth=depth, scenario=planes,
+                initial_strategy=None if planes is None else strategy, engine="cuda",
+                device=cuda_device, executables=executables))
+            # a replay counts one launch, as the eager dispatch does
+            assert scenario_step.cuda_coalesced_megastep.launches == 3
+        eager, warm, again = runs
+        assert (warm["stats"]["warm_dispatches"], warm["stats"]["graph_fallbacks"]) == (3, 0)
+        for key in ("decisions", "majorities", "counters", "leaders"):
+            if key in eager:
+                assert np.array_equal(eager[key], warm[key]), key
+                assert np.array_equal(eager[key], again[key]), key
+
+
 def test_coalesced_kernel_rejects_bad_inputs(cuda_device):
     arrays, events, strategy = _arrays(3, 4, 6, 2)
     state, sched, counters = _slot_carry(arrays, 3, cuda_device, 3)

@@ -2,7 +2,7 @@
 byte, through ``handle_command`` on the port's ``PyBackend`` and on its
 ``TorchBackend`` on the CPU, and through the launcher
 ``python -m ba_tpu_torch.runtime.main``; the commands that are not ported
-yet print one error line."""
+yet print one error line, and ``serve`` prints the JAX package's lines."""
 
 import pathlib
 import subprocess
@@ -146,6 +146,15 @@ def test_faulty_leader_election_not_disturbed(cluster4):
                                   "fleet start replicas=2"])
 def test_unported_commands_print_one_line(cluster4, line):
     command = line.split(" ")[0]
+    if command == "serve":
+        # ported since: one line, the service's start (on the backend's
+        # device; a backend without one asks for the card, which this
+        # machine may lack) or the error that says why it did not start
+        got = drive(cluster4, [line])
+        assert len(got) == 1 and got[0].startswith(("serve: started (", "serve error: "))
+        assert "not ported" not in got[0]
+        drive(cluster4, ["serve stop"])
+        return
     assert drive(cluster4, [line]) == [f"{command} error: not ported to ba_tpu_torch yet"]
 
 
@@ -235,3 +244,72 @@ def test_cli_subprocess_torch_backend():
         " - 2 out of 3 quorum suggests attack",
         "stats error: not ported to ba_tpu_torch yet",
     ]
+
+
+SERVE_SCRIPT = ["serve", "serve stat", "serve start queue=4 window=0.01 batch=2",
+                "serve start", "serve stat", "serve start queue=x", "serve stop", "serve bogus",
+                "serve start batch=x", "serve start nope=1"]
+
+
+def _serve_lines(handle, cluster, script):
+    blocks = []
+    for line in script:
+        out = []
+        handle(cluster, line, out.append)
+        blocks.append(out)
+    return blocks
+
+
+def test_serve_command_prints_the_reference_lines(monkeypatch):
+    """``serve start|stat|stop`` through ``handle_command`` on the CPU:
+    every line the JAX package's (its REPL on its CPU engine), the
+    ``serve_engine`` value and the usage's engine list the port's tokens."""
+    from ba_tpu.crypto import pool as j_pool
+    from ba_tpu.runtime.backends import PyBackend as JPyBackend
+    from ba_tpu.runtime.cluster import Cluster as JCluster
+    from ba_tpu.runtime.repl import handle_command as j_handle
+    from ba_tpu_torch.crypto import pool as t_pool
+
+    monkeypatch.setenv("BA_TPU_SIGN_POOL", "0")
+    j_pool.shutdown_defaults()
+    monkeypatch.setattr(t_pool, "default_workers", lambda: 0)
+    t_pool.shutdown_defaults()
+    got = _serve_lines(handle_command, Cluster(4, TorchBackend(device="cpu"), seed=0),
+                       SERVE_SCRIPT)
+    want = _serve_lines(j_handle, JCluster(4, JPyBackend(), seed=0), SERVE_SCRIPT)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if SERVE_SCRIPT[i] == "serve stat":
+            assert [ln.split(" ")[0] for ln in g] == [ln.split(" ")[0] for ln in w]
+            fixed = {"serve_engine", "serve_batch_s_ewma"}
+            assert [ln for ln in g if ln.split(" ")[0] not in fixed] == [
+                ln for ln in w if ln.split(" ")[0] not in fixed]
+            assert len(g) == 1 or "serve_engine auto" in g
+        else:
+            assert g == [ln.replace("xla|pallas|interpret|auto", "torch|cuda|auto")
+                         for ln in w], SERVE_SCRIPT[i]
+    assert got[2] == ["serve: started (queue=4, window=0.01s, batch=2)"]
+    assert got[6][0].startswith("serve: stopped — admitted=0")
+
+
+def test_serve_command_runs_requests_and_warm_start(monkeypatch):
+    from ba_tpu_torch.crypto import pool as t_pool
+    from ba_tpu_torch.runtime.serve import AgreementRequest
+
+    monkeypatch.setattr(t_pool, "default_workers", lambda: 0)
+    t_pool.shutdown_defaults()
+    cluster = Cluster(4, TorchBackend(device="cpu"), seed=0)
+    assert drive(cluster, ["serve start warm=1 batch=1 engine=torch"]) == [
+        "serve: started (queue=64, window=0.005s, batch=1, warm)"]
+    svc = cluster._serve_service
+    assert svc.warm_barrier(timeout=300)
+    out = svc.submit(AgreementRequest(kind="run-rounds", n=4, faulty=(2,), seed=3,
+                                      rounds=8)).result(timeout=300)
+    assert out["counts"]["attack"] == 8
+    stat = drive(cluster, ["serve stat"])
+    assert "serve_completed 1" in stat and "serve_warmup_pending 0" in stat
+    assert "serve_compiles_on_request_path 0" in stat and "serve_engine torch" in stat
+    assert drive(cluster, ["serve stop"]) == [
+        "serve: stopped — admitted=1, completed=1, rejected=0, expired=0, failed=0"]
+    assert drive(cluster, ["serve start engine=xla"]) == [
+        "serve error: engine='xla' not in ('torch', 'cuda', 'auto')"]
