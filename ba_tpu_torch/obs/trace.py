@@ -9,13 +9,17 @@ buffers, ``configure(path)`` buffers and exports to ``path`` at exit
 (or at :func:`flush_export`), ``configure(None)`` turns it off.  Spans
 wrap host phases only, never anything a kernel runs.
 
+:func:`timed_span` is one clock window read both as a span and as a
+latency (a histogram's sample, or the yielded box's ``elapsed_s``).
+
 The trace context is the tuple ``(trace_id, span_id, parent_id)``: the
 sink (``utils/metrics.py``) stamps it onto every record emitted inside a
 :func:`scope`.  Contexts are per thread and never inherited: every hop is
 an explicit :func:`child_context` and :func:`scope`.  The JAX package's
-``BA_TPU_TRACE_CONTEXT`` variable has no counterpart: an external
-caller's position comes in only as a serving request's ``traceparent``
-(:func:`new_context` takes the string).  Stdlib only.
+``BA_TPU_TRACE_CONTEXT`` variable is a ``traceparent`` keyword here: a
+serving request's, or a campaign's (``pipeline_sweep(traceparent=)``,
+``supervised_sweep(traceparent=)``), which :func:`inject_scope` adopts.
+Stdlib only.
 """
 
 from __future__ import annotations
@@ -153,6 +157,37 @@ def span(name: str, **attrs):
     return default_tracer().span(name, **attrs)
 
 
+class timed_span:
+    """One clock window feeding both a span of the default tracer and a
+    latency: ``histogram`` (a registry ``Histogram``, or None) records it
+    when the window closes, and the yielded box's ``elapsed_s`` holds it
+    for callers that batch their records.  A class, not a generator: a
+    dispatch loop opens one a retire."""
+
+    __slots__ = ("_name", "_histogram", "_attrs", "_span", "_t0", "elapsed_s")
+
+    def __init__(self, name: str, histogram=None, **attrs):
+        self._name, self._histogram, self._attrs = name, histogram, attrs
+        self._span = None
+        self.elapsed_s = None
+
+    def __enter__(self):
+        tracer = default_tracer()
+        if tracer.enabled:
+            self._span = tracer.span(self._name, **self._attrs)
+            self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed_s = time.perf_counter() - self._t0
+        if self._span is not None:
+            self._span.__exit__(*exc)
+        if self._histogram is not None:
+            self._histogram.record(self.elapsed_s)
+        return False
+
+
 def instant(name: str, **attrs) -> None:
     default_tracer().instant(name, **attrs)
 
@@ -203,6 +238,27 @@ def scope(ctx: tuple | None):
         yield ctx
     finally:
         _metrics.set_trace_context(prev)
+
+
+@contextlib.contextmanager
+def inject_scope(traceparent: str | None = None, mark: str | None = None):
+    """A campaign's entry scope: keep the thread's active context when
+    there is one, else adopt a child of ``traceparent`` (a caller's
+    position, or a resumed campaign's checkpoint header), else stay
+    untraced.  On adoption only, ``mark`` names a zero-duration
+    ``trace_span`` record of the new position, written at once, so a
+    campaign killed mid-flight still leaves the span its windows parent
+    under."""
+    if current() is not None:
+        yield current()
+        return
+    if traceparent is None or _metrics.parse_traceparent(traceparent) is None:
+        yield None
+        return
+    with scope(new_context(traceparent)) as ctx:
+        if mark is not None:
+            emit_trace_span(mark, ctx, time.perf_counter(), 0.0)
+        yield ctx
 
 
 def emit_trace_span(name: str, ctx: tuple, t0_perf: float, dur_s: float, **attrs) -> None:

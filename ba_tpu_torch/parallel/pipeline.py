@@ -59,6 +59,7 @@ import dataclasses
 import functools
 import json
 import os
+import threading
 import time
 import weakref
 
@@ -640,9 +641,9 @@ RESERVED_CARRY_META_KEYS = frozenset(
 
 def _carry_meta(round_cursor: int, counters, strategy, shard_layout=None, run_id=None,
                 signed=False, **extra) -> dict:
-    """The carry header, key for key the JAX package's.  The port has no
-    tracing, so ``traceparent`` is ``None``, as an untraced run of the
-    JAX package writes it."""
+    """The carry header, key for key the JAX package's; ``traceparent`` is
+    the writer's trace position (None untraced), which a supervised
+    resume adopts."""
     clash = (RESERVED_CARRY_META_KEYS - {"rounds_total"}) & set(extra)
     if clash:
         raise ValueError(
@@ -659,7 +660,7 @@ def _carry_meta(round_cursor: int, counters, strategy, shard_layout=None, run_id
         "counter_names": names,
         "shard_layout": shard_layout or {"data": 1},
         "run_id": run_id,
-        "traceparent": None,
+        "traceparent": obs.trace.current_traceparent(),
         **extra,
     }
 
@@ -842,6 +843,11 @@ def pipeline_sweep(
     on_rows=None,
     resume=None,
     run_id: str | None = None,
+    traceparent: str | None = None,
+    exec_seam=None,
+    retire_timeout_s: float | None = None,
+    on_stall=None,
+    health_every: int | None = None,
     mesh=None,
     engine: str | None = None,
     device=None,
@@ -894,8 +900,39 @@ def pipeline_sweep(
     ``rounds`` / ``scenario`` as the original run.  The resumed rounds
     are bit-exact with the uninterrupted run's tail, whatever engine or
     package wrote the checkpoint.  ``run_id`` names the run; without it
-    the run takes the checkpoint's id, else one derived from the round
-    count, the key data and the scenario (``obs/flight.py``).
+    the run takes the active run scope's id, else the checkpoint's, else
+    one derived from the round count, the key data and the scenario
+    (``obs/flight.py``).  The sweep runs inside a run scope of that id
+    (its owner emits the ``flight_summary`` record), under
+    ``traceparent``'s trace position when the thread has none
+    (``obs.trace.inject_scope``), and writes one ``flight_span`` record a
+    retired window when the sink is on.
+
+    Resilience seams (host side; they add no wait on the device):
+
+    - ``exec_seam(call, phase, dispatch, lo, hi)`` makes every megastep
+      call (``phase="dispatch"``) and every retire fetch (``"retire"``)
+      by calling ``call()`` itself, ``[lo, hi)`` the dispatch's rounds.
+      A retire fetch may be called again.  A dispatch's carry counts as
+      consumed just before its real call runs (the megasteps update it
+      in place): calling it again then raises :class:`CarryConsumed`, a
+      fatal fault, so a seam's retry in place is bit-exact exactly when
+      its fault was raised before it called.
+    - ``retire_timeout_s`` arms the sweep's one watchdog thread
+      (:class:`_Watchdog`) around each retire fetch (a blocking
+      CUDA-event wait, which frees the interpreter lock); a fetch that
+      outlasts it records the ``dispatch_stalled`` instant,
+      ``pipeline_stalls_total`` and ``stats["stalls"]`` and calls
+      ``on_stall(dispatch, timeout_s)`` from the watchdog's thread, whose
+      exceptions are swallowed.  The fetch itself runs on.
+    - ``health_every=N`` takes one ``obs.health.HealthSampler(registry,
+      timeout_s=retire_timeout_s)`` sample every N dispatches in
+      ``host_work``'s slot (``stats["health_samples"]``).
+
+    Each dispatch and retire feeds the ``pipeline_*`` instruments of the
+    default registry (dispatch latency, retire lag, depth occupancy,
+    dispatches, retires, rounds), from host clocks the loop reads anyway,
+    a batch at a time: at each health sample and when the loop ends.
 
     ``mesh=`` (``parallel/mesh.py``) splits the batch over the mesh's
     "data" axis (the batch must divide it; checked before anything is
@@ -924,7 +961,7 @@ def pipeline_sweep(
     ``final_strategy``; ``final_state``, ``final_schedule``; and
     ``stats`` (with ``start_round``, ``checkpoints``, each write's round,
     bytes and host ms in ``checkpoint_writes``, ``run_id``, ``signed``,
-    and the lane's ``sign_ahead_s``, ``sign_pool_workers``,
+    ``stalls``, ``health_samples``, and the lane's ``sign_ahead_s``, ``sign_pool_workers``,
     ``sign_pool_s``, ``sign_cache_hits``, ``host_sign_s``,
     ``host_verify_s``; zeros on an oral run; ``engine`` and
     ``engine_fallback``, the reason K1 could not run the sweep, or None;
@@ -939,6 +976,12 @@ def pipeline_sweep(
         raise ValueError(f"rounds_per_dispatch={rounds_per_dispatch} must be >= 1")
     _check_checkpointing(checkpoint_every, checkpoint_path, checkpoint_keep_last,
                          checkpoint_meta, on_checkpoint)
+    if retire_timeout_s is not None and retire_timeout_s <= 0:
+        raise ValueError(f"retire_timeout_s={retire_timeout_s} must be > 0")
+    if on_stall is not None and retire_timeout_s is None:
+        raise ValueError("on_stall needs retire_timeout_s")
+    if health_every is not None and health_every < 1:
+        raise ValueError(f"health_every={health_every} must be >= 1")
     if signed:
         if scenario is not None:
             raise ValueError("signed=True cannot take a scenario block (the signed "
@@ -1116,12 +1159,37 @@ def pipeline_sweep(
             signed_pending.update(zip(group, lane.stage_windows(group)))
         return signed_pending.pop(want)
 
+    perf = time.perf_counter
+    reg = obs.default_registry()
+    sink_on = _metrics.default_sink().enabled
     inflight: collections.deque = collections.deque()
     retired = []
     max_in_flight = 0
     retires_before_drain = 0
+    n_stalls = 0
     writes = []
     next_ckpt = start + checkpoint_every if checkpoint_every else None
+    # The health instruments' readings, from host clocks the loop reads
+    # anyway, go to the registry a batch at a time: at each health sample
+    # and when the loop ends.
+    lats, lags, occupancy, retired_rounds = [], [], [], [0]
+    sampler = None
+    if health_every is not None:
+        sampler = obs.health.HealthSampler(reg, timeout_s=retire_timeout_s)
+        sampler.prime()  # its first window is this campaign's, not the process's
+
+    def flush_instruments():
+        inst = _pipeline_instruments(reg)
+        inst["lat"].record_many(lats)
+        inst["lag"].record_many(lags)
+        inst["occ"].record_many(occupancy)
+        inst["disp"].inc(len(occupancy))
+        inst["ret"].inc(len(lags))
+        inst["rounds"].inc(retired_rounds[0])
+        lats.clear()
+        lags.clear()
+        occupancy.clear()
+        retired_rounds[0] = 0
 
     def write_checkpoint(round_cursor, carry):
         t0 = time.perf_counter()
@@ -1137,14 +1205,49 @@ def pipeline_sweep(
         )
         writes.append({"round": round_cursor, "bytes": nbytes,
                        "host_ms": (time.perf_counter() - t0) * 1e3})
+        obs.instant("scenario_checkpoint", round=round_cursor, path=written)
+        reg.counter("scenario_checkpoints_total").inc()
+        _metrics.emit({"event": "scenario_checkpoint", "v": _metrics.SCHEMA_VERSION,
+                       "round": round_cursor, "rounds": rounds,
+                       "scenario": scenario is not None, "path": written, "bytes": nbytes,
+                       "shard_layout": layout or {"data": 1}})
         if checkpoint_keep_last is not None:
             snapshot.prune_checkpoints(checkpoint_path, checkpoint_keep_last)
         if on_checkpoint is not None:
             on_checkpoint(round_cursor, written)
 
+    def declare_stalled(d, lo, hi):
+        # the watchdog's thread: observe and report only (a hung fetch is
+        # not interruptible; recovery is the supervisor's)
+        nonlocal n_stalls
+        n_stalls += 1
+        obs.instant("dispatch_stalled", dispatch=d, lo=lo, hi=hi, timeout_s=retire_timeout_s)
+        reg.counter("pipeline_stalls_total").inc()
+        if on_stall is not None:
+            try:
+                on_stall(d, retire_timeout_s)
+            except Exception:
+                pass  # a reporter never takes down the fetch it watches
+
+    watchdog = None  # started with the loop, closed when it ends
+
     def retire():
-        d, lo, hi, box = inflight.popleft()
-        host_ys = box.fetch()
+        d, lo, hi, box, t_sub, ctx = inflight.popleft()
+        with obs.timed_span("retire", dispatch=d) as wait:
+            if watchdog is not None:
+                watchdog.arm(d, lo, hi)
+            try:
+                host_ys = box.fetch() if exec_seam is None else exec_seam(
+                    box.fetch, "retire", d, lo, hi)
+            finally:
+                if watchdog is not None:
+                    watchdog.disarm()
+        latency = perf() - t_sub
+        lags.append(wait.elapsed_s)
+        lats.append(latency)
+        retired_rounds[0] += hi - lo
+        if sink_on:
+            _emit_flight_span(d, lo, hi, latency, wait.elapsed_s, rid, ctx, t_sub)
         if mesh is not None:  # the per-shard rows summed to the canonical blocks
             host_ys = _shard.reduce_host_ys(host_ys, scenario=scenario is not None,
                                             collect_decisions=collect_decisions,
@@ -1157,60 +1260,80 @@ def pipeline_sweep(
         if on_event is not None:
             on_event("retire", d)
 
-    lo = start
-    staged = None
-    if scenario is not None:
-        staged = stage(start, start + chunks[0])
-    elif signed:
-        staged = stage_signed(0)
-    for d, nr in enumerate(chunks):
-        hi = lo + nr
+    with obs.trace.inject_scope(traceparent, mark="campaign"), \
+            flight.run_scope(rid) as scope:
+        lo = start
+        staged = None
         if scenario is not None:
-            events, ready = staged
-            for ready_dev, event in ready:
-                torch.cuda.current_stream(ready_dev).wait_event(event)
-            out = scen_fn(
-                state, sched, strategy, counters, events,
-                rounds=nr, m=m, max_liars=max_liars, collect_decisions=collect_decisions,
-            )
-            state, sched, strategy = out[:3]
-            ys = out[3:]
-            counters = ys[2][-1]
+            staged = stage(start, start + chunks[0])
         elif signed:
-            out = signed_megastep(state, sched, counters, staged, rounds=nr, m=m,
-                                  collapsed=collapsed, collect_decisions=collect_decisions)
-            state, sched = out[:2]
-            ys = out[2:]
-            counters = ys[-1][-1]
-        else:
-            out = plain_fn(
-                state, sched, rounds=nr, m=m, max_liars=max_liars,
-                collect_decisions=collect_decisions, counters=counters,
-            )
-            state, sched = out[:2]
-            ys = out[2:]
-            if with_counters:
-                counters = ys[-1][-1]
-        carry = None
-        if next_ckpt is not None and hi >= next_ckpt:
-            carry = (state, sched, counters, strategy)
-            next_ckpt = hi + checkpoint_every
-        inflight.append((d, lo, hi, _Inflight(ys, carry)))
-        max_in_flight = max(max_in_flight, len(inflight))
-        if on_event is not None:
-            on_event("dispatch", d)
-        if scenario is not None and d + 1 < len(chunks):
-            staged = stage(hi, hi + chunks[d + 1])
-        elif signed and d + 1 < len(chunks):
-            staged = stage_signed(d + 1)
-        if host_work is not None:
-            host_work(d)
-        while len(inflight) > depth:
-            retire()
-            retires_before_drain += 1
-        lo = hi
-    while inflight:
-        retire()
+            staged = stage_signed(0)
+        try:
+            if retire_timeout_s is not None:
+                watchdog = _Watchdog(retire_timeout_s, declare_stalled)
+            for d, nr in enumerate(chunks):
+                hi = lo + nr
+                if scenario is not None:
+                    events, ready = staged
+                    for ready_dev, event in ready:
+                        torch.cuda.current_stream(ready_dev).wait_event(event)
+                    call = functools.partial(
+                        scen_fn, state, sched, strategy, counters, events, rounds=nr, m=m,
+                        max_liars=max_liars, collect_decisions=collect_decisions)
+                elif signed:
+                    call = functools.partial(
+                        signed_megastep, state, sched, counters, staged, rounds=nr, m=m,
+                        collapsed=collapsed, collect_decisions=collect_decisions)
+                else:
+                    call = functools.partial(
+                        plain_fn, state, sched, rounds=nr, m=m, max_liars=max_liars,
+                        collect_decisions=collect_decisions, counters=counters)
+                out = call() if exec_seam is None else exec_seam(
+                    _runs_once(call), "dispatch", d, lo, hi)
+                t_sub = perf()
+                if scenario is not None:
+                    state, sched, strategy = out[:3]
+                    ys = out[3:]
+                    counters = ys[2][-1]
+                else:
+                    state, sched = out[:2]
+                    ys = out[2:]
+                    if with_counters:
+                        counters = ys[-1][-1]
+                carry = None
+                if next_ckpt is not None and hi >= next_ckpt:
+                    carry = (state, sched, counters, strategy)
+                    next_ckpt = hi + checkpoint_every
+                ctx = None
+                if sink_on and obs.trace.current() is not None:
+                    ctx = obs.trace.child_context()
+                inflight.append((d, lo, hi, _Inflight(ys, carry), t_sub, ctx))
+                occupancy.append(len(inflight))
+                max_in_flight = max(max_in_flight, len(inflight))
+                if on_event is not None:
+                    on_event("dispatch", d)
+                if scenario is not None and d + 1 < len(chunks):
+                    staged = stage(hi, hi + chunks[d + 1])
+                elif signed and d + 1 < len(chunks):
+                    staged = stage_signed(d + 1)
+                if host_work is not None:
+                    host_work(d)
+                if sampler is not None and (d + 1) % health_every == 0:
+                    flush_instruments()
+                    with obs.span("health_sample", dispatch=d):
+                        sampler.sample(emit=True, dispatch=d)
+                while len(inflight) > depth:
+                    retire()
+                    retires_before_drain += 1
+                lo = hi
+            while inflight:
+                retire()
+        finally:
+            flush_instruments()
+            if watchdog is not None:
+                watchdog.close()
+        if scope.owner:
+            flight.emit_flight_summary(run_id=rid)
 
     carry = (state, sched, counters, strategy)
     result = {
@@ -1227,6 +1350,8 @@ def pipeline_sweep(
             "retires_before_drain": retires_before_drain,
             "checkpoints": len(writes),
             "checkpoint_writes": writes,
+            "stalls": n_stalls,
+            "health_samples": sampler.samples if sampler is not None else 0,
             "engine": engine,
             "engine_fallback": reason if engine == "torch" else None,
             "run_id": rid,
@@ -1255,6 +1380,94 @@ def pipeline_sweep(
         result["counters_per_round"] = rows
         result["final_counters"] = counters
     return result
+
+
+class _Watchdog:
+    """One thread a sweep that calls ``fire(*args)`` when a wait armed
+    with those args outlasts ``timeout_s``; the same semantics as a
+    ``threading.Timer`` started at each :meth:`arm` and cancelled at
+    each :meth:`disarm`, without a thread a wait.
+
+    Deadlines only grow, so the thread sleeps until the latest deadline
+    armed, whether its wait is still armed or not, and finds a newer wait
+    when it wakes there: an arm wakes it only when no wait was armed in
+    the last ``timeout_s``.  ``fire`` runs on the thread outside the
+    lock, once a wait."""
+
+    def __init__(self, timeout_s: float, fire):
+        self._timeout_s = timeout_s
+        self._fire = fire
+        self._cv = threading.Condition(threading.Lock())
+        self._armed = None  # (deadline, args) of the wait in progress
+        self._horizon = 0.0  # the latest deadline armed
+        self._idle = False  # the thread sleeps without a deadline
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, name="pipeline-retire-watchdog",
+                                        daemon=True)
+        self._thread.start()
+
+    def arm(self, *args):
+        with self._cv:
+            self._armed = (time.monotonic() + self._timeout_s, args)
+            self._horizon = self._armed[0]
+            if self._idle:
+                self._cv.notify()
+
+    def disarm(self):
+        self._armed = None  # one store: the thread reads the field once a wake
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+        self._thread.join()
+
+    def _run(self):
+        with self._cv:
+            while not self._closed:
+                now = time.monotonic()
+                armed = self._armed
+                if armed is not None and armed[0] <= now:
+                    args = armed[1]
+                    self._armed = None
+                    self._cv.release()
+                    try:
+                        self._fire(*args)
+                    finally:
+                        self._cv.acquire()
+                    continue
+                if self._horizon > now:
+                    self._cv.wait(self._horizon - now)
+                else:
+                    self._idle = True
+                    self._cv.wait()
+                    self._idle = False
+
+
+class CarryConsumed(RuntimeError):
+    """A dispatch's call was made again after its real call had begun.
+    The megasteps update the carry in place, so a second run would start
+    from a half-written carry; the error is fatal to the attempt (a
+    supervisor resumes from a checkpoint)."""
+
+    ba_tpu_fault = "fatal"
+
+
+def _runs_once(call):
+    """``call`` for an execution seam: the carry counts as consumed just
+    before the real call runs, and a later invocation raises
+    :class:`CarryConsumed` instead of running on it.  A seam's faults
+    raised before it calls stay retryable in place."""
+    began = []
+
+    def once():
+        if began:
+            raise CarryConsumed("the dispatch's carry was consumed by a call that began "
+                                "before; an in-place retry would read it half-written")
+        began.append(True)
+        return call()
+
+    return once
 
 
 def _lane_stats(lane) -> dict:

@@ -292,9 +292,17 @@ class TorchBackend:
 
         ``mesh`` goes to the engine's mesh path (``pipeline_sweep(mesh=)``);
         this facade is B = 1, so the mesh's "data" axis must be 1 (a larger
-        one raises the engine's divisibility error).  ``supervise``,
-        ``fault_plan`` and ``health_every`` raise: the supervisor and the
-        health sampler are not ported to ``ba_tpu_torch`` yet.
+        one raises the engine's divisibility error).  ``health_every``
+        goes to the engine's health sampler.
+
+        ``supervise=True`` runs the campaign under
+        ``runtime/supervisor.supervised_sweep`` (watchdogged retires,
+        retries in place, recovery from the newest valid checkpoint, OOM
+        degradation), with the same dials, and adds its ``supervisor``
+        block to ``stats``.  ``fault_plan`` (a ``runtime.chaos.FaultPlan``
+        or a live injector) injects faults and needs ``supervise``.  A
+        supervised resume whose checkpoints carry no rows history (written
+        unsupervised) assembles only the campaign's tail, and raises.
 
         Returns a dict: ``decisions`` (per-round quorum codes),
         ``leaders`` (per-round roster indices), ``counters``, ``stats``,
@@ -305,20 +313,18 @@ class TorchBackend:
 
         if self.protocol != "om" or self.signed:
             return None
-        for name, value in (("supervise", supervise), ("fault_plan", fault_plan),
-                            ("health_every", health_every)):
-            if value not in (None, False):
-                raise ValueError(f"{name}= is not ported to ba_tpu_torch yet")
+        if fault_plan is not None and not supervise:
+            raise ValueError("fault_plan requires supervise=True")
         n = len(generals)
         cap = self._capacity(n)
         ids = np.zeros(cap, np.int64)
         for i, g in enumerate(generals):
             ids[i] = g.id
         block = compile_scenario(spec, batch=1, capacity=cap, ids=ids, sparse=True)
-        out = pipeline_sweep(
-            rng.key(seed, self.device),
-            self._make_state(generals, leader_idx, order_code),
-            spec.rounds,
+        key = rng.key(seed, self.device)
+        state = self._make_state(generals, leader_idx, order_code)
+        # one dict for both arms, so the supervised campaign keeps every dial
+        kwargs = dict(
             m=self.m,
             depth=PIPELINE_DEPTH,
             rounds_per_dispatch=min(spec.rounds, self.rounds_per_dispatch),
@@ -328,15 +334,32 @@ class TorchBackend:
             checkpoint_path=checkpoint_path,
             checkpoint_keep_last=checkpoint_keep_last,
             mesh=mesh,
+            health_every=health_every,
             engine=None if engine == "auto" else engine,
             device=self.device,
         )
+        if supervise:
+            from ba_tpu_torch.runtime.supervisor import supervised_sweep
+
+            out = supervised_sweep(key, state, spec.rounds, chaos=fault_plan, **kwargs)
+            sup = out["supervisor"]
+            stats = dict(out["stats"], supervisor=sup)
+            if sup["history_start"] != 0:
+                # the per-round tally below would cover only the tail
+                raise ValueError(
+                    f"supervised resume assembled only rounds [{sup['history_start']}, "
+                    f"{spec.rounds}) — the prior checkpoints at {checkpoint_path!r} have no "
+                    f"rows-history sidecars (written unsupervised?); rerun with a fresh "
+                    f"checkpoint_path, or resume unsupervised")
+        else:
+            out = pipeline_sweep(key, state, spec.rounds, **kwargs)
+            stats = out["stats"]
         final = gather_tree(out["final_state"])
         return {
             "decisions": [int(v) for v in out["decisions"][:, 0]],
             "leaders": [int(v) for v in out["leaders"][:, 0]],
             "counters": out["counters"],
-            "stats": out["stats"],
+            "stats": stats,
             "alive": final.alive[0, :n].tolist(),
             "faulty": final.faulty[0, :n].tolist(),
         }

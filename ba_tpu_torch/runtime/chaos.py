@@ -1,9 +1,10 @@
 """Host-side fault injection (``ba_tpu/runtime/chaos.py``): deterministic
-chaos for the serving tier and, later, the supervised engine.
+chaos for the serving tier and the supervised engine.
 
 A :class:`FaultPlan` is plain data (a JSON round trip, validated when it
 is read) naming faults at chosen rounds; a :class:`ChaosInjector` fires
-them from an engine's execution seam (``coalesced_sweep(exec_seam=)``):
+them from an engine's execution seam (``coalesced_sweep(exec_seam=)``,
+``pipeline_sweep(exec_seam=)`` under ``runtime/supervisor.supervised_sweep``):
 
 - ``transient`` / ``fatal`` / ``oom`` raise a marked exception
   (:class:`InjectedTransient`, :class:`InjectedFatal`,

@@ -203,7 +203,11 @@ class Cluster:
         Afterwards the roster adopts the campaign's final state: generals
         dead at the end leave it, fault flags follow the last
         ``set_faulty``, and the leader is the campaign's final elected
-        leader (election is for life across the boundary).  Returns
+        leader (election is for life across the boundary).  The options
+        go to the backend's ``run_scenario``: ``supervise=True`` runs the
+        campaign under the supervisor (its block rides
+        ``result["stats"]["supervisor"]``), ``fault_plan`` injects faults
+        into it, ``health_every`` samples the engine's health.  Returns
         ``(counts, result)``, or None when the cluster is empty or the
         backend cannot run scenarios (PyBackend, SM).
         """

@@ -21,19 +21,23 @@ Extensions, as in the JAX package:
   ``Rounds: ...`` decision tally; on a signed backend (the signed
   megastep behind the sign-ahead lane) then ``Signed lane:
   sign_ahead_s=<s>, dispatches=<d>``.
-- ``scenario <file> [<ckpt-path> <every>] [engine=torch|cuda|auto]`` — a
-  declarative scenario campaign through the pipelined mutating engine:
-  the decision tally and the scenario counters, then the roster in the
-  campaign's final state; with a checkpoint path, the carry is written
-  every <every> rounds.
+- ``scenario <file> [<ckpt-path> <every>] [supervise] [engine=torch|cuda|auto]``
+  — a declarative scenario campaign through the pipelined mutating
+  engine: the decision tally and the scenario counters, then the roster
+  in the campaign's final state; with a checkpoint path, the carry is
+  written every <every> rounds; with ``supervise``, the campaign runs
+  under the supervisor (``runtime/supervisor.py``) and a ``Scenario
+  supervisor: attempts=..., retries=..., recoveries=..., stalls=...``
+  line follows, and a supervisor that gives up prints one ``scenario
+  error: ...`` line.
 
 ``scenario <file> ... mesh=N`` runs the campaign on ``make_mesh((N, 1))``
 over the backend's device.  ``serve start [queue=N] [window=S]
 [batch=N] [warm=0|1] [engine=torch|cuda|auto]`` / ``serve stat`` /
 ``serve stop`` run a local agreement service
-(``runtime/serve.py``) on the backend's device.  ``stats``, ``search``,
-``fleet`` and the ``scenario`` token ``supervise`` print one line,
-``<command> error: ... not ported to ba_tpu_torch yet``.
+(``runtime/serve.py``) on the backend's device.  ``stats``, ``search``
+and ``fleet`` print one line, ``<command> error: not ported to
+ba_tpu_torch yet``.
 
 Divergences from the reference (guarded crashes there, SURVEY.md section
 3.3): unknown ids and an empty cluster are ignored (Q4), and election is
@@ -44,6 +48,7 @@ hit a not-yet-reelected assert (Q5).
 from __future__ import annotations
 
 from ba_tpu_torch.runtime.cluster import Cluster
+from ba_tpu_torch.runtime.supervisor import SupervisorError
 from ba_tpu_torch.scenario import spec as scenario_spec
 
 NOT_PORTED = "not ported to ba_tpu_torch yet"
@@ -208,9 +213,6 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
         args = args[:-1]
     if not args:
         return
-    if supervise:
-        out(f"scenario error: supervise {NOT_PORTED}")
-        return
     ck_path = ck_every = None
     if len(args) == 2:
         # A path without <every> would silently run uncheckpointed.
@@ -243,12 +245,13 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
             from ba_tpu_torch.parallel.mesh import make_mesh
 
             mesh = make_mesh((mesh_n, 1), ("data", "node"), devices=[device])
-        ran = cluster.run_scenario(spec, checkpoint_every=ck_every,
-                                   checkpoint_path=ck_path, mesh=mesh, engine=engine)
-    except (OSError, ValueError) as e:
+        ran = cluster.run_scenario(spec, checkpoint_every=ck_every, checkpoint_path=ck_path,
+                                   supervise=supervise, mesh=mesh, engine=engine)
+    except (OSError, ValueError, SupervisorError) as e:
         # ValueError: the spec names ids not in the roster, an unknown
         # engine or a mesh the device cannot hold; OSError: an unwritable
-        # checkpoint path, mid-campaign.
+        # checkpoint path, mid-campaign; SupervisorError: a supervised
+        # campaign ran out of budget or quarantined a window.
         out(f"scenario error: {e}")
         return
     if ran is None:
@@ -262,6 +265,10 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
     out("Scenario counters: " + ", ".join(f"{k}={v}" for k, v in res["counters"].items()))
     if ck_path is not None:
         out(f"Scenario checkpoints: {res['stats'].get('checkpoints', 0)} -> {ck_path}")
+    if supervise:
+        sup = res["stats"]["supervisor"]
+        out(f"Scenario supervisor: attempts={sup['attempts']}, retries={sup['retries']}, "
+            f"recoveries={sup['recoveries']}, stalls={sup['stalls']}")
 
 
 def _serve(cluster: Cluster, cmd: list, out) -> None:

@@ -53,20 +53,25 @@ CLUSTER_BACKEND_NAMES = {"TorchBackend": "JaxBackend"}
 CHECKPOINT_COMPANION_SUFFIXES = (".rows.npz",)
 
 
-def _atomic_write(path: str, write_fn) -> None:
+def _atomic_write(path: str, write_fn, durable: bool = True) -> None:
     """``write_fn(tmp)`` then rename onto ``path``.  A reader sees the old
-    file or the new one, never a torn one; the data is fsynced before the
-    rename and the directory after it, so the rename survives a
-    whole-system crash."""
+    file or the new one, never a torn one.  With ``durable`` the data is
+    fsynced before the rename and the directory after it, so the rename
+    survives a whole-system crash; derived data (the supervisor's rows
+    sidecars, which fail their own schema check when garbled) skips both
+    with ``durable=False``."""
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         write_fn(tmp)
-        fd = os.open(tmp, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
+        if durable:
+            fd = os.open(tmp, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
         os.replace(tmp, path)
+        if not durable:
+            return
         try:  # best effort: some platforms refuse directory fds
             dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
         except OSError:
@@ -355,10 +360,12 @@ def _remove_companions(path: str) -> None:
                 pass
 
 
-def prune_checkpoints(template: str, keep_last: int) -> list:
+def prune_checkpoints(template: str, keep_last: int, companions: bool = True) -> list:
     """Delete all but the ``keep_last`` newest checkpoints of a
-    ``{round}``-templated family, with their sidecars.  Returns the
-    removed paths.  Never raises on a racing writer or reader."""
+    ``{round}``-templated family, with their sidecars unless
+    ``companions=False`` (the supervisor keeps its rows sidecars: they
+    are the campaign's history).  Returns the removed paths.  Never
+    raises on a racing writer or reader."""
     if keep_last < 1:
         raise ValueError(f"keep_last={keep_last} must be >= 1")
     removed = []
@@ -367,7 +374,8 @@ def prune_checkpoints(template: str, keep_last: int) -> list:
             os.remove(path)
         except OSError:
             continue
-        _remove_companions(path)
+        if companions:
+            _remove_companions(path)
         removed.append(path)
     return removed
 

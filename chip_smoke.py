@@ -358,6 +358,19 @@ Phases, one JSON line each:
    in 2 and 4 chunks by each sign route and verify route after
    ``warm_signed_tables``: tables byte-equal to ``setup_signed_tables``',
    every verdict True, the timings beside phase 9's;
+44. ``supervised_full_width`` (run after phase 30): ``supervised_sweep``
+   on phase 4's campaign at 4 rounds a dispatch, a checkpoint every 8
+   rounds into a ``{round}`` family, the two newest kept: unsupervised
+   and supervised (``health_every=1``) in two A B B A pairs, bit-equal,
+   16 K1 launches each, a health sample a dispatch, the walls and their
+   ratio; under ``examples/faults/transient_storm.json`` (a pinned 0.1 s
+   watchdog): bit-equal, one stall, one degrade, the corrupted checkpoint
+   quarantined; phase 5's coalition campaign at 2 rounds a dispatch with
+   a fatal retire after the round-4 checkpoint, recovered bit-equal to
+   phase 5's run; a child process killed by
+   ``examples/faults/midcampaign_kill.json`` at round 20 and the same
+   call rerun with ``resume="auto"``, bit-equal from round 0 in one
+   attempt; a real ``torch.cuda.OutOfMemoryError`` classified ``oom``;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch (K2's sharded form: phase 34's four-entry warm-up step, shard
@@ -378,7 +391,7 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths (K1's plain and scenario lines add phases
-28-30's to phases 4's and 5's, by path in ``launches_by_path``), the
+28-30's and 44's to phases 4's and 5's, by path in ``launches_by_path``), the
 time, bound and plain time per path and per dispatch, and the largest difference from the plain version; the
 Ed25519 kernels', P's and K9's time twice: as the path launches them
 (``ms``, which reads the wrapper's host cost where the kernel is
@@ -415,6 +428,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -442,7 +456,7 @@ from ba_tpu_torch.parallel import node_parallel as nparallel
 from ba_tpu_torch.parallel import pipeline, sweep
 from ba_tpu_torch.parallel import shard as pshard
 from ba_tpu_torch.parallel import sm_parallel as smparallel
-from ba_tpu_torch.runtime import chaos, serve
+from ba_tpu_torch.runtime import chaos, serve, supervisor
 from ba_tpu_torch.runtime.backends import TorchBackend
 from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.repl import handle_command
@@ -1096,49 +1110,68 @@ def phase_full_width(dev, seed, card):
     return arrays, main_out, launches
 
 
-def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl_path):
-    """The main path's first plain dispatch again (same key, state and
-    shape): the kernel against the plain engine and against the main
-    path's own outputs; its time, the plain time and the bound.  The
-    REPL's dispatches (``k1_repl_path``) ride along as ``repl_path``."""
+def replay_first_plain_dispatch(dev, seed, arrays, campaign, R, int_ops_per_s):
+    """A plain campaign's first dispatch of R rounds again (the campaign's
+    key, state and zero counters): K1 against the plain engine on the
+    same inputs (state, histograms, decisions and counter rows), and
+    against the campaign's own first R rounds; K1's CUDA-event time, the
+    plain time and the bound.  These launches are not the path's."""
     state = to_state(arrays, dev)
     counters = convert.counters_from_numpy([0, 0, 0], dev)
     sched = pipeline.make_key_schedule(rng.key(seed, device=dev))
     k_out = scenario_step.cuda_pipeline_megastep(
-        pipeline.fresh_copy(state), pipeline.fresh_copy(sched), rounds=RPD_FULL,
+        pipeline.fresh_copy(state), pipeline.fresh_copy(sched), rounds=R,
         collect_decisions=True, counters=counters)
-    p_out, plain_ms = timed_plain(lambda: plain_chunked(state, sched, RPD_FULL, counters))
+    p_out, plain_ms = timed_plain(lambda: plain_chunked(state, sched, R, counters))
     err = max_abs_err([(k_out[2], p_out["hist"]), (k_out[3], p_out["dec"]),
                        (k_out[4], p_out["rows"])]
                       + list(zip(k_out[0].tensors(), p_out["state"].tensors())))
-    check(err == 0, f"full-width plain dispatch differs: {err}")
+    check(err == 0, f"full-width plain dispatch of {R} rounds differs: {err}")
     for name, got in (("histograms", k_out[2]), ("decisions", k_out[3]),
                       ("counters_per_round", k_out[4])):
-        check(np.array_equal(main_out[name][:RPD_FULL], got.cpu().numpy()),
-              f"main path's first dispatch {name} differ from the replayed kernel")
+        check(np.array_equal(campaign[name][:R], got.cpu().numpy()),
+              f"the campaign's first dispatch {name} differ from the replayed kernel")
     sc = pipeline.fresh_copy(sched)
     ms = time_cuda(lambda: scenario_step.cuda_pipeline_megastep(
-        state, sc, rounds=RPD_FULL, collect_decisions=True, counters=counters), reps=3)
+        state, sc, rounds=R, collect_decisions=True, counters=counters), reps=3)
+    words, steps = work_counts(state, R)
+    B, n = state.faulty.shape
+    bound_ms, bound_by = bound(words, steps, k1_bytes(B, n, R, scenario=False), int_ops_per_s)
+    return {"state": state, "sched": sched, "counters": counters, "k_out": k_out, "err": err,
+            "ms": ms, "plain_ms": plain_ms, "words": words, "steps": steps,
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": {"B": B, "n": n, "R": R}}
+
+
+def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl_path,
+                      supervised_path):
+    """The main path's first plain dispatch again (same key, state and
+    shape): the kernel against the plain engine and against the main
+    path's own outputs; its time, the plain time and the bound.  The
+    REPL's dispatches (``k1_repl_path``) and the supervised campaign's
+    first 4-round dispatch ride along as ``repl_path`` and
+    ``supervised_path``."""
+    first = replay_first_plain_dispatch(dev, seed, arrays, main_out, RPD_FULL, int_ops_per_s)
+    state, sched, counters, k_out = (first[k] for k in ("state", "sched", "counters", "k_out"))
     c_out, drawn = words_drawn(lambda: scenario_step.cuda_pipeline_megastep(
         pipeline.fresh_copy(state), pipeline.fresh_copy(sched), rounds=RPD_FULL,
         collect_decisions=True, counters=counters))
     check(max_abs_err(zip(c_out[2:5], k_out[2:5])) == 0,
           "K1's counting build differs from the kernel on the plain dispatch")
-    words, steps = work_counts(state, RPD_FULL)
+    words = first["words"]
     check(words <= drawn <= 2 * words,
           f"K1 drew {drawn} threefry words on the card; the inputs need {words}")
-    B, n = state.faulty.shape
-    nbytes = k1_bytes(B, n, RPD_FULL, scenario=False)
-    bound_ms, bound_by = bound(words, steps, nbytes, int_ops_per_s)
     return {"name": "megastep_plain", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES, "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_pipeline_megastep",
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(err, repl_path["max_abs_err"]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "checked_against_plain": True, "shape": {"B": B, "n": n, "R": RPD_FULL},
+            "max_abs_err": max(first["err"], repl_path["max_abs_err"],
+                               supervised_path["max_abs_err"]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "checked_against_plain": True, "shape": first["shape"],
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
-            "tally_steps": steps, "repl_path": repl_path}
+            "tally_steps": first["steps"], "repl_path": repl_path,
+            "supervised_path": supervised_path}
 
 
 def phase_scenario(dev, seed, card):
@@ -1523,6 +1556,277 @@ def phase_checkpoint_cross_device(dev, seed):
           "kernel_launches": {"plain": launches[0], "scenario": launches[1]}})
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return launches
+
+
+# -- supervised campaigns -------------------------------------------------------
+
+
+TRANSIENT_PLAN = os.path.join(ROOT, "examples", "faults", "transient_storm.json")
+KILL_PLAN = os.path.join(ROOT, "examples", "faults", "midcampaign_kill.json")
+RPD_SUP, SUP_EVERY, SUP_KEEP = 4, 8, 2  # supervised_full_width: phase 4's campaign's dials
+RPD_SUP_SCEN, SUP_SCEN_EVERY = 2, 4  # its coalition campaign's
+SUP_DIR = os.path.join(ROOT, "_smoke_supervised")  # git-ignored; removed at the end
+
+
+def sup_plain_kw(dev):
+    """Phase 4's campaign at RPD_SUP rounds a dispatch, with checkpoints."""
+    return dict(depth=2, rounds_per_dispatch=RPD_SUP, collect_decisions=True,
+                with_counters=True, engine="cuda", device=dev, checkpoint_every=SUP_EVERY,
+                checkpoint_keep_last=SUP_KEEP)
+
+
+def supervised_kill_child(seed, template):
+    """The kill-and-rerun drill's child process: phase 4's campaign under
+    ``midcampaign_kill.json``, which SIGKILLs this process at round 20."""
+    dev = CARD
+    key = rng.key(seed, device=dev)
+    arrays = sweep_arrays(rng.fold_in(key, 1000), B_FULL, CAP_FULL, order=1)
+    supervisor.supervised_sweep(key, to_state(arrays, dev), R_FULL,
+                                chaos=chaos.load(KILL_PLAN), checkpoint_path=template,
+                                **sup_plain_kw(dev))
+    sys.exit(3)  # the plan's kill did not fire
+
+
+def same_campaign(got, want, names, what):
+    for name in names:
+        check(np.array_equal(got[name], want[name]), f"{what}: {name} differ")
+    check(got["counters"] == want["counters"], f"{what}: counters differ")
+
+
+SUP_B1_ROTATIONS = 12  # supervised_full_width's B = 1 legs: rounds of the four
+
+
+def supervised_b1(dev, rotations):
+    """Supervision's host cost where dispatches are shortest: the REPL's
+    ``run-rounds attack 1024`` shape (one instance, the N_REPL roster with
+    every third general faulty, 128 K1 dispatches of 8 rounds, depth 2)
+    without checkpoints, through ``pipeline_sweep`` alone, with the retire
+    watchdog alone (``retire_timeout_s=30``), with a pass-through
+    ``exec_seam`` alone, and through ``supervised_sweep``; one warm-up of
+    each, then ``rotations`` rounds of the four, in turn forward and
+    backward.  All equal, 128 K1 launches each.  -> each leg's walls,
+    median and minimum, and the supervised / unsupervised ratio of the
+    medians."""
+    cluster, _ = roster(TorchBackend(device=dev))
+    state = cluster.backend._make_state(cluster.generals, 0, 1)
+    kw = dict(depth=2, rounds_per_dispatch=8, collect_decisions=True, with_counters=True,
+              engine="cuda", device=dev)
+    legs = {"unsupervised": pipeline.pipeline_sweep,
+            "watchdog": functools.partial(pipeline.pipeline_sweep, retire_timeout_s=30.0),
+            "seam": functools.partial(pipeline.pipeline_sweep,
+                                      exec_seam=lambda call, *where: call()),
+            "supervised": supervisor.supervised_sweep}
+    walls = {leg: [] for leg in legs}
+    want = None
+    for i in range(1 + rotations):
+        for leg in list(legs) if i % 2 == 0 else list(legs)[::-1]:
+            st = pipeline.fresh_copy(state)
+            scenario_step.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            out = legs[leg](rng.key(7, device=dev), st, R_AB_REPL, **kw)
+            wall = time.perf_counter() - t0
+            check(scenario_step.cuda_pipeline_megastep.launches == R_AB_REPL // 8,
+                  f"B = 1 {leg}: K1 launches")
+            want = want or out
+            same_campaign(out, want, ("histograms", "decisions", "counters_per_round"),
+                          f"B = 1 {leg}")
+            if i:  # the first round warms every leg up
+                walls[leg].append(wall)
+    med = {leg: float(np.median(w)) for leg, w in walls.items()}
+    return {"shape": {"B": 1, "n": N_REPL, "capacity": CAP_FULL, "rounds": R_AB_REPL,
+                      "rounds_per_dispatch": 8, "depth": 2, "checkpoints": None},
+            "rotations": rotations, "walls_s": walls, "median_s": med,
+            "min_s": {leg: min(w) for leg, w in walls.items()},
+            "median_unsupervised_s": med["unsupervised"],
+            "median_supervised_s": med["supervised"],
+            "ratio_of_medians": med["supervised"] / med["unsupervised"],
+            "min_unsupervised_s": min(walls["unsupervised"]),
+            "min_supervised_s": min(walls["supervised"])}
+
+
+def ab_supervised(dev, card):
+    """``supervised_b1``'s reading for an A/B of two checkouts, one line."""
+    emit({"phase": "ab_supervised", **supervised_b1(dev, SUP_B1_ROTATIONS), "card": card})
+
+
+def phase_supervised_full_width(dev, seed, card, arrays, main_out, s_arrays, s_main_out,
+                                int_ops_per_s):
+    """``supervised_sweep`` on the card at full width, K1 throughout.
+
+    1. Phase 4's campaign at 4 rounds a dispatch with a checkpoint every
+       8 rounds (the two newest kept), unsupervised and supervised
+       (``health_every=1``) in two pairs, A B B A: bit-equal, and equal to
+       phase 4's run at 16 rounds a dispatch; 16 K1 launches each, a
+       health sample a dispatch with a finite watchdog margin; the walls
+       and their ratio.  The campaign's first 4-round dispatch is
+       replayed through K1 and the plain engine on the same key and state
+       (``replay_first_plain_dispatch``): all equal, and K1's time and
+       bound at that shape for K1's plain line.
+    2. The same campaign under ``transient_storm.json`` (transients at
+       dispatch and retire, a 0.25 s stall against a pinned 0.1 s
+       watchdog, a fatal retire after a corrupted checkpoint, an OOM):
+       bit-equal to the clean run; its supervisor block and the
+       quarantined file.
+    3. Phase 5's coalition campaign at 2 rounds a dispatch, a checkpoint
+       every 4, a fatal fault at the retire of rounds [6, 8): recovered
+       from the round-4 checkpoint, bit-equal to phase 5's run.
+    4. A child process runs 1. under ``midcampaign_kill.json`` and dies by
+       SIGKILL at round 20; the same call here, ``resume="auto"``,
+       completes it bit-equal with its history from round 0 in one
+       attempt.
+    5. An allocation larger than the card raises
+       ``torch.cuda.OutOfMemoryError``, classified ``oom`` and spelled as
+       the JAX package spells a fault.
+    6. ``supervised_b1``: the REPL's B = 1 shape without checkpoints,
+       unsupervised, with the watchdog or a seam alone, and supervised,
+       in rotation.
+    Returns the phase's K1 launches (plain, scenario) and the supervised
+    path's record for K1's plain line."""
+    shutil.rmtree(SUP_DIR, ignore_errors=True)
+    os.makedirs(SUP_DIR)
+    atexit.register(shutil.rmtree, SUP_DIR, True)
+    key = rng.key(seed, device=dev)
+    names = ("histograms", "decisions", "counters_per_round")
+    n_dispatch = R_FULL // RPD_SUP
+    launches = {"plain": 0, "scenario": 0}
+
+    def counted(fn):
+        scenario_step.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches["plain"] += scenario_step.cuda_pipeline_megastep.launches
+        launches["scenario"] += scenario_step.cuda_scenario_megastep.launches
+        return out, wall, scenario_step.cuda_pipeline_megastep.launches
+
+    def unsupervised(tag):
+        return pipeline.pipeline_sweep(
+            key, to_state(arrays, dev), R_FULL,
+            checkpoint_path=os.path.join(SUP_DIR, tag + "_{round}.npz"), **sup_plain_kw(dev))
+
+    def supervised(tag, **kw):
+        return supervisor.supervised_sweep(
+            key, to_state(arrays, dev), R_FULL,
+            checkpoint_path=os.path.join(SUP_DIR, tag + "_{round}.npz"), **sup_plain_kw(dev),
+            **kw)
+
+    walls = {"unsupervised": [], "supervised": []}
+    clean = None
+    for i, leg in enumerate(("unsupervised", "supervised", "supervised", "unsupervised")):
+        tag = f"{leg}_{i}"
+        if leg == "unsupervised":
+            out, wall, k1 = counted(lambda: unsupervised(tag))
+        else:
+            out, wall, k1 = counted(lambda: supervised(tag, health_every=1))
+            sup = out["supervisor"]
+            check((sup["attempts"], sup["retries"], sup["stalls"]) == (1, 0, 0),
+                  f"a clean supervised run: {sup}")
+            check(out["stats"]["health_samples"] == n_dispatch,
+                  f"health samples {out['stats']['health_samples']}")
+            margin = obs_registry.default_registry().get("health_watchdog_margin_s")
+            check(margin is not None and np.isfinite(margin.value),
+                  "no finite watchdog margin")
+            health = {"samples": out["stats"]["health_samples"],
+                      "watchdog_margin_s": margin.value, "timeout_s": sup["timeout_s"]}
+        check(k1 == n_dispatch, f"{tag}: {k1} K1 launches")
+        clean = clean or out
+        same_campaign(out, clean, names, tag)
+        walls[leg].append(wall)
+    ratio = sum(walls["supervised"]) / sum(walls["unsupervised"])
+    same_campaign(clean, main_out, names,
+                  f"{RPD_SUP} rounds a dispatch against phase 4's {RPD_FULL}")
+
+    plan = chaos.load(TRANSIENT_PLAN)
+    drill, drill_wall, drill_k1 = counted(lambda: supervised(
+        "drill", chaos=plan,
+        config=supervisor.SupervisorConfig(timeout_s=0.1, backoff_base_s=0.01)))
+    same_campaign(drill, clean, names, "transient storm")
+    dsup = drill["supervisor"]
+    check(dsup["degrades"] == 1 and dsup["depth"] == 1, f"the storm's degrade: {dsup}")
+    check(dsup["stalls"] == 1 and dsup["injected"] == 7, f"the storm's faults: {dsup}")
+    corrupt = sorted(f for f in os.listdir(SUP_DIR) if f.endswith(".corrupt"))
+    check(corrupt == ["drill_16.npz.corrupt", "drill_16.npz.rows.npz.corrupt"],
+          f"quarantined files {corrupt}")  # the checkpoint and its sidecar
+
+    spec = scenario_spec.load(COALITION)
+    block = scenario_compile.compile_scenario(spec, B_FULL, CAP_FULL, sparse=True)
+    fatal = chaos.from_dict({"name": "fatal-after-round-4", "faults": [
+        {"round": 6, "kind": "fatal", "phase": "retire"}]})
+    scen, scen_wall, _ = counted(lambda: supervisor.supervised_sweep(
+        rng.key(seed + 1, device=dev), to_state(s_arrays, dev), scenario=block, chaos=fatal,
+        depth=2, rounds_per_dispatch=RPD_SUP_SCEN, collect_decisions=True, engine="cuda",
+        device=dev, checkpoint_every=SUP_SCEN_EVERY,
+        checkpoint_path=os.path.join(SUP_DIR, "coalition_{round}.npz"),
+        config=supervisor.SupervisorConfig(backoff_base_s=0.01)))
+    same_campaign(scen, s_main_out, names + ("leaders",), "supervised coalition")
+    ssup = scen["supervisor"]
+    check((ssup["attempts"], ssup["recoveries"]) == (2, 1), f"the coalition's recovery {ssup}")
+
+    template = os.path.join(SUP_DIR, "killed_{round}.npz")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.supervised_kill_child("
+                               f"{seed}, {template!r})"],
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    child_wall = time.perf_counter() - t0
+    check(child.returncode == -signal.SIGKILL,
+          f"the kill child exited {child.returncode}: {child.stderr[-800:]}")
+    left = [r for r, _ in snapshot.checkpoint_paths(template)]
+    rerun, rerun_wall, rerun_k1 = counted(lambda: supervised("killed"))
+    same_campaign(rerun, clean, names, "kill and rerun")
+    rsup = rerun["supervisor"]
+    check((rsup["history_start"], rsup["attempts"]) == (0, 1), f"the rerun: {rsup}")
+
+    free, total = torch.cuda.mem_get_info(dev)
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+        err = None
+    except torch.cuda.OutOfMemoryError as e:
+        err = e
+    check(err is not None, "an allocation of twice the card did not raise")
+    attribution = supervisor.fault_attribution(err)
+    check(attribution == {"fault": "oom", "error": f"OutOfMemoryError: {err}"[:200]},
+          f"a real OOM is attributed {attribution}")
+    del err
+    torch.cuda.empty_cache()
+
+    first = replay_first_plain_dispatch(dev, seed, arrays, clean, RPD_SUP, int_ops_per_s)
+    sup_path = {"path": f"supervised_full_width: the clean campaign's first dispatch "
+                        f"({RPD_SUP} rounds)",
+                "launches": launches["plain"], "max_abs_err": first["err"],
+                "shape": first["shape"], "ms_each": first["ms"],
+                "plain_ms_each": first["plain_ms"], "bound_ms_each": first["bound_ms"],
+                "bound_by": first["bound_by"]}
+    del first
+    b1 = supervised_b1(dev, SUP_B1_ROTATIONS)
+
+    emit({"phase": "supervised_full_width", "B": B_FULL, "capacity": CAP_FULL,
+          "rounds": R_FULL, "rounds_per_dispatch": RPD_SUP, "checkpoint_every": SUP_EVERY,
+          "keep_last": SUP_KEEP, "card": card, "bit_equal": True,
+          "clean": {"wall_s_unsupervised": walls["unsupervised"],
+                    "wall_s_supervised": walls["supervised"],
+                    "ratio_supervised_to_unsupervised": ratio, "k1_launches": n_dispatch,
+                    "health": health, "run_id": clean["stats"]["run_id"]},
+          "drill": {"plan": os.path.basename(TRANSIENT_PLAN), "wall_s": drill_wall,
+                    "k1_launches": drill_k1, "quarantined": corrupt,
+                    **{k: dsup[k] for k in ("attempts", "retries", "recoveries", "degrades",
+                                            "stalls", "lost_rounds", "injected",
+                                            "rounds_per_dispatch")}},
+          "scenario": {"spec": os.path.basename(COALITION), "rounds": spec.rounds,
+                       "rounds_per_dispatch": RPD_SUP_SCEN, "wall_s": scen_wall,
+                       "fault": "fatal at the retire of [6, 8)", **ssup},
+          "kill_and_rerun": {"plan": os.path.basename(KILL_PLAN),
+                             "child_exit": child.returncode, "child_wall_s": child_wall,
+                             "checkpoints_left": left, "rerun_wall_s": rerun_wall,
+                             "rerun_k1_launches": rerun_k1, **rsup},
+          "real_oom": {"bytes_asked": 2 * total, "free_bytes": free, **attribution},
+          "first_dispatch_replayed": {k: v for k, v in sup_path.items() if k != "path"},
+          "b1_supervision_cost": b1, "kernel_launches": launches})
+    shutil.rmtree(SUP_DIR, ignore_errors=True)
+    return launches["plain"], launches["scenario"], sup_path
 
 
 # -- K2: the fused signed sweep ---------------------------------------------
@@ -3519,6 +3823,34 @@ def ab_sweeps(dev, card):
           "k2_bucket_ms": k2, "card": card})
 
 
+R_AB_REPL, AB_REPL_REPS = 1024, 7  # ab_repl: run-rounds' rounds (128 K1 dispatches), commands
+
+
+def ab_repl(dev, card):
+    """The host shell's reading for an A/B of two checkouts: the REPL's
+    ``run-rounds attack 1024`` on a roster of N_REPL generals (phase 31's
+    timed command: 128 K1 dispatches of 8 rounds at B = 1, the dispatch
+    loop's host work per dispatch at its largest share), after one warm-up
+    command, AB_REPL_REPS times, each on a fresh roster of the same shape.
+    Emits the walls and their median as one line."""
+    repl(roster(TorchBackend(device=dev))[0], [f"run-rounds attack {R_REPL}"])
+    line = f"run-rounds attack {R_AB_REPL}"
+    walls = []
+    for _ in range(AB_REPL_REPS):
+        cluster, _ = roster(TorchBackend(device=dev))
+        scenario_step.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = repl(cluster, [line])
+        walls.append(time.perf_counter() - t0)
+        check(out[-1] == f"Rounds: {R_AB_REPL} - attack={R_AB_REPL}, retreat=0, undefined=0",
+              f"ab_repl: {out[-1]}")
+        check(scenario_step.cuda_pipeline_megastep.launches == R_AB_REPL // 8,
+              "ab_repl: K1 launches")
+    emit({"phase": "ab_repl", "command": line, "n": N_REPL, "run_rounds_s": float(
+        np.median(walls)), "walls_s": walls, "card": card})
+
+
 # -- the A/Bs of kernels through their wrappers (torch_checkout_ab.py --phase GROUP)
 
 K4_AB_LANES = (1, 10_240, 20_480, 65_536)  # [c]B; the setups; config #3's [S]B
@@ -5425,13 +5757,17 @@ def main(argv=None) -> int:
     ckpt_plain, ckpt_scen = phase_checkpoint_resume_full_width(dev, args.seed, card, arrays,
                                                                s_arrays)
     cross_plain, cross_scen = phase_checkpoint_cross_device(dev, args.seed)
+    sup_plain, sup_scen, sup_path = phase_supervised_full_width(
+        dev, args.seed, card, arrays, main_out, s_arrays, s_main_out, int_ops_per_s)
     plain_launches = {"full_width_validity": plain_launches,
                       "checkpoint_resume_full_width": ckpt_plain,
-                      "checkpoint_cross_device": cross_plain}
+                      "checkpoint_cross_device": cross_plain,
+                      "supervised_full_width": sup_plain}
     scen_launches = {"scenario_full_width": scen_launches,
                      "failover_full_width": fail_launches,
                      "checkpoint_resume_full_width": ckpt_scen,
-                     "checkpoint_cross_device": cross_scen}
+                     "checkpoint_cross_device": cross_scen,
+                     "supervised_full_width": sup_scen}
     phase_k2_middle(dev, rs)
     phase_ed25519_known_answers(dev, rs)
     phase_ed25519_middle(dev, rs)
@@ -5469,7 +5805,7 @@ def main(argv=None) -> int:
     scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s,
-                          shell["plain_path"]),
+                          shell["plain_path"], sup_path),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s, shell["scenario_path"]),
         kernel_line_slot(slot_paths, int_ops_per_s),

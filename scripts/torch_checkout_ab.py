@@ -25,6 +25,16 @@ imports that checkout's package, and runs one of:
   cohorts of 8 through ``coalesced_sweep``) three times, the reading the
   median requests/s of each leg, then its phase 18
   (``phase_coalesced_full_width``), the reading its wall;
+- ``repl``: ``ab_repl`` of the ``chip_smoke.py`` beside this script,
+  loaded alike: the REPL's ``run-rounds attack 1024`` on a roster of 1 000
+  generals (128 K1 dispatches at B = 1) seven times after a warm-up, the
+  reading the median wall;
+- ``supervised``: ``ab_supervised`` of the ``chip_smoke.py`` beside this
+  script, loaded alike: the REPL's B = 1 ``run-rounds`` shape (128 K1
+  dispatches of 8 rounds) without checkpoints through ``pipeline_sweep``
+  alone, with its watchdog or a seam alone, and through
+  ``supervised_sweep``, in rotation, the readings the unsupervised and
+  supervised medians, their ratio and both minima;
 - any other PHASE names a group of ``chip_smoke.AB_GROUPS``, run by
   ``ab_kernels`` of the same ``chip_smoke.py``, loaded alike: the group's
   sources built alone, then by CUDA events each of its readings in
@@ -74,6 +84,9 @@ RUNS = {
         "cs.phase_config3(dev, cs.smi('name,power.limit'))\n"
     ),
     "sweeps": LOAD_BESIDE + "cs.ab_sweeps(torch.device('cuda'), cs.smi('name,power.limit'))\n",
+    "repl": LOAD_BESIDE + "cs.ab_repl(torch.device('cuda'), cs.smi('name,power.limit'))\n",
+    "supervised": (LOAD_BESIDE
+                   + "cs.ab_supervised(torch.device('cuda'), cs.smi('name,power.limit'))\n"),
     "serving": (
         "import torch, chip_smoke as cs\n"
         "dev, card = torch.device('cuda'), cs.smi('name,power.limit')\n"
@@ -94,6 +107,10 @@ READINGS = {
                ("k1_plain_n1000_ms", False), ("k2_step_ms", False)],
     "serving": [("alone_requests_per_s", True), ("coalesced_requests_per_s", True),
                 ("full_width_wall_s", False)],
+    "repl": [("run_rounds_s", False)],
+    "supervised": [("median_unsupervised_s", False), ("median_supervised_s", False),
+                   ("ratio_of_medians", False), ("min_unsupervised_s", False),
+                   ("min_supervised_s", False)],
 }
 
 
@@ -131,6 +148,11 @@ def reading(lines: list[dict], phase: str) -> dict:
                    for key in ("alone_requests_per_s", "coalesced_requests_per_s")},
                 "full_width_wall_s": by["coalesced_full_width"]["wall_s"],
                 "card": by["coalesced_full_width"]["card"]}
+    if phase == "repl":
+        return {"run_rounds_s": by["ab_repl"]["run_rounds_s"], "card": by["ab_repl"]["card"]}
+    if phase == "supervised":
+        line = by["ab_supervised"]
+        return {key: line[key] for key, _ in READINGS["supervised"]} | {"card": line["card"]}
     if phase not in RUNS:  # a group of chip_smoke.AB_GROUPS
         line = by[f"ab_{phase}"]
         row = dict(line["readings"])
@@ -167,7 +189,8 @@ def main(argv=None) -> int:
     parser.add_argument("a")
     parser.add_argument("b")
     parser.add_argument("--phase", default="config3",
-                        help="config3, sweeps, serving, or a group of chip_smoke.AB_GROUPS")
+                        help="config3, sweeps, serving, repl, supervised, or a group of "
+                             "chip_smoke.AB_GROUPS")
     parser.add_argument("--pairs", type=int, default=2)
     parser.add_argument("--out")
     args = parser.parse_args(argv)

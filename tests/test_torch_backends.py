@@ -19,10 +19,12 @@ import pytest
 from ba_tpu.runtime.backends import JaxBackend
 from ba_tpu.runtime.cluster import Cluster as JCluster
 from ba_tpu.runtime.repl import handle_command as j_handle_command
+from ba_tpu.scenario import spec as j_spec
 from ba_tpu_torch.core import rng
 from ba_tpu_torch.runtime.backends import PyBackend, TorchBackend
 from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.repl import handle_command
+from ba_tpu_torch.scenario import spec as t_spec
 from ba_tpu_torch.utils.snapshot import validate_carry_checkpoint
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -282,21 +284,68 @@ def test_scenario_command_guards(jax_backends, tmp_path):
          "scenario error: mesh shape (8, 1) needs 8 device(s) but only 1 are available — "
          "shrink the shape or pass devices= with more entries (an entry may repeat a "
          "device)"),
-        (f"scenario {path} supervise",
-         "scenario error: supervise not ported to ba_tpu_torch yet"),
     ]:
         assert drive(port, [line]) == [want_line]
+    # supervise, ported since: the reference's lines, its supervisor line last
+    got, want, port, ref = both(jax_backends, "om1", 4, 0, [f"scenario {path} supervise"])
+    assert got == want
+    assert got[-1] == "Scenario supervisor: attempts=1, retries=0, recoveries=0, stalls=0"
+    assert_same_roster(port, ref)
     for engine in ("torch", "auto"):
         assert drive(port, [f"scenario {path} engine={engine}"])[0].startswith("Scenario s:")
 
 
-def test_run_scenario_unported_options_raise():
-    backend = TorchBackend(device="cpu")
+def test_run_scenario_unported_options_raise(jax_backends, tmp_path, monkeypatch):
+    """Ported since: ``fault_plan`` without ``supervise`` raises the
+    reference's error before anything runs; a supervised rerun over
+    checkpoints written unsupervised (no rows sidecars) refuses the
+    partial history as the reference does (tests/test_supervisor.py:922);
+    ``health_every`` samples as the reference's engine does."""
+    from ba_tpu.runtime import chaos as j_chaos
+    from ba_tpu_torch.runtime import chaos
+
+    backend = TorchBackend(device="cpu", rounds_per_dispatch=2)
     cluster = Cluster(4, backend, seed=0)
-    spec = object()  # never reached: the options are checked first
-    for kw in ({"supervise": True}, {"fault_plan": object()}, {"health_every": 2}):
-        with pytest.raises(ValueError, match="not ported"):
-            backend.run_scenario(cluster.generals, 0, 1, 0, spec, **kw)
+    j_backend = _jax_backend(jax_backends, "om1")
+    j_cluster = JCluster(4, j_backend, seed=0)
+    plan = {"name": "t", "faults": [{"round": 3, "kind": "transient"}]}
+    errors = []
+    for run, generals, fault_plan in (
+            (backend.run_scenario, cluster.generals, chaos.from_dict(plan)),
+            (j_backend.run_scenario, j_cluster.generals, j_chaos.from_dict(plan))):
+        with pytest.raises(ValueError) as exc:
+            run(generals, 0, 1, 0, object(), fault_plan=fault_plan)  # never reaches the spec
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1] == "fault_plan requires supervise=True"
+
+    doc = {"name": "wire", "order": "attack", "rounds": 8,
+           "events": [{"round": 2, "kill": [2]}, {"round": 5, "revive": [2]}]}
+    monkeypatch.setenv("BA_TPU_PIPELINE_ROUNDS", "2")  # the reference's rounds a dispatch
+
+    def port():
+        return Cluster(4, TorchBackend(device="cpu", rounds_per_dispatch=2), seed=7)
+
+    def ref():
+        return JCluster(4, JaxBackend(platform="cpu", m=1), seed=7)
+
+    for tag, make, spec in (("t", port, t_spec.from_dict(doc)),
+                            ("j", ref, j_spec.from_dict(doc))):
+        ck = str(tmp_path / f"{tag}_un_{{round}}.npz")
+        make().run_scenario(spec, checkpoint_every=4, checkpoint_path=ck)
+        with pytest.raises(ValueError, match="sidecars"):
+            make().run_scenario(spec, checkpoint_every=4, checkpoint_path=ck, supervise=True)
+
+    got = port().run_scenario(t_spec.from_dict(doc), health_every=2, supervise=True,
+                              fault_plan=chaos.from_dict(plan))
+    want = ref().run_scenario(j_spec.from_dict(doc), health_every=2, supervise=True,
+                              fault_plan=j_chaos.from_dict(plan))
+    assert got[0] == want[0]
+    for key in ("decisions", "leaders", "counters", "alive", "faulty"):
+        assert got[1][key] == want[1][key], key
+    assert got[1]["stats"]["health_samples"] == want[1]["stats"]["health_samples"] == 2
+    sup, j_sup = dict(got[1]["stats"]["supervisor"]), dict(want[1]["stats"]["supervisor"])
+    sup.pop("timeout_s"), j_sup.pop("timeout_s")
+    assert sup == j_sup and sup["retries"] == 1
 
 
 def test_scenario_mesh_one_matches_the_reference(jax_backends, tmp_path):

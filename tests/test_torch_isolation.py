@@ -52,6 +52,20 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
         assert name in MODULES, name
 
 
+def test_the_supervisor_and_the_flight_recorder_load_no_jax():
+    """The supervised campaign's modules alone, in a fresh process."""
+    code = (
+        "import sys\n"
+        "import ba_tpu_torch.runtime.supervisor, ba_tpu_torch.obs.flight\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'ba_tpu' or m.startswith('ba_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_no_module_imports_jax_or_ba_tpu():
     """The AST scan covers every module of the package and chip_smoke.py,
     which runs on the card's machine, where there is no jax."""

@@ -2,7 +2,8 @@
 byte, through ``handle_command`` on the port's ``PyBackend`` and on its
 ``TorchBackend`` on the CPU, and through the launcher
 ``python -m ba_tpu_torch.runtime.main``; the commands that are not ported
-yet print one error line, and ``serve`` prints the JAX package's lines."""
+yet print one error line, and ``serve`` and ``scenario ... supervise``
+print the JAX package's lines."""
 
 import pathlib
 import subprocess
@@ -158,14 +159,30 @@ def test_unported_commands_print_one_line(cluster4, line):
     assert drive(cluster4, [line]) == [f"{command} error: not ported to ba_tpu_torch yet"]
 
 
-@pytest.mark.parametrize("tokens,name", [("supervise", "supervise"),
-                                         ("mesh=1 supervise", "supervise"),
-                                         ("ck.npz 2 supervise", "supervise")])
-def test_unported_scenario_tokens_print_one_line(cluster4, tokens, name):
+@pytest.mark.parametrize("tokens", ["supervise", "mesh=1 supervise", "{ck} 2 supervise"])
+def test_unported_scenario_tokens_print_one_line(cluster4, tokens, tmp_path):
+    """Ported since: ``scenario <file> ... supervise`` prints the JAX
+    package's lines (on PyBackend none, as it runs no scenarios; on the
+    torch backend the campaign's, ending in its ``Scenario supervisor:``
+    line) and leaves the same roster."""
+    from ba_tpu.runtime.backends import JaxBackend
+    from ba_tpu.runtime.backends import PyBackend as JPyBackend
+    from ba_tpu.runtime.cluster import Cluster as JCluster
+    from ba_tpu.runtime.repl import handle_command as j_handle
+
     spec = ROOT / "examples" / "scenarios" / "cascading_failover.json"
-    assert drive(cluster4, [f"scenario {spec} {tokens}"]) == [
-        f"scenario error: {name} not ported to ba_tpu_torch yet"]
-    assert [g.id for g in cluster4.generals] == [1, 2, 3, 4]  # nothing ran
+    script = [f"scenario {spec} " + tokens.format(ck=tmp_path / "ck.npz"), "g-state"]
+    on_device = hasattr(cluster4.backend, "device")
+    ref = JCluster(4, JaxBackend(platform="cpu") if on_device else JPyBackend(), seed=0)
+    got = drive(cluster4, script)
+    want = []
+    for line in script:
+        j_handle(ref, line, want.append)
+    assert got == want
+    assert [g.id for g in cluster4.generals] == [g.id for g in ref.generals]
+    if on_device:
+        sup = [ln for ln in got if ln.startswith("Scenario supervisor:")]
+        assert sup == ["Scenario supervisor: attempts=1, retries=0, recoveries=0, stalls=0"]
 
 
 def test_scenario_mesh_tokens(cluster4):
