@@ -192,7 +192,8 @@ class GraphCache:
       builds or captures (a miss returns None and the dispatch runs
       eagerly, as without a cache).
     - :meth:`ensure`: the warmup path; builds the entry (a capture, or
-      an eager dispatch) unless it is there.
+      an eager dispatch) unless it is there, and notes the signature in
+      the compile ledger when one is configured (``obs/instrument.py``).
     - :meth:`evict`: drop an entry whose replay failed; later lookups
       miss.
     """
@@ -244,6 +245,9 @@ class GraphCache:
         with self._lock:
             self._mem[key] = entry
             self.counts["captures" if entry.graph else "eager"] += 1
+        from ba_tpu_torch.obs import instrument
+
+        instrument.note_ledger(fn, axes)  # the next process's warmup replays it
         return {"status": "captured" if entry.graph else "eager",
                 "wall_s": round(time.perf_counter() - t0, 6), "graph": entry.graph}
 

@@ -11,7 +11,9 @@ latency and ``watchdog_margin_s`` against a timeout, and the mesh's
 imbalance gauges where an engine writes them.  It writes the
 ``health_*`` gauges back into the registry and, with ``emit``, one
 ``health_snapshot`` record.  Its inputs are the pipelined loops'
-``pipeline_*`` instruments (``parallel/pipeline.py``).  Stdlib only.
+``pipeline_*`` instruments (``parallel/pipeline.py``).  After each
+sample the installed SLO engine (``obs/slo.py``) gets its report tick.
+Stdlib only.
 """
 
 from __future__ import annotations
@@ -241,6 +243,18 @@ class HealthSampler:
             }
             (sink or _metrics.default_sink()).emit(record)
 
+        # An installed SLO engine reports on this sampler's cadence (its
+        # own report_every_s decides whether a report is due).  A failure
+        # of that bookkeeping is counted and never stops the sweep that
+        # is sampling.
+        from ba_tpu_torch.obs import slo as _slo
+
+        eng = _slo.installed()
+        if eng is not None:
+            try:
+                eng.maybe_report(sink=sink)
+            except Exception:
+                reg.counter("slo_report_errors_total").inc()
         return snap
 
 

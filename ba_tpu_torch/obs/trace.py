@@ -58,16 +58,18 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, **attrs):
         """One closed span around the body (thread-safe; spans inside a
-        run scope carry its ``run_id``)."""
+        run scope carry its ``run_id``).  ``with`` yields the span's
+        attribute dict, which the body may add to (None when the tracer
+        is off)."""
         if not self.enabled:
-            yield
+            yield None
             return
         rid = _metrics.active_run_id()
         if rid is not None:
             attrs.setdefault("run_id", rid)
         t0 = time.perf_counter_ns()
         try:
-            yield
+            yield attrs
         finally:
             dur = time.perf_counter_ns() - t0
             with self._lock:

@@ -10,6 +10,12 @@ the source is unchanged.  No PyTorch headers are compiled
 in, which keeps a cold build to seconds.  A failed build raises; there
 is no fallback to the plain engine.  ``check_aligned`` guards the
 kernels that move a lane by 16-byte vectors.
+
+The compiler's ``-Xptxas=-v`` report is written beside each library
+(``<library>.ptxas.txt``), so a library built by an earlier process still
+has it: :func:`library_record` reads each kernel's registers, spill and
+shared and local memory from it (:func:`ptxas_resources`), the device
+tier's artifact record (``obs/cuda.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,8 +76,68 @@ def build(source: str, flags: tuple = ()) -> Path:
     build_log[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{build_log[name]}")
+    _log_path(out).write_text(build_log[name])  # before the library: its presence means both
     os.replace(tmp, out)
     return out
+
+
+def _log_path(library: Path) -> Path:
+    return library.with_name(library.name + ".ptxas.txt")
+
+
+def nvcc_release() -> str | None:
+    """The CUDA toolkit's release (``nvcc --version``'s ``release X.Y``),
+    or None where there is no toolkit."""
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        return None
+    try:
+        text = subprocess.run([found, "--version"], capture_output=True, text=True,
+                              timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    m = re.search(r"release (\d+\.\d+)", text)
+    return m.group(1) if m else None
+
+
+def ptxas_resources(log: str) -> dict:
+    """Each kernel entry's resources from an ``-Xptxas=-v`` report:
+    ``{mangled name: {"registers", "spill_stores", "spill_loads",
+    "stack_frame", "shared_bytes", "local_bytes"}}`` (bytes; local memory
+    a thread is its stack frame, spill included, or the report's ``lmem``
+    where larger)."""
+    out, entry, props = {}, None, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
+                          "stack_frame": 0, "shared_bytes": 0, "local_bytes": 0}
+        elif m := re.search(r"Function properties for (\w+)", ln):
+            props = m.group(1)  # an entry's, or a device function's kept out of line
+        elif entry is not None and props == entry and "spill stores" in ln:
+            rec = out[entry]
+            rec["stack_frame"] = int(re.search(r"(\d+) bytes stack frame", ln).group(1))
+            rec["local_bytes"] = max(rec["local_bytes"], rec["stack_frame"])
+            rec["spill_stores"], rec["spill_loads"] = (
+                int(x) for x in re.findall(r"(\d+) bytes spill", ln))
+        elif entry is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            rec = out[entry]
+            rec["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", ln):
+                rec["shared_bytes"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes lmem", ln):
+                rec["local_bytes"] = max(rec["local_bytes"], int(m.group(1)))
+    return out
+
+
+def library_record(source: str, flags: tuple = ()) -> dict:
+    """What the build of ``csrc/<source>`` (with ``flags``) left: ``{"path",
+    "bytes" (the library's size), "kernels" (:func:`ptxas_resources` of its
+    report, {} when the report is missing)}``; builds it if need be."""
+    path = build(source, flags)
+    log = _log_path(path)
+    return {"path": str(path), "bytes": path.stat().st_size,
+            "kernels": ptxas_resources(log.read_text()) if log.exists() else {}}
 
 
 def check_tensor(t, name: str, dtype, shape, device) -> None:

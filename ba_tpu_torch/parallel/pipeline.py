@@ -49,12 +49,20 @@
   summed at retire, checkpoints gathered on write and split again on
   read.  Every mesh dispatch runs the shard-mapped torch scan core, as
   the reference's runs its XLA one (``engine="cuda"`` raises).
+- **Dispatch spans**: every megastep dispatch of the three loops runs in
+  a ``compile`` (the first of its named signature, ``obs/instrument.py``)
+  or ``dispatch`` span, a warm graph-cache entry's always ``dispatch``
+  with ``warm=True``, inside ``obs.cuda.annotate("megastep_dispatch" |
+  "coalesced_dispatch")``; the first dispatch of a ``"cuda"`` signature
+  off a mesh, with the sink live, emits K1's ``compiled_artifact`` record
+  (``obs/cuda.py``).  None of it waits for the card.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1260,6 +1268,28 @@ def pipeline_sweep(
         if on_event is not None:
             on_event("retire", d)
 
+    # the dispatches' named signatures (the recompile explainer's axes),
+    # made once a window length
+    fn = ("scenario_megastep" if scenario is not None
+          else "signed_megastep" if signed else "pipeline_megastep")
+    sig_base = {"batch": B, "capacity": n, "m": m, "unroll": 1,
+                "collect_decisions": collect_decisions, "signed": signed, "engine": engine}
+    if signed:
+        sig_base["collapsed"] = collapsed
+    else:
+        sig_base.update(max_liars=max_liars, counters=with_counters, data=n_shards,
+                        scenario=scenario is not None)
+    sigs: dict = {}
+
+    def axes_of(nr):
+        axes = sigs.get(nr)
+        if axes is None:
+            axes = sigs[nr] = dict(sig_base, rounds=nr)
+        return axes
+
+    # K1's artifact record on each signature's first dispatch (obs/cuda.py)
+    introspect = engine == "cuda" and mesh is None and obs.cuda.enabled()
+
     with obs.trace.inject_scope(traceparent, mark="campaign"), \
             flight.run_scope(rid) as scope:
         lo = start
@@ -1280,16 +1310,28 @@ def pipeline_sweep(
                     call = functools.partial(
                         scen_fn, state, sched, strategy, counters, events, rounds=nr, m=m,
                         max_liars=max_liars, collect_decisions=collect_decisions)
+                    args = (state, sched, strategy, counters, events)
                 elif signed:
                     call = functools.partial(
                         signed_megastep, state, sched, counters, staged, rounds=nr, m=m,
                         collapsed=collapsed, collect_decisions=collect_decisions)
+                    args = None
                 else:
                     call = functools.partial(
                         plain_fn, state, sched, rounds=nr, m=m, max_liars=max_liars,
                         collect_decisions=collect_decisions, counters=counters)
-                out = call() if exec_seam is None else exec_seam(
-                    _runs_once(call), "dispatch", d, lo, hi)
+                    args = (state, sched, counters)
+                axes = axes_of(nr)
+                probe = None
+                with _dispatch_span(fn, axes, False, dispatch=d, rounds=nr) as phase, \
+                        obs.cuda.annotate("megastep_dispatch", dispatch=d):
+                    if phase == "compile" and introspect:
+                        probe = obs.cuda.introspect(fn, axes, args, sources=K1_SOURCES,
+                                                    device=dev)
+                    out = call() if exec_seam is None else exec_seam(
+                        _runs_once(call), "dispatch", d, lo, hi)
+                if probe is not None:
+                    probe.emit(out)
                 t_sub = perf()
                 if scenario is not None:
                     state, sched, strategy = out[:3]
@@ -1442,6 +1484,24 @@ class _Watchdog:
                     self._idle = True
                     self._cv.wait()
                     self._idle = False
+
+
+K1_SOURCES = ("megastep.cu",)  # the library a "cuda" megastep dispatch launches
+
+
+@contextlib.contextmanager
+def _dispatch_span(fn: str, axes: dict, warm: bool, **attrs):
+    """A dispatch's span, yielding its phase: a warm dispatch (a warm
+    entry of the graph cache) is a ``dispatch`` span with ``warm=True``
+    and never touches the classifier, so the signature's first eager
+    dispatch still reads as its compile; a cold one is classified by
+    ``obs.compile_or_dispatch_span`` on ``(fn, axes)``."""
+    if warm:
+        with obs.span("dispatch", fn=fn, warm=True, **attrs):
+            yield "dispatch"
+    else:
+        with obs.compile_or_dispatch_span(fn, axes=axes, fn=fn, **attrs) as phase:
+            yield phase
 
 
 class CarryConsumed(RuntimeError):
@@ -1795,6 +1855,7 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_l
 
     lo = 0
     majorities = None
+    windows: dict = {}  # the dispatches' signatures, one a window length
     try:
         for d, nr in enumerate(chunks):
             hi = lo + nr
@@ -1805,9 +1866,11 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_l
                     torch.cuda.current_stream(state.device).wait_event(ready)
             call = functools.partial(coalesced_fn, state, sched, strategy, counters, events,
                                      rounds=nr, m=m, max_liars=max_liars, scenario=scenario)
+            win = windows.get(nr)
+            if win is None:
+                win = windows[nr] = dict(axes, rounds=nr)
             entry, fell_back = None, []
             if executables is not None:
-                win = dict(axes, rounds=nr)
                 entry = executables.get("coalesced_megastep", win)
                 if entry is None:
                     tally["warm_misses"] += 1
@@ -1816,7 +1879,9 @@ def _coalesced_loop(state, sched, strategy, counters, stage, chunks, *, m, max_l
                                                          counters, events),
                                        call, executables, win, fell_back)
             t_disp = perf()
-            out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
+            with _dispatch_span("coalesced_megastep", win, entry is not None, dispatch=d,
+                                rounds=nr), obs.cuda.annotate("coalesced_dispatch", dispatch=d):
+                out = call() if exec_seam is None else exec_seam(call, "dispatch", d, lo, hi)
             t_sub = perf()
             if _build.loads_total != loads_total:
                 loads_total = _build.loads_total

@@ -15,15 +15,24 @@ Two interchangeable engines behind ``Cluster``:
 Both draw faults from seeded RNG (the reference uses ``random.randint``
 per RPC call, ba.py:44-49, 268-273, unseeded; here they are
 reproducible).
+
+``TorchBackend.run_round`` keeps the reference's spans: a signed round is
+a ``signed_round`` span, any other a ``compile`` or ``dispatch`` span
+classified on the named axes (instance, protocol, m, capacity), so a
+roster that crosses a power of two emits a ``recompile`` record naming
+``capacity``; on the card a ``compile`` round also emits its artifact
+record (``obs/cuda.py``).
 """
 
 from __future__ import annotations
 
+import itertools
 import random
 
 import numpy as np
 import torch
 
+from ba_tpu_torch import obs
 from ba_tpu_torch.core import rng
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
@@ -32,6 +41,9 @@ from ba_tpu_torch.parallel.mesh import gather_tree
 # Dispatches the pipelined engine keeps in flight (the reference's
 # ``BA_TPU_PIPELINE_DEPTH`` default).
 PIPELINE_DEPTH = 2
+# A backend's tag in its round's compile signature: each backend's first
+# round at a capacity classifies as that backend's compile.
+_INSTANCE_IDS = itertools.count()
 
 
 class PyBackend:
@@ -105,7 +117,8 @@ class TorchBackend:
     or ``None`` / ``"auto"`` for the default: K1 on the card at m = 1,
     the composed torch engine otherwise).  There is nothing to compile,
     so nothing is cached a capacity: a roster that crosses a power of two
-    simply runs at the new capacity.
+    simply runs at the new capacity, and its first round there is the
+    classifier's ``compile`` (a ``recompile`` record names ``capacity``).
     """
 
     def __init__(
@@ -126,6 +139,7 @@ class TorchBackend:
         self.signed = signed
         self.rounds_per_dispatch = rounds_per_dispatch
         self._sign_lane = None  # the B = 1 commander's keys and round tables
+        self._obs_instance = next(_INSTANCE_IDS)
 
     @staticmethod
     def _capacity(n: int) -> int:
@@ -181,24 +195,43 @@ class TorchBackend:
         state = self._make_state(generals, leader_idx, order_code)
         key = rng.key(seed, self.device)
         if self.signed:
-            maj = self._run_signed(state, key)
-        elif self.protocol == "sm":
-            from ba_tpu_torch.core.sm import sm_round
-
-            maj = sm_round(key, state, self.m)
-        elif self.m == 1:
-            from ba_tpu_torch.core.om import om1_round
-
-            maj = om1_round(key, state)
-        else:
-            from ba_tpu_torch.core.eig import eig_round
-
-            # max_liars keeps its safe n - 1 default: fault flags change
-            # interactively (g-state), so no tighter cap is known here.
-            maj = eig_round(key, state, self.m)
+            # host signing and a verify between two device steps: not a
+            # dispatch, so not classified
+            with obs.span("signed_round", n=n, m=self.m):
+                maj = self._run_signed(state, key)
+            return maj[0, :n].tolist()
+        axes = {"instance": self._obs_instance, "protocol": self.protocol, "m": self.m,
+                "capacity": self._capacity(n)}
+        probe = None
+        with obs.compile_or_dispatch_span("torch_backend_step", axes=axes, n=n,
+                                          protocol=self.protocol) as phase:
+            if phase == "compile" and self.device.type == "cuda":
+                # K9 resolves the EIG tree on the card; the other steps are plain torch
+                probe = obs.cuda.introspect(
+                    "torch_backend_step", axes, (key, state), device=self.device,
+                    sources=("majority.cu",) if self.protocol == "om" and self.m > 1 else ())
+            maj = self._step(key, state)
+        if probe is not None:
+            probe.emit((maj,))
         return maj[0, :n].tolist()  # one fetch for the whole row
 
-    def run_rounds(self, generals, leader_idx, order_code, seed, rounds, engine=None):
+    def _step(self, key, state):
+        if self.protocol == "sm":
+            from ba_tpu_torch.core.sm import sm_round
+
+            return sm_round(key, state, self.m)
+        if self.m == 1:
+            from ba_tpu_torch.core.om import om1_round
+
+            return om1_round(key, state)
+        from ba_tpu_torch.core.eig import eig_round
+
+        # max_liars keeps its safe n - 1 default: fault flags change
+        # interactively (g-state), so no tighter cap is known here.
+        return eig_round(key, state, self.m)
+
+    def run_rounds(self, generals, leader_idx, order_code, seed, rounds, engine=None,
+                   host_work=None):
         """``rounds`` agreement rounds through the pipelined sweep engine.
 
         Returns ``(majorities_last, decision_codes, stats)`` — the last
@@ -206,7 +239,8 @@ class TorchBackend:
         per-general block), each round's quorum decision code, and the
         engine's stats with its counters — or None for unsigned SM, which
         has no pipelined path (``Cluster`` then runs the rounds one by
-        one).  A signed backend runs the signed megastep behind the
+        one).  ``host_work(dispatch)`` runs between dispatches while the
+        card works (``pipeline_sweep``'s overlap slot).  A signed backend runs the signed megastep behind the
         sign-ahead lane (``pipeline_sweep(signed=True)``, tables of
         ``sign_seed`` 0); its last round's block is recomputed from the
         same round's tables, verified exactly on the backend's device (K7,
@@ -244,6 +278,7 @@ class TorchBackend:
             signed=self.signed,
             engine=engine,
             device=self.device,
+            host_work=host_work,
         )
         # The last round's per-general block, recomputed from the same key
         # schedule (counter = rounds - 1): bit-exact with what the engine

@@ -13,17 +13,25 @@ sockets and 0.1 s polling loops are gone; their semantics stay:
 - New generals adopt the existing leader (ba.py:86-102).
 - Killed generals leave the roster (ba.py:415-425).
 
-The JAX package's observability hooks (spans, registry counters, the
-metrics sink) are not here: they print nothing unless the metrics sink is
-configured, so the REPL's output is the same without them.
+The JAX package's emit points are kept: ``failover_kill`` and
+``election`` instants with the ``failover_kills_total`` /
+``elections_total`` counters, the ``agreement_round`` /
+``agreement_rounds`` / ``scenario_campaign`` spans (``round_wall_s``), and
+the ``agreement_round``, ``pipeline_dispatch``,
+``agreement_rounds_pipelined`` and ``scenario_campaign`` records.  They
+write nothing unless the tracer or the metrics sink is configured, so the
+REPL's stdout is the same with them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+from ba_tpu_torch import obs
 from ba_tpu_torch.core.quorum import quorum_threshold_py
 from ba_tpu_torch.core.types import ATTACK, COMMAND_NAMES, RETREAT, UNDEFINED, command_from_name
+from ba_tpu_torch.utils import metrics
 
 BASE_PORT = 18812  # rpyc's default port, kept for display parity (ba.py:355)
 
@@ -87,6 +95,10 @@ class Cluster:
         if g is None or not g.alive:
             return False
         g.alive = False
+        # a marker and a counter, not a record: the stream keeps one
+        # record a round
+        obs.instant("failover_kill", gid=gid, was_leader=gid == self.leader_id)
+        obs.default_registry().counter("failover_kills_total").inc()
         self.generals = [x for x in self.generals if x.alive]
         self.tick()
         return True
@@ -108,12 +120,16 @@ class Cluster:
     def tick(self) -> None:
         """Failure detection and election, event-driven: a living leader
         is never displaced (ba.py:124-125); a dead one is replaced by the
-        lowest living id."""
+        lowest living id.  An election (not a drain to no leader) is
+        counted."""
+        prev = self.leader_id
         alive = [g for g in self.generals if g.alive]
         if not alive:
             self.leader_id = None
         elif self.leader_id is None or self.find(self.leader_id) is None:
             self.leader_id = min(g.id for g in alive)
+        if self.leader_id != prev and self.leader_id is not None:
+            _elected(self.leader_id, prev)
 
     @property
     def leader(self):
@@ -137,11 +153,22 @@ class Cluster:
             return None  # the reference would crash here (SURVEY.md Q4)
         self.tick()
         leader_idx = self._leader_idx()
-        majorities = self.backend.run_round(
-            self.generals, leader_idx, command_from_name(command), self._round_seed()
-        )
+        with obs.timed_span("agreement_round", obs.default_registry().histogram("round_wall_s"),
+                            round=self._round, n=len(self.generals)) as timed:
+            majorities = self.backend.run_round(
+                self.generals, leader_idx, command_from_name(command), self._round_seed()
+            )
+        round_idx = self._round
         self._round += 1
-        return self._tally(command, leader_idx, majorities)
+        res = self._tally(command, leader_idx, majorities)
+        metrics.emit({
+            "event": "agreement_round", "round": round_idx, "n": len(self.generals),
+            "leader_id": self.leader_id, "order": command, "decision": res.decision,
+            "n_attack": res.n_attack, "n_retreat": res.n_retreat,
+            "n_undefined": res.n_undefined, "needed": res.needed, "total": res.total,
+            "nr_faulty": res.nr_faulty, "round_elapsed_s": round(timed.elapsed_s, 6),
+        })
+        return res
 
     def actual_order_rounds(self, command: str, rounds: int):
         """``rounds`` agreement rounds in one pipelined device run.
@@ -168,11 +195,21 @@ class Cluster:
             # the device quorum: the sequential path keeps it exact.
             run_rounds = None
         pipelined = None
+        round_base = self._round
+        t0 = time.perf_counter()
         if run_rounds is not None:
-            pipelined = run_rounds(
-                self.generals, leader_idx, command_from_name(command),
-                self._round_seed(), rounds,
-            )
+            host_work = None
+            if metrics.default_sink().enabled:
+                def host_work(dispatch):  # between dispatches, while the card works
+                    metrics.emit({"event": "pipeline_dispatch", "dispatch": dispatch,
+                                  "round_base": round_base, "n": len(self.generals),
+                                  "order": command})
+
+            with obs.span("agreement_rounds", rounds=rounds, n=len(self.generals)):
+                pipelined = run_rounds(
+                    self.generals, leader_idx, command_from_name(command),
+                    self._round_seed(), rounds, host_work=host_work,
+                )
         if pipelined is None:
             res = None
             counts = {"attack": 0, "retreat": 0, "undefined": 0}
@@ -181,9 +218,21 @@ class Cluster:
                 counts[res.decision] += 1
             return res, counts, None
         majorities, decisions, stats = pipelined
+        elapsed = time.perf_counter() - t0
         self._round += rounds
         res = self._tally(command, leader_idx, majorities)
-        return res, _decision_counts(decisions), stats
+        counts = _decision_counts(decisions)
+        metrics.emit({
+            # the engine's run scope closed when run_rounds returned: the
+            # summary carries its id explicitly
+            **({"run_id": stats["run_id"]} if stats.get("run_id") else {}),
+            "event": "agreement_rounds_pipelined", "round_base": round_base,
+            "rounds": rounds, "n": len(self.generals), "leader_id": self.leader_id,
+            "order": command, "decision_counts": counts, "dispatches": stats["dispatches"],
+            "depth": stats["depth"], "counters": stats.get("counters"),
+            "elapsed_s": round(elapsed, 6),
+        })
+        return res, counts, stats
 
     def run_scenario(
         self,
@@ -217,18 +266,20 @@ class Cluster:
         run = getattr(self.backend, "run_scenario", None)
         if run is None:
             return None
-        res = run(
-            self.generals, self._leader_idx(), command_from_name(spec.order),
-            self._round_seed(), spec,
-            checkpoint_every=checkpoint_every,
-            checkpoint_path=checkpoint_path,
-            checkpoint_keep_last=checkpoint_keep_last,
-            supervise=supervise,
-            fault_plan=fault_plan,
-            mesh=mesh,
-            health_every=health_every,
-            engine=engine,
-        )
+        obs.instant("scenario_repl", scenario=spec.name, rounds=spec.rounds)
+        with obs.span("scenario_campaign", rounds=spec.rounds, n=len(self.generals)):
+            res = run(
+                self.generals, self._leader_idx(), command_from_name(spec.order),
+                self._round_seed(), spec,
+                checkpoint_every=checkpoint_every,
+                checkpoint_path=checkpoint_path,
+                checkpoint_keep_last=checkpoint_keep_last,
+                supervise=supervise,
+                fault_plan=fault_plan,
+                mesh=mesh,
+                health_every=health_every,
+                engine=engine,
+            )
         if res is None:
             return None
         self._round += spec.rounds
@@ -236,14 +287,28 @@ class Cluster:
         for g, alive, faulty in zip(roster, res["alive"], res["faulty"]):
             g.faulty = faulty
             g.alive = alive
+        dead = [g.id for g in roster if not g.alive]
         self.generals = [g for g in roster if g.alive]
+        prev = self.leader_id
         last_leader = res["leaders"][-1]
         if 0 <= last_leader < len(roster) and roster[last_leader].alive:
             self.leader_id = roster[last_leader].id
         else:
             self.leader_id = None
+        if self.leader_id != prev and self.leader_id is not None:
+            _elected(self.leader_id, prev)
         self.tick()
-        return _decision_counts(res["decisions"]), res
+        counts = _decision_counts(res["decisions"])
+        stats = res["stats"]
+        metrics.emit({
+            **({"run_id": stats["run_id"]} if stats.get("run_id") else {}),
+            "event": "scenario_campaign", "name": spec.name, "rounds": spec.rounds,
+            "order": spec.order, "decision_counts": counts, "counters": res["counters"],
+            "killed": dead, "leader_id": self.leader_id, "n": len(self.generals),
+            "dispatches": stats["dispatches"], "checkpoints": stats.get("checkpoints", 0),
+            **({"supervisor": stats["supervisor"]} if "supervisor" in stats else {}),
+        })
+        return counts, res
 
     def _tally(self, command: str, leader_idx: int, majorities) -> RoundResult:
         """REPL-level bookkeeping for one round's majorities (ba.py:383-399
@@ -290,6 +355,11 @@ class Cluster:
 
     def _round_seed(self) -> int:
         return (self.seed << 20) ^ self._round
+
+
+def _elected(leader_id: int, prev) -> None:
+    obs.instant("election", leader_id=leader_id, prev=prev)
+    obs.default_registry().counter("elections_total").inc()
 
 
 def _decision_counts(decisions) -> dict:

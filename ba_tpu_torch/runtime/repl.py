@@ -35,9 +35,13 @@ Extensions, as in the JAX package:
 over the backend's device.  ``serve start [queue=N] [window=S]
 [batch=N] [warm=0|1] [engine=torch|cuda|auto]`` / ``serve stat`` /
 ``serve stop`` run a local agreement service
-(``runtime/serve.py``) on the backend's device.  ``stats``, ``search``
-and ``fleet`` print one line, ``<command> error: not ported to
-ba_tpu_torch yet``.
+(``runtime/serve.py``) on the backend's device.  ``stats`` prints the
+metrics registry as Prometheus-style text (nothing while it is empty);
+``stats --live`` one health sample (``obs/health.py``, rates since the
+previous ``stats --live``) and, with an SLO engine installed that has
+reported, one ``slo_worst ...`` line.  ``stats --fleet``, ``search`` and
+``fleet`` print one line, ``<command> error: not ported to ba_tpu_torch
+yet``.  Every command runs in a ``repl_command`` span.
 
 Divergences from the reference (guarded crashes there, SURVEY.md section
 3.3): unknown ids and an empty cluster are ignored (Q4), and election is
@@ -47,12 +51,13 @@ hit a not-yet-reelected assert (Q5).
 
 from __future__ import annotations
 
+from ba_tpu_torch import obs
 from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.supervisor import SupervisorError
 from ba_tpu_torch.scenario import spec as scenario_spec
 
 NOT_PORTED = "not ported to ba_tpu_torch yet"
-UNPORTED_COMMANDS = ("stats", "search", "fleet")
+UNPORTED_COMMANDS = ("search", "fleet")
 SERVE_USAGE = ("serve error: usage: serve start [queue=N] [window=S] [batch=N] [warm=0|1] "
                "| serve stat | serve stop")
 SCENARIO_USAGE = ("(usage: scenario <file> [<ckpt-path> <every>] "
@@ -91,7 +96,9 @@ def _print_round(res, out) -> None:
 
 def handle_command(cluster: Cluster, line: str, out) -> bool:
     """Dispatch one REPL line.  Returns False when the loop should stop."""
-    return _dispatch(cluster, line.split(" "), out)
+    cmd = line.split(" ")
+    with obs.span("repl_command", command=cmd[0]):
+        return _dispatch(cluster, cmd, out)
 
 
 def _dispatch(cluster: Cluster, cmd: list, out) -> bool:
@@ -136,6 +143,9 @@ def _dispatch(cluster: Cluster, cmd: list, out) -> bool:
 
     elif command == "serve":
         _serve(cluster, cmd, out)
+
+    elif command == "stats":
+        _stats(cmd, out)
 
     elif command in UNPORTED_COMMANDS:
         out(f"{command} error: {NOT_PORTED}")
@@ -334,3 +344,27 @@ def run_repl(cluster: Cluster, stdin, out) -> None:
     for line in stdin:
         if not handle_command(cluster, line.rstrip("\n"), out):
             break
+
+
+def _stats(cmd: list, out) -> None:
+    """``stats`` / ``stats --live`` / ``stats --fleet`` (module
+    docstring); every line host-side, no wait on the card."""
+    if "--live" in cmd[1:]:
+        snap = obs.health.default_sampler().sample()
+        for k, v in snap.items():
+            if v is not None:
+                out(f"{k} {'+Inf' if v == float('inf') else v}")
+        try:  # the installed engine's last report, read lock-free
+            eng = obs.slo.installed()
+            worst = eng.last_worst if eng is not None else None
+            if worst is not None:
+                out(f"slo_worst burn={worst['burn']} cohort={worst['cohort']} "
+                    f"tenant={worst['tenant']} p99_s={worst['p99_s']} phase={worst['phase']}")
+        except Exception as e:
+            out(f"slo_worst error: {e}")
+        return
+    if "--fleet" in cmd[1:]:
+        out(f"stats --fleet error: {NOT_PORTED}")  # obs/fleet.py is not ported
+        return
+    for ln in obs.default_registry().prometheus_text().splitlines():
+        out(ln)

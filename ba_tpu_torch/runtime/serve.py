@@ -35,16 +35,30 @@ Many callers share one process:
   :meth:`AgreementService.warm_barrier` a warm service counts no compile
   on the request path (``serve_compile_on_request_path_total``).
 
+- **SLO engine.**  With ``slo`` set (True: ``obs.slo.default_policy()``;
+  a policy file's path; an ``SLOPolicy``) the service makes an
+  ``obs/slo.py`` engine, installs it process-wide at ``open()`` (the
+  health sampler's report hook), folds every terminal ``request`` record
+  and every rejected ``admission`` record into it, stamps its queue
+  pressure before each health sample, reads its ``health_slo_burn``
+  gauge into the shed ladder (``burn_soft`` / ``burn_hard``), and at
+  ``stop()`` forces a last report and uninstalls it.
+- **Compile ledger.**  ``compile_ledger=path`` turns on the cross-run
+  ledger (``obs/instrument.configure_compile_ledger``) for the service's
+  life, before the warmup plan is made, so the warmup replays what an
+  earlier process dispatched (``runtime/warmup.ledger_replay_set``).
+
 The JAX package's environment knobs are :class:`ServeConfig` fields:
 ``BA_TPU_SERVE_BATCH`` / ``_QUEUE`` / ``_WINDOW_S`` / ``_DEADLINE_S`` /
 ``_RETRIES`` are ``max_batch``, ``max_queue``, ``coalesce_window_s``,
 ``default_deadline_s`` and ``max_retries``; ``BA_TPU_WARM`` is ``warm``;
 ``BA_TPU_ENGINE`` is ``engine`` (``torch``, ``cuda`` or ``auto``, the
-default).  ``device`` places the cohorts (the card unless given).  Not
-ported yet, and refused with a ``ValueError``: ``slo=`` (the SLO engine)
-and ``aot_cache=`` (a CUDA graph lives in one process; the kernel build
-directory is the persistent part).  The dispatcher thread alone touches
-the card: callers' threads validate, queue and wait.
+default); ``BA_TPU_SLO`` is ``slo``; the ledger the reference keeps
+beside its persistent XLA cache is ``compile_ledger``.  ``device``
+places the cohorts (the card unless given).  ``aot_cache=`` is refused
+with a ``ValueError`` (a CUDA graph lives in one process; the kernel
+build directory is the persistent part).  The dispatcher thread alone
+touches the card: callers' threads validate, queue and wait.
 """
 
 from __future__ import annotations
@@ -147,10 +161,11 @@ class ServeConfig:
     warm_ms: tuple | None = None
     aot_cache: str | None = None     # refused: no on-disk graph cache
     engine: str = "auto"
-    slo: object = None               # refused: the SLO engine is not ported
+    slo: object = None               # None / False: no engine; True, a path or an SLOPolicy
     burn_soft: float = 1.0
     burn_hard: float = 8.0
     device: str | None = None        # the cohorts' device; None: the card
+    compile_ledger: str | None = None  # the cross-run compile ledger's file; None: off
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -178,9 +193,13 @@ class ServeConfig:
             _positive_ints("warm_ms", self.warm_ms)
         if self.engine not in ENGINE_TOKENS:
             raise ValueError(f"engine={self.engine!r} not in {ENGINE_TOKENS}")
-        if self.slo is not None and self.slo is not False:
-            raise ValueError("slo= is not ported to ba_tpu_torch yet (the SLO engine, "
-                             "obs/slo.py, comes with device-tier observability)")
+        if (self.slo is not None and not isinstance(self.slo, (bool, str))
+                and not hasattr(self.slo, "objectives")):
+            raise ValueError(f"slo={self.slo!r} must be None, a bool, a policy path, or an "
+                             f"obs.slo.SLOPolicy")
+        if self.compile_ledger is not None and (not isinstance(self.compile_ledger, str)
+                                                or not self.compile_ledger):
+            raise ValueError(f"compile_ledger={self.compile_ledger!r} must be None or a path")
         if self.aot_cache is not None:
             raise ValueError("aot_cache= has no meaning in ba_tpu_torch: a CUDA graph is "
                              "local to one process, so warm entries are kept in memory "
@@ -201,8 +220,8 @@ def shed_tier(queue_frac, lag_p99_s, occupancy, config: ServeConfig, burn=None) 
     full; 2 past ``queue_hard_frac``, ``lag_hard_s`` (inf counts) or
     ``burn_hard``; 1 past the soft limits or with every pipeline slot
     full (occupancy >= depth); else 0.  An absent signal (None) never
-    raises the tier; ``burn``, an SLO engine's burn rate, is None until
-    that engine is ported."""
+    raises the tier; ``burn`` is the SLO engine's gate burn (the
+    ``health_slo_burn`` gauge), None without an engine."""
     if queue_frac >= 1.0:
         return 3
     lag_hard = lag_p99_s is not None and lag_p99_s >= config.lag_hard_s
@@ -401,6 +420,19 @@ class AgreementService:
 
             injector = ChaosInjector(injector)
         self._injector = injector
+        # the SLO engine, made here so that a bad policy fails at
+        # construction; installed at open()
+        self._slo = None
+        if self._cfg.slo:
+            from ba_tpu_torch.obs import slo as _slo
+
+            policy = self._cfg.slo
+            if policy is True:
+                policy = _slo.default_policy()
+            elif isinstance(policy, str):
+                policy = _slo.SLOPolicy.load(policy)
+            self._slo = _slo.SLOEngine(policy, registry=self._reg)
+        self._ledger = None  # the ledger path this service configured
         self._admitted_c = self._reg.counter("serve_admitted_total")
         self._completed_c = self._reg.counter("serve_completed_total")
         self._rejected_c = self._reg.counter("serve_rejected_total")
@@ -425,9 +457,17 @@ class AgreementService:
 
         if self._device is None:
             self._device = resolve_device(self._cfg.device)
+        if self._cfg.compile_ledger and self._ledger is None:
+            from ba_tpu_torch.ops import _build
+
+            obs.configure_compile_ledger(self._cfg.compile_ledger)
+            obs.instrument.report_compile_cache(str(_build.BUILD_DIR))
+            self._ledger = self._cfg.compile_ledger
         with self._cond:
             self._open = True
         self._sampler.prime()
+        if self._slo is not None:
+            obs.slo.install(self._slo)
         pool = _pool.default_pool()
         self._reg.gauge("serve_sign_pool_workers").set(pool.workers if pool is not None else 0)
         if self._cfg.warm and self._warmup is None:
@@ -484,12 +524,21 @@ class AgreementService:
             self._failed_c.inc()
             t._fail(ServeError("service stopped before dispatch"))
             self._emit_request(t, status="failed", fault=None)
+        if self._slo is not None:
+            # a last report (the leftovers folded in), then the hook goes
+            self._slo.maybe_report(force=True)
+            if obs.slo.installed() is self._slo:
+                obs.slo.install(None)
+        if self._ledger is not None:
+            if obs.instrument.ledger_path() == self._ledger:
+                obs.configure_compile_ledger(None)
+            self._ledger = None
 
     def handoff(self, timeout: float | None = None) -> list:
         """Close admission, let the cohort in flight retire, and detach the
         queued tickets (failed with a ServeError that names the move, not
         counted, no ``request`` record): the fleet's drain hook.  The
-        signing pool is left alone."""
+        signing pool and the SLO hook are left alone."""
         leftovers = []
         with self._cond:
             self._open = False
@@ -560,13 +609,16 @@ class AgreementService:
             reason, depth, tier = reject
             retry_after = self._retry_after(depth)
             self._rejected_c.inc()
-            _metrics.emit({
+            rec = {
                 "event": "admission", "v": _metrics.SCHEMA_VERSION, "decision": "reject",
                 "reason": reason, "kind": request.kind, "tenant": request.tenant,
                 "cohort": cohort_label(cohort_key(request, self._cfg.engine, self._cfg.m)),
                 "tier": tier, "queue_depth": depth, "queue_limit": self._cfg.max_queue,
                 "retry_after_s": retry_after,
-            })
+            }
+            _metrics.emit(rec)
+            if self._slo is not None:
+                self._slo.fold(rec)
             obs.instant("serve_reject", reason=reason, tier=tier, queue=depth)
             raise Overloaded(
                 f"overloaded ({reason}): queue {depth}/{self._cfg.max_queue}, shed tier "
@@ -671,9 +723,13 @@ class AgreementService:
         with self._cond:
             depth = len(self._queue)
         frac = depth / self._cfg.max_queue
+        if self._slo is not None:
+            # before the sample: the report it may trigger reads this pressure
+            self._slo.queue_frac = frac
         snap = self._sampler.sample()
+        burn_inst = self._reg.get("health_slo_burn")  # None until an engine reported
         tier = shed_tier(frac, snap.get("retire_lag_p99_s"), snap.get("depth_occupancy"),
-                         self._cfg)
+                         self._cfg, burn=burn_inst.value if burn_inst is not None else None)
         if tier != self._tier:
             self._transition_tier(tier, depth, snap=snap, frac=frac)
 
@@ -921,6 +977,8 @@ class AgreementService:
         if tctx[2] is not None:
             rec["parent_id"] = tctx[2]
         _metrics.emit(rec)
+        if self._slo is not None:
+            self._slo.fold(rec)
 
     def stats(self) -> dict:
         with self._cond:
@@ -945,8 +1003,8 @@ class AgreementService:
             "injected": len(self._injector.fired) if self._injector is not None else 0,
             "compiles_on_request_path": self._rpc_n,
             "warm": self._cfg.warm,
-            "slo": False,
-            "slo_reports": 0,
+            "slo": self._slo is not None,
+            "slo_reports": self._slo.reports if self._slo is not None else 0,
             "engine": self._cfg.engine,
         }
         if self._warmup is not None:

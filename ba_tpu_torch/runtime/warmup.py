@@ -1,13 +1,14 @@
 """Warmup of the serving tier (``ba_tpu/runtime/warmup.py``): make the
 cohort buckets' dispatches warm before traffic arrives.
 
-- **What** (:func:`service_plan`): the cohort-key bucket lattice
-  (:func:`bucket_lattice`).  The service pads rosters to power-of-two
-  capacities and cohorts to power-of-two batch buckets, and every cohort
-  dispatches in ``rounds_per_dispatch`` windows, so the reachable
-  signatures are finite.  The reference also replays its cross-run
-  compile ledger; that ledger is not ported (:func:`ledger_replay_set`
-  raises).
+- **What** (:func:`service_plan`): the cross-run compile ledger's rows
+  first (:func:`ledger_replay_set`: the signatures an earlier process
+  dispatched, ``obs/instrument.py``, when the service configures a
+  ledger), then the cohort-key bucket lattice (:func:`bucket_lattice`).
+  The service pads rosters to power-of-two capacities and cohorts to
+  power-of-two batch buckets, and every cohort dispatches in
+  ``rounds_per_dispatch`` windows, so the reachable signatures are
+  finite.
 - **How**: each signature goes through ``GraphCache.ensure``
   (``obs/graphcache.py``): a CUDA graph of one K1 slot-mode dispatch for
   ``engine="cuda"`` cohorts, the kernel libraries built and one eager
@@ -127,11 +128,28 @@ def bucket_lattice(
 
 
 def ledger_replay_set(fns=WARM_FNS) -> list:
-    """The reference's replay of its cross-run compile ledger
-    (``ba_tpu/runtime/warmup.py:194``): not ported, since the ledger
-    (``obs/instrument.py``) is not."""
-    raise ValueError("ledger_replay_set is not ported to ba_tpu_torch yet (the compile "
-                     "ledger of obs/instrument.py comes with device-tier observability)")
+    """Warmable ``(fn, axes)`` pairs from the cross-run compile ledger:
+    rows of ``fns`` whose env axes match this process's toolchain (a row
+    of another torch, CUDA, nvcc or package cannot be reproduced here),
+    with the env axes and the ``run_id`` rider taken back off.  Rows of
+    other engines (the reference's ``xla``, ``pallas``, ``interpret``) and
+    sharded rows (``data`` > 1) are skipped.  Empty without a ledger."""
+    from ba_tpu_torch.obs import instrument
+
+    env = instrument.ledger_env_axes()
+    out = []
+    for fn, sigs in instrument.ledger_signatures().items():
+        if fn not in fns:
+            continue
+        for sig in sigs:
+            core = {k: v for k, v in sig.items() if k != "run_id"}
+            if any(core.get(k) != v for k, v in env.items()):
+                continue
+            axes = {k: v for k, v in core.items() if k not in env}
+            if axes.get("engine") not in ("torch", "cuda") or axes.get("data", 1) != 1:
+                continue
+            out.append((fn, axes))
+    return out
 
 
 def plan_engines(config, device=None) -> tuple:
@@ -157,17 +175,22 @@ def plan_engines(config, device=None) -> tuple:
 
 
 def service_plan(config, device=None) -> list:
-    """The service's warmup plan: the lattice over its config (both
+    """The service's warmup plan, deduped in this order: the ledger's
+    serving-cohort rows of the engines the service can dispatch (real
+    traffic's signatures first), then the lattice over its config (both
     scenario-nesses unless ``warm_scenarios`` is off, the signed axis
-    with ``warm_signed``, the config's m and ``warm_ms``), deduped."""
-    plan = bucket_lattice(
+    with ``warm_signed``, the config's m and ``warm_ms``)."""
+    engines = plan_engines(config, device)
+    plan = [(fn, axes) for fn, axes in ledger_replay_set(("coalesced_megastep",))
+            if axes["engine"] in engines]
+    plan += bucket_lattice(
         config.max_batch,
         config.rounds_per_dispatch,
         capacities=config.warm_capacities,
         rounds=config.warm_rounds,
         m=config.m,
         scenarios=(False, True) if config.warm_scenarios else (False,),
-        engines=plan_engines(config, device),
+        engines=engines,
         signeds=(False, True) if config.warm_signed else (False,),
         ms=(config.m,) + tuple(config.warm_ms or ()),
     )

@@ -46,8 +46,12 @@ The paths, each through its hand-written kernels:
 - the serving tier, ``runtime/serve.py``'s ``AgreementService`` (its
   cohorts through ``coalesced_sweep``: K1's slot mode, as CUDA graphs when
   warm, K7, K5, K4 and K3 through a signed cohort's lane, K9 at m = 2),
-  and the REPL's ``serve``; ``setup_signed_tables_overlapped`` by both
-  sign routes and both verify routes;
+  with and without its SLO engine, and the REPL's ``serve``;
+  ``setup_signed_tables_overlapped`` by both sign routes and both verify
+  routes;
+- the device tier's observability on those paths: K1's artifact records,
+  the recompile explainer, the compile ledger replayed by another
+  process's warmup, and a ``torch.profiler`` trace of a K1 dispatch;
 - BASELINE configs #1 (``bench_om1_n4``) and #4 (``bench_n1024_m32``),
   which run no kernel: the plain OM(1) round and the collapsed SM(32);
 - OM(m) by the EIG tree (``core/eig.py``), through K9, the masked
@@ -371,6 +375,34 @@ Phases, one JSON line each:
    ``examples/faults/midcampaign_kill.json`` at round 20 and the same
    call rerun with ``resume="auto"``, bit-equal from round 0 in one
    attempt; a real ``torch.cuda.OutOfMemoryError`` classified ``oom``;
+45. ``serve_slo`` (run after phase 43): (a) ``bench.py``'s
+   ``bench_serving_slo`` (``:2052``) at its shape on a warm
+   ``ServeConfig(slo=<its policy>, engine="cuda")`` service, every record
+   captured to a JSONL file: 4 clients x 3 requests, a tenant each, n =
+   4, 16 rounds, max_batch 4, burn windows of 1 and 3 s; serve, a quiet
+   gap, a burst of 120 shaped by deadline_storm.json's client plan on a
+   tenant of its own, recovery and a probe — recomputed from the file:
+   every ok request's five phases sum to its wall within ATTRIB_TOL_S,
+   the burn alert fires and clears, a scale-up ``autoscale_signal``, the
+   tenants' ok tallies, every served request bit-equal to its run alone,
+   no request-path compile after the warm barrier; (b) phase 41's
+   traffic (a tenant a client modulo 8) on an ``slo=True`` service: the
+   engine's own final report checks every ok request's attribution and
+   the tenants' tallies, the 128-request sample bit-equal to its runs
+   alone, requests/s beside phase 41's (the engine's cost); both legs'
+   cohorts once more, recorded, for K1's slot line;
+46. ``device_obs``: with the sink, the tracer and a compile ledger on and
+   the classifier reset, phase 4's campaign at 16 and then 8 rounds a
+   dispatch: one ``compile`` span and one ``compiled_artifact`` record a
+   signature, ``alias_bytes`` the carry's bytes (the in-place carry), K1's
+   registers and spill from its ``ptxas`` report in the record, one
+   ``recompile`` record naming ``rounds``; a warm service at capacity 16
+   writes its signatures to the ledger, and a child process whose lattice
+   holds capacity 4 only warms from that ledger and serves the same
+   capacity-16 requests with no request-path compile and no warm miss,
+   bit-equal; one ``obs.cuda.profile_session`` over a 16-round
+   full-width dispatch, whose Chrome trace holds K1's launch and the
+   ``megastep_dispatch`` range; every run bit-equal to phase 4's;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch (K2's sharded form: phase 34's four-entry warm-up step, shard
@@ -391,7 +423,8 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths (K1's plain and scenario lines add phases
-28-30's and 44's to phases 4's and 5's, by path in ``launches_by_path``), the
+28-30's, 44's and 46's to phases 4's and 5's, by path in
+``launches_by_path``; the slot line phases 45's and 46's served cohorts), the
 time, bound and plain time per path and per dispatch, and the largest difference from the plain version; the
 Ed25519 kernels', P's and K9's time twice: as the path launches them
 (``ms``, which reads the wrapper's host cost where the kernel is
@@ -417,6 +450,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import concurrent.futures
 import contextlib
 import ctypes
@@ -908,23 +942,11 @@ def ptxas_records(log):
     """Each kernel instance's registers, spill, stack frame and static
     shared memory from an ``nvcc -Xptxas=-v`` log: [{"kernel" (its
     mangled name), "registers", "spill_stores", "spill_loads",
-    "stack_frame", "smem"}] (bytes)."""
-    out, props = [], None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            out.append({"kernel": m.group(1), "smem": 0})
-        elif m := re.search(r"Function properties for (\w+)", ln):
-            props = m.group(1)  # an entry's, or a device function's kept out of line
-        elif out and props == out[-1]["kernel"] and "spill stores" in ln:
-            out[-1]["spill_stores"], out[-1]["spill_loads"] = (
-                int(x) for x in re.findall(r"(\d+) bytes spill", ln))
-            out[-1]["stack_frame"] = int(re.search(r"(\d+) bytes stack frame", ln).group(1))
-        elif out and (m := re.search(r"Used (\d+) registers", ln)):
-            out[-1]["registers"] = int(m.group(1))
-            if m := re.search(r"(\d+) bytes smem", ln):
-                out[-1]["smem"] = int(m.group(1))
-    return out
+    "stack_frame", "smem"}] (bytes), ``_build.ptxas_resources`` in the
+    kernels line's spelling."""
+    return [{"kernel": name, "registers": r["registers"], "spill_stores": r["spill_stores"],
+             "spill_loads": r["spill_loads"], "stack_frame": r["stack_frame"],
+             "smem": r["shared_bytes"]} for name, r in _build.ptxas_resources(log).items()]
 
 
 def words_drawn(run):
@@ -1143,14 +1165,20 @@ def replay_first_plain_dispatch(dev, seed, arrays, campaign, R, int_ops_per_s):
 
 
 def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl_path,
-                      supervised_path):
+                      supervised_path, device_obs_run):
     """The main path's first plain dispatch again (same key, state and
     shape): the kernel against the plain engine and against the main
     path's own outputs; its time, the plain time and the bound.  The
     REPL's dispatches (``k1_repl_path``) and the supervised campaign's
     first 4-round dispatch ride along as ``repl_path`` and
-    ``supervised_path``."""
+    ``supervised_path``; device_obs' 8-round campaign's first dispatch,
+    replayed the same way, as ``device_obs_path``."""
     first = replay_first_plain_dispatch(dev, seed, arrays, main_out, RPD_FULL, int_ops_per_s)
+    d_obs = replay_first_plain_dispatch(dev, seed, arrays, device_obs_run, RPD_FULL // 2,
+                                        int_ops_per_s)
+    device_obs_path = {"what": "device_obs: the 8-round campaign's first dispatch",
+                       **{k: d_obs[k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "shape")}}
     state, sched, counters, k_out = (first[k] for k in ("state", "sched", "counters", "k_out"))
     c_out, drawn = words_drawn(lambda: scenario_step.cuda_pipeline_megastep(
         pipeline.fresh_copy(state), pipeline.fresh_copy(sched), rounds=RPD_FULL,
@@ -1164,14 +1192,14 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl
             "replaces": REPLACES, "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_pipeline_megastep",
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max(first["err"], repl_path["max_abs_err"],
-                               supervised_path["max_abs_err"]),
+                               supervised_path["max_abs_err"], d_obs["err"]),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": None,
             "checked_against_plain": True, "shape": first["shape"],
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
             "tally_steps": first["steps"], "repl_path": repl_path,
-            "supervised_path": supervised_path}
+            "supervised_path": supervised_path, "device_obs_path": device_obs_path}
 
 
 def phase_scenario(dev, seed, card):
@@ -5498,7 +5526,7 @@ def phase_serve_full_width(dev, seed, card):
           "result_build_ms_per_cohort": timing["result_build_s"] / timing["cohorts"] * 1e3,
           "card": card})
     path = "serve_full_width: 8 832 requests, 64 clients"
-    return {"slot": (path, recorded["slot"], launches["K1 slot"], 1),
+    return {"requests_per_s": len(reqs) / wall, "slot": (path, recorded["slot"], launches["K1 slot"], 1),
             "ed": (path + ", the signed cohorts' lane", recorded["ed"],
                    {k: launches[k] for k in ED_KERNELS}, 1),
             "k9": (path + ", the m = 2 cohorts", recorded["k9"], launches["K9"], 1)}
@@ -5734,6 +5762,439 @@ def phase_signed_setup_overlapped(dev, setup_t, card):
     return paths
 
 
+# -- device-tier observability: the SLO engine, artifact records, the ledger ---
+
+OBS_DIR = os.path.join(ROOT, "_smoke_obs")  # git-ignored; removed at the end
+# serve_slo leg (a): bench.py:2052 bench_serving_slo's shape and burn windows
+SLO_CLIENTS, SLO_PER_CLIENT, SLO_ROUNDS, SLO_BATCH, SLO_BURST = 4, 3, 16, 4, 120
+SLO_FAST_W, SLO_SLOW_W, SLO_RPD = 1.0, 3.0, 8
+FW_TENANTS = 8  # serve_slo leg (b): tenants over phase 41's 64 clients (4 cohorts x 8 groups)
+# device_obs: the ledger leg's service (capacity 16 warmed in this process, and
+# left out of the child's lattice) and the profiled dispatch
+LEDGER_CAP, LEDGER_BATCH, LEDGER_REQS, LEDGER_RPD = 16, 4, 8, 8
+PROFILE_ROUNDS = 16
+
+
+class ListSink:
+    """A metrics sink that keeps its records in a list."""
+
+    def __init__(self):
+        self.records = []
+
+    def emit(self, rec):
+        self.records.append(rec)
+
+
+def read_jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def slo_request(c, j, tenant=None):
+    """bench_serving_slo's request of client c, turn j (bench.py:2107)."""
+    i = c * SLO_PER_CLIENT + j
+    return serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2], n=4,
+                                  faulty=((2,), (), (1, 3))[i % 3], seed=3000 + i,
+                                  rounds=SLO_ROUNDS, tenant=tenant or f"tenant-{c}")
+
+
+def slo_policy():
+    """bench_serving_slo's policy: ok is good, expired and rejected burn;
+    target 0.5 (an all-bad window burns 2.0), threshold 1.5, windows of 1
+    and 3 seconds, a report every 0.05 s."""
+    from ba_tpu_torch.obs import slo
+
+    return slo.SLOPolicy(objectives=(slo.SLOObjective(
+        name="serve-wall", latency_s=30.0, target=0.5, window_s=60.0,
+        fast_window_s=SLO_FAST_W, slow_window_s=SLO_SLOW_W, burn_threshold=1.5),),
+        report_every_s=0.05)
+
+
+def attribution_bad(recs):
+    """Ids of ok ``request`` records whose five phases do not sum to their
+    wall within ATTRIB_TOL_S."""
+    from ba_tpu_torch.obs import slo
+
+    bad = []
+    for r in recs:
+        if r.get("event") == "request" and r.get("status") == "ok":
+            phases = [r.get(k) for k in slo.PHASES]
+            if not all(isinstance(p, (int, float)) for p in phases) or \
+                    abs(sum(phases) - r["wall_s"]) > slo.ATTRIB_TOL_S:
+                bad.append(r["id"])
+    return bad
+
+
+def slo_leg_bench(dev, card):
+    """serve_slo leg (a): bench.py:2052's four phases (serve, quiet, burst,
+    recover) on a warm service of the card with ``slo=`` its policy's file,
+    every record captured to a JSONL file and the acceptance recomputed
+    from it."""
+    from ba_tpu_torch.utils import metrics
+
+    reqs = [slo_request(c, j) for c in range(SLO_CLIENTS) for j in range(SLO_PER_CLIENT)]
+    policy = os.path.join(OBS_DIR, "serving_slo_policy.json")
+    slo_policy().save(policy)  # served from its file: ServeConfig(slo=<path>)
+    cfg = serve.ServeConfig(max_batch=SLO_BATCH, max_queue=4 * SLO_BATCH,
+                            coalesce_window_s=0.01, rounds_per_dispatch=SLO_RPD, warm=True,
+                            warm_rounds=SLO_ROUNDS, warm_scenarios=False, warm_signed=False,
+                            slo=policy, engine="cuda", device=str(dev))
+    refs = {r.seed: execute(cfg, dev, [r])[0] for r in reqs}
+    capture = os.path.join(OBS_DIR, "serve_slo.jsonl")
+    metrics.configure(capture)
+    tickets, t_phase = [], {}
+    try:
+        svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+        t0 = time.perf_counter()
+        svc.open()
+        check(svc.warm_barrier(timeout=600), "serve_slo: the warm barrier timed out")
+        t_phase["warmup_s"] = time.perf_counter() - t0
+        reset_all_launches()
+        svc.start()
+        # 1. serve: a tenant a client, each submitting and waiting in turn
+        results, lat, t_phase["serve_s"] = clients(svc, reqs, SLO_CLIENTS, sequential=True)
+        bit_equal = all(same_result(r, refs[q.seed]) for q, r in zip(reqs, results))
+        # 2. quiet: the healthy traffic ages out of the slow window
+        time.sleep(SLO_SLOW_W + 0.3)
+        # 3. burst: deadline_storm.json's client plan on a dedicated tenant
+        storm = chaos.ChaosInjector(chaos.load(STORM_PLAN))
+        storming, rejected = False, 0
+        t0 = time.perf_counter()
+        for ordinal in range(SLO_BURST):
+            for f in storm.client_faults(ordinal):
+                if f.kind == "slow_client":
+                    time.sleep(f.seconds)
+                elif f.kind == "deadline_storm":
+                    storming = True
+            req = slo_request(ordinal % SLO_CLIENTS, ordinal % SLO_PER_CLIENT,
+                              tenant="tenant-burst")
+            try:
+                tickets.append((req, svc.submit(req, deadline_s=0.002 if storming else 5.0)))
+            except serve.Overloaded:
+                rejected += 1
+            if not storming:
+                time.sleep(0.005)
+        for _ in range(600):
+            if svc.stats()["queue_depth"] == 0:
+                break
+            time.sleep(0.05)
+        t_phase["burst_s"] = time.perf_counter() - t0
+        # 4. recover: the fast window empties, a probe serves normally
+        time.sleep(SLO_FAST_W + 0.4)
+        probe_req, probe = slo_request(0, 0), None
+        for _ in range(200):
+            try:
+                probe = svc.submit(probe_req, deadline_s=None).result(timeout=600)
+                break
+            except serve.Overloaded:
+                time.sleep(0.05)
+        check(probe is not None, "serve_slo: the service never recovered after the burst")
+        bit_equal = bit_equal and same_result(probe, refs[probe_req.seed])
+        launches = scenario_step.cuda_coalesced_megastep.launches
+        stats, warm = svc.stats(), svc.warm_stats()
+        svc.stop()
+    finally:
+        metrics.configure(None)
+    recs = read_jsonl(capture)
+    bad = attribution_bad(recs)
+    states = [r["state"] for r in recs if r.get("event") == "slo_alert"]
+    fired_and_cleared = "fire" in states and "clear" in states[states.index("fire") + 1:]
+    scale_up = [s for s in recs if s.get("event") == "autoscale_signal"
+                and s["recommended"] > s["replicas"]]
+    reports = [r for r in recs if r.get("event") == "slo_report"]
+    want_ok = collections.Counter(r.tenant for r in reqs) + collections.Counter(["tenant-0"])
+    got_ok = {g["tenant"]: g["counts"]["ok"] for g in reports[-1]["groups"]}
+    burned = sum(g["counts"]["expired"] + g["counts"]["rejected"]
+                 for g in reports[-1]["groups"] if g["tenant"] == "tenant-burst")
+    tenant_ok = all(got_ok.get(t, 0) == n for t, n in want_ok.items()) and burned > 0
+    # every served ticket, for the cohorts' recorded rerun
+    served_reqs, served_res = list(reqs) + [probe_req], list(results) + [probe]
+    for req, t in tickets:
+        if t.done() and t._error is None:
+            served_reqs.append(req)
+            served_res.append(t.result(0))
+            bit_equal = bit_equal and same_result(t.result(0), refs[req.seed])
+    cohorts = cohorts_of(served_reqs, served_res)
+    check(not bad, f"serve_slo: attribution broke on requests {bad}")
+    check(fired_and_cleared, f"serve_slo: the alert did not fire and clear: {states}")
+    check(bool(scale_up), "serve_slo: no scale-up autoscale_signal in the burst")
+    check(tenant_ok, f"serve_slo: tenants want {dict(want_ok)}, got {got_ok}, burst {burned}")
+    check(bit_equal, "serve_slo: a served request differs from its run alone")
+    check(stats["compiles_on_request_path"] == 0 and stats["warmup_misses"] == 0,
+          f"serve_slo: {stats['compiles_on_request_path']} request-path compiles, "
+          f"{stats['warmup_misses']} warm misses after the barrier")
+    check(launches == slot_dispatches(cfg, cohorts) and warm["graph_fallbacks"] == 0,
+          f"serve_slo: {launches} K1 slot launches for {len(cohorts)} cohorts")
+    calls = rerun_recorded(cfg, dev, cohorts)["slot"]
+    out = {"requests": len(reqs), "clients": SLO_CLIENTS, "tenants": SLO_CLIENTS,
+           "rounds": SLO_ROUNDS, "max_batch": SLO_BATCH, "capacity": 4,
+           **{k: round(v, 6) for k, v in t_phase.items()},
+           "requests_per_s": len(reqs) / t_phase["serve_s"],
+           "p50_latency_s": pct(lat, 0.5), "p99_latency_s": pct(lat, 0.99),
+           "burst_submitted": len(tickets), "burst_rejected": rejected,
+           "burst_expired": sum(1 for r in recs if r.get("event") == "request"
+                                and r.get("status") == "expired"),
+           "slo_reports": len(reports), "slo_alerts": states,
+           "peak_gate_burn": max((o["burn"] for r in reports for o in r["objectives"]
+                                  if o["burn"] is not None), default=None),
+           "attribution_checked": sum(g["attribution_checked"]
+                                      for g in reports[-1]["groups"]),
+           "attribution_sums_ok": True, "burn_alert_fired_and_cleared": True,
+           "autoscale_scale_up_ok": True, "tenant_accounting_ok": True,
+           "bit_exact_vs_alone": True, "request_path_compiles": 0,
+           "warm_dispatches": warm["warm_dispatches"], "k1_slot_launches": launches,
+           "cohorts": len(cohorts)}
+    return out, ("serve_slo (a): bench_serving_slo's four phases, warm", calls, launches, 1)
+
+
+def slo_leg_full_width(dev, seed, fw_rate):
+    """serve_slo leg (b): phase 41's traffic served again by an ``slo=True``
+    service (the sink off, as in phase 41, so the rate ratio is the
+    engine's cost), a tenant a client modulo FW_TENANTS; the engine's own
+    final report checks every ok request's attribution and the tenants'
+    tallies, and the 128-request sample is held bit-equal to its runs
+    alone."""
+    from ba_tpu_torch.obs import slo
+
+    reqs = [dataclasses.replace(r, tenant=f"tenant-{i % FW_CLIENTS % FW_TENANTS}")
+            for i, r in enumerate(full_width_requests(seed))]
+    cfg = serve.ServeConfig(max_batch=FW_BATCH, max_queue=FW_QUEUE,
+                            rounds_per_dispatch=FW_RPD, engine="cuda", device=str(dev),
+                            slo=True)
+    svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+    svc.start()
+    sync()
+    reset_all_launches()
+    results, lat, wall = clients(svc, reqs, FW_CLIENTS, sequential=False)
+    launches = scenario_step.cuda_coalesced_megastep.launches
+    sink = ListSink()
+    report = svc._slo.maybe_report(force=True, sink=sink)
+    stats = svc.stats()
+    svc.stop()
+    check(slo.installed() is None, "serve_slo: stop() left the engine installed")
+    check(stats["completed"] == len(reqs) and stats["failed"] == stats["rejected"] == 0,
+          f"serve_slo (b): {stats}")
+    groups = report["groups"]
+    checked = sum(g["attribution_checked"] for g in groups)
+    check(checked == len(reqs) and all(g["attribution_bad"] == 0 for g in groups),
+          f"serve_slo (b): {checked} attributions checked, "
+          f"{sum(g['attribution_bad'] for g in groups)} bad")
+    want = collections.Counter(r.tenant for r in reqs)
+    got = collections.Counter()
+    for g in groups:
+        got[g["tenant"]] += g["counts"]["ok"]
+    check(got == want and len(groups) <= slo.MAX_GROUPS, f"serve_slo (b): tenants {got}")
+    kinds = ["signed" if r.signed else "m2" if r.m == 2 else r.kind for r in reqs]
+    rs = np.random.default_rng(seed + 1)
+    sample = []
+    for kind, k in FW_SAMPLE:
+        idx = [i for i, x in enumerate(kinds) if x == kind]
+        sample += [int(i) for i in rs.choice(idx, k, replace=False)]
+    for i in sample:
+        check(same_result(results[i], execute(cfg, dev, [reqs[i]])[0]),
+              f"serve_slo (b): request {i} ({kinds[i]}) differs from its run alone")
+    check(stats["compiles_on_request_path"] == 0, "serve_slo (b): request-path compiles")
+    cohorts = cohorts_of(reqs, results)
+    check(launches == slot_dispatches(cfg, cohorts),
+          f"serve_slo (b): {launches} K1 slot launches")
+    calls = rerun_recorded(cfg, dev, cohorts)["slot"]
+    rate = len(reqs) / wall
+    out = {"requests": len(reqs), "clients": FW_CLIENTS, "tenants": FW_TENANTS,
+           "wall_s": wall, "requests_per_s": rate,
+           "serve_full_width_requests_per_s": fw_rate, "engine_cost_ratio": rate / fw_rate,
+           "p50_latency_s": pct(lat, 0.5), "p99_latency_s": pct(lat, 0.99),
+           "cohorts": len(cohorts), "slo_reports": stats["slo_reports"],
+           "attribution_checked": checked, "groups": len(groups),
+           "worst_p99_s": report["worst_p99_s"], "sample_equal_alone": len(sample),
+           "request_path_compiles": 0, "k1_slot_launches": launches}
+    return out, ("serve_slo (b): phase 41's traffic with the SLO engine", calls, launches, 1)
+
+
+def phase_serve_slo(dev, seed, card, fw_rate):
+    """45. ``serve_slo``: an ``slo=`` service on the card (``engine="cuda"``),
+    legs (a) and (b) (``slo_leg_bench``, ``slo_leg_full_width``)."""
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    atexit.register(shutil.rmtree, OBS_DIR, True)
+    t0 = time.perf_counter()
+    a, path_a = slo_leg_bench(dev, card)
+    b, path_b = slo_leg_full_width(dev, seed, fw_rate)
+    emit({"phase": "serve_slo", "bench_serving_slo": a, "full_width": b,
+          "wall_s": time.perf_counter() - t0, "card": card})
+    return [path_a, path_b]
+
+
+def ledger_requests():
+    """device_obs' ledger leg: run-rounds at n in [9, 16] (capacity 16)."""
+    return [serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2],
+                                   n=9 + i % 8, faulty=((1,), (), (2, 5))[i % 3],
+                                   seed=7000 + i, rounds=LEDGER_RPD)
+            for i in range(LEDGER_REQS)]
+
+
+def ledger_cfg(dev, ledger, capacities):
+    return serve.ServeConfig(max_batch=LEDGER_BATCH, max_queue=4 * LEDGER_REQS,
+                             rounds_per_dispatch=LEDGER_RPD, warm=True,
+                             warm_capacities=capacities, warm_rounds=LEDGER_RPD,
+                             warm_scenarios=False, warm_signed=False, engine="cuda",
+                             device=str(dev), compile_ledger=ledger)
+
+
+def ledger_child(ledger):
+    """The ledger leg's child process: a warm service whose lattice holds
+    capacity 4 only, with ``compile_ledger=`` the parent's ledger; it
+    serves the capacity-16 requests and prints one JSON line."""
+    dev = CARD
+    from ba_tpu_torch.runtime import warmup
+
+    cfg = ledger_cfg(dev, ledger, (4,))
+    svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+    svc.open()
+    plan = warmup.service_plan(cfg, dev)
+    replayed = len(warmup.ledger_replay_set(("coalesced_megastep",)))
+    warmed = svc.warm_barrier(timeout=600)
+    svc.start()
+    reqs = ledger_requests()
+    results, _ = served(svc, reqs)
+    stats, warm = svc.stats(), svc.warm_stats()
+    svc.stop()
+    print(json.dumps({"warmed": warmed, "stats": stats, "warm": warm,
+                      "ledger_rows_replayed": replayed,
+                      "plan_capacities": sorted({a["capacity"] for _, a in plan}),
+                      "results": [{k: r[k] for k in ("decisions", "counts", "majorities",
+                                                     "counters")} for r in results]}))
+
+
+def phase_device_obs(dev, seed, card, arrays, main_out):
+    """46. ``device_obs``: K1's artifact records, the recompile explainer, the
+    compile ledger across processes, and a profiler trace of a full-width
+    dispatch; every run bit-equal to the same run without observability."""
+    from ba_tpu_torch import obs
+    from ba_tpu_torch.utils import metrics
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    capture, ledger = os.path.join(OBS_DIR, "device_obs.jsonl"), \
+        os.path.join(OBS_DIR, "axes_ledger.json")
+    key = rng.key(seed, device=dev)
+    kw = dict(depth=2, collect_decisions=True, with_counters=True, engine="cuda", device=dev)
+    names = ("histograms", "decisions", "counters_per_round")
+    obs.reset_first_calls()  # this process's classifier afresh, as a new process's
+    obs.trace.configure(True)
+    metrics.configure(capture)
+    obs.configure_compile_ledger(ledger)
+    launches = {}
+    try:
+        runs = {}
+        for rpd in (RPD_FULL, RPD_FULL // 2):
+            scenario_step.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            runs[rpd] = pipeline.pipeline_sweep(key, to_state(arrays, dev), R_FULL,
+                                                rounds_per_dispatch=rpd, **kw)
+            runs[f"wall_{rpd}"] = time.perf_counter() - t0
+            launches[f"rpd_{rpd}"] = scenario_step.cuda_pipeline_megastep.launches
+            same_campaign(runs[rpd], main_out, names, f"device_obs at {rpd} rounds a dispatch")
+            check(launches[f"rpd_{rpd}"] == R_FULL // rpd, f"device_obs: {launches}")
+        metrics.default_sink().close()
+        recs = read_jsonl(capture)
+        spans = [e["args"] for e in obs.default_tracer().chrome_events()
+                 if e["name"] == "compile" and e["args"].get("fn") == "pipeline_megastep"]
+        arts = [r for r in recs if r["event"] == "compiled_artifact"]
+        recompiles = [r for r in recs if r["event"] == "recompile"]
+        check(sorted(s["rounds"] for s in spans) == [RPD_FULL // 2, RPD_FULL]
+              and sorted(a["axes"]["rounds"] for a in arts) == [RPD_FULL // 2, RPD_FULL],
+              f"device_obs: compile spans {spans}, artifacts {[a['axes'] for a in arts]}")
+        state = to_state(arrays, dev)
+        sched = pipeline.make_key_schedule(key)
+        carry = sum(t.nbytes for t in (*state.tensors(), sched.key_data, sched.counter))
+        k1 = [(name, res) for a in arts for name, res in a["kernels"].items()
+              if "megastep_kernel" in name]
+        check(all(a["alias_bytes"] == carry and a["donation_aliased"] for a in arts)
+              and len(k1) == len(arts) and all(r["registers"] for _, r in k1),
+              f"device_obs: alias {[a['alias_bytes'] for a in arts]} of {carry}, K1 {k1}")
+        check([r["changed"] for r in recompiles] == [{"rounds": [RPD_FULL, RPD_FULL // 2]}],
+              f"device_obs: recompile records {recompiles}")
+
+        # the ledger across processes: a warm service here writes capacity 16
+        reqs = ledger_requests()
+        cfg = ledger_cfg(dev, ledger, (LEDGER_CAP,))
+        svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+        svc.open()
+        check(svc.warm_barrier(timeout=600), "device_obs: the warm barrier timed out")
+        reset_all_launches()
+        svc.start()
+        here, _ = served(svc, reqs)
+        slot_launches = scenario_step.cuda_coalesced_megastep.launches
+        svc.stop()
+        cohorts = cohorts_of(reqs, here)
+        check(slot_launches == slot_dispatches(cfg, cohorts),
+              f"device_obs: {slot_launches} K1 slot launches")
+        calls = rerun_recorded(cfg, dev, cohorts)["slot"]
+        rows = json.load(open(ledger))["fns"]
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.ledger_child({ledger!r})"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"device_obs: the ledger child failed:\n{child.stderr}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        st = got["stats"]
+        check(got["warmed"] and LEDGER_CAP in got["plan_capacities"]
+              and st["compiles_on_request_path"] == 0 and st["warmup_misses"] == 0
+              and st["warmup_errors"] == 0 and got["warm"]["graph_fallbacks"] == 0,
+              f"device_obs: the ledger child {got['stats']}, plan {got['plan_capacities']}")
+        check(all(same_result(a, b) for a, b in zip(got["results"], here)),
+              "device_obs: the child's results differ from this process's")
+
+        # one profiler session over a 16-round full-width dispatch
+        scenario_step.reset_launches()
+        with obs.cuda.profile_session(os.path.join(OBS_DIR, "profile")) as prof:
+            traced = pipeline.pipeline_sweep(key, to_state(arrays, dev), PROFILE_ROUNDS,
+                                             rounds_per_dispatch=PROFILE_ROUNDS, **kw)
+        launches["profiled"] = scenario_step.cuda_pipeline_megastep.launches
+        for name in names:
+            check(np.array_equal(traced[name], main_out[name][:PROFILE_ROUNDS]),
+                  f"device_obs: the profiled dispatch's {name} differ")
+        events = json.load(open(prof.path))["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        k1_events = [e for e in kernels if "megastep_kernel" in e.get("name", "")]
+        ranges = [e for e in events if e.get("name") == "megastep_dispatch"]
+        check(k1_events and ranges and launches["profiled"] == 1,
+              f"device_obs: trace holds {len(k1_events)} K1 launches, {len(ranges)} ranges")
+        kernel_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    finally:
+        metrics.configure(None)
+        obs.configure_compile_ledger(None)
+        obs.trace.configure(None)
+    emit({"phase": "device_obs", "B": B_FULL, "capacity": CAP_FULL, "rounds": R_FULL,
+          "artifacts": [{k: a[k] for k in ("axes", "argument_bytes", "output_bytes",
+                                            "temp_bytes", "alias_bytes",
+                                            "generated_code_bytes", "kernels")}
+                        for a in arts],
+          "carry_bytes": carry, "recompile": recompiles[0]["changed"],
+          "compile_spans": [{k: s.get(k) for k in ("rounds", "library_load")} for s in spans],
+          "walls_s": {str(r): runs[f"wall_{r}"] for r in (RPD_FULL, RPD_FULL // 2)},
+          "ledger": {"fns": {f: len(v) for f, v in rows.items()},
+                     "child_rows_replayed": got["ledger_rows_replayed"],
+                     "child_plan_capacities": got["plan_capacities"],
+                     "child_request_path_compiles": st["compiles_on_request_path"],
+                     "child_warm_misses": st["warmup_misses"],
+                     "child_warm_dispatches": got["warm"]["warm_dispatches"],
+                     "child_s": child_s, "requests": len(reqs),
+                     "k1_slot_launches_here": slot_launches},
+          "profile": {"trace": os.path.relpath(prof.path, ROOT), "events": len(events),
+                      "k1_launches": len(k1_events), "megastep_dispatch_ranges": len(ranges),
+                      "kernel_ms": kernel_ms, "window_wall_ms": prof.block_s * 1e3,
+                      "kernel_share_of_window": kernel_ms / (prof.block_s * 1e3),
+                      "session_wall_ms": prof.wall_s * 1e3},
+          "k1_plain_launches": launches, "bit_equal_without_observability": True,
+          "card": card})
+    plain = sum(launches.values())
+    return {"plain": plain, "plain_run": runs[RPD_FULL // 2],
+            "slot": ("device_obs: the ledger's warm service, capacity 16", calls,
+                     slot_launches, 1)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5801,11 +6262,15 @@ def main(argv=None) -> int:
     full = phase_serve_full_width(dev, args.seed, card)
     slot_paths += [full["slot"], phase_serve_warm(dev, card), shell["slot"]]
     overlapped = phase_signed_setup_overlapped(dev, setup_t, card)
+    slot_paths += phase_serve_slo(dev, args.seed, card, full["requests_per_s"])
+    dobs = phase_device_obs(dev, args.seed, card, arrays, main_out)
+    slot_paths.append(dobs["slot"])
+    plain_launches["device_obs"] = dobs["plain"]
     plain_launches["repl_cuda"] = shell["plain"]
     scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s,
-                          shell["plain_path"], sup_path),
+                          shell["plain_path"], sup_path, dobs["plain_run"]),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s, shell["scenario_path"]),
         kernel_line_slot(slot_paths, int_ops_per_s),

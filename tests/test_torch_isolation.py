@@ -48,7 +48,9 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
                  "ba_tpu_torch.obs.registry", "ba_tpu_torch.obs.trace",
                  "ba_tpu_torch.obs.health", "ba_tpu_torch.obs.graphcache",
                  "ba_tpu_torch.runtime.supervisor", "ba_tpu_torch.runtime.chaos",
-                 "ba_tpu_torch.runtime.warmup", "ba_tpu_torch.runtime.serve"):
+                 "ba_tpu_torch.runtime.warmup", "ba_tpu_torch.runtime.serve",
+                 "ba_tpu_torch.obs.slo", "ba_tpu_torch.obs.instrument",
+                 "ba_tpu_torch.obs.cuda"):
         assert name in MODULES, name
 
 
@@ -106,6 +108,27 @@ def test_scenario_cli_loads_no_jax_and_no_torch():
                           cwd=PACKAGE.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(specs) >= 2 and proc.stdout.count(": OK") == len(specs)
+
+
+def test_slo_cli_and_the_obs_package_load_no_torch():
+    """``python -m ba_tpu_torch.obs.slo`` (stdlib only), and the obs
+    package with its device tier (``obs.cuda``, ``obs.instrument``)
+    imported: no torch, no numpy, no jax."""
+    policy = str(PACKAGE.parent / "examples" / "slo" / "serving.json")
+    code = ("import runpy, sys\n"
+            "import ba_tpu_torch.obs, ba_tpu_torch.obs.cuda, ba_tpu_torch.obs.instrument\n"
+            f"sys.argv = ['slo', 'validate', {policy!r}]\n"
+            "try:\n"
+            "    runpy.run_module('ba_tpu_torch.obs.slo', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ba_tpu', 'torch', 'numpy'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count(": OK") == 1
 
 
 def test_default_device_without_gpu_raises(monkeypatch):

@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+from ba_tpu_torch import obs
+from ba_tpu_torch.obs.registry import MetricsRegistry
 from ba_tpu_torch.runtime.backends import PyBackend, TorchBackend
 from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.main import build_cluster
@@ -145,8 +147,21 @@ def test_faulty_leader_election_not_disturbed(cluster4):
 
 @pytest.mark.parametrize("line", ["stats", "stats --live", "search gens=1", "serve start",
                                   "fleet start replicas=2"])
-def test_unported_commands_print_one_line(cluster4, line):
+def test_unported_commands_print_one_line(cluster4, line, monkeypatch):
     command = line.split(" ")[0]
+    if line == "stats":
+        # ported since: the registry as Prometheus text (a fresh one here)
+        monkeypatch.setattr(obs.registry, "_default", MetricsRegistry())
+        got = drive(cluster4, ["actual-order attack", line])[5:]
+        assert "# TYPE round_wall_s histogram" in got and "round_wall_s_count 1" in got
+        assert not any("not ported" in ln for ln in got)
+        return
+    if line == "stats --live":
+        # ported since: one health sample, a line a derived value
+        got = drive(cluster4, [line])
+        assert got and all(" " in ln and "error" not in ln for ln in got)
+        assert any(ln.startswith("rounds_total ") for ln in got)
+        return
     if command == "serve":
         # ported since: one line, the service's start (on the backend's
         # device; a backend without one asks for the card, which this
@@ -259,8 +274,13 @@ def test_cli_subprocess_torch_backend():
         "G3, secondary, majority=attack, state=NF",
         "Execute order: attack! Non-faulty nodes in the system"
         " - 2 out of 3 quorum suggests attack",
-        "stats error: not ported to ba_tpu_torch yet",
-    ]
+    ] + proc.stdout.splitlines()[7:]
+    # ported since: ``stats`` prints the registry (a fresh process: one
+    # election, one round, one compile span)
+    stats = proc.stdout.splitlines()[7:]
+    for line in ("# TYPE elections_total counter", "elections_total 1",
+                 "round_wall_s_count 1", "compile_time_s_count 1"):
+        assert line in stats, stats
 
 
 SERVE_SCRIPT = ["serve", "serve stat", "serve start queue=4 window=0.01 batch=2",
@@ -330,3 +350,52 @@ def test_serve_command_runs_requests_and_warm_start(monkeypatch):
         "serve: stopped — admitted=1, completed=1, rejected=0, expired=0, failed=0"]
     assert drive(cluster, ["serve start engine=xla"]) == [
         "serve error: engine='xla' not in ('torch', 'cuda', 'auto')"]
+
+
+STATS_SCRIPT = ["actual-order attack", "g-kill 1", "actual-order attack", "g-add 2",
+                "actual-order retreat", "g-kill 2", "stats"]
+
+
+def _stats_view(lines):
+    """The counter lines of the cluster's counters, and each histogram's
+    name and count (its buckets and sum hold wall times)."""
+    counters = [ln for ln in lines if ln.split(" ")[0] in ("elections_total",
+                                                           "failover_kills_total")]
+    counts = sorted(ln for ln in lines if ln.split(" ")[0].endswith("_count"))
+    return counters, counts
+
+
+@pytest.mark.parametrize("backend", ["py", "torch"])
+def test_stats_prints_the_reference_counters_and_histograms(backend, monkeypatch):
+    """Ported since: ``stats`` after the same commands prints the JAX
+    package's counter lines and histogram names and counts (fresh
+    registries in both packages; the port's torch backend against the
+    reference's ``JaxBackend`` on the CPU)."""
+    from ba_tpu import obs as j_obs
+    from ba_tpu.obs.registry import MetricsRegistry as JRegistry
+    from ba_tpu.runtime import backends as j_backends
+    from ba_tpu.runtime.cluster import Cluster as JCluster
+    from ba_tpu.runtime.repl import handle_command as j_handle
+
+    monkeypatch.setattr(obs.registry, "_default", MetricsRegistry())
+    monkeypatch.setattr(j_obs.registry, "_default", JRegistry())
+    if backend == "py":
+        ours, theirs = PyBackend(), j_backends.PyBackend()
+    else:
+        ours, theirs = TorchBackend(device="cpu"), j_backends.JaxBackend(platform="cpu")
+    got = drive(Cluster(4, ours, seed=0), STATS_SCRIPT)
+    want = []
+    jc = JCluster(4, theirs, seed=0)
+    for line in STATS_SCRIPT:
+        j_handle(jc, line, want.append)
+    assert got[:14] == want[:14]  # the rounds' lines
+    view = _stats_view(got)
+    assert view == _stats_view(want)
+    assert view[0] == ["elections_total 3", "failover_kills_total 2"]
+    assert "round_wall_s_count 3" in view[1]
+    assert ("compile_time_s_count 2" in view[1]) == (backend == "torch")
+
+
+def test_stats_fleet_prints_the_not_ported_line(cluster4):
+    assert drive(cluster4, ["stats --fleet"]) == [
+        "stats --fleet error: not ported to ba_tpu_torch yet"]

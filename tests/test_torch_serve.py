@@ -118,8 +118,13 @@ def test_serve_config_validate_and_fields():
                 dict(max_retries=-1)):
         with pytest.raises(ValueError):
             cfg(**bad)
-    with pytest.raises(ValueError, match="not ported"):
-        cfg(slo=True)
+    # ported since: slo= takes True, a policy path or an SLOPolicy, and
+    # compile_ledger= a path
+    assert cfg(slo=True).slo is True and cfg(slo="policy.json").slo == "policy.json"
+    for bad in (dict(slo=3), dict(slo=object()), dict(compile_ledger=""),
+                dict(compile_ledger=7)):
+        with pytest.raises(ValueError):
+            cfg(**bad)
     with pytest.raises(ValueError, match="aot_cache"):
         cfg(aot_cache="/tmp/x")
     assert ENGINE_TOKENS == ("torch", "cuda", "auto") and cfg().engine == "auto"
