@@ -9,6 +9,14 @@
   hung worker (broken pipe, EOF, a reply past ``timeout_s``, an error
   reply) is killed and retired, :attr:`SignPool.degraded` counts it,
   and its shard runs in-process instead.
+- **cross-process spans**: ``sign_rounds`` and ``verify_rows`` take
+  ``traceparent=``, which rides each task as a trailing element; after
+  each reply a worker emits one ``pool_task`` record parented under it,
+  into its own ``<pid>.<token>.jsonl`` shard of the parent's sink
+  directory.  The parent hands that directory to its workers (in the
+  start check, and again whenever the live sink's directory changes); a
+  sink that is not a directory is not handed over, and the workers then
+  emit nothing.  A worker never writes into the parent's shard.
 - :class:`SigTableCache` — a bounded LRU over per-round signature
   tables and their host verdicts, keyed by a hash of the key-set's
   public keys and the round's message table: identical claims re-sign
@@ -20,7 +28,8 @@ of a second.  The reference's ``BA_TPU_SIGN_POOL``,
 ``BA_TPU_SIGN_POOL_TIMEOUT_S``, ``BA_TPU_SIGN_CACHE`` and
 ``BA_TPU_SIGN_CACHE_BYTES`` are the keywords ``SignPool(workers=,
 timeout_s=)`` and ``SigTableCache(max_entries=, max_bytes=)``; the
-process defaults are what the reference derives with those unset.
+process defaults are what the reference derives with those unset, or
+what :func:`configure_defaults` sets.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ba_tpu_torch.utils import metrics as _metrics
+
 _LEN = struct.Struct("<Q")
 
 # Generous by design: the timeout keeps a hung worker from wedging a
@@ -54,6 +65,12 @@ def default_workers() -> int:
     occupies, capped at 8 (more workers than cores only adds scheduler
     churn); 0, the in-process path, on one core."""
     return max(0, min(8, (os.cpu_count() or 1) - 1))
+
+
+def _sink_dir() -> str | None:
+    """The live sink's target when it is a directory, else None."""
+    target = _metrics.default_sink().target
+    return target if _metrics.is_dir_target(target) else None
 
 
 def _send(fh, obj) -> None:
@@ -86,7 +103,10 @@ def _worker_main() -> None:  # pragma: no cover - runs in the workers
     reply is written before the next task is read).  Keys derive in the
     worker from the (seed, batch, values) identity, deterministic
     ``commander_keys``, so no key material crosses the pipe; each
-    key-set's key rows are kept for the worker's life."""
+    key-set's key rows are kept for the worker's life.  A ``sink`` task
+    (no reply) points the worker's own sink at the parent's directory, or
+    turns it off; after each ``ok`` reply to a sign or verify task, with
+    the sink on, the worker emits one ``pool_task`` record."""
     from ba_tpu_torch.crypto import tables
 
     stdin, stdout = sys.stdin.buffer, sys.stdout.buffer
@@ -107,25 +127,48 @@ def _worker_main() -> None:  # pragma: no cover - runs in the workers
         kind = task[0]
         if kind == "exit":
             return
+        if kind == "sink":
+            _metrics.configure(task[1])
+            continue
+        t0 = time.perf_counter()
+        rows = 0
+        traceparent = None
         try:
             if kind == "ping":  # the start check: the signer loads here
+                _metrics.configure(task[1] if len(task) > 1 else None)
                 tables.native.publickey_batch(np.zeros((1, 32), np.uint8))
                 reply = ("ok", os.getpid())
             elif kind == "sign":
                 seed, batch, n_values, base, rounds = task[1:6]
+                # the staging window's position, a trailing element
+                traceparent = task[6] if len(task) > 6 else None
                 sk_rep, pk_rep = keys_for(seed, batch, n_values)
                 sigs = np.empty((len(rounds), batch, n_values, 64), np.uint8)
                 for i, r in enumerate(rounds):
                     msgs = tables._round_table_msgs(batch, r, n_values, base)
                     sigs[i] = tables.sign_table_msgs_arrays(sk_rep, pk_rep, msgs)
+                rows = len(rounds)
                 reply = ("ok", sigs)
             elif kind == "verify":
+                traceparent = task[4] if len(task) > 4 else None
+                rows = int(task[2].shape[0])
                 reply = ("ok", tables.verify_host_exact(*task[1:4]))
             else:
                 reply = ("err", f"unknown task kind {kind!r}")
         except Exception as exc:  # noqa: BLE001 - a worker must answer
             reply = ("err", f"{type(exc).__name__}: {exc}")
+        wall_s = time.perf_counter() - t0
         _send(stdout, reply)
+        if reply[0] == "ok" and kind != "ping" and _metrics.default_sink().enabled:
+            # after the reply, so the record never sits on the parent's read
+            rec = {"event": "pool_task", "v": _metrics.SCHEMA_VERSION, "kind": kind,
+                   "rows": rows, "wall_s": round(wall_s, 6), "t_perf": round(t0, 6)}
+            parsed = _metrics.parse_traceparent(traceparent)
+            if parsed is not None:
+                rec["trace_id"] = parsed[0]
+                rec["span_id"] = _metrics.new_span_id()
+                rec["parent_id"] = parsed[1]
+            _metrics.emit(rec)
 
 
 class _Worker:
@@ -167,7 +210,8 @@ class SignPool:
             native.build()  # once here, not raced by the workers
         for _ in range(workers):
             self._workers.append(_Worker(self._spawn()))
-        started = self._round_trip([(w, ("ping",), None) for w in self._workers],
+        self._sink = _sink_dir()  # the directory the workers were handed
+        started = self._round_trip([(w, ("ping", self._sink), None) for w in self._workers],
                                    lambda _: None)
         if self.degraded or None in started:
             self.close()
@@ -278,6 +322,17 @@ class SignPool:
         return results
 
     def _live(self) -> list[_Worker]:
+        """The live workers, each pointed at the live sink's directory (a
+        ``sink`` task to every live worker when it changed)."""
+        target = _sink_dir()
+        if target != self._sink:
+            for w in self._workers:
+                if w.alive:
+                    try:
+                        _send(w.proc.stdin, ("sink", target))
+                    except (BrokenPipeError, OSError, ValueError):
+                        self._kill(w)
+            self._sink = target
         return [w for w in self._workers if w.alive]
 
     @staticmethod
@@ -294,25 +349,29 @@ class SignPool:
         return spans
 
     def sign_rounds(self, seed: int, batch: int, n_values: int, base: int, rounds: list[int],
-                    fallback) -> np.ndarray:
+                    fallback, traceparent: str | None = None) -> np.ndarray:
         """The round tables of ``rounds`` across the workers -> sigs uint8
         [len(rounds), batch, n_values, 64], reassembled by round.
-        ``fallback(rounds_slice)`` is the in-process body."""
+        ``fallback(rounds_slice)`` is the in-process body; ``traceparent``
+        rides each task, the parent of the workers' ``pool_task`` spans."""
         live = self._live()
         if not rounds:
             return np.empty((0, batch, n_values, 64), np.uint8)
         if not live:
             return fallback(rounds)
         assignments = [
-            (live[i], ("sign", seed, batch, n_values, base, rounds[lo:hi]), rounds[lo:hi])
+            (live[i], ("sign", seed, batch, n_values, base, rounds[lo:hi], traceparent),
+             rounds[lo:hi])
             for i, (lo, hi) in enumerate(self._split(len(rounds), len(live)))
         ]
         parts = self._round_trip(assignments, lambda rs: np.asarray(fallback(rs), np.uint8))
         return np.concatenate([np.asarray(p, np.uint8) for p in parts])
 
-    def verify_rows(self, pks: np.ndarray, msgs: np.ndarray, sigs: np.ndarray) -> np.ndarray:
+    def verify_rows(self, pks: np.ndarray, msgs: np.ndarray, sigs: np.ndarray,
+                    traceparent: str | None = None) -> np.ndarray:
         """A flattened [N, ...] exact verify across the workers -> bool
-        [N, n], reassembled by row; a failed shard verifies in-process."""
+        [N, n], reassembled by row; a failed shard verifies in-process.
+        ``traceparent`` as in :meth:`sign_rounds`."""
         from ba_tpu_torch.crypto.tables import verify_host_exact
 
         pks = np.ascontiguousarray(pks, np.uint8)
@@ -322,7 +381,7 @@ class SignPool:
         if not live:
             return verify_host_exact(pks, msgs, sigs)
         assignments = [
-            (live[i], ("verify", pks[lo:hi], msgs[lo:hi], sigs[lo:hi]), (lo, hi))
+            (live[i], ("verify", pks[lo:hi], msgs[lo:hi], sigs[lo:hi], traceparent), (lo, hi))
             for i, (lo, hi) in enumerate(self._split(msgs.shape[0], len(live)))
         ]
         parts = self._round_trip(
@@ -407,27 +466,47 @@ _default_pool_made = False
 _default_cache: SigTableCache | None = None
 _default_cache_made = False
 _defaults_lock = threading.Lock()
+_workers_setting: int | None = None  # None: default_workers()
+_cache_setting = True
+
+
+def configure_defaults(*, workers: int | None = None, cache: bool = True) -> None:
+    """What the process defaults are made of from here on: ``workers``
+    for the default pool (None: :func:`default_workers`; 0: none, the
+    in-process path), ``cache=False`` for no default cache
+    (:func:`default_cache` returns None).  The reference's
+    ``BA_TPU_SIGN_POOL`` and ``BA_TPU_SIGN_CACHE=0``.  Drops the current
+    defaults (:func:`shutdown_defaults`), so the next use makes them
+    anew."""
+    global _workers_setting, _cache_setting
+    if workers is not None and workers < 0:
+        raise ValueError(f"workers={workers} must be >= 0")
+    shutdown_defaults()
+    with _defaults_lock:
+        _workers_setting = workers
+        _cache_setting = bool(cache)
 
 
 def default_pool() -> SignPool | None:
-    """The process-wide pool of :func:`default_workers` workers (None
-    when that is 0: the in-process path), made at first use and closed at
-    the interpreter's exit."""
+    """The process-wide pool of :func:`default_workers` workers (or as
+    :func:`configure_defaults` set; None when that is 0: the in-process
+    path), made at first use and closed at the interpreter's exit."""
     global _default_pool, _default_pool_made
     with _defaults_lock:
         if not _default_pool_made:
-            n = default_workers()
+            n = default_workers() if _workers_setting is None else _workers_setting
             _default_pool = SignPool(n) if n else None
             _default_pool_made = True
         return _default_pool
 
 
-def default_cache() -> SigTableCache:
-    """The process-wide signature-table cache (256 entries, 128 MiB)."""
+def default_cache() -> SigTableCache | None:
+    """The process-wide signature-table cache (256 entries, 128 MiB);
+    None after ``configure_defaults(cache=False)``."""
     global _default_cache, _default_cache_made
     with _defaults_lock:
         if not _default_cache_made:
-            _default_cache = SigTableCache()
+            _default_cache = SigTableCache() if _cache_setting else None
             _default_cache_made = True
         return _default_cache
 

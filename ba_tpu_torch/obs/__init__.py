@@ -5,9 +5,10 @@ health sampler (``health``), the CUDA graph cache of the serving tier
 (``graphcache``), the compile classification, recompile explainer and
 cross-run compile ledger (``instrument``), the device tier on the card
 (``cuda``: kernel artifact records, NVTX annotations, profiler capture;
-it replaces the reference's ``obs.xla``) and the SLO engine (``slo``,
-loaded on first use so that ``python -m ba_tpu_torch.obs.slo`` runs
-without runpy's warning).
+it replaces the reference's ``obs.xla``), the SLO engine (``slo``) and the
+merge of a sink directory's shards (``fleet``); the last two load on first
+use, so that ``python -m ba_tpu_torch.obs.slo`` and ``python -m
+ba_tpu_torch.obs.fleet`` run without runpy's warning.
 
 The sink is ``ba_tpu_torch.utils.metrics``.  Nothing here reads the
 environment: ``utils.metrics.configure(target)``, ``trace.configure(path)``,
@@ -30,14 +31,14 @@ from ba_tpu_torch.obs.trace import Tracer, default_tracer, instant, span, timed_
 
 
 def __getattr__(name):
-    if name == "slo":
+    if name in ("slo", "fleet"):
         import importlib
 
-        return importlib.import_module("ba_tpu_torch.obs.slo")
+        return importlib.import_module(f"ba_tpu_torch.obs.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = ["MetricsRegistry", "Tracer", "classify_compile", "compile_or_dispatch_span",
            "configure_compile_ledger", "cuda", "default_registry", "default_tracer",
-           "first_call", "flight", "health", "instant", "instrument", "registry",
+           "first_call", "fleet", "flight", "health", "instant", "instrument", "registry",
            "reset_first_calls", "slo", "span", "timed_span", "trace"]

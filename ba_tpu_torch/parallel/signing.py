@@ -22,7 +22,11 @@ Two routes for the verdicts, chosen by the lane's device alone:
   whose verdict planes stay lazy device tensors.  A live pool still
   signs; it never verifies for a lane on the card.
 
-Neither route waits for the card.  :func:`sequential_signed_sweep` is the
+Neither route waits for the card.  A staging pass under an active trace
+context is one span, a child of that context: its position rides each
+pool task (``traceparent=``), so the workers' ``pool_task`` spans parent
+under it, and with the sink on the pass writes one ``sign_ahead`` record
+a window (and one ``sign_pool`` record with a pool) carrying that span.  :func:`sequential_signed_sweep` is the
 blocking per-round driver the pipelined engine must reproduce bit for
 bit; it derives its counters on the host in numpy
 (:func:`_host_signed_counter_delta`), independently of the megastep's.
@@ -47,6 +51,8 @@ from ba_tpu_torch.crypto.tables import (
     sign_table_msgs_arrays,
     verify_host_exact,
 )
+from ba_tpu_torch.obs import trace as _trace
+from ba_tpu_torch.utils import metrics as _metrics
 
 
 class SignAheadLane:
@@ -144,6 +150,11 @@ class SignAheadLane:
             if not 0 <= lo < hi:
                 raise ValueError(f"bad sign-ahead window [{lo}, {hi})")
         t0 = time.perf_counter()
+        # the pass's span, a child of the thread's context (the engine's
+        # batch or campaign scope); untraced, none
+        stage_ctx = _trace.child_context() if _trace.current() is not None else None
+        traced = ({} if stage_ctx is None
+                  else {"traceparent": _metrics.format_traceparent(stage_ctx[0], stage_ctx[1])})
         B, V = self.batch, self.n_values
         rounds = [r for lo, hi in windows for r in range(lo, hi)]
         msgs_by_r = {r: _round_table_msgs(B, r, V, 0) for r in rounds}
@@ -168,7 +179,7 @@ class SignAheadLane:
             if pool_live:
                 p0 = time.perf_counter()
                 signed_block = self.pool.sign_rounds(self.seed, B, V, 0, miss_rounds,
-                                                     self._sign_inprocess)
+                                                     self._sign_inprocess, **traced)
                 pool_s += time.perf_counter() - p0
             else:
                 signed_block = self._sign_inprocess(miss_rounds)
@@ -185,7 +196,7 @@ class SignAheadLane:
                 pks_w = np.tile(self.pks, (len(need), 1))
                 if pool_live:
                     p0 = time.perf_counter()
-                    ok_cat = self.pool.verify_rows(pks_w, msgs_cat, sigs_cat)
+                    ok_cat = self.pool.verify_rows(pks_w, msgs_cat, sigs_cat, **traced)
                     pool_s += time.perf_counter() - p0
                 else:
                     ok_cat = verify_host_exact(pks_w, msgs_cat, sigs_cat)
@@ -213,8 +224,12 @@ class SignAheadLane:
                 planes.append(ok_all[cursor:cursor + hi - lo])
                 cursor += hi - lo
         verify_wall = time.perf_counter() - t_verify
+        wall = time.perf_counter() - t0
+        if _metrics.default_sink().enabled:
+            self._emit_records(windows, stage_ctx, t0, wall, hits, misses, sign_wall,
+                               verify_wall, pool_s)
 
-        self.sign_ahead_s += time.perf_counter() - t0
+        self.sign_ahead_s += wall
         self.rounds_signed += len(rounds)
         self.windows += len(windows)
         self.sign_s += sign_wall
@@ -225,6 +240,34 @@ class SignAheadLane:
         self.sigs_signed += len(miss_rounds) * B * V
         self.sigs_verified += n_verified
         return planes
+
+
+    def _emit_records(self, windows, ctx, t0, wall, hits, misses, sign_wall, verify_wall,
+                      pool_s) -> None:
+        """One ``sign_ahead`` record a window (the pass's wall shared by
+        round count) and, with a pool, one ``sign_pool`` record, stamped
+        with the pass's own span: the thread's context is its parent."""
+        stamp = {}
+        if ctx is not None:
+            stamp = {"trace_id": ctx[0], "span_id": ctx[1]}
+            if ctx[2] is not None:
+                stamp["parent_id"] = ctx[2]
+        B, V = self.batch, self.n_values
+        n_rounds = sum(hi - lo for lo, hi in windows)
+        for lo, hi in windows:
+            nr = hi - lo
+            _metrics.emit({"event": "sign_ahead", "v": _metrics.SCHEMA_VERSION, "lo": lo,
+                           "hi": hi, "batch": B, "values": V, "t_perf": round(t0, 6),
+                           **stamp, "wall_s": round(wall * nr / n_rounds, 6),
+                           "table_bytes": int(nr * B * V * (16 + 64))})
+        if self.pool is not None:
+            _metrics.emit({"event": "sign_pool", "v": _metrics.SCHEMA_VERSION,
+                           "t_perf": round(t0, 6), **stamp, "workers": self.pool.workers,
+                           "requested": self.pool.requested,
+                           "degraded": self.pool.degraded, "rounds": n_rounds,
+                           "cache_hits": hits, "cache_misses": misses,
+                           "sign_s": round(sign_wall, 6), "verify_s": round(verify_wall, 6),
+                           "pool_s": round(pool_s, 6)})
 
 
 def _choose(value, kind, default, name):

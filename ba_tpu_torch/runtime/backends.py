@@ -398,3 +398,23 @@ class TorchBackend:
             "alive": final.alive[0, :n].tolist(),
             "faulty": final.faulty[0, :n].tolist(),
         }
+
+    def run_search(self, generals, seed, space=None, **kwargs):
+        """An adversary hunt sized to this cluster's shape on the backend's
+        device (``search/loop.hunt``).  Candidates start from the canonical
+        all-honest state, so the roster is read for its padded width only:
+        the default space is 8 rounds at that capacity, a population of 32,
+        2 to 6 events a candidate.  An explicit ``space`` (a SearchSpace or
+        its dict form) replaces it; ``kwargs`` go to ``hunt``
+        (generations, objective, export_dir, checkpoint_path, mesh,
+        engine, ...).  Oral messages only: returns None for sm / signed."""
+        if self.protocol != "om" or self.signed:
+            return None
+        from ba_tpu_torch.search.generate import SearchSpace
+        from ba_tpu_torch.search.loop import hunt
+
+        if space is None:
+            space = SearchSpace(rounds=8, capacity=self._capacity(len(generals)),
+                                population=32, events_min=2, events_max=6)
+        kwargs.setdefault("device", self.device)
+        return hunt(space, seed=seed, **kwargs)

@@ -310,6 +310,35 @@ class Cluster:
         })
         return counts, res
 
+    def run_search(self, space=None, **kwargs):
+        """An adversary hunt (``ba_tpu_torch.search``) sized to this
+        cluster's padded capacity: populations of candidate campaigns
+        evaluated batched, objective violations collected and, by default,
+        shrunk to minimal reproducers.  The roster is not touched: the
+        candidates run from the canonical all-honest state.  ``space`` /
+        ``kwargs`` go to the backend's ``run_search``.  Returns the hunt's
+        result, or None when the cluster is empty or the backend cannot
+        search (PyBackend, signed or SM)."""
+        if not self.generals:
+            return None  # the reference would crash here (SURVEY.md Q4)
+        run = getattr(self.backend, "run_search", None)
+        if run is None:
+            return None
+        obs.instant("search_repl", n=len(self.generals))
+        with obs.span("search_hunt", n=len(self.generals)):
+            res = run(self.generals, self._round_seed(), space=space, **kwargs)
+        if res is None:
+            return None
+        stats = res["stats"]
+        metrics.emit({
+            **({"run_id": stats["run_id"]} if stats.get("run_id") else {}),
+            "event": "search_campaign", "objective": stats["objective"],
+            "generations": stats["generations_run"], "campaigns": stats["campaigns"],
+            "found": stats["found"], "minimized": stats["minimized"],
+            "best_score": stats["best_score"], "n": len(self.generals),
+        })
+        return res
+
     def _tally(self, command: str, leader_idx: int, majorities) -> RoundResult:
         """REPL-level bookkeeping for one round's majorities (ba.py:383-399
         and 197-255), shared by the per-round and pipelined paths."""

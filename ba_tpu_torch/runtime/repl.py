@@ -39,9 +39,15 @@ over the backend's device.  ``serve start [queue=N] [window=S]
 metrics registry as Prometheus-style text (nothing while it is empty);
 ``stats --live`` one health sample (``obs/health.py``, rates since the
 previous ``stats --live``) and, with an SLO engine installed that has
-reported, one ``slo_worst ...`` line.  ``stats --fleet``, ``search`` and
-``fleet`` print one line, ``<command> error: not ported to ba_tpu_torch
-yet``.  Every command runs in a ``repl_command`` span.
+reported, one ``slo_worst ...`` line.  ``stats --fleet`` prints one
+rollup line merged from the sink directory's shards (``obs/fleet.py``);
+without a directory sink it prints the one line that differs from the
+JAX package's, which names ``ba_tpu_torch.utils.metrics.configure`` in
+place of ``BA_TPU_METRICS``.  ``search [gens=N] [objective=NAME]
+[export=DIR] [stop=N] [space=FILE]`` runs an adversary hunt sized to the
+cluster (``search/``), and ``fleet start|stat|drain|stop`` a local
+replicated serving fleet (``fleet/``), both on the backend's device.
+Every command runs in a ``repl_command`` span.
 
 Divergences from the reference (guarded crashes there, SURVEY.md section
 3.3): unknown ids and an empty cluster are ignored (Q4), and election is
@@ -56,8 +62,9 @@ from ba_tpu_torch.runtime.cluster import Cluster
 from ba_tpu_torch.runtime.supervisor import SupervisorError
 from ba_tpu_torch.scenario import spec as scenario_spec
 
-NOT_PORTED = "not ported to ba_tpu_torch yet"
-UNPORTED_COMMANDS = ("search", "fleet")
+# The one line that differs from the JAX package's REPL: the port reads no
+# BA_TPU_METRICS, so the sharded sink is configured in code.
+FLEET_NO_SINK = ('fleet (no sharded sink — call ba_tpu_torch.utils.metrics.configure("<dir>/"))')
 SERVE_USAGE = ("serve error: usage: serve start [queue=N] [window=S] [batch=N] [warm=0|1] "
                "| serve stat | serve stop")
 SCENARIO_USAGE = ("(usage: scenario <file> [<ckpt-path> <every>] "
@@ -147,8 +154,11 @@ def _dispatch(cluster: Cluster, cmd: list, out) -> bool:
     elif command == "stats":
         _stats(cmd, out)
 
-    elif command in UNPORTED_COMMANDS:
-        out(f"{command} error: {NOT_PORTED}")
+    elif command == "search":
+        _search(cluster, cmd, out)
+
+    elif command == "fleet":
+        _fleet(cluster, cmd, out)
 
     elif command == "g-state":
         if len(cmd) == 3:
@@ -281,6 +291,68 @@ def _scenario(cluster: Cluster, cmd: list, out) -> None:
             f"recoveries={sup['recoveries']}, stalls={sup['stalls']}")
 
 
+SEARCH_USAGE = "(usage: search [gens=N] [objective=NAME] [export=DIR] [stop=N] [space=FILE])"
+
+
+def _search(cluster: Cluster, cmd: list, out) -> None:
+    """``search [gens=N] [objective=NAME] [export=DIR] [stop=N]
+    [space=FILE]``: an adversary hunt sized to this cluster on the
+    backend's device (``Cluster.run_search``).  An incapable backend
+    (PyBackend, signed or SM) is silently ignored; every configuration
+    problem prints one ``search error:`` line."""
+    kwargs = {}
+    space = None
+    for tok in (t for t in cmd[1:] if t):
+        key, sep, value = tok.partition("=")
+        if not sep or not value or key not in ("gens", "stop", "objective", "export",
+                                                "space"):
+            out(f"search error: unknown token {tok!r} {SEARCH_USAGE}")
+            return
+        if key in ("gens", "stop"):
+            try:
+                n = int(value)
+            except ValueError:
+                out(f"search error: {key}= wants an integer, got {value!r}")
+                return
+            if n < 1:
+                out(f"search error: {key}= must be >= 1, got {n}")
+                return
+            kwargs["generations" if key == "gens" else "stop_after"] = n
+        elif key == "objective":
+            kwargs["objective"] = value
+        elif key == "export":
+            kwargs["export_dir"] = value
+        else:
+            import json
+
+            from ba_tpu_torch.search.generate import space_from_dict
+
+            try:
+                with open(value) as fh:
+                    space = space_from_dict(json.load(fh))
+            except (OSError, ValueError) as e:
+                out(f"search error: {e}")
+                return
+    try:
+        res = cluster.run_search(space=space, **kwargs)
+    except (OSError, ValueError, ImportError) as e:
+        out(f"search error: {e}")
+        return
+    if res is None:
+        return
+    stats = res["stats"]
+    out(f"Search: generations={stats['generations_run']}, campaigns={stats['campaigns']}, "
+        f"objective={stats['objective']}")
+    shrunk = res["minimized"]
+    note = (" ({} minimized, events {})".format(
+        len(shrunk), ", ".join(f"{m['events_before']}->{m['events_after']}" for m in shrunk))
+        if shrunk else "")
+    out(f"Search found: {stats['found']} violating campaign(s), best score "
+        f"{stats['best_score']}{note}")
+    if res["exported"]:
+        out("Search exported: " + ", ".join(res["exported"]))
+
+
 def _serve(cluster: Cluster, cmd: list, out) -> None:
     """``serve start [queue=N] [window=S] [batch=N] [warm=0|1]
     [engine=torch|cuda|auto]`` / ``serve stat`` / ``serve stop``: a local
@@ -340,6 +412,99 @@ def _serve(cluster: Cluster, cmd: list, out) -> None:
             f"rejected={st['rejected']}, expired={st['expired']}, failed={st['failed']}")
 
 
+FLEET_USAGE = ("fleet error: usage: fleet start [replicas=N] [root=DIR] [hops=N] [vnodes=N] "
+               "[queue=N] [window=S] [warm=0|1] | fleet stat | fleet drain <replica> | "
+               "fleet stop")
+
+
+def _fleet(cluster: Cluster, cmd: list, out) -> None:
+    """``fleet start [replicas=N] [root=DIR] [hops=N] [vnodes=N] [queue=N]
+    [window=S] [batch=N] [warm=0|1]`` / ``fleet stat`` / ``fleet drain
+    <replica>`` / ``fleet stop``: a local replicated serving fleet
+    (``ba_tpu_torch.fleet``) on the backend's device (the card for a
+    backend without one), printing the JAX package's lines."""
+    from ba_tpu_torch import fleet as fleet_mod
+    from ba_tpu_torch.runtime import serve as serve_mod
+
+    args = [t for t in cmd[1:] if t]
+    if not args or args[0] not in ("start", "stat", "drain", "stop"):
+        out(FLEET_USAGE)
+        return
+    mgr = getattr(cluster, "_fleet_manager", None)
+    if args[0] == "start":
+        if mgr is not None:
+            out("fleet error: already running (fleet stop first)")
+            return
+        fleet_over, serve_over = {}, {}
+        names = {"replicas": (fleet_over, "replicas", int), "root": (fleet_over, "root", str),
+                 "hops": (fleet_over, "max_hops", int), "vnodes": (fleet_over, "vnodes", int),
+                 "queue": (serve_over, "max_queue", int),
+                 "window": (serve_over, "coalesce_window_s", float),
+                 "batch": (serve_over, "max_batch", int), "warm": (serve_over, "warm", int)}
+        for tok in args[1:]:
+            key, sep, val = tok.partition("=")
+            if not sep or key not in names:
+                out(f"fleet error: unknown option {tok!r} (usage: fleet start [replicas=N] "
+                    f"[root=DIR] [hops=N] [vnodes=N] [queue=N] [window=S] [batch=N] "
+                    f"[warm=0|1])")
+                return
+            target, field, cast = names[key]
+            try:
+                target[field] = cast(val)
+            except ValueError:
+                out(f"fleet error: {key}= wants a {cast.__name__}, got {val!r}")
+                return
+        if "warm" in serve_over:
+            serve_over["warm"] = bool(serve_over["warm"])
+        device = getattr(cluster.backend, "device", None)
+        try:
+            fcfg = fleet_mod.FleetConfig(**fleet_over)
+            scfg = serve_mod.ServeConfig(device=None if device is None else str(device),
+                                         **serve_over)
+        except ValueError as e:
+            out(f"fleet error: {e}")
+            return
+        mgr = fleet_mod.ReplicaManager(fcfg, serve_config=scfg)
+        try:
+            mgr.start()
+        except serve_mod.ServeError as e:
+            mgr.stop()
+            out(f"fleet error: {e}")
+            return
+        cluster._fleet_manager = mgr
+        cluster._fleet_router = fleet_mod.FleetRouter(mgr)
+        out(f"fleet: started {len(mgr.ready())} replica(s) (hops={fcfg.max_hops}, "
+            f"vnodes={fcfg.vnodes}" + (f", root={fcfg.root}" if fcfg.root else "")
+            + (", warm" if scfg.warm else "") + ")")
+    elif mgr is None:
+        out("fleet error: not running (fleet start first)")
+    elif args[0] == "stat":
+        st = cluster._fleet_router.stats()
+        out(f"fleet_routes {st['routes']}")
+        out(f"fleet_reroutes {st['reroutes']}")
+        out(f"fleet_ready {st['ready']}")
+        for h in st["replicas"]:
+            out(f"fleet_replica {h['replica']} state={h['state']} queue={h['queue_depth']} "
+                f"tier={h['tier']} admitted={h['admitted']} rejected={h['rejected']}")
+    elif args[0] == "drain":
+        if len(args) != 2:
+            out("fleet error: usage: fleet drain <replica>")
+            return
+        try:
+            adopted = mgr.drain(args[1])
+        except (KeyError, serve_mod.ServeError) as e:
+            out(f"fleet error: {e}")
+            return
+        out(f"fleet: drained {args[1]} — {len(adopted)} campaign(s) migrated, "
+            f"{len(mgr.ready())} replica(s) still serving")
+    else:
+        mgr.stop()
+        st = cluster._fleet_router.stats()
+        cluster._fleet_manager = None
+        cluster._fleet_router = None
+        out(f"fleet: stopped — routes={st['routes']}, reroutes={st['reroutes']}")
+
+
 def run_repl(cluster: Cluster, stdin, out) -> None:
     for line in stdin:
         if not handle_command(cluster, line.rstrip("\n"), out):
@@ -364,7 +529,20 @@ def _stats(cmd: list, out) -> None:
             out(f"slo_worst error: {e}")
         return
     if "--fleet" in cmd[1:]:
-        out(f"stats --fleet error: {NOT_PORTED}")  # obs/fleet.py is not ported
+        # merged on demand from the shards on disk: each process appends to
+        # its own shard, so reading here takes no writer's lock
+        try:
+            from ba_tpu_torch.utils import metrics as _metrics
+
+            target = _metrics.default_sink().target
+            if not _metrics.is_dir_target(target):
+                out(FLEET_NO_SINK)
+                return
+            from ba_tpu_torch.obs import fleet as _fleet
+
+            out(_fleet.summary_line(_fleet.fleet_summary(_fleet.merge_shards(target))))
+        except Exception as e:
+            out(f"fleet error: {e}")
         return
     for ln in obs.default_registry().prometheus_text().splitlines():
         out(ln)

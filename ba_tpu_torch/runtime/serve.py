@@ -337,6 +337,7 @@ class Ticket:
         self._result = None
         self._error = None
         self._block = None  # the compiled scenario planes of a scenario request
+        self._on_fail = None  # fail hook(ticket, error): the fleet router's re-homing
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -355,6 +356,9 @@ class Ticket:
     def _fail(self, error) -> None:
         self._error = error
         self._event.set()
+        hook = self._on_fail
+        if hook is not None:
+            hook(self, error)
 
 
 class AgreementService:

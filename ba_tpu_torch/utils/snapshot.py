@@ -1,5 +1,5 @@
 """Checkpoints on disk (``ba_tpu/utils/snapshot.py``): SimState files,
-cluster snapshots and carry checkpoints.
+cluster snapshots, carry checkpoints and search checkpoints.
 
 A **cluster snapshot** is the interactive cluster (roster, leader, round
 counter, seed, backend configuration) as the JAX package's JSON document,
@@ -22,7 +22,9 @@ validates checkpoints without touching torch's device side.
 Every write is atomic (temp file, fsync, ``os.replace``, fsync of the
 directory): a crash mid-save never corrupts the only good copy.  The
 reader recomputes a sha256 over every array (:func:`content_digest`)
-and refuses a file whose bytes changed.
+and refuses a file whose bytes changed.  A **search checkpoint** is an
+adversary hunt's state, plain JSON under the same versioned-header and
+digest discipline (:func:`write_search_checkpoint`).
 """
 
 from __future__ import annotations
@@ -182,6 +184,69 @@ def restore_cluster(path: str, cluster) -> None:
     cluster._next_id = doc["next_id"]
     cluster.leader_id = doc["leader_id"]
     cluster.generals = [General(**g) for g in doc["generals"]]
+
+
+# -- search checkpoints ----------------------------------------------------------
+
+SEARCH_STATE_FORMAT = "ba_tpu.search_state"
+SEARCH_STATE_VERSION = 1
+
+
+def _search_state_digest(state: dict) -> str:
+    """sha256 over the canonical JSON of a search-state payload (sorted
+    keys): the pure-JSON twin of :func:`content_digest`."""
+    return hashlib.sha256(json.dumps(state, sort_keys=True).encode()).hexdigest()
+
+
+def write_search_checkpoint(path: str, state: dict, **meta) -> None:
+    """Search-state payload and meta -> one atomic, versioned JSON file,
+    the JAX package's format (``"ba_tpu.search_state"``, version 1), so a
+    hunt checkpointed by either package resumes in the other.  ``meta``
+    keys ride the header beside the format's own (``run_id`` above all);
+    the digest is computed, never taken from ``meta``."""
+    doc = {
+        "format": SEARCH_STATE_FORMAT,
+        "v": SEARCH_STATE_VERSION,
+        **meta,
+        "sha256": _search_state_digest(state),
+        "state": state,
+    }
+
+    def write(tmp):
+        with open(tmp, "w") as fh:
+            json.dump(doc, fh, indent=1)
+            fh.write("\n")
+
+    _atomic_write(path, write)
+
+
+def read_search_checkpoint(path: str):
+    """JSON file -> ``(meta, state dict)``.  Raises ``ValueError`` on an
+    unknown format or version, a missing payload, or a digest mismatch:
+    anything that could resume the wrong hunt."""
+    try:
+        with open(path) as fh:
+            doc = json.load(fh)
+    except json.JSONDecodeError as e:
+        raise ValueError(f"{path!r}: not valid JSON ({e})") from None
+    if not isinstance(doc, dict) or doc.get("format") != SEARCH_STATE_FORMAT:
+        raise ValueError(
+            f"{path!r}: format {doc.get('format') if isinstance(doc, dict) else doc!r} "
+            f"is not {SEARCH_STATE_FORMAT!r}")
+    if doc.get("v") != SEARCH_STATE_VERSION:
+        raise ValueError(f"{path!r}: search state version {doc.get('v')!r} "
+                         f"(this build reads v{SEARCH_STATE_VERSION})")
+    state = doc.get("state")
+    if not isinstance(state, dict):
+        raise ValueError(f"{path!r}: search state payload missing")
+    want = doc.get("sha256")
+    got = _search_state_digest(state)
+    if want != got:
+        raise ValueError(
+            f"{path!r}: content digest mismatch (stored {str(want)[:12]}..., recomputed "
+            f"{got[:12]}...) — the search checkpoint is corrupt; refusing to resume from it")
+    meta = {k: v for k, v in doc.items() if k not in ("state", "sha256")}
+    return meta, state
 
 
 def content_digest(arrays: dict) -> str:

@@ -154,7 +154,7 @@ Phases, one JSON line each:
    cofactored batch check, and rejected with S + 1;
 14. K3' (per lane, 256-bit k) and its sum (the R set's 128-bit k, the
    A set's 256-bit k, either empty) and P against their plain versions
-   at S in {1, 37, 1024, 4096} (k 0, 1, 8, 15, 16, L - 1, all ones, top
+   at S in {1, 37, 4096} (k 0, 1, 8, 15, 16, L - 1, all ones, top
    nibbles 8 and 15, random; the identity, B, [s]B with Z != 1, keys) —
    encodings bit-equal;
 15. config #3 at full width: ``commander_keys(64)``, n = 64, m = 1,
@@ -262,7 +262,7 @@ Phases, one JSON line each:
    roster of 1 000 generals (capacity 1024), every third faulty through
    ``g-state`` lines: ``actual-order attack``, ``run-rounds attack 32``
    and ``scenario`` of cascading_failover.json on the card and the CPU,
-   every line equal; ``run-rounds attack 1024`` alone (128 K1 dispatches
+   every line equal; ``run-rounds attack 256`` alone (32 K1 dispatches
    of 8 rounds), timed, then again with every dispatch recorded and
    replayed against the plain megastep; OM(2) on a roster of 100
    (``actual-order``, ``run-rounds attack 4``; K9) card against CPU;
@@ -348,7 +348,7 @@ Phases, one JSON line each:
    drill (examples/faults/deadline_storm.json, a 50 ms stall a window, a
    queue of 4): no hung client, the queue bounded, a probe served after;
 41. ``serve_full_width``: the service at max_batch 1 024, a queue of
-   16 384 and 64 client threads, 8 832 requests (plain run-rounds at
+   16 384 and 64 client threads, 4 736 requests (plain run-rounds at
    capacity 1024, coalition campaigns, signed run-rounds through the
    lane's K7, K5, K4 and K3, OM(2) through K9), a sample of 128 bit-equal
    to their runs alone; wall, requests/s, latency, cohorts, launches,
@@ -403,6 +403,33 @@ Phases, one JSON line each:
    bit-equal; one ``obs.cuda.profile_session`` over a 16-round
    full-width dispatch, whose Chrome trace holds K1's launch and the
    ``megastep_dispatch`` range; every run bit-equal to phase 4's;
+47. ``search_hunt``: (a) ``bench.py:4174``'s adversary hunt on
+   ``engine="cuda"`` (population 256, capacity 16, 8 rounds, 4
+   generations, seed 41, 2 findings minimized): a violation found and
+   minimized, every finding bit-exact by the alone vs in-population
+   oracle, the whole result equal to ``engine="torch"``, to the hunt
+   resumed from its generation-2 search checkpoint and to a two-entry
+   mesh of the card; campaigns/s from the steady generations; (b) full
+   width, population 4 096 at capacity 1 024, 16 rounds, 2 generations:
+   64 seeded candidates' rows equal their runs alone, generation 0's the
+   torch engine's, the host lowering's share of the generations' wall;
+   (c) the REPL's ``search gens=2`` at n = 16 prints the port's CPU lines;
+48. ``fleet_serve``: (a) ``bench.py:2625``'s two legs at its shape (a
+   warm one-replica fleet; a warm 3-replica fleet whose cohort home runs
+   a 4 000-round checkpointing campaign and is killed mid-run, its orphan
+   adopted): every client answered bit-equal, the adopted campaign equal
+   to an uninterrupted run, 0 request-path compiles, every queue inside
+   its bound; (b) phase 41's traffic through a warm 3-replica fleet while
+   a full-width campaign (B 10 000, capacity 1 024, 64 rounds, 16 a
+   dispatch) is drained to a survivor: the moved campaign equal to an
+   uninterrupted run, 128 requests bit-equal alone, 0 request-path
+   compiles, requests/s beside phase 41's;
+49. ``fleet_trace``: ``bench.py:2424``'s shape (3 clients x 2 signed
+   requests, a warm service, the sign pool live without a table cache,
+   the sink a directory): from the shards, through ``obs/fleet.py``,
+   every request's tree parented and within tolerance, across the pool
+   workers' shards, two merges equal, 0 request-path compiles, and
+   ``python -m ba_tpu_torch.obs.fleet``'s digest equal to the merge's;
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch (K2's sharded form: phase 34's four-entry warm-up step, shard
@@ -423,14 +450,15 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths (K1's plain and scenario lines add phases
-28-30's, 44's and 46's to phases 4's and 5's, by path in
-``launches_by_path``; the slot line phases 45's and 46's served cohorts), the
-time, bound and plain time per path and per dispatch, and the largest difference from the plain version; the
-Ed25519 kernels', P's and K9's time twice: as the path launches them
-(``ms``, which reads the wrapper's host cost where the kernel is
-shorter) and queued behind a spin (``device_ms``, the card's own time)
-(K9's dispatch groups sum a shape's dispatches and give each one's time,
-plain time and bound beside; K8's, K5's, K5''s and K6's lines group
+28-30's, 44's, 46's and 48's campaigns to phases 4's and 5's, by path in
+``launches_by_path``; the slot line phases 45's, 46's and 48's served cohorts
+and 47's hunts), the time, bound and plain time per path and per dispatch,
+and the largest difference from the plain version; the Ed25519 kernels',
+P's and K9's time twice: as the path launches them (``ms``, which reads
+the wrapper's host cost where the kernel is shorter) and queued behind a
+spin (``device_ms``, the card's own time) (K9's dispatch groups sum a
+shape's dispatches and give each one's time, plain time and bound
+beside; K8's, K5's, K5''s and K6's lines group
 their dispatches by lane count, K8's with the 2^k - 1 chain's bound
 beside its own); K1's, K2's, K3's, K3''s, K4's, K5's, K5''s, K6's,
 K7's, K8's and K9's lines also name their design and
@@ -1165,14 +1193,16 @@ def replay_first_plain_dispatch(dev, seed, arrays, campaign, R, int_ops_per_s):
 
 
 def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl_path,
-                      supervised_path, device_obs_run):
+                      supervised_path, device_obs_run, fleet_paths=()):
     """The main path's first plain dispatch again (same key, state and
     shape): the kernel against the plain engine and against the main
     path's own outputs; its time, the plain time and the bound.  The
     REPL's dispatches (``k1_repl_path``) and the supervised campaign's
     first 4-round dispatch ride along as ``repl_path`` and
     ``supervised_path``; device_obs' 8-round campaign's first dispatch,
-    replayed the same way, as ``device_obs_path``."""
+    replayed the same way, as ``device_obs_path``; the fleet campaigns'
+    first dispatches (``replay_campaign_first_dispatch``) as
+    ``fleet_paths``."""
     first = replay_first_plain_dispatch(dev, seed, arrays, main_out, RPD_FULL, int_ops_per_s)
     d_obs = replay_first_plain_dispatch(dev, seed, arrays, device_obs_run, RPD_FULL // 2,
                                         int_ops_per_s)
@@ -1192,14 +1222,16 @@ def kernel_line_plain(dev, seed, arrays, main_out, launches, int_ops_per_s, repl
             "replaces": REPLACES, "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_pipeline_megastep",
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max(first["err"], repl_path["max_abs_err"],
-                               supervised_path["max_abs_err"], d_obs["err"]),
+                               supervised_path["max_abs_err"], d_obs["err"],
+                               *(f["err"] for f in fleet_paths)),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": None,
             "checked_against_plain": True, "shape": first["shape"],
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
             "tally_steps": first["steps"], "repl_path": repl_path,
-            "supervised_path": supervised_path, "device_obs_path": device_obs_path}
+            "supervised_path": supervised_path, "device_obs_path": device_obs_path,
+            "fleet_paths": list(fleet_paths)}
 
 
 def phase_scenario(dev, seed, card):
@@ -2716,8 +2748,8 @@ def k3p_inputs(rs, S, nbytes, dev):
 def phase_k3p_middle(dev, rs):
     """K3' (per lane, 32-byte k) and its sum (16-byte R set and 32-byte A
     set, each alone and both) and P against their plain versions at S in
-    {1, 37, 1024, 4096}: encodings bit-equal."""
-    for S in (1, 37, 1024, 4096):
+    {1, 37, 4096}: encodings bit-equal."""
+    for S in (1, 37, 4096):
         r, z = k3p_inputs(rs, S, 16, dev)
         a, w = k3p_inputs(rs, S, 32, dev)
         errs = {"K3'_256bit": max_abs_err([(ladder.window_mult(a, w),
@@ -3226,8 +3258,8 @@ def kernel_line_slot(paths, int_ops_per_s):
 # there; 2 here: a call takes ~16 s of host-bound plain torch on the card's
 # machine, and 3 reps of 5 were 40 % of this script's run.
 B_C1, N_C1, ITERS_C1 = 4_194_304, 4, 30
-# bench_n1024_m32 runs 100 rounds a call; 25 keep the script inside its time limit
-N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 25, 2
+# bench_n1024_m32 runs 100 rounds a call; 10 keep the script inside its time limit
+N_C4, M_C4, INNER_C4, ITERS_C4 = 1024, 32, 10, 2
 
 
 def bench_timed(fn, args_of, iters, reps=3):
@@ -3274,7 +3306,7 @@ def phase_config1(dev, card):
 def phase_config4(dev, card):
     """BASELINE config #4 at bench_n1024_m32's shape: the collapsed
     sm_agreement at B = 1, n = 1024, m = 32, the first 32 generals faulty
-    (the commander among them), 25 rounds a call on split(key, 25),
+    (the commander among them), 10 rounds a call on split(key, 10),
     keys fold_in(key(4), i); every round's honest lieutenants agree (IC1)
     and count all 1024 (counted on the card, read after the clock)."""
     faulty = torch.zeros((1, N_C4), dtype=torch.bool, device=dev)
@@ -3857,7 +3889,7 @@ R_AB_REPL, AB_REPL_REPS = 1024, 7  # ab_repl: run-rounds' rounds (128 K1 dispatc
 def ab_repl(dev, card):
     """The host shell's reading for an A/B of two checkouts: the REPL's
     ``run-rounds attack 1024`` on a roster of N_REPL generals (phase 31's
-    timed command: 128 K1 dispatches of 8 rounds at B = 1, the dispatch
+    timed command at 1 024 rounds: 128 K1 dispatches of 8 rounds at B = 1, the dispatch
     loop's host work per dispatch at its largest share), after one warm-up
     command, AB_REPL_REPS times, each on a fresh roster of the same shape.
     Emits the walls and their median as one line."""
@@ -4134,7 +4166,8 @@ Execute order: retreat! 1 faulty node(s) in the system - 3 out of 5 quorum sugge
 # the py oracle draws its coins from Python's random, so only these are its too.
 REPL_COIN_FREE_LINES = 24
 REPL_CARD_BACKEND = "cuda"  # the launcher's --backend on the card
-N_REPL, R_REPL, R_REPL_TIMED = 1000, 32, 1024  # the full roster; run-rounds' two runs
+# the full roster; run-rounds' two runs (the timed one 256 rounds: the time limit)
+N_REPL, R_REPL, R_REPL_TIMED = 1000, 32, 256
 N_REPL_EIG = 100  # the m = 2 roster: OM(2) by the EIG tree, K9 at its resolve level
 RPD_REPL_CKPT = 2  # the checkpointed campaign's rounds a dispatch (three dispatches)
 CASCADING = os.path.join(ROOT, "examples", "scenarios", "cascading_failover.json")
@@ -4243,7 +4276,7 @@ def phase_repl_cuda(dev, card, int_ops_per_s):
     2. A roster of N_REPL generals (capacity 1024), every third one faulty:
        ``actual-order attack``, ``run-rounds attack 32`` and ``scenario``
        of cascading_failover.json on the card and on the CPU, every line
-       equal; then ``run-rounds attack 1024`` on the card alone (128 K1
+       equal; then ``run-rounds attack 256`` on the card alone (32 K1
        dispatches of 8 rounds), timed, and once more with its dispatches
        recorded, each replayed against the plain megastep.  At m = 2 on
        N_REPL_EIG generals: ``actual-order attack`` and ``run-rounds
@@ -5110,7 +5143,7 @@ SERVE_WINDOW_S, STORM_STALL_S = 0.01, 0.05  # bench_serving's window and storm s
 STORM_PLAN = os.path.join(ROOT, "examples", "faults", "deadline_storm.json")
 # serve_full_width: the size a user runs a service at
 FW_BATCH, FW_QUEUE, FW_CLIENTS, FW_RPD, FW_ROUNDS = 1024, 16_384, 64, 8, 32
-FW_PLAIN, FW_SCEN, FW_SIGNED, FW_EIG = 8_192, 512, 64, 64
+FW_PLAIN, FW_SCEN, FW_SIGNED, FW_EIG = 4_096, 512, 64, 64  # 4 096 plain: the time limit
 FW_N_SIGNED, FW_N_EIG = 64, 16
 FW_SAMPLE = (("run-rounds", 64), ("scenario", 32), ("signed", 16), ("m2", 16))  # 128 in all
 WARM_WINDOW_S = 0.2  # serve_warm: one 1 024-slot cohort forms inside it (halved at tier 1)
@@ -5199,6 +5232,24 @@ def cohorts_of(reqs, results):
         check(sorted(g) == list(range(len(g))), "a run id spans two cohorts")
         out.append([g[s] for s in sorted(g)])
     return out
+
+
+def executed_cohorts(services):
+    """A list that each cohort ``services`` execute from here on is
+    appended to, its requests in slot order (each service's ``_execute``
+    wrapped on the instance).  Unlike ``cohorts_of`` it tells apart two
+    cohorts of the same requests (a probe that repeats a request), and
+    cohorts served beside a campaign lane, whose process-wide run scope
+    gives them its run id."""
+    seen = []
+    for svc in services:
+        def stand_in(live, _real=svc._execute):
+            out = _real(live)
+            seen.append([t.request for t in live])
+            return out
+
+        svc._execute = stand_in
+    return seen
 
 
 def tickets_for(reqs):
@@ -5464,7 +5515,7 @@ def full_width_requests(seed):
 def phase_serve_full_width(dev, seed, card):
     """The service at the size a user runs it: max_batch 1 024, a queue of
     16 384, 64 client threads each submitting its share and then waiting,
-    ``engine="cuda"``, 8 rounds a dispatch; 8 192 plain run-rounds of 32
+    ``engine="cuda"``, 8 rounds a dispatch; 4 096 plain run-rounds of 32
     rounds (n in [513, 1024], capacity 1024, an eighth faulty), 512
     coalition campaigns at n = 1024, 64 signed run-rounds at n = 64 (the
     sign-ahead lane: K7, K5, K4 and K3) and 64 at m = 2, n = 16 (K9).  A
@@ -5525,7 +5576,7 @@ def phase_serve_full_width(dev, seed, card):
           "k1_event_ms_full_cohort_dispatch": k1_ms,
           "result_build_ms_per_cohort": timing["result_build_s"] / timing["cohorts"] * 1e3,
           "card": card})
-    path = "serve_full_width: 8 832 requests, 64 clients"
+    path = "serve_full_width: 4 736 requests, 64 clients"
     return {"requests_per_s": len(reqs) / wall, "slot": (path, recorded["slot"], launches["K1 slot"], 1),
             "ed": (path + ", the signed cohorts' lane", recorded["ed"],
                    {k: launches[k] for k in ED_KERNELS}, 1),
@@ -5850,6 +5901,7 @@ def slo_leg_bench(dev, card):
         check(svc.warm_barrier(timeout=600), "serve_slo: the warm barrier timed out")
         t_phase["warmup_s"] = time.perf_counter() - t0
         reset_all_launches()
+        executed = executed_cohorts([svc])
         svc.start()
         # 1. serve: a tenant a client, each submitting and waiting in turn
         results, lat, t_phase["serve_s"] = clients(svc, reqs, SLO_CLIENTS, sequential=True)
@@ -5907,14 +5959,12 @@ def slo_leg_bench(dev, card):
     burned = sum(g["counts"]["expired"] + g["counts"]["rejected"]
                  for g in reports[-1]["groups"] if g["tenant"] == "tenant-burst")
     tenant_ok = all(got_ok.get(t, 0) == n for t, n in want_ok.items()) and burned > 0
-    # every served ticket, for the cohorts' recorded rerun
-    served_reqs, served_res = list(reqs) + [probe_req], list(results) + [probe]
-    for req, t in tickets:
+    for req, t in tickets:  # every served burst ticket
         if t.done() and t._error is None:
-            served_reqs.append(req)
-            served_res.append(t.result(0))
             bit_equal = bit_equal and same_result(t.result(0), refs[req.seed])
-    cohorts = cohorts_of(served_reqs, served_res)
+    # the probe repeats the first request, and two B = 1 cohorts of it share
+    # a run id: the cohorts for the recorded rerun are the ones executed
+    cohorts = executed
     check(not bad, f"serve_slo: attribution broke on requests {bad}")
     check(fired_and_cleared, f"serve_slo: the alert did not fire and clear: {states}")
     check(bool(scale_up), "serve_slo: no scale-up autoscale_signal in the burst")
@@ -6195,6 +6245,612 @@ def phase_device_obs(dev, seed, card, arrays, main_out):
                      slot_launches, 1)}
 
 
+# -- adversary search and the elastic fleet ------------------------------------
+
+FLEET_DIR = os.path.join(ROOT, "_smoke_fleet")  # git-ignored; removed at the end
+# search_hunt (a): bench.py:4174 bench_adversary_search at its shape
+HUNT_A = dict(rounds=8, capacity=16, population=256, events_min=2, events_max=6)
+HUNT_A_KW = dict(seed=41, generations=4, objective="ic", minimize=True, minimize_max=2)
+# search_hunt (b): full width; the 64 seeded candidates held against their runs alone
+HUNT_B = dict(rounds=16, capacity=CAP_FULL, population=4096, events_min=2, events_max=6)
+HUNT_B_KW = dict(seed=42, generations=2, objective="ic", minimize=False)
+HUNT_B_ALONE = 64
+N_REPL_SEARCH = 16  # search_hunt (c): the REPL's `search gens=2` at n = 16
+# fleet_serve (a): bench.py:2625 bench_serving_fleet at its shape
+FLEET_CLIENTS, FLEET_PER_CLIENT, FLEET_ROUNDS, FLEET_BATCH, FLEET_CAP = 6, 3, 32, 4, 4
+FLEET_CAMPAIGN = dict(campaign="bench-fleet", seed=71, state_seed=72, batch=8, rounds=4000,
+                      capacity=FLEET_CAP, checkpoint_every=8)
+# fleet_serve (b): phase 41's traffic through a 3-replica fleet beside a full-width campaign
+FLEET_FW_CAMPAIGN = dict(campaign="full-width", seed=73, state_seed=74, batch=B_FULL,
+                         rounds=R_FULL, capacity=CAP_FULL, rounds_per_dispatch=RPD_FULL,
+                         checkpoint_every=RPD_FULL)
+# fleet_trace: bench.py:2424 bench_fleet_trace at its shape
+TRACE_CLIENTS, TRACE_PER_CLIENT, TRACE_ROUNDS, TRACE_BATCH, TRACE_WORKERS = 3, 2, 12, 4, 2
+
+
+def same_hunt(a, b, what, keys=("found", "elites", "minimized", "state")):
+    """Two hunts' results equal but their walls and time stamps."""
+    for k in keys:
+        check(a[k] == b[k], f"{what}: the hunts' {k} differ")
+    check(a["stats"]["run_id"] == b["stats"]["run_id"], f"{what}: the run ids differ")
+
+
+def timed_hunt(space, **kw):
+    """``hunt`` -> (result, each generation's wall s)."""
+    from ba_tpu_torch.search import loop as search_loop
+
+    marks = [time.perf_counter()]
+    out = search_loop.hunt(space, on_generation=lambda g, info: marks.append(
+        time.perf_counter()), **kw)
+    return out, [b - a for a, b in zip(marks, marks[1:])]
+
+
+@contextlib.contextmanager
+def generations_kept():
+    """While open, each generation's (uids, candidates, counter rows,
+    decisions, leaders) of a hunt is appended to the yielded list (the
+    hunt calls ``_evaluate_candidates`` through its module)."""
+    from ba_tpu_torch.search import loop as search_loop
+
+    kept, real = [], search_loop._evaluate_candidates
+
+    def stand_in(candidates, uids, *args, **kw):
+        out = real(candidates, uids, *args, **kw)
+        kept.append((list(uids), list(candidates), out[0], out[2], out[3]))
+        return out
+
+    search_loop._evaluate_candidates = stand_in
+    try:
+        yield kept
+    finally:
+        search_loop._evaluate_candidates = real
+
+
+def hunt_rates(walls, space):
+    """bench_adversary_search's steady rates: the narrowest generation
+    wall after generation 0."""
+    steady = min(walls[1:]) if len(walls) > 1 else walls[0]
+    return {"steady_generation_s": steady, "campaigns_per_s": space.population / steady,
+            "campaign_rounds_per_s": space.population * space.rounds / steady}
+
+
+def phase_search_hunt(dev, card):
+    """Adversary search on the card (``search/loop.hunt``, K1's slot mode
+    with scenario planes for every population, minimizer trial and
+    oracle).  (a) ``bench.py:4174``'s hunt: population 256, capacity 16,
+    8 rounds, 4 generations, seed 41, objective ``ic``, 2 minimized:
+    a violation found and minimized, every finding ``bit_exact``, the
+    whole result equal to ``engine="torch"`` on the card, to a hunt
+    resumed from its generation-2 checkpoint and to a two-entry mesh of
+    the card.  (b) Full width: population 4 096, capacity 1 024, 16
+    rounds, 2 generations: 64 seeded candidates' rows equal their runs
+    alone, and generation 0's rows the torch engine's; the host's
+    lowering share of the generations' wall.  (c) The REPL's ``search
+    gens=2`` at n = 16 prints the port's CPU lines.  Launches counted on
+    each main run; each run once more, recorded, for K1's slot line."""
+    from ba_tpu_torch.search import generate as search_gen
+    from ba_tpu_torch.search import loop as search_loop
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR)
+    atexit.register(shutil.rmtree, FLEET_DIR, True)
+    space_a = search_gen.SearchSpace(**HUNT_A)
+    kw_a = dict(HUNT_A_KW, engine="cuda", device=dev)
+    sync()
+    scenario_step.reset_launches()
+    a, walls_a = timed_hunt(space_a, **kw_a)
+    launches_a = scenario_step.cuda_coalesced_megastep.launches
+    check(a["stats"]["found"] >= 1 and len(a["minimized"]) >= 1,
+          f"search_hunt (a): found {a['stats']['found']}, minimized {len(a['minimized'])}")
+    check(all(m["bit_exact"] for m in a["minimized"]), "a minimized finding is not bit-exact")
+    check(a["stats"]["engine"] == "cuda", f"search_hunt (a) ran {a['stats']['engine']}")
+    same_hunt(search_loop.hunt(space_a, **dict(kw_a, engine="torch")), a,
+              "search_hunt (a), torch against cuda")
+    ck = os.path.join(FLEET_DIR, "hunt_g{generation}.json")
+    same_hunt(search_loop.hunt(space_a, checkpoint_path=ck, **kw_a), a,
+              "search_hunt (a), checkpointed")
+    resume_kw = {k: v for k, v in kw_a.items() if k != "seed"}
+    same_hunt(search_loop.hunt(resume=ck.replace("{generation}", "2"), **resume_kw), a,
+              "search_hunt (a), resumed at generation 2")
+    mesh = pmesh.make_mesh((2, 1), ("data", "node"), devices=[CARD, CARD])
+    meshed = search_loop.hunt(space_a, mesh=mesh, **dict(kw_a, device=None))
+    same_hunt(meshed, a, "search_hunt (a), a two-entry mesh")
+    with recording(SLOT_WRAPPERS, snapshot=True) as calls_a:
+        search_loop.hunt(space_a, **kw_a)
+
+    space_b = search_gen.SearchSpace(**HUNT_B)
+    kw_b = dict(HUNT_B_KW, engine="cuda", device=dev)
+    sync()
+    scenario_step.reset_launches()
+    with generations_kept() as kept:
+        b, walls_b = timed_hunt(space_b, **kw_b)
+    launches_b = scenario_step.cuda_coalesced_megastep.launches
+    uids, cands, rows, decisions, leaders = kept[0]
+    pop_state = search_loop.population_state(len(cands), space_b.capacity, space_b.order, dev)
+    block = search_gen.lower_population(cands, space_b.capacity, space_b.rounds)
+    t_rows = search_loop.evaluate_population(
+        search_loop.candidate_keys(HUNT_B_KW["seed"], uids), pop_state, block,
+        rounds=space_b.rounds, engine="torch", device=dev)
+    for name, got in (("counters", rows), ("decisions", decisions), ("leaders", leaders)):
+        check(np.array_equal(t_rows[name], got),
+              f"search_hunt (b): generation 0's {name} differ from the torch engine's")
+    rs = np.random.default_rng(HUNT_B_KW["seed"])
+    for i in sorted(int(x) for x in rs.choice(len(uids), HUNT_B_ALONE, replace=False)):
+        alone = search_loop.evaluate_alone(cands[i], seed=HUNT_B_KW["seed"], uid=uids[i],
+                                           capacity=space_b.capacity, engine="cuda", device=dev)
+        check(np.array_equal(alone["counters"], rows[i])
+              and np.array_equal(alone["decisions"], decisions[:, i])
+              and np.array_equal(alone["leaders"], leaders[:, i]),
+              f"search_hunt (b): candidate {uids[i]} differs from its run alone")
+    with recording(SLOT_WRAPPERS, snapshot=True) as calls_b:
+        search_loop.hunt(space_b, **kw_b)
+
+    card_cluster = Cluster(N_REPL_SEARCH, TorchBackend(device=dev), seed=0)
+    sync()
+    scenario_step.reset_launches()
+    got, t0 = [], time.perf_counter()
+    handle_command(card_cluster, "search gens=2", got.append)
+    repl_wall = time.perf_counter() - t0
+    launches_c = scenario_step.cuda_coalesced_megastep.launches
+    want = []
+    handle_command(Cluster(N_REPL_SEARCH, TorchBackend(device="cpu"), seed=0), "search gens=2",
+                   want.append)
+    check(got == want and len(got) == 2 and got[0].startswith("Search: generations=2"),
+          f"search_hunt (c): the card's lines {got} against the CPU's {want}")
+    with recording(SLOT_WRAPPERS, snapshot=True) as calls_c:
+        handle_command(Cluster(N_REPL_SEARCH, TorchBackend(device=dev), seed=0),
+                       "search gens=2", lambda line: None)
+    emit({"phase": "search_hunt",
+          "a": {"space": HUNT_A, **HUNT_A_KW, "engine": "cuda", "found": a["stats"]["found"],
+                "minimized_events": [[m["events_before"], m["events_after"]]
+                                     for m in a["minimized"]],
+                "minimize_evals": sum(m["evals"] for m in a["minimized"]),
+                "bit_exact": True, "equal_torch_engine": True, "equal_resumed": True,
+                "equal_two_entry_mesh": True, "generation_walls_s": walls_a,
+                **hunt_rates(walls_a, space_a), "wall_s": a["stats"]["wall_s"],
+                "k1_slot_launches": launches_a, "run_id": a["stats"]["run_id"]},
+          "b": {"space": HUNT_B, **HUNT_B_KW, "engine": "cuda", "found": b["stats"]["found"],
+                "generation_walls_s": walls_b, **hunt_rates(walls_b, space_b),
+                "lower_s": b["stats"]["lower_s"],
+                "lower_share_of_generations": b["stats"]["lower_s"] / sum(walls_b),
+                "sample_equal_alone": HUNT_B_ALONE, "generation0_equal_torch_engine": True,
+                "k1_slot_launches": launches_b},
+          "c": {"command": "search gens=2", "n": N_REPL_SEARCH, "lines": got,
+                "equal_cpu_lines": True, "wall_s": repl_wall, "k1_slot_launches": launches_c},
+          "card": card})
+    return [("search_hunt (a): bench.py:4174's hunt, minimizer and oracle", calls_a,
+             launches_a, 1),
+            ("search_hunt (b): population 4 096 at capacity 1 024", calls_b, launches_b, 1),
+            ("search_hunt (c): the REPL's search gens=2 at n = 16", calls_c, launches_c, 1)]
+
+
+def replay_campaign_first_dispatch(dev, spec, result, int_ops_per_s, what):
+    """A fleet campaign's first dispatch again (its doc's key and state,
+    zero counters): K1 against the campaign's own first rounds, and
+    against the plain engine on its first CHUNK instances (instances are
+    independent; all of them below CHUNK).  K1's time, that plain time and
+    the whole dispatch's bound.  These launches are not the path's."""
+    R = spec.rounds_per_dispatch
+    state = sweep.make_sweep_state(rng.key(spec.state_seed, device=dev), spec.batch,
+                                   spec.capacity)
+    sched = pipeline.make_key_schedule(rng.key(spec.seed, device=dev))
+    counters = convert.counters_from_numpy([0, 0, 0], dev)
+    k_out = scenario_step.cuda_pipeline_megastep(
+        pipeline.fresh_copy(state), pipeline.fresh_copy(sched), rounds=R,
+        collect_decisions=True, counters=counters)
+    hi = min(spec.batch, CHUNK)
+    p_out, plain_ms = timed_plain(lambda: plain_chunked(rows_of(state, 0, hi), sched, R,
+                                                        counters))
+    pairs = [(k_out[3][:, :hi], p_out["dec"])] + list(zip(
+        rows_of(k_out[0], 0, hi).tensors(), p_out["state"].tensors()))
+    if hi == spec.batch:
+        pairs += [(k_out[2], p_out["hist"]), (k_out[4], p_out["rows"])]
+    err = max_abs_err(pairs)
+    check(err == 0, f"{what}: K1 differs from the plain engine on the first dispatch: {err}")
+    check(np.array_equal(np.asarray(result["decisions"])[:R], k_out[3].cpu().numpy())
+          and np.array_equal(np.asarray(result["histograms"])[:R], k_out[2].cpu().numpy()),
+          f"{what}: the campaign's first rounds differ from the replayed kernel")
+    sc = pipeline.fresh_copy(sched)
+    ms = time_cuda(lambda: scenario_step.cuda_pipeline_megastep(
+        state, sc, rounds=R, collect_decisions=True, counters=counters), reps=3)
+    words, steps = work_counts(state, R)
+    B, n = state.faulty.shape
+    bound_ms, bound_by = bound(words, steps, k1_bytes(B, n, R, scenario=False), int_ops_per_s)
+    return {"what": what, "err": err, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "plain_instances": hi, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": {"B": B, "n": n, "R": R}}
+
+
+def fleet_request(i, rounds=FLEET_ROUNDS, seed0=9000):
+    """bench_serving_fleet's request i (bench.py:2685-2694)."""
+    return serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2], n=4,
+                                  faulty=((2,), (), (1, 3))[i % 3], seed=seed0 + i,
+                                  rounds=rounds)
+
+
+def routed(router, reqs, n_clients, sequential, on_started=None):
+    """``reqs`` through the router from ``n_clients`` threads, request i on
+    client i mod n_clients (sequential: submit and wait one at a time;
+    else submit all, then wait) -> (results in request order, latencies,
+    errors, wall s from the start barrier).  ``on_started`` runs on the
+    caller's thread once every client is at the barrier."""
+    results, lat, errors = [None] * len(reqs), [0.0] * len(reqs), []
+    barrier = threading.Barrier(n_clients + 1)
+
+    def client(c):
+        mine = list(range(c, len(reqs), n_clients))
+        barrier.wait(timeout=120)
+        try:
+            if sequential:
+                for i in mine:
+                    t0 = time.perf_counter()
+                    results[i] = router.submit(reqs[i], deadline_s=None).result(timeout=600)
+                    lat[i] = time.perf_counter() - t0
+            else:
+                t0 = [time.perf_counter()] * len(mine)
+                tickets = []
+                for k, i in enumerate(mine):
+                    t0[k] = time.perf_counter()
+                    tickets.append(router.submit(reqs[i], deadline_s=None))
+                for k, (i, t) in enumerate(zip(mine, tickets)):
+                    results[i] = t.result(timeout=600)
+                    lat[i] = time.perf_counter() - t0[k]
+        except Exception as e:  # noqa: BLE001 - every client error is a failure
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for th in threads:
+        th.start()
+    barrier.wait(timeout=120)
+    t0 = time.perf_counter()
+    if on_started is not None:
+        on_started()
+    for th in threads:
+        th.join(timeout=900)
+    check(not any(th.is_alive() for th in threads), "a routed client hung")
+    return results, lat, errors, time.perf_counter() - t0
+
+
+def request_path_compiles(mgr):
+    return sum(r.registry.counter("serve_compile_on_request_path_total").value
+               for r in mgr.all())
+
+
+def wait_fingerprint(handle, what):
+    t0 = time.perf_counter()
+    while handle.fingerprint is None and not handle.done():
+        check(time.perf_counter() - t0 < 120, f"{what}: no fingerprinted checkpoint")
+        time.sleep(0.002)
+    check(not handle.done(), f"{what}: the campaign ended before a checkpoint: "
+          f"{handle.outcome} {handle.error}")
+
+
+def uninterrupted(spec, dev):
+    """The campaign of ``spec`` without a fleet, on the card (its doc's key
+    and state, ``supervised_sweep`` as the campaign lane runs it)."""
+    return supervisor.supervised_sweep(
+        rng.key(spec.seed, device=dev),
+        sweep.make_sweep_state(rng.key(spec.state_seed, device=dev), spec.batch, spec.capacity),
+        spec.rounds, rounds_per_dispatch=spec.rounds_per_dispatch, collect_decisions=True,
+        config=supervisor.SupervisorConfig(timeout_s=60.0), device=dev)
+
+
+def same_campaign_run(got, want, what):
+    check(np.array_equal(np.asarray(got["decisions"]), np.asarray(want["decisions"]))
+          and np.array_equal(np.asarray(got["histograms"]), np.asarray(want["histograms"]))
+          and got["supervisor"]["history_start"] == 0,
+          f"{what}: the migrated campaign differs from the uninterrupted run")
+
+
+def fleet_leg_reference(dev, card, int_ops_per_s):
+    """fleet_serve (a): bench_serving_fleet's two legs."""
+    from ba_tpu_torch import fleet
+
+    reqs = [fleet_request(i) for i in range(FLEET_CLIENTS * FLEET_PER_CLIENT)]
+    cfg = serve.ServeConfig(max_batch=FLEET_BATCH, max_queue=4 * FLEET_BATCH,
+                            coalesce_window_s=0.02, rounds_per_dispatch=8, warm=True,
+                            warm_rounds=FLEET_ROUNDS, warm_scenarios=False, engine="cuda",
+                            device=str(dev))
+    cold = dataclasses.replace(cfg, warm=False)
+    refs = [execute(cold, dev, [r])[0] for r in reqs]
+
+    mgr1 = fleet.ReplicaManager(fleet.FleetConfig(replicas=1), serve_config=cfg)
+    t0 = time.perf_counter()
+    mgr1.start(warm_timeout_s=600)
+    warm_single = time.perf_counter() - t0
+    scenario_step.cuda_coalesced_megastep.launches = 0
+    cohorts = executed_cohorts([r.service for r in mgr1.all()])
+    one, one_lat, one_err, t_single = routed(fleet.FleetRouter(mgr1), reqs, FLEET_CLIENTS,
+                                             sequential=True)
+    slot_launches = scenario_step.cuda_coalesced_megastep.launches
+    rpc_single = request_path_compiles(mgr1)
+    mgr1.stop()
+    check(not one_err and all(same_result(a, b) for a, b in zip(one, refs)),
+          f"fleet_serve (a), one replica: {one_err or 'a result differs from its run alone'}")
+
+    root = os.path.join(FLEET_DIR, "reference")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = fleet.ReplicaManager(fleet.FleetConfig(replicas=3, root=root), serve_config=cfg)
+    t0 = time.perf_counter()
+    mgr.start(warm_timeout_s=600)
+    warm_fleet = time.perf_counter() - t0
+    router = fleet.FleetRouter(mgr)
+    router._sync_ring()
+    label = serve.cohort_label(serve.cohort_key(reqs[0]))
+    victim = router._ring.prefer(label)[0]
+    spec = fleet.CampaignSpec(**FLEET_CAMPAIGN)
+    scenario_step.cuda_pipeline_megastep.launches = 0
+    handle = mgr.get(victim).run_campaign(spec)
+    wait_fingerprint(handle, "fleet_serve (a)")
+    peak = {r.name: 0 for r in mgr.all()}
+    sampling = threading.Event()
+    sampling.set()
+
+    def sample():
+        while sampling.is_set():
+            for r in mgr.all():
+                peak[r.name] = max(peak[r.name], r.health()["queue_depth"])
+            time.sleep(0.002)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+
+    def kill_home():
+        time.sleep(0.05)  # the first window queues on the home
+        mgr.kill(victim)
+
+    scenario_step.cuda_coalesced_megastep.launches = 0
+    fleet_cohorts = executed_cohorts([r.service for r in mgr.all()])
+    res, lat, err, t_fleet = routed(router, reqs, FLEET_CLIENTS, sequential=True,
+                                    on_started=kill_home)
+    slot_launches += scenario_step.cuda_coalesced_megastep.launches
+    cohorts = cohorts + fleet_cohorts
+    sampling.clear()
+    sampler.join(timeout=10)
+    rstats = router.stats()
+    check(handle.wait(120) and handle.outcome == "abandoned",
+          f"fleet_serve (a): the killed home's campaign ended {handle.outcome!r}")
+    adopted = mgr.adopt_orphans(victim)
+    check(len(adopted) == 1 and adopted[0].wait(600) and adopted[0].outcome == "completed",
+          f"fleet_serve (a): adoption {[(h.outcome, h.error) for h in adopted]}")
+    plain_launches = scenario_step.cuda_pipeline_megastep.launches
+    rpc_fleet = request_path_compiles(mgr)
+    mgr.stop()
+    reroute_ok = not err and all(same_result(a, b) for a, b in zip(res, refs))
+    check(reroute_ok, f"fleet_serve (a): clients through the kill: {err}")
+    got = adopted[0].result
+    same_campaign_run(got, uninterrupted(spec, dev), "fleet_serve (a)")
+    check(rpc_single == 0 and rpc_fleet == 0,
+          f"fleet_serve (a): request-path compiles {rpc_single} + {rpc_fleet}")
+    over = {k: v for k, v in peak.items() if v > cfg.max_queue}
+    check(not over, f"fleet_serve (a): queue bound {cfg.max_queue} exceeded: {over}")
+    check(slot_launches == slot_dispatches(cfg, cohorts),
+          f"fleet_serve (a): {slot_launches} K1 slot launches")
+    calls = rerun_recorded(cold, dev, cohorts)["slot"]
+    replay = replay_campaign_first_dispatch(dev, spec, got, int_ops_per_s,
+                                            "fleet_serve (a): the adopted campaign")
+
+    def pcts(x):
+        return {"p50_latency_s": pct(x, 0.5), "p99_latency_s": pct(x, 0.99)}
+
+    record = {"clients": FLEET_CLIENTS, "requests": len(reqs), "rounds": FLEET_ROUNDS,
+              "max_batch": FLEET_BATCH, "max_queue": cfg.max_queue, "replicas": 3,
+              "victim": victim, "campaign_rounds": spec.rounds,
+              "single": {"warmup_wall_s": warm_single, "elapsed_s": t_single, **pcts(one_lat)},
+              "fleet": {"warmup_wall_s": warm_fleet, "elapsed_s": t_fleet, **pcts(lat),
+                        "agreement_rounds_per_s": len(reqs) * FLEET_ROUNDS / t_fleet},
+              "routes": rstats["routes"], "reroutes": rstats["reroutes"],
+              "peak_queue_depths": peak, "reroute_zero_hung_clients": reroute_ok,
+              "migrated_bit_exact": True, "no_request_path_compiles_fleet": True,
+              "queue_bounded_all_replicas": True, "k1_slot_launches": slot_launches,
+              "k1_plain_launches": plain_launches}
+    return record, ("fleet_serve (a): bench.py:2625's two legs", calls, slot_launches, 1), \
+        plain_launches, replay
+
+
+def fleet_leg_full_width(dev, seed, fw_rate, int_ops_per_s):
+    """fleet_serve (b): phase 41's traffic through a 3-replica warm fleet
+    while one replica's full-width campaign is drained to a survivor."""
+    from ba_tpu_torch import fleet
+
+    reqs = full_width_requests(seed)
+    # warm: K1's graphs at capacity 1 024 (the plain and coalition cohorts);
+    # the signed and m = 2 cohorts run eagerly, their libraries loaded
+    cfg = serve.ServeConfig(max_batch=FW_BATCH, max_queue=FW_QUEUE, rounds_per_dispatch=FW_RPD,
+                            engine="cuda", device=str(dev), warm=True,
+                            warm_capacities=(CAP_FULL,), warm_rounds=FW_ROUNDS,
+                            warm_ms=(1,), warm_signed=False)
+    cold = dataclasses.replace(cfg, warm=False)
+    root = os.path.join(FLEET_DIR, "full_width")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = fleet.ReplicaManager(fleet.FleetConfig(replicas=3, root=root), serve_config=cfg)
+    t0 = time.perf_counter()
+    mgr.start(warm_timeout_s=600)
+    warm_wall = time.perf_counter() - t0
+    router = fleet.FleetRouter(mgr)
+    spec = fleet.CampaignSpec(**FLEET_FW_CAMPAIGN)
+    holder = "replica-1"
+    drained = {}
+
+    def drain_mid_traffic():
+        handle = mgr.get(holder).run_campaign(spec)
+        wait_fingerprint(handle, "fleet_serve (b)")
+        t1 = time.perf_counter()
+        drained["adopted"] = mgr.drain(holder)
+        drained["drain_s"] = time.perf_counter() - t1
+        drained["handle"] = handle
+
+    sync()
+    reset_all_launches()
+    cohorts = executed_cohorts([r.service for r in mgr.all()])
+    results, lat, err, wall = routed(router, reqs, FW_CLIENTS, sequential=False,
+                                     on_started=drain_mid_traffic)
+    launches = served_launches()
+    check(not err, f"fleet_serve (b): client errors {err[:3]}")
+    handle = drained["handle"]
+    check(handle.outcome == "handoff", f"fleet_serve (b): the drained campaign ended "
+          f"{handle.outcome!r} ({handle.error})")
+    (moved,) = drained["adopted"]
+    check(moved.wait(600) and moved.outcome == "completed",
+          f"fleet_serve (b): the moved campaign ended {moved.outcome!r} ({moved.error})")
+    plain_launches = scenario_step.cuda_pipeline_megastep.launches
+    rstats = router.stats()
+    rpc = request_path_compiles(mgr)
+    mgr.stop()
+    check(rpc == 0, f"fleet_serve (b): {rpc} request-path compiles across the roster")
+    same_campaign_run(moved.result, uninterrupted(spec, dev), "fleet_serve (b)")
+    check(launches["K1 slot"] == slot_dispatches(cfg, cohorts),
+          f"fleet_serve (b): {launches['K1 slot']} K1 slot launches")
+    kinds = ["signed" if r.signed else "m2" if r.m == 2 else r.kind for r in reqs]
+    rs = np.random.default_rng(seed + 2)
+    sample = []
+    for kind, k in FW_SAMPLE:
+        idx = [i for i, x in enumerate(kinds) if x == kind]
+        sample += [int(i) for i in rs.choice(idx, k, replace=False)]
+    for i in sample:
+        check(same_result(results[i], execute(cold, dev, [reqs[i]])[0]),
+              f"fleet_serve (b): routed request {i} ({kinds[i]}) differs from its run alone")
+    recorded = rerun_recorded(cold, dev, cohorts)
+    replay = replay_campaign_first_dispatch(dev, spec, moved.result, int_ops_per_s,
+                                            "fleet_serve (b): the moved campaign")
+    record = {"requests": len(reqs), "by_kind": {k: kinds.count(k) for k in sorted(set(kinds))},
+              "clients": FW_CLIENTS, "replicas": 3, "max_batch": FW_BATCH,
+              "warmup_wall_s": warm_wall, "wall_s": wall, "requests_per_s": len(reqs) / wall,
+              "phase41_requests_per_s_same_run": fw_rate,
+              "ratio_to_phase41": len(reqs) / wall / fw_rate,
+              "p50_latency_s": pct(lat, 0.5), "p99_latency_s": pct(lat, 0.99),
+              "routes": rstats["routes"], "reroutes": rstats["reroutes"],
+              "cohorts": len(cohorts), "campaign": FLEET_FW_CAMPAIGN,
+              "campaign_holder": holder, "drain_s": drained["drain_s"],
+              "moved_to": [r.name for r in mgr.all() if r.campaign(spec.campaign) is moved],
+              "migrated_bit_exact": True, "sample_equal_alone": len(sample),
+              "request_path_compiles": rpc, "k1_slot_launches": launches["K1 slot"],
+              "k9_launches": launches["K9"], "k1_plain_launches": plain_launches,
+              "lane_launches": {k: launches[k] for k in LANE_KERNELS}}
+    path = "fleet_serve (b): 4 736 requests through a 3-replica fleet"
+    return record, {
+        "slot": (path, recorded["slot"], launches["K1 slot"], 1),
+        "ed": (path + ", the signed cohorts' lane", recorded["ed"],
+               {k: launches[k] for k in ED_KERNELS}, 1),
+        "k9": (path + ", the m = 2 cohorts", recorded["k9"], launches["K9"], 1)}, \
+        plain_launches, replay
+
+
+def phase_fleet_serve(dev, seed, card, fw_rate, int_ops_per_s):
+    """The elastic fleet on the card (``fleet/``: ``ReplicaManager``,
+    ``FleetRouter``, live migration).  (a) ``bench.py:2625``'s two legs
+    at its shape: 6 clients x 3 requests (n = 4, 32 rounds, max_batch 4)
+    through a warm one-replica fleet, then a warm 3-replica fleet whose
+    cohort home runs a checkpointing campaign (B 8, capacity 4, 4 000
+    rounds, a checkpoint every 8) and is killed mid-run: the four
+    booleans recomputed and asserted.  (b) Phase 41's 4 736 requests from
+    64 clients through a warm 3-replica ``engine="cuda"`` fleet while one
+    replica's full-width campaign (B 10 000, capacity 1 024, 64 rounds,
+    16 a dispatch, a checkpoint each) is drained to a survivor: the moved
+    campaign bit-equal to an uninterrupted run, a 128-request sample
+    bit-equal alone, 0 request-path compiles; requests/s beside phase
+    41's."""
+    t0 = time.perf_counter()
+    rec_a, slot_a, plain_a, replay_a = fleet_leg_reference(dev, card, int_ops_per_s)
+    t_a = time.perf_counter() - t0
+    rec_b, paths_b, plain_b, replay_b = fleet_leg_full_width(dev, seed, fw_rate, int_ops_per_s)
+    emit({"phase": "fleet_serve", "a": rec_a, "b": rec_b, "leg_a_wall_s": t_a,
+          "leg_b_wall_s": time.perf_counter() - t0 - t_a, "card": card})
+    return {"slot": [slot_a, paths_b["slot"]], "ed": paths_b["ed"], "k9": paths_b["k9"],
+            "plain": {"fleet_serve (a)": plain_a, "fleet_serve (b)": plain_b},
+            "plain_paths": [replay_a, replay_b]}
+
+
+def phase_fleet_trace(dev, card):
+    """``bench.py:2424``'s fleet_trace at its shape: 3 clients x 2 signed
+    requests (n = 4, 12 rounds), max_batch 4, a warm service, the sign
+    pool live (2 workers, no table cache: the cache would satisfy every
+    cohort in-process), the sink a directory.  From the shards, through
+    ``obs/fleet.py``: every request's tree fully parented, its phases
+    within tolerance, two merges identical, the pool workers' shards in
+    every tree, 0 request-path compiles; ``python -m
+    ba_tpu_torch.obs.fleet <dir>``'s digest equal to the in-process
+    merge's.  The lane's K7, K5, K4 and K3 launches counted; the cohorts
+    once more, recorded, for their lines."""
+    from ba_tpu_torch.crypto import pool as pool_mod
+    from ba_tpu_torch.obs import fleet as obs_fleet
+    from ba_tpu_torch.utils import metrics
+
+    reqs = [serve.AgreementRequest(kind="run-rounds", order=("attack", "retreat")[i % 2], n=4,
+                                   faulty=((2,), (), (1, 3))[i % 3], seed=7000 + i,
+                                   rounds=TRACE_ROUNDS, m=1, signed=True,
+                                   tenant=f"tenant-{i // TRACE_PER_CLIENT}")
+            for i in range(TRACE_CLIENTS * TRACE_PER_CLIENT)]
+    sink = os.path.join(FLEET_DIR, "trace_sink") + os.sep
+    cfg = serve.ServeConfig(max_batch=TRACE_BATCH, max_queue=4 * TRACE_BATCH,
+                            coalesce_window_s=0.02, rounds_per_dispatch=4, warm=True,
+                            warm_rounds=TRACE_ROUNDS, warm_scenarios=False, device=str(dev))
+    pool_mod.configure_defaults(workers=TRACE_WORKERS, cache=False)
+    metrics.configure(sink)  # before the pool starts: its workers get the directory
+    try:
+        svc = serve.AgreementService(cfg, registry=obs_registry.MetricsRegistry())
+        t0 = time.perf_counter()
+        svc.open()
+        check(svc.warm_barrier(timeout=600), "fleet_trace: the warmup never finished")
+        warm_wall = time.perf_counter() - t0
+        svc.start()
+        reset_ed_launches()
+        results, lat, wall = clients(svc, reqs, TRACE_CLIENTS, sequential=True)
+        launches = ed_launches()
+        stats = svc.stats()
+        svc.stop()  # closes the pool: the workers' shards are whole
+        metrics.configure(None)  # the recorded rerun below writes no shard
+        recorded = rerun_recorded(dataclasses.replace(cfg, warm=False), dev,
+                                  cohorts_of(reqs, results))
+    finally:
+        metrics.configure(None)
+        pool_mod.configure_defaults()
+    merged = obs_fleet.merge_shards(sink)
+    digest = obs_fleet.merge_digest(merged)
+    merge_deterministic = digest == obs_fleet.merge_digest(obs_fleet.merge_shards(sink))
+    rids = obs_fleet.request_ids(merged)
+    check(len(rids) == len(reqs), f"fleet_trace: {len(rids)} traced requests in the shards")
+    traces = [obs_fleet.assemble_request_trace(merged, request_id=rid) for rid in rids]
+    all_parented = all(t["unparented"] == [] for t in traces)
+    within_tol = all(t["within_tol"] for t in traces)
+    cross_process = all(len(t["processes"]) >= 2
+                        and any(s["name"] == "pool_task" for s in t["spans"]) for t in traces)
+    pool_tasks = sum(1 for r in merged if r.get("event") == "pool_task")
+    no_rpc = stats["compiles_on_request_path"] == 0
+    cli = subprocess.run([sys.executable, "-m", "ba_tpu_torch.obs.fleet", sink],
+                         capture_output=True, text=True, cwd=ROOT, timeout=300)
+    check(cli.returncode == 0, f"fleet_trace: the CLI exited {cli.returncode}: "
+          f"{cli.stdout[-500:]} {cli.stderr[-500:]}")
+    cli_doc = json.loads(cli.stdout.strip().splitlines()[-1])
+    for name, ok in (("merge_deterministic", merge_deterministic),
+                     ("all_spans_parented", all_parented),
+                     ("critical_path_within_tol", within_tol),
+                     ("cross_process", cross_process),
+                     ("no_request_path_compiles", no_rpc),
+                     ("cli_digest_equal", cli_doc["digest"] == digest)):
+        check(ok, f"fleet_trace: {name} is false "
+                  f"{[(t['request_id'], t['unparented'], t['processes']) for t in traces]}")
+    check(pool_tasks > 0 and all(launches[k] > 0 for k in LANE_KERNELS),
+          f"fleet_trace: {pool_tasks} pool tasks, lane launches {launches}")
+    summary = obs_fleet.fleet_summary(merged)
+    emit({"phase": "fleet_trace", "clients": TRACE_CLIENTS, "requests": len(reqs),
+          "rounds": TRACE_ROUNDS, "max_batch": TRACE_BATCH, "pool_workers": TRACE_WORKERS,
+          "warmup_wall_s": warm_wall, "serve_elapsed_s": wall,
+          "rounds_per_s": len(reqs) * TRACE_ROUNDS / wall,
+          "shards": [name for name, _ in obs_fleet.list_shards(sink)],
+          "records_by_shard": {r["shard"]: r["records"] for r in summary["replicas"]},
+          "pool_tasks": pool_tasks,
+          "spans_per_trace": [t["span_count"] for t in traces],
+          "processes_per_trace": [len(t["processes"]) for t in traces],
+          "merge_digest": digest, "all_spans_parented": True,
+          "critical_path_within_tol": True, "merge_deterministic": True,
+          "cross_process": True, "no_request_path_compiles": True, "cli_digest_equal": True,
+          "lane_launches": {k: launches[k] for k in LANE_KERNELS}, "card": card})
+    return ("fleet_trace: 6 signed requests, the pool live, the sink a directory",
+            recorded["ed"], {k: launches[k] for k in ED_KERNELS}, 1)
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6265,21 +6921,28 @@ def main(argv=None) -> int:
     slot_paths += phase_serve_slo(dev, args.seed, card, full["requests_per_s"])
     dobs = phase_device_obs(dev, args.seed, card, arrays, main_out)
     slot_paths.append(dobs["slot"])
+    slot_paths += phase_search_hunt(dev, card)
+    fleet_run = phase_fleet_serve(dev, args.seed, card, full["requests_per_s"], int_ops_per_s)
+    slot_paths += fleet_run["slot"]
+    trace_ed = phase_fleet_trace(dev, card)
+    plain_launches.update(fleet_run["plain"])
     plain_launches["device_obs"] = dobs["plain"]
     plain_launches["repl_cuda"] = shell["plain"]
     scen_launches["repl_cuda"] = shell["scenario"]
     kernels = [
         kernel_line_plain(dev, args.seed, arrays, main_out, plain_launches, int_ops_per_s,
-                          shell["plain_path"], sup_path, dobs["plain_run"]),
+                          shell["plain_path"], sup_path, dobs["plain_run"],
+                          fleet_run["plain_paths"]),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
                              int_ops_per_s, shell["scenario_path"]),
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
         kernel_line_k2_sharded(k2_sharded, states, oks, seeds, int_ops_per_s),
         *kernel_lines_crypto([*setup_paths, c3, ladder_pow, *shell["ed"], signed_middle,
-                              signed_path, full["ed"], *overlapped],
+                              signed_path, full["ed"], *overlapped, fleet_run["ed"],
+                              trace_ed],
                              int_ops_per_s),
-        kernel_line_k9([*k9_paths, shell["k9"], full["k9"]], int_ops_per_s),
+        kernel_line_k9([*k9_paths, shell["k9"], full["k9"], fleet_run["k9"]], int_ops_per_s),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels, "int32_ops_per_s": int_ops_per_s,

@@ -50,7 +50,13 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
                  "ba_tpu_torch.runtime.supervisor", "ba_tpu_torch.runtime.chaos",
                  "ba_tpu_torch.runtime.warmup", "ba_tpu_torch.runtime.serve",
                  "ba_tpu_torch.obs.slo", "ba_tpu_torch.obs.instrument",
-                 "ba_tpu_torch.obs.cuda"):
+                 "ba_tpu_torch.obs.cuda", "ba_tpu_torch.obs.fleet",
+                 "ba_tpu_torch.search", "ba_tpu_torch.search.__main__",
+                 "ba_tpu_torch.search.generate", "ba_tpu_torch.search.objective",
+                 "ba_tpu_torch.search.corpus", "ba_tpu_torch.search.loop",
+                 "ba_tpu_torch.search.minimize", "ba_tpu_torch.fleet",
+                 "ba_tpu_torch.fleet.replica", "ba_tpu_torch.fleet.router",
+                 "ba_tpu_torch.fleet.migrate"):
         assert name in MODULES, name
 
 
@@ -129,6 +135,58 @@ def test_slo_cli_and_the_obs_package_load_no_torch():
                           cwd=PACKAGE.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count(": OK") == 1
+
+
+def _run_module_code(module: str, argv: list, forbidden: tuple) -> str:
+    return ("import runpy, sys\n"
+            f"sys.argv = {[module, *argv]!r}\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{forbidden!r})\n"
+            "assert not bad, bad\n")
+
+
+def test_search_cli_loads_no_torch():
+    """``python -m ba_tpu_torch.search corpus`` on the committed corpus and
+    ``sample`` on a space: numpy and the stdlib only."""
+    found = str(PACKAGE.parent / "examples" / "scenarios" / "found")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _run_module_code("ba_tpu_torch.search", ["corpus", found],
+                          ("jax", "jaxlib", "ba_tpu", "torch"))],
+        capture_output=True, text=True, cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "corpus OK" in proc.stdout
+
+
+def test_fleet_cli_and_the_fleet_package_load_no_torch(tmp_path):
+    """``python -m ba_tpu_torch.obs.fleet <dir>`` (stdlib only: no torch,
+    no numpy) and ``import ba_tpu_torch.fleet`` (no torch)."""
+    sink = tmp_path / "sink"
+    sink.mkdir()
+    (sink / "1.run-a.jsonl").write_text(
+        '{"event": "clock_anchor", "perf_t": 1.0, "ts": 100.0}\n'
+        '{"event": "request", "id": 1, "trace_id": "' + "a" * 32 + '", "span_id": "'
+        + "b" * 16 + '", "status": "ok", "wall_s": 0.5, "queue_s": 0.1, "coalesce_s": 0.1, '
+        '"compile_s": 0.0, "dispatch_s": 0.2, "retire_lag_s": 0.1}\n')
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _run_module_code("ba_tpu_torch.obs.fleet", [str(sink)],
+                          ("jax", "jaxlib", "ba_tpu", "torch", "numpy"))],
+        capture_output=True, text=True, cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"all_spans_parented": true' in proc.stdout
+    code = ("import sys\n"
+            "import ba_tpu_torch.fleet\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ba_tpu', 'torch'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PACKAGE.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_default_device_without_gpu_raises(monkeypatch):

@@ -1,9 +1,10 @@
 """The port's REPL prints the strings ``tests/test_repl.py`` pins, byte for
 byte, through ``handle_command`` on the port's ``PyBackend`` and on its
 ``TorchBackend`` on the CPU, and through the launcher
-``python -m ba_tpu_torch.runtime.main``; the commands that are not ported
-yet print one error line, and ``serve`` and ``scenario ... supervise``
-print the JAX package's lines."""
+``python -m ba_tpu_torch.runtime.main``; ``serve``, ``scenario ...
+supervise``, ``search``, ``fleet`` and ``stats --fleet`` print the JAX
+package's lines (``stats --fleet`` without a directory sink prints the one
+line that differs)."""
 
 import pathlib
 import subprocess
@@ -171,7 +172,23 @@ def test_unported_commands_print_one_line(cluster4, line, monkeypatch):
         assert "not ported" not in got[0]
         drive(cluster4, ["serve stop"])
         return
-    assert drive(cluster4, [line]) == [f"{command} error: not ported to ba_tpu_torch yet"]
+    if command == "search":
+        # ported since: the hunt's two lines on a backend that searches
+        # (the torch backend on the CPU), none on PyBackend
+        got = drive(cluster4, [line])
+        if isinstance(cluster4.backend, PyBackend):
+            assert got == []
+        else:
+            assert len(got) == 2 and got[0].startswith("Search: generations=1, campaigns=32")
+            assert got[1].startswith("Search found: ")
+        return
+    # fleet, ported since: one line, the fleet's start on the backend's
+    # device (the card for PyBackend, which this machine may lack) or the
+    # error that says why it did not start
+    got = drive(cluster4, [line])
+    assert len(got) == 1 and got[0].startswith(("fleet: started 2 replica(s)", "fleet error: "))
+    assert "not ported" not in got[0]
+    drive(cluster4, ["fleet stop"])
 
 
 @pytest.mark.parametrize("tokens", ["supervise", "mesh=1 supervise", "{ck} 2 supervise"])
@@ -397,5 +414,11 @@ def test_stats_prints_the_reference_counters_and_histograms(backend, monkeypatch
 
 
 def test_stats_fleet_prints_the_not_ported_line(cluster4):
-    assert drive(cluster4, ["stats --fleet"]) == [
-        "stats --fleet error: not ported to ba_tpu_torch yet"]
+    """Ported since: without a directory sink, ``stats --fleet`` prints
+    the one line that differs from the JAX package's REPL (the port reads
+    no ``BA_TPU_METRICS``: it names ``utils.metrics.configure``)."""
+    from ba_tpu_torch.runtime.repl import FLEET_NO_SINK
+
+    assert drive(cluster4, ["stats --fleet"]) == [FLEET_NO_SINK]
+    assert FLEET_NO_SINK == ('fleet (no sharded sink — call '
+                             'ba_tpu_torch.utils.metrics.configure("<dir>/"))')
