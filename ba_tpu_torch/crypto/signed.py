@@ -46,7 +46,7 @@ import torch
 
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.crypto import ed25519
-from ba_tpu_torch.crypto.tables import (  # noqa: F401  (re-exported: the host tier)
+from ba_tpu_torch.crypto.tables import (
     MSG_LEN,
     _round_table_msgs,
     _sign_table_msgs,
@@ -61,6 +61,20 @@ from ba_tpu_torch.crypto.tables import (  # noqa: F401  (re-exported: the host t
     sign_value_tables,
     verify_host_exact,
 )
+
+# The host tier is re-exported: the reference's signed.py defines it.
+__all__ = [
+    "MSG_LEN", "_round_table_msgs", "_sign_table_msgs", "_value_table_msgs",
+    "commander_keys", "key_table_arrays", "order_message", "round_message",
+    "secret_rows", "sign_round_tables", "sign_table_msgs_arrays", "sign_value_tables",
+    "verify_host_exact",
+    "VERIFY_CHUNK", "SETUP_CHUNKS", "DEVICE_SIGN_CHUNKS", "VERIFY_ROUTES", "SIGN_DEVICE_ROUTES",
+    "WARM_SEED", "sign_received", "sign_value_tables_device", "sig_valid_from_tables",
+    "verify_received", "host_verify_route", "verify_exact", "fresh_rlc_coeffs", "rlc_batch_ok",
+    "verify_received_rlc", "queue_signed_tables", "drain_signed_tables", "setup_signed_tables",
+    "sign_on_device", "setup_signed_tables_overlapped", "warm_signed_tables", "sign_round1",
+    "signed_sm_agreement", "signed_sm_agreement_sharded",
+]
 
 VERIFY_CHUNK = 65536  # signatures a verify dispatch (``ba_tpu/crypto/signed.py:380``)
 # Setup chunks by sign route, as the reference derives them

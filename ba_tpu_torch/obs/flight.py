@@ -37,6 +37,18 @@ RUN_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._:-]{0,63}$")
 
 FLIGHT_SUMMARY_VERSION = 1
 
+# The record families that carry a run_id whenever a scope is active,
+# by construction (``ba_tpu/obs/flight.py``'s set; ba-lint's
+# ``analysis/contracts.RUN_SCOPED_EVENTS`` is pinned equal to it): every
+# campaign, hunt and SLO window runs inside a run scope, and the
+# sign-ahead lane stamps its own id.
+RUN_SCOPED_EVENTS = frozenset({
+    "flight_span", "scenario_checkpoint", "recovery", "fault_injected",
+    "health_snapshot", "flight_summary", "search_generation", "search_found",
+    "search_minimized", "search_checkpoint", "sign_pool", "slo_report", "slo_alert",
+    "autoscale_signal",
+})
+
 
 def valid_run_id(run_id) -> bool:
     return isinstance(run_id, str) and bool(RUN_ID_RE.match(run_id))

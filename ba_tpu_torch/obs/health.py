@@ -13,8 +13,12 @@ imbalance gauges where an engine writes them.  It writes the
 ``health_snapshot`` record.  Its inputs are the pipelined loops'
 ``pipeline_*`` instruments (``parallel/pipeline.py``).  After each
 sample the installed SLO engine (``obs/slo.py``) gets its report tick.
-Stdlib only.
+Stdlib only.  The lock-free claim is checked by ba-lint (BA502): the
+declaration below puts the module under its single-opcode read
+discipline.
 """
+
+# ba-lint: lockfree
 
 from __future__ import annotations
 
@@ -229,7 +233,7 @@ class HealthSampler:
             self._last_lag_counts = lag["counts"]
         if lat is not None:
             self._last_lat_counts = lat["counts"]
-        self.samples += 1  # only the sampler's own thread writes it
+        self.samples += 1  # ba-lint: disable=BA502 (only the sampler's own thread writes it)
 
         if emit:
             record = {

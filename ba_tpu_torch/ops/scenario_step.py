@@ -120,7 +120,7 @@ def _launch(state, sched, strategy, counters, events, *, rounds, collect_decisio
     return hist, leaders, decisions, rows, majorities
 
 
-def cuda_pipeline_megastep(
+def cuda_pipeline_megastep(  # ba-lint: donates(state, sched)
     state, sched, *, rounds: int, m: int = 1, max_liars: int | None = None,
     collect_decisions: bool = False, counters=None,
 ):
@@ -146,7 +146,7 @@ def cuda_pipeline_megastep(
     return out
 
 
-def cuda_scenario_megastep(
+def cuda_scenario_megastep(  # ba-lint: donates(state, sched, strategy)
     state, sched, strategy, counters, events, *, rounds: int, m: int = 1,
     max_liars: int | None = None, collect_decisions: bool = False,
 ):
@@ -170,7 +170,7 @@ def cuda_scenario_megastep(
     return out
 
 
-def cuda_coalesced_megastep(
+def cuda_coalesced_megastep(  # ba-lint: donates(state, sched, strategy)
     state, sched, strategy, slot_counters, events, *, rounds: int, m: int = 1,
     max_liars: int | None = None, scenario: bool = False,
 ):

@@ -135,9 +135,9 @@ def reduce_host_ys(host_ys: tuple, *, scenario: bool, collect_decisions: bool,
     return tuple(ys)
 
 
-def sharded_pipeline_megastep(state, sched, *, mesh: Mesh, rounds: int, m: int = 1,
-                              max_liars: int | None = None, collect_decisions: bool = False,
-                              counters=None):
+def sharded_pipeline_megastep(  # ba-lint: donates(state, sched)
+        state, sched, *, mesh: Mesh, rounds: int, m: int = 1, max_liars: int | None = None,
+        collect_decisions: bool = False, counters=None):
     """``pipeline.pipeline_megastep`` batch-sharded over ``mesh``'s "data"
     axis: the same scan core a shard, in place, the same return tuple,
     except histograms come back per shard ``[rounds, d, 3]`` and counter
@@ -166,9 +166,9 @@ def sharded_pipeline_megastep(state, sched, *, mesh: Mesh, rounds: int, m: int =
     return shard_map(run, mesh, out_specs, collectives=with_counters)(*args)
 
 
-def sharded_scenario_megastep(state, sched, strategy, counters, events: dict, *, mesh: Mesh,
-                              rounds: int, m: int = 1, max_liars: int | None = None,
-                              collect_decisions: bool = False):
+def sharded_scenario_megastep(  # ba-lint: donates(state, sched, strategy)
+        state, sched, strategy, counters, events: dict, *, mesh: Mesh, rounds: int, m: int = 1,
+        max_liars: int | None = None, collect_decisions: bool = False):
     """``pipeline.scenario_megastep`` batch-sharded over ``mesh``'s "data"
     axis: kills, revivals, flips and re-election are per instance, so the
     whole mutating round is shard-local apart from the counter delta's

@@ -16,6 +16,7 @@ from ba_tpu_torch.core.om import om1_round_from_coins, round1_broadcast
 from ba_tpu_torch.core.quorum import majority_counts, quorum_decision
 from ba_tpu_torch.core.state import SimState, resolve_device
 from ba_tpu_torch.core.types import ATTACK, COMMAND_DTYPE, RETREAT, UNDEFINED
+from ba_tpu_torch.scenario import strategies as _strategies
 
 
 def make_sweep_state(
@@ -122,6 +123,11 @@ def agreement_step(keys: torch.Tensor, state: SimState, m: int = 1,
     (OM(m) by the EIG tree, fused at m >= 2 unless strategies are given);
     ``max_liars``, the known traitor cap, sizes its fused level's draw
     and clamps its lying count, so derive it from the state.
+
+    Inside ``strategies.chain_impl()`` OM(1) takes the per-instance round
+    (``ba_tpu/parallel/sweep.py:194``): each row draws as its own B = 1
+    ``om1_round`` does, through ``coin_bits`` with or without strategies,
+    and the legacy select chains choose the lies.  The same bits.
     """
     n = state.n
     if m != 1:
@@ -129,7 +135,7 @@ def agreement_step(keys: torch.Tensor, state: SimState, m: int = 1,
     else:
         sub = rng.split(keys)
         k1, k2 = sub[:, 0], sub[:, 1]
-        if strategies is None:
+        if strategies is None or _strategies.chain_active():
             coins1 = rng.coin_bits(k1, (n,))
             coins2 = rng.coin_bits(k2, (n, n))
         else:

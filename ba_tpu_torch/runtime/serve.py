@@ -72,9 +72,12 @@ import time
 import numpy as np
 
 from ba_tpu_torch import obs
-from ba_tpu_torch.runtime import supervisor as _supervisor
 from ba_tpu_torch.scenario.compile import compile_scenario, empty_block
 from ba_tpu_torch.utils import metrics as _metrics
+
+# runtime.supervisor (fault classes, backoff) is imported in the functions
+# that use it: its own lazy seam reaches the engine, and this module's
+# import stays host-tier (ba-lint BA301).
 
 REQUEST_KINDS = ("actual-order", "run-rounds", "scenario")
 ORDERS = ("attack", "retreat")
@@ -210,6 +213,8 @@ class ServeConfig:
                              f"{self.burn_soft}/{self.burn_hard}")
 
     def resolved_max_retries(self) -> int:
+        from ba_tpu_torch.runtime import supervisor as _supervisor
+
         if self.max_retries is not None:
             return self.max_retries
         return _supervisor.SupervisorConfig().max_retries
@@ -399,6 +404,8 @@ class AgreementService:
         # the engine's pipeline_* instruments live in the process-wide
         # registry whatever registry the serve_* family uses
         self._sampler = obs.health.HealthSampler()
+        from ba_tpu_torch.runtime import supervisor as _supervisor
+
         self._sup_cfg = _supervisor.SupervisorConfig()
         self._max_retries = self._cfg.resolved_max_retries()
         self._dispatch_timeout_s = (self._cfg.dispatch_timeout_s
@@ -774,6 +781,8 @@ class AgreementService:
     def _seam(self, call, phase, d, lo, hi):
         """The cohort's execution seam: chaos injection, then in-place
         retry of transient faults with the supervisor's backoff."""
+        from ba_tpu_torch.runtime import supervisor as _supervisor
+
         wrapped = call if self._injector is None else (
             lambda: self._injector.fire(call, phase, lo, hi))
         tries = 0
@@ -789,6 +798,8 @@ class AgreementService:
                 time.sleep(_supervisor.backoff_s(self._sup_cfg, tries, f"serve:{phase}:{lo}"))
 
     def _dispatch_cohort(self, live) -> None:
+        from ba_tpu_torch.runtime import supervisor as _supervisor
+
         t0 = time.perf_counter()
         for t in live:
             t.dispatched_t = t0

@@ -320,8 +320,9 @@ def _read_rows_chain(ckpt_template, names):
     return blocks
 
 
-def supervised_sweep(key, state, rounds: int | None = None, *, scenario=None, resume="auto",
-                     run_id: str | None = None, traceparent: str | None = None, **kwargs):
+def supervised_sweep(  # ba-lint: donates(state)
+        key, state, rounds: int | None = None, *, scenario=None, resume="auto",
+        run_id: str | None = None, traceparent: str | None = None, **kwargs):
     """Run a campaign under supervision, every attempt inside one run
     scope.
 
@@ -371,7 +372,7 @@ def _recovery_record(fault, action, attempt, from_round, lost_rounds, error) -> 
                    "lost_rounds": lost_rounds, "error": error})
 
 
-def _supervised_sweep_impl(
+def _supervised_sweep_impl(  # ba-lint: donates(state)
     key,
     state,
     rounds: int | None = None,

@@ -73,7 +73,7 @@ def population_state(batch: int, capacity: int, order: str, device=None):
     return make_state(batch, capacity, order=code, device=device)
 
 
-def evaluate_population(
+def evaluate_population(  # ba-lint: donates(state)
     slot_keys,
     state,
     block,

@@ -430,6 +430,25 @@ Phases, one JSON line each:
    every request's tree parented and within tolerance, across the pool
    workers' shards, two merges equal, 0 request-path compiles, and
    ``python -m ba_tpu_torch.obs.fleet``'s digest equal to the merge's;
+50. ``lint``: (a) ``python3 -m ba_tpu_torch.analysis`` over the lint set
+   (``ba_tpu_torch``, ``chip_smoke.py``, ``tests/test_torch_*.py``) in a
+   subprocess: exit 0, the JSON's schema fields, SARIF 2.1.0 with the 13
+   rules, 0 errors and 0 warnings, the suppressed count, and under ``-X
+   importtime`` no torch, numpy or jax loaded; (b) one violation each of
+   BA101, BA201, BA301, BA501 and BA603, through an import alias, seeded
+   into a copy of the package (``_smoke_lint/``, git-ignored) and linted
+   with ``--rules <code>``: each red with its code; (c) BA201's hazard:
+   one K1 plain dispatch at B 64 updates its carry in place
+   (``carry_updated_in_place``);
+51. ``strategy_chain``: ``bench.py:3709``'s ``bench_megastep_ab`` shape (B
+   2 048, capacity 64, 64 rounds, 8 a dispatch, depth 2, strategies 0-4,
+   2 % kills, 1 % revives, 5 % strategy churn, seeds 40, 41, 42), three
+   legs: ``engine="torch"`` under ``strategies.chain_impl()``, branch-free,
+   and ``engine="cuda"`` (K1's scenario mode); decisions, leaders,
+   histograms, counters, the final state and strategy bit-equal between
+   every pair; each leg's wall, no claim; the cuda leg's dispatches
+   recorded and replayed against plain (K1's scenario line,
+   ``strategy_chain_path``);
 then the kernels line.  For K1's plain and scenario modes and K2 it replays
 the main paths' own dispatches with the same keys, inputs and rounds a
 dispatch (K2's sharded form: phase 34's four-entry warm-up step, shard
@@ -450,7 +469,8 @@ against the recorded output and against its plain version, timed, and
 bounded, and the dispatches replayed, times the calls of the counted
 run, must equal the launches counted there.  Each line gives the
 launches on the main paths (K1's plain and scenario lines add phases
-28-30's, 44's, 46's and 48's campaigns to phases 4's and 5's, by path in
+28-30's, 44's, 46's and 48's campaigns to phases 4's and 5's, the
+scenario line phase 51's cuda leg, by path in
 ``launches_by_path``; the slot line phases 45's, 46's and 48's served cohorts
 and 47's hunts), the time, bound and plain time per path and per dispatch,
 and the largest difference from the plain version; the Ed25519 kernels',
@@ -485,6 +505,7 @@ import ctypes
 import dataclasses
 import functools
 import gc
+import glob
 import hashlib
 import json
 import os
@@ -1073,7 +1094,8 @@ def phase_known_answers(dev):
           "split(key(1234))")
     check(rng.fold_in(k, 1).tolist() == [2877103387, 1697627890], "fold_in(key, 1)")
     check(rng.bits(k, (3,)).tolist() == [3715183467, 3461522409, 1578076316], "bits")
-    check(rng.coin_bits(k, (2, 5)).tolist() == [[1, 1, 0, 1, 0], [1, 1, 0, 1, 1]], "coin_bits")
+    check(rng.coin_bits(k, (2, 5)).tolist() == [[1, 1, 0, 1, 0], [1, 1, 0, 1, 1]],  # ba-lint: disable=BA202 (known answers)
+          "coin_bits")
     check(rng.key(2**32 + 5, device=dev).tolist() == [0, 5], "seed cut to 32 bits")
     # Random123's known answers for Philox4x32-10, the draws of K2: the
     # plain version's, and the kernel source's own rounds on the card
@@ -1277,13 +1299,14 @@ def phase_scenario(dev, seed, card):
 
 
 def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_per_s,
-                         repl_path):
+                         repl_path, chain_path):
     """The main path's scenario dispatches again (same key, state and
     chunks of RPD_SCEN rounds), each continuing from the previous one's
     carry, schedule counter and counter block: every dispatch against the
     plain engine in full, the whole campaign against the main path's
     outputs.  The first dispatch is timed and bounded.  The REPL's
-    dispatches (``k1_repl_path``) ride along as ``repl_path``."""
+    dispatches (``k1_repl_path``) ride along as ``repl_path``, phase 51's
+    cuda leg's as ``chain_path``."""
     R = planes["kill"].shape[0]
     key = rng.key(seed + 1, device=dev)
     state = to_state(arrays, dev)
@@ -1342,14 +1365,15 @@ def kernel_line_scenario(dev, seed, arrays, planes, main_out, launches, int_ops_
             "replaces": REPLACES,
             "wrapper": "ba_tpu_torch/ops/scenario_step.py:cuda_scenario_megastep",
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(err, repl_path["max_abs_err"]), "ms": ms,
+            "max_abs_err": max(err, repl_path["max_abs_err"], chain_path["max_abs_err"]),
+            "ms": ms,
             "plain_ms": plain_ms[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "checked_against_plain": True, "shape": {"B": B, "n": n, "R": R},
             "dispatches_checked": len(outs), "plain_ms_per_dispatch": plain_ms,
             "design": K1_DESIGN, "ptxas": PTXAS["megastep.cu"],
             "threefry_words_needed": words, "threefry_words_drawn": drawn,
-            "tally_steps": steps, "repl_path": repl_path}
+            "tally_steps": steps, "repl_path": repl_path, "strategy_chain_path": chain_path}
 
 
 # -- failover and carry checkpoints at full width ------------------------------
@@ -6851,6 +6875,186 @@ def phase_fleet_trace(dev, card):
 
 
 
+# -- ba-lint on the card's machine, and the legacy strategy chains ------------
+
+LINT_DIR = os.path.join(ROOT, "_smoke_lint")  # git-ignored; removed at the end
+LINT_CODES = {"BA101", "BA102", "BA201", "BA202", "BA301", "BA401", "BA501", "BA502",
+              "BA503", "BA504", "BA601", "BA602", "BA603"}
+# One seeded violation a rule, each through an import alias, appended to a
+# module of a copy of the package in that rule's scope.
+LINT_SEEDS = {
+    "BA101": ("parallel/pipeline.py",
+              "import torch.cuda as _seed_tc\n\n\ndef _seeded():\n    _seed_tc.synchronize()\n"),
+    "BA201": ("parallel/pipeline.py",
+              "from ba_tpu_torch.ops import scenario_step as _seed_ss\n\n\n"
+              "def _seeded(state, sched):\n"
+              "    out = _seed_ss.cuda_pipeline_megastep(state, sched, rounds=1)\n"
+              "    return out, state.alive\n"),
+    "BA301": ("core/quorum.py", "from ba_tpu_torch import obs as _seed_obs\n\n_SEED = _seed_obs\n"),
+    "BA501": ("runtime/serve.py",
+              "import threading as _seed_th\n\n\nclass _Seeded:\n    def start(self):\n"
+              "        _seed_th.Thread(target=self._loop, daemon=True).start()\n\n"
+              "    def _loop(self):\n        self.n = 1\n\n    def poke(self):\n"
+              "        self.n = 2\n"),
+    "BA603": ("parallel/sweep.py",
+              "import os as _seed_os\n\n_SEEDED = _seed_os.environ.get('HOME')\n"),
+}
+# bench.py:3709 bench_megastep_ab's shape
+CHAIN_B, CHAIN_CAP, CHAIN_R, CHAIN_RPD, CHAIN_DEPTH = 2048, 64, 64, 8, 2
+
+
+def lint_set():
+    tests = sorted(os.path.relpath(p, ROOT)
+                   for p in glob.glob(os.path.join(ROOT, "tests", "test_torch_*.py")))
+    return ["ba_tpu_torch", "chip_smoke.py", *tests]
+
+
+def phase_lint(dev, card):
+    """(a) The port's ba-lint over the lint set as a user runs it, in a
+    subprocess (``-X importtime`` lists every module it loads: no torch,
+    numpy or jax); (b) a seeded violation of BA101, BA201, BA301, BA501
+    and BA603 in a copy of the package, each red with its code; (c) the
+    hazard BA201 names, on the card: a K1 dispatch updates its carry in
+    place."""
+    os.makedirs(LINT_DIR, exist_ok=True)
+    atexit.register(shutil.rmtree, LINT_DIR, True)
+    sarif = os.path.join(LINT_DIR, "lint.sarif")
+    paths = lint_set()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "ba_tpu_torch.analysis", *paths,
+         "--format", "json", "--sarif", sarif],
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    lint_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"ba-lint exited {proc.returncode}: {proc.stdout[-2000:]}")
+    doc = json.loads(proc.stdout)
+    check(all(k in doc for k in ("version", "tool", "files_scanned", "rules", "findings",
+                                 "suppressed", "counts", "exit"))
+          and doc["version"] == 1 and doc["tool"] == "ba-lint" and doc["exit"] == 0,
+          "ba-lint's JSON lacks its schema fields")
+    check(doc["counts"]["error"] == 0 and doc["counts"]["warning"] == 0,
+          f"ba-lint: {doc['counts']}")
+    with open(sarif) as fh:
+        sdoc = json.load(fh)
+    rules = {r["id"] for r in sdoc["runs"][0]["tool"]["driver"]["rules"]}
+    check(sdoc["version"] == "2.1.0" and rules == LINT_CODES, f"SARIF {sdoc['version']} {rules}")
+    loaded = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+              for line in proc.stderr.splitlines() if line.startswith("import time:")}
+    banned = sorted(loaded & {"torch", "numpy", "jax", "jaxlib", "ba_tpu"})
+    check(not banned, f"ba-lint loaded {banned}")
+
+    copy = os.path.join(LINT_DIR, "copy")
+    shutil.copytree(os.path.join(ROOT, "ba_tpu_torch"), os.path.join(copy, "ba_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    seeded = {}
+    for code, (rel, seed) in LINT_SEEDS.items():
+        target = os.path.join(copy, "ba_tpu_torch", rel)
+        with open(target) as fh:
+            original = fh.read()
+        with open(target, "w") as fh:
+            fh.write(original + "\n\n" + seed)
+        got = subprocess.run([sys.executable, "-m", "ba_tpu_torch.analysis", target, "--rules",
+                              code, "--format", "json"],
+                             capture_output=True, text=True, cwd=ROOT, timeout=120)
+        with open(target, "w") as fh:
+            fh.write(original)
+        found = [f["code"] for f in json.loads(got.stdout)["findings"]]
+        check(got.returncode == 1 and found and set(found) == {code},
+              f"the seeded {code} went {got.returncode} with {found}")
+        seeded[code] = len(found)
+
+    arrays, _, _ = random_arrays(np.random.default_rng(50), 64, 32, 4)
+    state, sched = to_state(arrays, dev), pipeline.make_key_schedule(rng.key(50, device=dev))
+    before = pipeline.fresh_copy((state, sched))
+    out = scenario_step.cuda_pipeline_megastep(state, sched, rounds=4)
+    sync()
+    changed = [not torch.equal(a, b) for a, b in zip([*before[0].tensors(), before[1].counter],
+                                                     [*out[0].tensors(), out[1].counter])]
+    in_place = out[0] is state and out[1] is sched  # ba-lint: disable=BA201 (the hazard, shown)
+    check(in_place and any(changed), "K1's dispatch did not update its carry in place")
+    emit({"phase": "lint", "lint_set_files": doc["files_scanned"], "counts": doc["counts"],
+          "suppressed": doc["counts"]["suppressed"], "sarif_version": sdoc["version"],
+          "sarif_rules": len(rules), "loaded_torch_numpy_jax": banned, "lint_s": lint_s,
+          "seeded_red": seeded, "carry_updated_in_place": in_place and any(changed),
+          "carry_tensors_changed": {"state": sum(changed[:-1]), "sched.counter": changed[-1]},
+          "card": card})
+
+
+def chain_campaign(dev):
+    """bench_megastep_ab's campaign: the sweep state from seed 40, the
+    strategy plane and the event planes from seed 41 (every id 0-4, 2 %
+    kills, 1 % revives, 5 % strategy churn), the sweep key 42."""
+    state = sweep.make_sweep_state(rng.key(40, device=dev), CHAIN_B, CHAIN_CAP)
+    rs = np.random.default_rng(41)
+    shape = (CHAIN_R, CHAIN_B, CHAIN_CAP)
+    strat0 = rs.integers(0, 5, (CHAIN_B, CHAIN_CAP)).astype(np.int8)
+    block = scenario_compile.ScenarioBlock(
+        kill=rs.random(shape) < 0.02,
+        revive=rs.random(shape) < 0.01,
+        set_faulty=np.full(shape, -1, np.int8),
+        set_strategy=np.where(rs.random(shape) < 0.05, rs.integers(0, 5, shape),
+                              -1).astype(np.int8))
+    return state, torch.tensor(strat0), block
+
+
+def phase_strategy_chain(dev, card, int_ops_per_s):
+    """bench.py:3709's three legs on the card: the torch engine under
+    ``strategies.chain_impl()`` (the legacy select chains and the
+    per-instance round), the torch engine branch-free, and
+    ``engine="cuda"`` (K1's scenario mode, which reads only its lie
+    table); bit-equal between every pair; each leg's wall (no claim).
+    The cuda leg's dispatches are replayed against the plain megastep."""
+    from ba_tpu_torch.scenario import strategies
+
+    state, strat0, block = chain_campaign(dev)
+    key = rng.key(42, device=dev)
+
+    def run(engine, chain):
+        st = pipeline.fresh_copy(state)
+        sync()
+        t0 = time.perf_counter()
+        with strategies.chain_impl(chain):
+            out = pipeline.scenario_sweep(key, st, block, initial_strategy=strat0,
+                                          depth=CHAIN_DEPTH, rounds_per_dispatch=CHAIN_RPD,
+                                          collect_decisions=True, engine=engine, device=dev)
+        sync()
+        return out, time.perf_counter() - t0
+
+    legs = {"torch_chain": ("torch", True), "torch_branch_free": ("torch", False),
+            "cuda": ("cuda", False)}
+    outs, walls = {}, {}
+    for name, (engine, chain) in legs.items():
+        run(engine, chain)  # warm: first launches and allocations off the clock
+        if engine == "cuda":
+            scenario_step.reset_launches()
+        outs[name], walls[name] = run(engine, chain)
+        if engine == "cuda":
+            launches = scenario_step.cuda_scenario_megastep.launches
+    check(launches == CHAIN_R // CHAIN_RPD, f"strategy_chain: K1 launches {launches}")
+    check(outs["cuda"]["stats"]["engine"] == "cuda"
+          and outs["torch_chain"]["stats"]["engine"] == "torch", "strategy_chain: engines")
+    names = ("decisions", "leaders", "histograms", "counters_per_round")
+    for a, b in (("torch_chain", "torch_branch_free"), ("torch_chain", "cuda"),
+                 ("torch_branch_free", "cuda")):
+        x, y = outs[a], outs[b]
+        check(all(np.array_equal(x[k], y[k]) for k in names)
+              and torch.equal(x["final_strategy"], y["final_strategy"])
+              and max_abs_err(zip(x["final_state"].tensors(), y["final_state"].tensors())) == 0,
+              f"strategy_chain: {a} and {b} differ")
+    with recording({"K1 scenario": scenario_step.cuda_scenario_megastep}, snapshot=True) as calls:
+        again, _ = run("cuda", False)
+    check(np.array_equal(again["decisions"], outs["cuda"]["decisions"]),
+          "strategy_chain: the recorded cuda leg differs")
+    path = k1_repl_path(f"strategy_chain: B {CHAIN_B}, capacity {CHAIN_CAP}, {CHAIN_R} "
+                        f"rounds, {CHAIN_RPD} a dispatch", calls, launches, int_ops_per_s)
+    check(path["max_abs_err"] == 0, "strategy_chain: a K1 dispatch differs from plain")
+    emit({"phase": "strategy_chain", "B": CHAIN_B, "capacity": CHAIN_CAP, "rounds": CHAIN_R,
+          "rounds_per_dispatch": CHAIN_RPD, "depth": CHAIN_DEPTH, "seeds": [40, 41, 42],
+          "bit_equal_pairs": 3, "wall_s": walls, "kernel_launches": launches,
+          "histogram_totals": outs["cuda"]["histograms"].sum(0).tolist(), "card": card})
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6925,6 +7129,9 @@ def main(argv=None) -> int:
     fleet_run = phase_fleet_serve(dev, args.seed, card, full["requests_per_s"], int_ops_per_s)
     slot_paths += fleet_run["slot"]
     trace_ed = phase_fleet_trace(dev, card)
+    phase_lint(dev, card)
+    chain_path = phase_strategy_chain(dev, card, int_ops_per_s)
+    scen_launches["strategy_chain"] = chain_path["launches"]
     plain_launches.update(fleet_run["plain"])
     plain_launches["device_obs"] = dobs["plain"]
     plain_launches["repl_cuda"] = shell["plain"]
@@ -6934,7 +7141,7 @@ def main(argv=None) -> int:
                           shell["plain_path"], sup_path, dobs["plain_run"],
                           fleet_run["plain_paths"]),
         kernel_line_scenario(dev, args.seed, s_arrays, planes, s_main_out, scen_launches,
-                             int_ops_per_s, shell["scenario_path"]),
+                             int_ops_per_s, shell["scenario_path"], chain_path),
         kernel_line_slot(slot_paths, int_ops_per_s),
         kernel_line_k2(states, oks, seeds, k2_main, k2_launches, int_ops_per_s),
         kernel_line_k2_sharded(k2_sharded, states, oks, seeds, int_ops_per_s),

@@ -101,11 +101,12 @@ def test_coalesced_megastep_matches_xla(seed, B, n, R, scenario):
         rounds=R, scenario=scenario,
     )
     assert len(t_out) == len(j_out) == (7 if scenario else 6)
-    assert t_out[0] is tstate and t_out[1] is sched and t_out[2] is t_strategy
+    # the carry is updated in place and handed back
+    assert t_out[0] is tstate and t_out[1] is sched and t_out[2] is t_strategy  # ba-lint: disable=BA201 (the in-place contract)
     for name, value in convert.state_to_numpy(t_out[0]).items():
         _eq(getattr(j_out[0], name), value, name)
-    _eq(j_out[1].key_data, sched.key_data.numpy().astype(np.uint32), "key data")
-    assert int(j_out[1].counter) == int(sched.counter) == counter + R
+    _eq(j_out[1].key_data, t_out[1].key_data.numpy().astype(np.uint32), "key data")
+    assert int(j_out[1].counter) == int(t_out[1].counter) == counter + R
     if scenario:
         _eq(j_out[2], t_out[2], "strategy")
     assert t_out[3].shape == (B, n)

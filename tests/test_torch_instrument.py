@@ -360,7 +360,7 @@ def test_artifact_record_arithmetic_on_cpu_tensors(fresh_obs, tmp_path, monkeypa
         rec = probe.emit(out)
     finally:
         obs_cuda.configure(dump_dir=None)
-    carry = sum(t.nbytes for t in (*state.tensors(), sched.key_data, sched.counter))
+    carry = sum(t.nbytes for t in (*out[0].tensors(), out[1].key_data, out[1].counter))
     assert rec["alias_bytes"] == carry and rec["donation_aliased"] is True
     assert rec["argument_bytes"] == carry + counters.nbytes
     assert rec["output_bytes"] == carry + sum(t.nbytes for t in out[2:])

@@ -56,7 +56,16 @@ def test_importing_every_module_loads_no_jax_and_no_ba_tpu():
                  "ba_tpu_torch.search.corpus", "ba_tpu_torch.search.loop",
                  "ba_tpu_torch.search.minimize", "ba_tpu_torch.fleet",
                  "ba_tpu_torch.fleet.replica", "ba_tpu_torch.fleet.router",
-                 "ba_tpu_torch.fleet.migrate"):
+                 "ba_tpu_torch.fleet.migrate", "ba_tpu_torch.analysis",
+                 "ba_tpu_torch.analysis.__main__", "ba_tpu_torch.analysis.base",
+                 "ba_tpu_torch.analysis.suppress", "ba_tpu_torch.analysis.resolver",
+                 "ba_tpu_torch.analysis.flow", "ba_tpu_torch.analysis.project",
+                 "ba_tpu_torch.analysis.contracts", "ba_tpu_torch.analysis.driver",
+                 "ba_tpu_torch.analysis.rules", "ba_tpu_torch.analysis.rules.dead_imports",
+                 "ba_tpu_torch.analysis.rules.hot_path", "ba_tpu_torch.analysis.rules.donation",
+                 "ba_tpu_torch.analysis.rules.rng", "ba_tpu_torch.analysis.rules.obs_purity",
+                 "ba_tpu_torch.analysis.rules.concurrency",
+                 "ba_tpu_torch.analysis.rules.contracts_rules"):
         assert name in MODULES, name
 
 

@@ -98,6 +98,32 @@ def test_scenario_megastep_bit_equal(cuda_device, B, n, R, seed):
     _same(plain[2:], kernel[2:])
 
 
+def test_scenario_kernel_ignores_the_chain_flag(cuda_device):
+    """Inside ``strategies.chain_impl()`` the torch engine takes the legacy
+    select chains; K1 reads only its lie table and launches as before:
+    all four legs bit-equal."""
+    from ba_tpu_torch.scenario import strategies
+
+    B, n, R, seed = 32, 37, 6, 3
+    arrays, events, strategy = _arrays(seed, B, n, R)
+    outs = []
+    for chain in (False, True):
+        for fn in (pipeline.scenario_megastep, scenario_step.cuda_scenario_megastep):
+            state, sched = _carry(arrays, seed, cuda_device, counter=5)
+            before = scenario_step.cuda_scenario_megastep.launches
+            with strategies.chain_impl(chain):
+                out = fn(state, sched, convert.strategy_from_numpy(strategy, cuda_device),
+                         convert.counters_from_numpy(np.arange(5), cuda_device),
+                         convert.events_from_numpy(events, cuda_device),
+                         rounds=R, collect_decisions=True)
+            launched = scenario_step.cuda_scenario_megastep.launches - before
+            assert launched == (fn is scenario_step.cuda_scenario_megastep)
+            outs.append(out)
+    for other in outs[1:]:
+        _same(outs[0][0].tensors(), other[0].tensors())
+        _same(outs[0][2:], other[2:])
+
+
 @pytest.mark.parametrize("with_counters", [False, True])
 @pytest.mark.parametrize("B,n,R,seed", [(5, 1, 2, 5), (16, 17, 4, 6), (8, 40, 3, 7)])
 def test_pipeline_megastep_bit_equal(cuda_device, B, n, R, seed, with_counters):
@@ -281,11 +307,11 @@ def test_coalesced_kernel_rejects_bad_inputs(cuda_device):
             state, pipeline.make_key_schedule(rng.key(0, device=cuda_device)), None,
             counters, None, rounds=2)
     with pytest.raises(ValueError):  # counters of the wrong width
-        scenario_step.cuda_coalesced_megastep(state, sched, None, counters[:, :2], None,
+        scenario_step.cuda_coalesced_megastep(state, sched, None, counters[:, :2], None,  # ba-lint: disable=BA201 (the call above raised first)
                                               rounds=2)
     with pytest.raises(ValueError):  # event planes without scenario mode
         scenario_step.cuda_coalesced_megastep(
-            state, sched, None, counters, convert.events_from_numpy(events, cuda_device),
+            state, sched, None, counters, convert.events_from_numpy(events, cuda_device),  # ba-lint: disable=BA201 (the calls above raised first)
             rounds=2)
 
 

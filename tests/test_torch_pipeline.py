@@ -89,7 +89,8 @@ def test_scenario_megastep_matches_xla(seed, B, n, R):
         tp.scenario_counters_init("cpu"), convert.events_from_numpy(events, "cpu"),
         rounds=R, collect_decisions=True,
     )
-    assert t_out[0] is tstate and t_out[1] is sched  # the carry is reused in place
+    # the carry is reused in place
+    assert t_out[0] is tstate and t_out[1] is sched  # ba-lint: disable=BA201 (the in-place contract)
     _same_state(j_out[0], t_out[0])
     key_data, ctr = convert.schedule_to_numpy(t_out[1])
     _eq(j_out[1].key_data, key_data)
@@ -206,8 +207,9 @@ def test_carry_is_reused_in_place_and_fresh_copy_keeps_it():
     kept = tp.fresh_copy(state)
     out = tp.scenario_sweep(rng.key(1, device="cpu"), state,
                             t_compile.ScenarioBlock(**events), device="cpu")
-    assert out["final_state"].alive is state.alive
-    assert not torch.equal(kept.alive, state.alive)  # the run consumed the input
+    # the run consumed the input: the in-place contract this test pins
+    assert out["final_state"].alive is state.alive  # ba-lint: disable=BA201 (the contract)
+    assert not torch.equal(kept.alive, state.alive)  # ba-lint: disable=BA201 (the contract)
     for name, value in convert.state_to_numpy(kept).items():
         assert np.array_equal(arrays[name], value), name
 

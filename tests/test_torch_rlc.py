@@ -18,7 +18,6 @@ import pytest
 import torch
 
 from ba_tpu.crypto import ed25519 as JE
-from ba_tpu.crypto import field as JF
 from ba_tpu.crypto import scalar as JS
 from ba_tpu_torch import convert
 from ba_tpu_torch.crypto import ed25519 as E

@@ -58,7 +58,7 @@ def test_coins(mode, seed, shape):
     jk, tk = _pair(seed)
     size = int(np.prod(shape))
     _eq(jrng.coin_bits(jk, shape), rng.coin_bits(tk, shape))
-    words = rng.coin_words(tk, size)
+    words = rng.coin_words(tk, size)  # ba-lint: disable=BA202 (two views of one stream)
     _eq(jrng.coin_words(jk, size), words)
     _eq(jrng.unpack_coin_words(jrng.coin_words(jk, size), shape),
         rng.unpack_coin_words(words, shape))
@@ -82,7 +82,7 @@ def test_known_answers():
     assert rng.split(k).tolist() == [[1264997412, 2518116175], [2877103387, 1697627890]]
     assert rng.fold_in(k, 1).tolist() == [2877103387, 1697627890]
     assert rng.bits(k, (3,)).tolist() == [3715183467, 3461522409, 1578076316]
-    assert rng.coin_bits(k, (2, 5)).tolist() == [[1, 1, 0, 1, 0], [1, 1, 0, 1, 1]]
+    assert rng.coin_bits(k, (2, 5)).tolist() == [[1, 1, 0, 1, 0], [1, 1, 0, 1, 1]]  # ba-lint: disable=BA202 (known answers)
     assert rng.key(2**32 + 5, device="cpu").tolist() == [0, 5]
 
 

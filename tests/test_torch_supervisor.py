@@ -252,7 +252,7 @@ def test_seam_options_are_checked_before_any_work():
     for kw in ({"on_stall": lambda d, t: None}, {"retire_timeout_s": 0.0},
                {"retire_timeout_s": -1.0}, {"health_every": 0}):
         with pytest.raises(ValueError):
-            tp.pipeline_sweep(key, state, R, device="cpu", **kw)
+            tp.pipeline_sweep(key, state, R, device="cpu", **kw)  # ba-lint: disable=BA201 (each call raises first)
     with pytest.raises(ValueError, match="owned by the supervisor"):
         supervisor.supervised_sweep(key, None, R, exec_seam=lambda *a: None)
     with pytest.raises(ValueError, match="rounds"):
